@@ -1,0 +1,115 @@
+"""DG first-order-system ("flux") operator and rhs assembly.
+
+The LDG-with-penalty scheme builds three block-tridiagonal operators — G
+(gradient), D (divergence), C (Dirichlet penalty) — and the caller forms the
+Schur stiffness ``A = C - D M^-1 G``.  In 1D with the default upwinding (u-hat
+from the left element, q-hat from the right) every interior vertex touches
+four scalar entries and every domain end one, so assembly is pure slicing on
+the ``(bs, bs, n)`` diagonals.  Assembled on the host in float64.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..mesh.dg_mesh import DgMesh
+from ..mesh.topology import BoundaryCondition
+from ..ops.block_tridiag import BlockTridiag
+
+
+def _volume_ref(dg: DgMesh) -> np.ndarray:
+    ref = dg.ref
+    return np.einsum("l,li,lj->ij", ref.quad_weights, ref.deriv_at_quad, ref.basis_at_quad)
+
+
+def dg_flux_operators(
+    dg: DgMesh, bc: BoundaryCondition, c_dir: float
+) -> tuple[BlockTridiag, BlockTridiag, BlockTridiag]:
+    """(G, D, C) block-tridiagonal operators (default switch only)."""
+    if dg.u_hat_left is not None:
+        raise NotImplementedError(
+            "explicit (mixed) switches make A block-pentadiagonal, which the "
+            "torch port does not have yet (ROADMAP queue 1, item 14)"
+        )
+    p = dg.p
+    bs = p + 1
+    n = dg.n_elements
+    s1 = 1 if p >= 1 else 0  # slot of the right endpoint value
+
+    g_lower = np.zeros((bs, bs, n))
+    g_diag = np.zeros((bs, bs, n))
+    d_diag = np.zeros((bs, bs, n))
+    d_upper = np.zeros((bs, bs, n))
+    c_diag = np.zeros((bs, bs, n))
+
+    if p >= 1:
+        k_vol = _volume_ref(dg)
+        g_diag += k_vol[:, :, None]
+        d_diag += k_vol[:, :, None]
+
+    # interior vertices: left-element row -1, right-element row +1
+    if n > 1:
+        g_lower[0, s1, 1:] += 1.0
+        g_diag[s1, s1, :-1] += -1.0
+        d_diag[0, 0, 1:] += 1.0
+        d_upper[s1, 0, :-1] += -1.0
+
+    # domain boundary vertices
+    if bc.dir_left:
+        d_diag[0, 0, 0] += 1.0
+        c_diag[0, 0, 0] += c_dir
+    elif bc.neu_left:
+        g_diag[0, 0, 0] += 1.0
+    if bc.dir_right:
+        d_diag[s1, s1, -1] += -1.0
+        c_diag[s1, s1, -1] += c_dir
+    elif bc.neu_right:
+        g_diag[s1, s1, -1] += -1.0
+
+    t = torch.from_numpy
+    zero = torch.zeros((bs, bs, n), dtype=torch.float64, device="cpu")
+    g = BlockTridiag(lower=t(g_lower), diag=t(g_diag), upper=zero)
+    d = BlockTridiag(lower=zero, diag=t(d_diag), upper=t(d_upper))
+    c = BlockTridiag(lower=zero, diag=t(c_diag), upper=zero)
+    return g, d, c
+
+
+def dg_load_vector(dg: DgMesh, func: Callable) -> torch.Tensor:
+    """Volume load  f[i, k] = J_k sum_l w_l phi_i f(x_kl)  as ``(bs, n)``;
+    ``func`` maps a float64 tensor of points to values."""
+    ref = dg.ref
+    wphi = torch.from_numpy(ref.quad_weights[:, None] * ref.basis_at_quad)  # (n_q, bs)
+    jac = torch.from_numpy(dg.mesh.jacobians)
+    centers = torch.from_numpy(dg.mesh.centers)
+    quad = torch.from_numpy(ref.quad_nodes)
+    xq = centers[None, :] + jac[None, :] * quad[:, None]  # (n_q, n)
+    fv = func(xq) * jac[None, :]
+    out = wphi[0][:, None] * fv[0][None, :]
+    for l in range(1, wphi.shape[0]):
+        out = out + wphi[l][:, None] * fv[l][None, :]
+    return out
+
+
+def dg_flux_rhs(
+    dg: DgMesh, func: Callable, bc: BoundaryCondition, c_dir: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(f, r) right-hand sides; the solved system's rhs is ``b = f - D M^-1 r``."""
+    s1 = 1 if dg.p >= 1 else 0
+    f = dg_load_vector(dg, func)
+    r = torch.zeros_like(f)
+    if bc.dir_left:
+        g = bc.left[1]
+        f[0, 0] += c_dir * g
+        r[0, 0] += -g
+    elif bc.neu_left:
+        f[0, 0] += -bc.left[1]
+    if bc.dir_right:
+        g = bc.right[1]
+        f[s1, -1] += c_dir * g
+        r[s1, -1] += g
+    elif bc.neu_right:
+        f[s1, -1] += bc.right[1]
+    return f, r

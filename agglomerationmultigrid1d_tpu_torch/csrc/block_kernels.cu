@@ -1,0 +1,243 @@
+// Hand-written Hopper (sm_90a) kernels for the block-tridiagonal V-cycle.
+//
+// Layout (the same as the JAX package): every operator stream is a
+// (bs, bs, n) float32 array, entry (i, j) of block column k at
+// [(i * bs + j) * n + k]; vectors are (bs, n), entry i of column k at
+// [i * n + k].  Columns outside [0, n) are zero (zero-Dirichlet ends).
+//
+// One thread owns one block column k, so thread t of a warp reads element
+// (i, j) of column k0 + t: every operator stream is read coalesced.  Each
+// kernel is memory-bound (a few FLOPs per byte); the design keeps every
+// operator element read from device memory exactly once per launch.
+//
+// Arithmetic order follows the plain PyTorch versions in
+// ops/kernels/block_kernels.py: block contractions sum over j in ascending
+// order, and the off-diagonal term is formed as (lower + upper).  FMA
+// contraction is allowed, so results agree with the plain versions to a few
+// float32 ulps, not bit for bit.
+//
+// Host entry points have a plain C interface (loaded with ctypes) and return
+// cudaGetLastError() after the launch; -1 means an unsupported block size.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <int BS>
+__device__ __forceinline__ void load_vec(float (&v)[BS], const float* __restrict__ p,
+                                         long long n, long long k) {
+#pragma unroll
+  for (int i = 0; i < BS; ++i) v[i] = p[i * n + k];
+}
+
+template <int BS>
+__device__ __forceinline__ void load_block(float (&m)[BS][BS], const float* __restrict__ p,
+                                           long long n, long long k) {
+#pragma unroll
+  for (int i = 0; i < BS; ++i)
+#pragma unroll
+    for (int j = 0; j < BS; ++j) m[i][j] = p[(i * BS + j) * n + k];
+}
+
+// out[i] = sum_j m[i][j] v[j], j ascending
+template <int BS>
+__device__ __forceinline__ void mat(const float (&m)[BS][BS], const float (&v)[BS],
+                                    float (&out)[BS]) {
+#pragma unroll
+  for (int i = 0; i < BS; ++i) {
+    float acc = m[i][0] * v[0];
+#pragma unroll
+    for (int j = 1; j < BS; ++j) acc = acc + m[i][j] * v[j];
+    out[i] = acc;
+  }
+}
+
+// K3: y = A_D x + A_L x_{-1} + A_U x_{+1}.
+// Replaces pallas_bt_matvec (agglomerationmultigrid1d_tpu/ops/pallas/block_kernels.py:130,
+// body _matvec_kernel :80).  Per block column it reads (3 bs^2 + bs) floats of
+// operators and x and writes bs: 224 B at bs = 4.  The x neighbours are re-read
+// by the adjacent threads and come from L1/L2, not device memory.
+template <int BS>
+__global__ void __launch_bounds__(kThreads)
+    bt_matvec_kernel(const float* __restrict__ ad, const float* __restrict__ al,
+                     const float* __restrict__ au, const float* __restrict__ x,
+                     float* __restrict__ y, long long n) {
+  const long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n) return;
+  float xc[BS], xm[BS], xp[BS];
+#pragma unroll
+  for (int j = 0; j < BS; ++j) {
+    xc[j] = x[j * n + k];
+    xm[j] = k > 0 ? x[j * n + k - 1] : 0.f;
+    xp[j] = k + 1 < n ? x[j * n + k + 1] : 0.f;
+  }
+  float m[BS][BS], d[BS], l[BS], u[BS];
+  load_block<BS>(m, ad, n, k);
+  mat<BS>(m, xc, d);
+  load_block<BS>(m, al, n, k);
+  mat<BS>(m, xm, l);
+  load_block<BS>(m, au, n, k);
+  mat<BS>(m, xp, u);
+#pragma unroll
+  for (int i = 0; i < BS; ++i) y[i * n + k] = (d[i] + l[i]) + u[i];
+}
+
+// K2 / K1: n_sweeps damped block-Jacobi sweeps in M-form, in one pass.
+//   c = S^-1 b;  n_sweeps times  x <- x + alpha ((c - x) - (ML x_{-1} + MU x_{+1}))
+// and with EMIT_RESIDUAL also  r = b - A_D ((x + ML x_{-1}) + MU x_{+1}).
+// ML = S^-1 A_L and MU = S^-1 A_U; S^-1 must be the exact inverse of A_D.
+// Replaces pallas_block_jacobi_multisweep (K2, ops/pallas/block_kernels.py:495)
+// and pallas_block_jacobi_multisweep_residual (K1, :510), whose shared body is
+// _wide_sweep_kernel (:257) with _center_residual (:244).
+//
+// Bytes per block column: K2 reads (3 bs^2 + 2 bs) floats and writes bs:
+// 240 B at bs = 4; K1 reads (4 bs^2 + 2 bs) and writes 2 bs: 320 B.
+//
+// Temporal blocking: a thread block of kThreads threads covers a window of
+// kThreads consecutive columns, of which the centre kThreads - 2 halo are
+// written (halo = n_sweeps, + 1 with the residual); neighbouring windows
+// overlap by 2 halo columns.  Each thread keeps its column's ML and MU in
+// registers for all sweeps and exchanges x with its neighbours through shared
+// memory.  The window's outermost columns see a zero neighbour and go wrong by
+// one column per sweep, which never reaches the centre.  So operators are read
+// once per launch (plus the 2 halo / kThreads overlap) instead of once per sweep.
+template <int BS, bool EMIT_RESIDUAL>
+__global__ void __launch_bounds__(kThreads)
+    multisweep_kernel(const float* __restrict__ ml, const float* __restrict__ mu,
+                      const float* __restrict__ sinv, const float* __restrict__ ad,
+                      const float* __restrict__ x, const float* __restrict__ b,
+                      float* __restrict__ x_out, float* __restrict__ r_out, long long n,
+                      int n_sweeps, int halo, float alpha) {
+  __shared__ float sx[BS][kThreads];
+  const int t = threadIdx.x;
+  const long long col = (long long)blockIdx.x * (kThreads - 2 * halo) + t - halo;
+  const bool inside = col >= 0 && col < n;
+
+  float m_l[BS][BS], m_u[BS][BS], xr[BS], bv[BS], c[BS];
+  if (inside) {
+    load_block<BS>(m_l, ml, n, col);
+    load_block<BS>(m_u, mu, n, col);
+    load_vec<BS>(xr, x, n, col);
+    load_vec<BS>(bv, b, n, col);
+    float s[BS][BS];
+    load_block<BS>(s, sinv, n, col);
+    mat<BS>(s, bv, c);
+  } else {
+#pragma unroll
+    for (int i = 0; i < BS; ++i) {
+      xr[i] = 0.f;
+      bv[i] = 0.f;
+      c[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < BS; ++j) m_l[i][j] = m_u[i][j] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < BS; ++i) sx[i][t] = xr[i];
+  __syncthreads();
+
+  float xm[BS], xp[BS], l[BS], u[BS];
+  for (int s = 0; s < n_sweeps; ++s) {
+#pragma unroll
+    for (int j = 0; j < BS; ++j) {
+      xm[j] = t > 0 ? sx[j][t - 1] : 0.f;
+      xp[j] = t < kThreads - 1 ? sx[j][t + 1] : 0.f;
+    }
+    mat<BS>(m_l, xm, l);
+    mat<BS>(m_u, xp, u);
+    __syncthreads();  // every neighbour read of this sweep is done
+    if (inside) {
+#pragma unroll
+      for (int i = 0; i < BS; ++i) {
+        xr[i] = xr[i] + alpha * ((c[i] - xr[i]) - (l[i] + u[i]));
+        sx[i][t] = xr[i];
+      }
+    }
+    __syncthreads();
+  }
+
+  if (!inside || t < halo || t >= kThreads - halo) return;
+#pragma unroll
+  for (int i = 0; i < BS; ++i) x_out[i * n + col] = xr[i];
+  if (EMIT_RESIDUAL) {
+#pragma unroll
+    for (int j = 0; j < BS; ++j) {
+      xm[j] = sx[j][t - 1];
+      xp[j] = sx[j][t + 1];
+    }
+    mat<BS>(m_l, xm, l);
+    mat<BS>(m_u, xp, u);
+    float tt[BS], ax[BS], m[BS][BS];
+#pragma unroll
+    for (int i = 0; i < BS; ++i) tt[i] = (xr[i] + l[i]) + u[i];
+    load_block<BS>(m, ad, n, col);
+    mat<BS>(m, tt, ax);
+#pragma unroll
+    for (int i = 0; i < BS; ++i) r_out[i * n + col] = bv[i] - ax[i];
+  }
+}
+
+template <int BS>
+void launch_matvec(const float* ad, const float* al, const float* au, const float* x,
+                   float* y, long long n, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  bt_matvec_kernel<BS><<<grid, kThreads, 0, stream>>>(ad, al, au, x, y, n);
+}
+
+template <int BS>
+void launch_multisweep(const float* ml, const float* mu, const float* sinv, const float* ad,
+                       const float* x, const float* b, float* x_out, float* r_out,
+                       long long n, int n_sweeps, float alpha, cudaStream_t stream) {
+  const int halo = n_sweeps + (r_out != nullptr ? 1 : 0);
+  const long long centre = kThreads - 2 * halo;
+  const unsigned grid = (unsigned)((n + centre - 1) / centre);
+  if (r_out != nullptr) {
+    multisweep_kernel<BS, true><<<grid, kThreads, 0, stream>>>(
+        ml, mu, sinv, ad, x, b, x_out, r_out, n, n_sweeps, halo, alpha);
+  } else {
+    multisweep_kernel<BS, false><<<grid, kThreads, 0, stream>>>(
+        ml, mu, sinv, ad, x, b, x_out, r_out, n, n_sweeps, halo, alpha);
+  }
+}
+
+}  // namespace
+
+#define AGGMG_DISPATCH_BS(bs, CALL) \
+  switch (bs) {                     \
+    case 1: CALL(1); break;         \
+    case 2: CALL(2); break;         \
+    case 3: CALL(3); break;         \
+    case 4: CALL(4); break;         \
+    case 5: CALL(5); break;         \
+    case 9: CALL(9); break;         \
+    default: return -1;             \
+  }
+
+extern "C" {
+
+int aggmg_bt_matvec(int bs, const void* ad, const void* al, const void* au, const void* x,
+                    void* y, long long n, void* stream) {
+#define AGGMG_CALL(BS)                                                                  \
+  launch_matvec<BS>((const float*)ad, (const float*)al, (const float*)au, (const float*)x, \
+                    (float*)y, n, (cudaStream_t)stream)
+  AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
+#undef AGGMG_CALL
+  return (int)cudaGetLastError();
+}
+
+// ad and r_out are null for K2 (no residual) and both set for K1.
+int aggmg_multisweep(int bs, const void* ml, const void* mu, const void* sinv, const void* ad,
+                     const void* x, const void* b, void* x_out, void* r_out, long long n,
+                     int n_sweeps, float alpha, void* stream) {
+#define AGGMG_CALL(BS)                                                                   \
+  launch_multisweep<BS>((const float*)ml, (const float*)mu, (const float*)sinv,           \
+                        (const float*)ad, (const float*)x, (const float*)b, (float*)x_out, \
+                        (float*)r_out, n, n_sweeps, alpha, (cudaStream_t)stream)
+  AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
+#undef AGGMG_CALL
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

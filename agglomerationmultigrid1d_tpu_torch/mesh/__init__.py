@@ -1,0 +1,15 @@
+from .agg_mesh import AggMesh, coarsen_agg_mesh, make_agg_mesh
+from .dg_mesh import DgMesh, make_dg_mesh, normalize_switch
+from .topology import BoundaryCondition, Mesh1D, create_uniform_mesh
+
+__all__ = [
+    "AggMesh",
+    "coarsen_agg_mesh",
+    "make_agg_mesh",
+    "DgMesh",
+    "make_dg_mesh",
+    "normalize_switch",
+    "BoundaryCondition",
+    "Mesh1D",
+    "create_uniform_mesh",
+]

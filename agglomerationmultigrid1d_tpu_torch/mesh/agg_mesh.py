@@ -1,0 +1,130 @@
+"""Agglomerated-DG mesh levels (local modal basis on merged base elements).
+
+Agglomerate ``c`` owns the contiguous run of base elements
+``offsets[c] .. offsets[c] + sizes[c] - 1``.  Only the *lite* form is ported:
+the hierarchy never reads the per-base-element quadrature tables, because on
+an interval the modal basis {1, 2(x - xc)/h} integrates in closed form (mass =
+diag(h, h/3)) and every transfer is closed-form too.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..ops.block_diag import BlockDiag
+from .topology import Mesh1D
+
+
+@dataclasses.dataclass(frozen=True)
+class AggMesh:
+    p: int  # modal order, 0 or 1
+    mesh: Mesh1D  # the BASE topological mesh (geometry provider)
+    sizes: np.ndarray  # (m,) base elements per agglomerate
+    offsets: np.ndarray  # (m,) first base element of each agglomerate
+    sub_sizes: np.ndarray  # (m,) previous-level elements per agglomerate
+    sub_offsets: np.ndarray  # (m,) first previous-level element of each agglomerate
+    n_agg: int
+    boxes: np.ndarray  # (m, 2) bounding boxes [x_left, x_right]
+    mass: BlockDiag
+    mass_inv: BlockDiag
+
+    @property
+    def uniform_r(self) -> int | None:
+        """Group size if uniform, else None."""
+        s = int(self.sizes[0])
+        return s if bool((self.sizes == s).all()) else None
+
+    @property
+    def sub_uniform_r(self) -> int | None:
+        s = int(self.sub_sizes[0])
+        return s if bool((self.sub_sizes == s).all()) else None
+
+
+def make_agg_mesh(
+    p: int,
+    mesh: Mesh1D,
+    r_base: int | None = None,
+    *,
+    partition=None,
+    sub_sizes: np.ndarray | None = None,
+) -> AggMesh:
+    """Agglomeration level from the base mesh: ``r_base`` consecutive base
+    elements per agglomerate, or an explicit contiguous ``partition`` of group
+    sizes.  ``sub_sizes`` records how many previous-level elements each
+    agglomerate merges (default: the base sizes, i.e. a first level)."""
+    if p not in (0, 1):
+        raise ValueError("agglomerated modal basis only implemented for p = 0 and p = 1")
+    n_base = mesh.n_elements
+    if (r_base is None) == (partition is None):
+        raise ValueError("give exactly one of r_base or partition")
+    if partition is not None:
+        sizes = np.asarray(partition, dtype=np.int64)
+        if sizes.min() < 1 or sizes.sum() != n_base:
+            raise ValueError(
+                f"partition sizes {sizes.tolist()} must be >= 1 and sum to n_base={n_base}"
+            )
+    else:
+        if n_base % r_base:
+            raise ValueError(
+                "number of base elements must divide into uniform agglomerates; "
+                "pass an explicit partition for ragged sizes"
+            )
+        sizes = np.full(n_base // r_base, r_base, dtype=np.int64)
+    m = sizes.shape[0]
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    if sub_sizes is None:
+        sub_sizes = sizes.copy()
+    sub_offsets = np.concatenate([[0], np.cumsum(sub_sizes)[:-1]])
+
+    vx = mesh.vertex_x
+    boxes = np.stack([vx[offsets], vx[offsets + sizes]], axis=1)
+    h_agg = boxes[:, 1] - boxes[:, 0]
+
+    # closed form on the interval: {1, xi} is mass-orthogonal, diag(h, h/3)
+    mass_nij = np.zeros((m, p + 1, p + 1))
+    mass_nij[:, 0, 0] = h_agg
+    inv_nij = np.zeros_like(mass_nij)
+    inv_nij[:, 0, 0] = 1.0 / h_agg
+    if p == 1:
+        mass_nij[:, 1, 1] = h_agg / 3.0
+        inv_nij[:, 1, 1] = 3.0 / h_agg
+
+    return AggMesh(
+        p=p,
+        mesh=mesh,
+        sizes=sizes,
+        offsets=offsets,
+        sub_sizes=np.asarray(sub_sizes, dtype=np.int64),
+        sub_offsets=sub_offsets,
+        n_agg=m,
+        boxes=boxes,
+        mass=BlockDiag(torch.from_numpy(np.moveaxis(mass_nij, 0, -1).copy())),
+        mass_inv=BlockDiag(torch.from_numpy(np.moveaxis(inv_nij, 0, -1).copy())),
+    )
+
+
+def coarsen_agg_mesh(fine: AggMesh, r_sub: int = 2, *, partition=None) -> AggMesh:
+    """Next agglomeration level, merging ``r_sub`` consecutive fine
+    agglomerates (or explicit ``partition`` group sizes, in fine agglomerates)."""
+    if partition is not None:
+        sub = np.asarray(partition, dtype=np.int64)
+        if sub.min() < 1 or sub.sum() != fine.n_agg:
+            raise ValueError(
+                f"partition sizes {sub.tolist()} must be >= 1 and sum to {fine.n_agg}"
+            )
+    else:
+        if fine.n_agg % r_sub:
+            raise ValueError(
+                "fine agglomerate count must divide by r_sub; pass an explicit "
+                "partition for ragged grouping"
+            )
+        sub = np.full(fine.n_agg // r_sub, r_sub, dtype=np.int64)
+    # base-element sizes of each coarse agglomerate = sum of its fine sizes
+    ends = np.cumsum(sub)
+    starts = ends - sub
+    cum = np.concatenate([[0], np.cumsum(fine.sizes)])
+    base_sizes = cum[ends] - cum[starts]
+    return make_agg_mesh(fine.p, fine.mesh, partition=base_sizes, sub_sizes=sub)

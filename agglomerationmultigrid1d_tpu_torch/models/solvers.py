@@ -1,0 +1,344 @@
+"""Multigrid V-cycle and outer drivers (counterpart of ``src/solvers.jl``).
+
+The drivers are host loops over eager tensor operations, with the reference's
+observability contract ``(x, iterations, res_history, err_history)``.
+
+Kernel dispatch is by the tensors (every level is block-tridiagonal with a
+block-Jacobi smoother): on a float32 level, smoothing, the restrict-side
+residual and the inner residual check go through the wrappers of :mod:`..ops.kernels.block_kernels`
+(the CUDA kernels for CUDA tensors, their plain M-form versions for CPU
+tensors); float64 levels run the plain damped sweeps
+``u += alpha S (rhs - A u)``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops.block_tridiag import block_mul, bt_matvec
+from ..ops.coarse_solve import coarse_solve
+from ..ops.kernels.block_kernels import fused_bt_matvec, multisweep, multisweep_residual
+from ..ops.transfer_ops import BlockProlong, bp_prolong, bp_restrict
+from ..smoothers.smoother import apply_smoother
+from .hierarchy import BlockLevel, Hierarchy
+
+
+def level_matvec(level: BlockLevel, x: torch.Tensor) -> torch.Tensor:
+    return bt_matvec(level.a, x)
+
+
+def transfer_prolong(l: BlockProlong, xc: torch.Tensor) -> torch.Tensor:
+    if isinstance(l, BlockProlong):
+        return bp_prolong(l, xc)
+    raise TypeError(type(l))
+
+
+def transfer_restrict(l: BlockProlong, rf: torch.Tensor) -> torch.Tensor:
+    if isinstance(l, BlockProlong):
+        return bp_restrict(l, rf)
+    raise TypeError(type(l))
+
+
+def _flatten_level_vec(x: torch.Tensor) -> torch.Tensor:
+    """Level vector ``(bs, n)`` -> flat DoF vector (dof = k * bs + i)."""
+    return x.T.reshape(-1)
+
+
+def _unflatten_level_vec(flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    bs, n = like.shape
+    return flat.reshape(n, bs).T
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(x.reshape(-1))
+
+
+def _mform(level: BlockLevel):
+    """``(ML, MU)`` — precomputed by ``prepare_fast_smoothers``, or formed here."""
+    s = level.smoother
+    ml = s.ml if s.ml is not None else block_mul(s.inv, level.a.lower)
+    mu = s.mu if s.mu is not None else block_mul(s.inv, level.a.upper)
+    return ml, mu
+
+
+def _smooth_n(level, u, rhs, n_sweeps, alpha):
+    """``n_sweeps`` damped smoother applications ``u += alpha S (rhs - A u)``."""
+    if u.dtype == torch.float32:
+        ml, mu = _mform(level)
+        return multisweep(
+            ml, mu, level.smoother.inv, u.contiguous(), rhs.contiguous(),
+            n_sweeps=n_sweeps, alpha=alpha,
+        )
+    for _ in range(n_sweeps):
+        u = u + apply_smoother(level.smoother, rhs - level_matvec(level, u), alpha=alpha)
+    return u
+
+
+def _smooth_n_residual(level, u, rhs, n_sweeps, alpha):
+    """``_smooth_n`` plus the residual ``rhs - A u`` of the smoothed ``u``."""
+    if u.dtype == torch.float32:
+        ml, mu = _mform(level)
+        return multisweep_residual(
+            ml, mu, level.smoother.inv, level.a.diag, u.contiguous(), rhs.contiguous(),
+            n_sweeps=n_sweeps, alpha=alpha,
+        )
+    u = _smooth_n(level, u, rhs, n_sweeps, alpha)
+    return u, rhs - _level_matvec_opt(level, u)
+
+
+def _level_matvec_opt(level, x):
+    if x.dtype == torch.float32:
+        return fused_bt_matvec(level.a, x.contiguous())
+    return level_matvec(level, x)
+
+
+def v_cycle(
+    h: Hierarchy,
+    x0: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    n_pre: int = 3,
+    n_post: int = 3,
+    alpha: float = 2.0 / 3.0,
+) -> torch.Tensor:
+    """One multigrid V-cycle (cf. ``solvers.jl:19-50``)."""
+    n = h.n_levels
+    u = [None] * n
+    rhs = [None] * n
+    u[0], rhs[0] = x0, b
+
+    for k in range(n - 1):
+        level = h.levels[k]
+        if k > 0:
+            u[k] = torch.zeros_like(rhs[k])
+        u[k], r_k = _smooth_n_residual(level, u[k], rhs[k], n_pre, alpha)
+        rhs[k + 1] = transfer_restrict(h.transfers[k], r_k)
+
+    # coarsest level: dense direct solve (cf. solvers.jl:39)
+    flat = _flatten_level_vec(rhs[n - 1])
+    u[n - 1] = _unflatten_level_vec(coarse_solve(h.coarse, flat), rhs[n - 1])
+
+    for k in range(n - 2, -1, -1):
+        level = h.levels[k]
+        u[k] = u[k] + transfer_prolong(h.transfers[k], u[k + 1])
+        u[k] = _smooth_n(level, u[k], rhs[k], n_post, alpha)
+    return u[0]
+
+
+def mg_preconditioner(h: Hierarchy, b: torch.Tensor, **kw) -> torch.Tensor:
+    """One V-cycle from a zero initial guess (the reference's ``ldiv!``)."""
+    return v_cycle(h, torch.zeros_like(b), b, **kw)
+
+
+class MultigridResult(NamedTuple):
+    x: torch.Tensor
+    iterations: int
+    res_history: torch.Tensor  # (maxiter,) float64 on the host, NaN beyond `iterations`
+    err_history: torch.Tensor  # (maxiter,) float64 on the host, NaN beyond `iterations` (or all-NaN)
+    inner_cycles: int | None = None  # mixed solver: total low-precision V-cycles run
+
+
+def _dense_fine_solve(h: Hierarchy, b: torch.Tensor) -> torch.Tensor:
+    """Host banded direct solve of the finest operator (the reference's
+    ``u_exact = A \\ b``, ``solvers.jl:120``); observability only."""
+    from ..ops.banded_solve import fine_direct_solve
+
+    sol = fine_direct_solve(h.levels[0], _flatten_level_vec(b).detach().cpu().numpy())
+    return torch.from_numpy(sol).to(device=b.device, dtype=b.dtype)
+
+
+def multigrid(
+    h: Hierarchy,
+    x0: torch.Tensor,
+    b: torch.Tensor,
+    maxiter: int = 100,
+    tol: float = 1e-10,
+    *,
+    n_pre: int = 3,
+    n_post: int = 3,
+    alpha: float = 2.0 / 3.0,
+    compute_error: bool = True,
+) -> MultigridResult:
+    """Outer V-cycle iteration until ``||Ax - b|| < tol * ||b||`` (``solvers.jl:116-139``).
+
+    ``err_history`` tracks ``||x - A^-1 b||`` against a banded direct solve of
+    the finest operator; ``compute_error=False`` skips it for large problems.
+    """
+    u_exact = _dense_fine_solve(h, b) if compute_error else None
+    fine = h.levels[0]
+    norm_b = float(_norm(b))
+    res_h = torch.full((maxiter,), float("nan"), dtype=torch.float64, device="cpu")
+    err_h = torch.full((maxiter,), float("nan"), dtype=torch.float64, device="cpu")
+    x = x0
+    it = 0
+    while it < maxiter:
+        x = v_cycle(h, x, b, n_pre=n_pre, n_post=n_post, alpha=alpha)
+        res = float(_norm(level_matvec(fine, x) - b))
+        res_h[it] = res
+        if u_exact is not None:
+            err_h[it] = float(_norm(_flatten_level_vec(x) - u_exact))
+        it += 1
+        if res < tol * norm_b:
+            break
+    return MultigridResult(x=x, iterations=it, res_history=res_h, err_history=err_h)
+
+
+# ---------------------------------------------------------------------------
+# Mixed precision: low-precision inner solves inside a float64 refinement loop
+# ---------------------------------------------------------------------------
+
+
+def make_low_precision_hierarchy(h: Hierarchy, dtype: torch.dtype = torch.float32) -> Hierarchy:
+    """Cast a hierarchy for use as the inner solver of :func:`multigrid_mixed`
+    and, for float32, populate the M-form smoother streams the multisweep
+    kernels read (:func:`..models.hierarchy.prepare_fast_smoothers`)."""
+    from ..utils.precision import hierarchy_astype
+    from .hierarchy import prepare_fast_smoothers
+
+    hl = hierarchy_astype(h, dtype)
+    if dtype == torch.float32:
+        hl = prepare_fast_smoothers(hl)
+    return hl
+
+
+def _mixed_inner_solve(h_low, r, inner_tol, max_cycles, *, n_pre, n_post, alpha):
+    """Solve the correction equation ``A e = r`` in low precision: V-cycles
+    until the inner residual drops below ``inner_tol * ||r||``, stops
+    contracting (a cycle that does not cut it below 0.7x: the low-precision
+    noise floor, or an unstable iteration), or ``max_cycles`` ran.
+
+    Returns ``(e_best, n_cycles, i_best)``: the iterate with the smallest
+    inner residual, the cycles run, and after how many cycles the best came.
+    One residual matvec (kernel K3) per cycle, and one host sync."""
+    fine = h_low.levels[0]
+    norm_r = float(_norm(r))
+    big = float(torch.finfo(r.dtype).max)
+    e = torch.zeros_like(r)
+    best_e, best_res, best_i = e, big, 0
+    i, res, prev = 0, norm_r, big
+    while i < max_cycles and not (res < inner_tol * norm_r or res > 0.7 * prev):
+        e = v_cycle(h_low, e, r, n_pre=n_pre, n_post=n_post, alpha=alpha)
+        new = float(_norm(r - _level_matvec_opt(fine, e)))
+        if new < best_res:
+            best_e, best_res, best_i = e, new, i + 1
+        i, res, prev = i + 1, new, res
+    return best_e, i, best_i
+
+
+def _mixed_loop(h, h_low, x, b, norm_b, *, maxiter, tol, inner_tol, max_inner, kw):
+    """Guarded iterative refinement, with x and the defect ``b - A x`` in
+    float64 (counterpart of the JAX package's ``_mixed_loop_ff``, whose
+    float-float pairs stand in for the float64 a TPU lacks).
+
+    Each proposed correction is judged by the float64 defect: a step that
+    does not improve on the best iterate is rejected, and the next proposal
+    starts again from the best iterate with a correction halved per rejection
+    in a row and a single inner cycle; three rejections in a row end the
+    iteration.  The inner cycle limit adapts: after an improving step it is
+    the cycle count at which that inner solve found its best, plus one on
+    every 4th step (a re-probe).
+
+    Returns ``(x, outer, cycles, rel_history)`` with the best relative defect
+    after each outer step.
+    """
+    fine = h.levels[0]
+    rel_h = np.full((maxiter,), np.nan)
+
+    def rel_defect(x):
+        r = b - level_matvec(fine, x)
+        return r, float(_norm(r)) / norm_b
+
+    x_cur = x_best = x
+    r_best = torch.zeros_like(x)
+    rel_best = float("inf")
+    i = cycles = streak = 0
+    limit = max_inner
+    done = False
+    while i < maxiter and not done:
+        # evaluate the previous proposal against the float64 defect
+        r, rel = rel_defect(x_cur)
+        improved = rel < rel_best
+        if improved:
+            x_best, r_best = x_cur, r
+        rel_best = min(rel, rel_best)
+        streak = 0 if improved else streak + 1
+        if i > 0:
+            rel_h[i - 1] = rel_best
+        done = rel_best < tol or streak >= 3 or cycles >= maxiter
+        if done:
+            break
+
+        # next proposal, from the best iterate
+        probe = 1 if (i % 4 == 0 and improved) else 0
+        cap = min((limit if improved else 1) + probe, max_inner)
+        e, n_cyc, i_best = _mixed_inner_solve(
+            h_low, r_best.to(h_low.levels[0].a.diag.dtype), inner_tol, cap, **kw
+        )
+        scale = 0.5**streak if streak > 0 else 1.0
+        x_cur = x_best + scale * e.to(x_best.dtype)
+        cycles += n_cyc
+        limit = max(limit, 1) if not improved else max(1, i_best)
+        i += 1
+
+    # the final proposal may beat the recorded best; keep whichever is better
+    _, rel_last = rel_defect(x_cur)
+    x_out = x_cur if rel_last < rel_best else x_best
+    if i > 0:
+        rel_h[i - 1] = min(rel_last, rel_best)
+    return x_out, i, cycles, rel_h
+
+
+def multigrid_mixed(
+    h: Hierarchy,
+    h_low: Hierarchy,
+    x0: torch.Tensor,
+    b: torch.Tensor,
+    maxiter: int = 100,
+    tol: float = 1e-10,
+    *,
+    n_pre: int = 3,
+    n_post: int = 3,
+    alpha: float = 2.0 / 3.0,
+    inner_tol: float = 3.0e-5,
+    max_inner: int = 20,
+) -> MultigridResult:
+    """Mixed-precision iterative refinement: the correction equation
+    ``A e = r`` is solved in low precision (``h_low``, float32 V-cycles
+    through the kernels) down to ``inner_tol``-relative inner residual, while
+    the iterate and the defect ``r = b - A x`` stay in float64 on ``h``'s fine
+    operator.  See :func:`_mixed_loop` for the guarded outer loop.
+
+    Returns the reference's observability contract: ``iterations`` counts
+    outer refinement steps (``res_history[:iterations]`` is the float64 defect
+    norm after each, ending with the returned iterate's); ``inner_cycles`` is
+    the total number of low-precision V-cycles.
+
+    Raises ``NotImplementedError`` where the JAX package would continue with
+    progressive-precision cycles: the guarded loop stopped above ``tol`` with
+    iterations left (ROADMAP queue 1, item 12).
+    """
+    norm_b = float(_norm(b))
+    kw = dict(n_pre=n_pre, n_post=n_post, alpha=alpha)
+    x, outer, cycles, rel_h = _mixed_loop(
+        h, h_low, x0.to(torch.float64), b, norm_b,
+        maxiter=maxiter, tol=tol, inner_tol=inner_tol, max_inner=max_inner, kw=kw,
+    )
+    rel_out = rel_h[outer - 1] if outer > 0 else np.inf
+    remaining = maxiter - max(cycles, outer)
+    if rel_out > tol and remaining > 0:
+        raise NotImplementedError(
+            f"the guarded refinement stalled at relative residual {rel_out:.3e} > tol "
+            f"{tol:.1e} after {outer} steps with {remaining} iterations left; the "
+            "progressive-precision continuation is not ported yet (ROADMAP queue 1, "
+            "item 12)"
+        )
+    return MultigridResult(
+        x=x,
+        iterations=outer,
+        res_history=torch.from_numpy(rel_h * norm_b),
+        err_history=torch.full((maxiter,), float("nan"), dtype=torch.float64, device="cpu"),
+        inner_cycles=cycles,
+    )

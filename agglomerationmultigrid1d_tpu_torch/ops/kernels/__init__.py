@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels (sources in ``csrc/``) and their plain versions.
+Importing this package builds nothing: the kernels compile at first launch."""
+
+from .block_kernels import (
+    LAUNCHES,
+    bt_matvec_plain,
+    fused_bt_matvec,
+    multisweep,
+    multisweep_plain,
+    multisweep_residual,
+    multisweep_residual_plain,
+    reset_launch_counts,
+)
+
+__all__ = [
+    "LAUNCHES",
+    "bt_matvec_plain",
+    "fused_bt_matvec",
+    "multisweep",
+    "multisweep_plain",
+    "multisweep_residual",
+    "multisweep_residual_plain",
+    "reset_launch_counts",
+]

@@ -1,0 +1,244 @@
+"""The V-cycle's three hot kernels: CUDA wrappers and their plain versions.
+
+* K3 :func:`fused_bt_matvec` — ``y = A_D x + A_L x_{-1} + A_U x_{+1}``;
+* K2 :func:`multisweep` — ``n_sweeps`` damped block-Jacobi sweeps in M-form;
+* K1 :func:`multisweep_residual` — K2 plus the residual ``b - A x``.
+
+M-form: with ``S^-1`` the exact inverse of ``A_D``, the damped sweep
+``x + alpha S^-1 (b - A x)`` equals ``x + alpha ((c - x) - (ML x_{-1} + MU x_{+1}))``
+with ``c = S^-1 b``, ``ML = S^-1 A_L`` and ``MU = S^-1 A_U`` (precomputed at
+setup by :func:`..models.hierarchy.prepare_fast_smoothers`), and
+``A x = A_D ((x + ML x_{-1}) + MU x_{+1})``.
+
+Each wrapper checks its inputs (float32, matching shapes, contiguous, one
+device) and then dispatches by device: a CUDA tensor launches the hand-written
+kernel of ``csrc/block_kernels.cu`` (built with nvcc at first use), a CPU
+tensor runs the ``*_plain`` version beside it, which follows the kernel's
+order of operations.  There is no fallback from a CUDA tensor to the plain
+version: a build or launch failure raises.
+
+``LAUNCHES`` counts kernel launches per wrapper (plain runs do not count), so
+a run can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from ..block_tridiag import BlockTridiag
+from ..shifts import shift
+
+SUPPORTED_BLOCK_SIZES = (1, 2, 3, 4, 5, 9)
+MAX_SWEEPS = 8  # the kernel's 256-column window keeps >= 238 centre columns
+
+_PKG_DIR = Path(__file__).resolve().parents[2]
+SOURCE = _PKG_DIR / "csrc" / "block_kernels.cu"
+BUILD_DIR = _PKG_DIR.parent / "build" / "aggmg_torch_kernels"
+
+LAUNCHES = {"bt_matvec": 0, "multisweep": 0, "multisweep_residual": 0}
+
+_LIB = None
+_LOCK = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path and the reference the kernels are held to)
+# ---------------------------------------------------------------------------
+
+
+def _mat(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``y[i, :] = sum_j m[i, j, :] * v[j, :]``, j ascending."""
+    acc = m[:, 0, :] * v[0:1, :]
+    for j in range(1, m.shape[1]):
+        acc = acc + m[:, j, :] * v[j : j + 1, :]
+    return acc
+
+
+def bt_matvec_plain(a: BlockTridiag, x: torch.Tensor) -> torch.Tensor:
+    return (_mat(a.diag, x) + _mat(a.lower, shift(x, -1))) + _mat(a.upper, shift(x, +1))
+
+
+def multisweep_plain(ml, mu, s_inv, x, b, n_sweeps: int = 3, alpha: float = 2.0 / 3.0):
+    c = _mat(s_inv, b)
+    for _ in range(n_sweeps):
+        t = _mat(ml, shift(x, -1)) + _mat(mu, shift(x, +1))
+        x = x + alpha * ((c - x) - t)
+    return x
+
+
+def multisweep_residual_plain(
+    ml, mu, s_inv, a_diag, x, b, n_sweeps: int = 3, alpha: float = 2.0 / 3.0
+):
+    x = multisweep_plain(ml, mu, s_inv, x, b, n_sweeps, alpha)
+    t = (x + _mat(ml, shift(x, -1))) + _mat(mu, shift(x, +1))
+    return x, b - _mat(a_diag, t)
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); the kernels need nvcc")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path() -> Path:
+    """Where the built library lives; its name carries the source's hash, so
+    an edited source builds anew."""
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"libaggmg_torch_kernels_{digest}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/block_kernels.cu`` for sm_90a unless this source's
+    library is already built; returns the library's path."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    (BUILD_DIR / (so.stem + ".ptxas.txt")).write_text(proc.stderr)
+    os.replace(tmp, so)  # atomic: a concurrent loader sees no half-written file
+    return so
+
+
+def _lib():
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+            lib.aggmg_bt_matvec.argtypes = [i, p, p, p, p, p, ll, p]
+            lib.aggmg_bt_matvec.restype = i
+            lib.aggmg_multisweep.argtypes = [i, p, p, p, p, p, p, p, p, ll, i, f, p]
+            lib.aggmg_multisweep.restype = i
+            _LIB = lib
+    return _LIB
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(ops, vecs) -> tuple[int, int, torch.device]:
+    """Validate operator streams ``(bs, bs, n)`` and vectors ``(bs, n)``."""
+    bs, _, n = ops[0].shape
+    dev = ops[0].device
+    for t in (*ops, *vecs):
+        if t.dtype != torch.float32:
+            raise TypeError(f"the block kernels take float32 only, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"all inputs must be on one device ({dev} and {t.device})")
+        if not t.is_contiguous():
+            raise ValueError("the block kernels take contiguous tensors")
+    for m in ops:
+        if tuple(m.shape) != (bs, bs, n):
+            raise ValueError(f"operator stream of shape {tuple(m.shape)}, expected {(bs, bs, n)}")
+    for v in vecs:
+        if tuple(v.shape) != (bs, n):
+            raise ValueError(f"vector of shape {tuple(v.shape)}, expected {(bs, n)}")
+    if dev.type == "cuda" and bs not in SUPPORTED_BLOCK_SIZES:
+        raise ValueError(f"block size {bs} has no kernel (supported: {SUPPORTED_BLOCK_SIZES})")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return bs, n, dev
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: {'unsupported block size' if rc == -1 else f'CUDA error {rc}'}")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def fused_bt_matvec(a: BlockTridiag, x: torch.Tensor) -> torch.Tensor:
+    """K3: ``y = A_D x + A_L x_{-1} + A_U x_{+1}``."""
+    bs, n, dev = _check((a.diag, a.lower, a.upper), (x,))
+    if dev.type == "cpu":
+        return bt_matvec_plain(a, x)
+    y = torch.empty_like(x)
+    if n == 0:
+        return y
+    with torch.cuda.device(dev):
+        rc = _lib().aggmg_bt_matvec(
+            bs, a.diag.data_ptr(), a.lower.data_ptr(), a.upper.data_ptr(), x.data_ptr(),
+            y.data_ptr(), n, _stream(dev),
+        )
+    _raise_on(rc, "bt_matvec")
+    LAUNCHES["bt_matvec"] += 1
+    return y
+
+
+def _check_sweeps(n_sweeps: int) -> None:
+    if not 0 <= n_sweeps <= MAX_SWEEPS:
+        raise ValueError(f"n_sweeps must be in [0, {MAX_SWEEPS}], got {n_sweeps}")
+
+
+def multisweep(ml, mu, s_inv, x, b, n_sweeps: int = 3, alpha: float = 2.0 / 3.0):
+    """K2: ``n_sweeps`` damped block-Jacobi sweeps in one pass (M-form)."""
+    _check_sweeps(n_sweeps)
+    bs, n, dev = _check((ml, mu, s_inv), (x, b))
+    if dev.type == "cpu":
+        return multisweep_plain(ml, mu, s_inv, x, b, n_sweeps, alpha)
+    x_out = torch.empty_like(x)
+    if n == 0:
+        return x_out
+    with torch.cuda.device(dev):
+        rc = _lib().aggmg_multisweep(
+            bs, ml.data_ptr(), mu.data_ptr(), s_inv.data_ptr(), None, x.data_ptr(),
+            b.data_ptr(), x_out.data_ptr(), None, n, n_sweeps, alpha, _stream(dev),
+        )
+    _raise_on(rc, "multisweep")
+    LAUNCHES["multisweep"] += 1
+    return x_out
+
+
+def multisweep_residual(
+    ml, mu, s_inv, a_diag, x, b, n_sweeps: int = 3, alpha: float = 2.0 / 3.0
+):
+    """K1: K2 plus the residual ``r = b - A x`` of the smoothed ``x``, from the
+    same pass; returns ``(x, r)``."""
+    _check_sweeps(n_sweeps)
+    bs, n, dev = _check((ml, mu, s_inv, a_diag), (x, b))
+    if dev.type == "cpu":
+        return multisweep_residual_plain(ml, mu, s_inv, a_diag, x, b, n_sweeps, alpha)
+    x_out = torch.empty_like(x)
+    r_out = torch.empty_like(x)
+    if n == 0:
+        return x_out, r_out
+    with torch.cuda.device(dev):
+        rc = _lib().aggmg_multisweep(
+            bs, ml.data_ptr(), mu.data_ptr(), s_inv.data_ptr(), a_diag.data_ptr(),
+            x.data_ptr(), b.data_ptr(), x_out.data_ptr(), r_out.data_ptr(), n, n_sweeps,
+            alpha, _stream(dev),
+        )
+    _raise_on(rc, "multisweep_residual")
+    LAUNCHES["multisweep_residual"] += 1
+    return x_out, r_out

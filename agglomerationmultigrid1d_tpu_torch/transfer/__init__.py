@@ -1,0 +1,3 @@
+from .interpolation import aggdg_aggdg_interpolation, aggdg_dg_interpolation, dg_dg_interpolation
+
+__all__ = ["aggdg_aggdg_interpolation", "aggdg_dg_interpolation", "dg_dg_interpolation"]

@@ -1,0 +1,82 @@
+"""The torch port's CUDA kernels and its mixed solve on a CUDA card.
+
+Every test here needs the card (marker ``cuda``) and skips without one.  This
+file imports neither JAX nor the JAX package, so it also runs where JAX is
+not installed:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from agglomerationmultigrid1d_tpu_torch.models import (
+    make_low_precision_hierarchy,
+    multigrid,
+    multigrid_mixed,
+    poisson_dg_hierarchy,
+)
+from agglomerationmultigrid1d_tpu_torch.ops.block_tridiag import BlockTridiag, block_mul, bt_matvec
+from agglomerationmultigrid1d_tpu_torch.ops.kernels import block_kernels as bk
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(seed, bs, n, device):
+    """Random diagonally dominant operators with S^-1 the exact inverse of A_D."""
+    rng = np.random.default_rng(seed)
+    l = rng.standard_normal((bs, bs, n))
+    l[:, :, 0] = 0
+    u = rng.standard_normal((bs, bs, n))
+    u[:, :, -1] = 0
+    d = rng.standard_normal((bs, bs, n)) + 5 * np.eye(bs)[:, :, None]
+    sinv = np.linalg.inv(np.moveaxis(d, -1, 0)).transpose(1, 2, 0)
+    x = rng.standard_normal((bs, n))
+    b = rng.standard_normal((bs, n))
+    l, d, u, sinv, x, b = (
+        torch.tensor(m, dtype=torch.float32, device=device).contiguous() for m in (l, d, u, sinv, x, b)
+    )
+    return l, d, u, sinv, block_mul(sinv, l), block_mul(sinv, u), x, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,n", [(1, 777), (2, 1000), (3, 4097), (4, 65536), (5, 300), (9, 640)])
+def test_cuda_kernels_match_plain(cuda, bs, n):
+    l, d, u, sinv, ml, mu, x, b = _inputs(bs * n, bs, n, cuda)
+    a = BlockTridiag(l, d, u)
+    bk.reset_launch_counts()
+    pairs = [(bk.fused_bt_matvec(a, x), bk.bt_matvec_plain(a, x))]
+    for k in (1, 3, bk.MAX_SWEEPS):
+        pairs.append((bk.multisweep(ml, mu, sinv, x, b, k), bk.multisweep_plain(ml, mu, sinv, x, b, k)))
+        pairs += list(
+            zip(
+                bk.multisweep_residual(ml, mu, sinv, d, x, b, k),
+                bk.multisweep_residual_plain(ml, mu, sinv, d, x, b, k),
+            )
+        )
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert bk.LAUNCHES == {"bt_matvec": 1, "multisweep": 3, "multisweep_residual": 3}
+
+
+@pytest.mark.cuda
+def test_cuda_mixed_solve_uses_kernels_and_matches_f64(cuda):
+    prob = poisson_dg_hierarchy(n=4096, max_p=3, n_dg=2, n_agg=5, device=cuda)
+    h32 = make_low_precision_hierarchy(prob.hierarchy)
+    b = prob.b
+    bk.reset_launch_counts()
+    res = multigrid_mixed(prob.hierarchy, h32, torch.zeros_like(b), b, 80, 1e-10)
+    counts = dict(bk.LAUNCHES)
+    assert all(v > 0 for v in counts.values()), counts
+    nb = float(torch.linalg.vector_norm(b))
+    rel = float(torch.linalg.vector_norm(bt_matvec(prob.hierarchy.levels[0].a, res.x) - b)) / nb
+    assert rel < 1e-10
+    ref = multigrid(prob.hierarchy, torch.zeros_like(b), b, 80, 1e-10, compute_error=False)
+    assert float((res.x - ref.x).abs().max()) < 1e-4
