@@ -17,7 +17,8 @@
 // float32 ulps, not bit for bit.
 //
 // Host entry points have a plain C interface (loaded with ctypes) and return
-// cudaGetLastError() after the launch; -1 means an unsupported block size.
+// cudaGetLastError() after the launch; -1 means an unsupported block size,
+// -2 more sweeps than kMaxSweeps.
 
 #include <cuda_runtime.h>
 
@@ -84,6 +85,16 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < BS; ++i) y[i * n + k] = (d[i] + l[i]) + u[i];
 }
 
+constexpr int kMaxSweeps = 8;  // MAX_SWEEPS of ops/kernels/block_kernels.py
+
+// How x moves in each sweep of multisweep_kernel, passed by value (the
+// kernel's parameter space), so a launch reads no scalar from device memory.
+struct Recurrence {
+  float alpha;            // damped block-Jacobi (K1/K2)
+  float cd[kMaxSweeps];   // Chebyshev (K5): d = cd[s] d + cz[s] z, x += d
+  float cz[kMaxSweeps];
+};
+
 // K2 / K1: n_sweeps damped block-Jacobi sweeps in M-form, in one pass.
 //   c = S^-1 b;  n_sweeps times  x <- x + alpha ((c - x) - (ML x_{-1} + MU x_{+1}))
 // and with EMIT_RESIDUAL also  r = b - A_D ((x + ML x_{-1}) + MU x_{+1}).
@@ -92,8 +103,18 @@ __global__ void __launch_bounds__(kThreads)
 // and pallas_block_jacobi_multisweep_residual (K1, :510), whose shared body is
 // _wide_sweep_kernel (:257) with _center_residual (:244).
 //
-// Bytes per block column: K2 reads (3 bs^2 + 2 bs) floats and writes bs:
-// 240 B at bs = 4; K1 reads (4 bs^2 + 2 bs) and writes 2 bs: 320 B.
+// K5 (CHEB): n_sweeps steps of the Chebyshev recurrence over the same
+// block-Jacobi preconditioner, d = 0 at the start:
+//   z = (c - x) - (ML x_{-1} + MU x_{+1});  d = cd[s] d + cz[s] z;  x += d
+// with the same optional residual.  Replaces pallas_chebyshev_multisweep
+// (ops/pallas/block_kernels.py:422, body _wide_cheb_kernel :325).  d lives in
+// one more register vector per thread; it starts at zero across the whole
+// window, and a column's d depends only on x and b within s columns of it,
+// so the validity argument below holds for d as for x.
+//
+// Bytes per block column: K2 and K5 read (3 bs^2 + 2 bs) floats and write bs:
+// 240 B at bs = 4; K1 and K5 with the residual read (4 bs^2 + 2 bs) and write
+// 2 bs: 320 B.  A few FLOPs per byte, so device-memory bandwidth bounds them.
 //
 // Temporal blocking: a thread block of kThreads threads covers a window of
 // kThreads consecutive columns, of which the centre kThreads - 2 halo are
@@ -103,13 +124,13 @@ __global__ void __launch_bounds__(kThreads)
 // memory.  The window's outermost columns see a zero neighbour and go wrong by
 // one column per sweep, which never reaches the centre.  So operators are read
 // once per launch (plus the 2 halo / kThreads overlap) instead of once per sweep.
-template <int BS, bool EMIT_RESIDUAL>
+template <int BS, bool EMIT_RESIDUAL, bool CHEB>
 __global__ void __launch_bounds__(kThreads)
     multisweep_kernel(const float* __restrict__ ml, const float* __restrict__ mu,
                       const float* __restrict__ sinv, const float* __restrict__ ad,
                       const float* __restrict__ x, const float* __restrict__ b,
                       float* __restrict__ x_out, float* __restrict__ r_out, long long n,
-                      int n_sweeps, int halo, float alpha) {
+                      int n_sweeps, int halo, const Recurrence rec) {
   __shared__ float sx[BS][kThreads];
   const int t = threadIdx.x;
   const long long col = (long long)blockIdx.x * (kThreads - 2 * halo) + t - halo;
@@ -138,7 +159,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < BS; ++i) sx[i][t] = xr[i];
   __syncthreads();
 
-  float xm[BS], xp[BS], l[BS], u[BS];
+  float xm[BS], xp[BS], l[BS], u[BS], d[BS];
+#pragma unroll
+  for (int i = 0; i < BS; ++i) d[i] = 0.f;
   for (int s = 0; s < n_sweeps; ++s) {
 #pragma unroll
     for (int j = 0; j < BS; ++j) {
@@ -151,7 +174,12 @@ __global__ void __launch_bounds__(kThreads)
     if (inside) {
 #pragma unroll
       for (int i = 0; i < BS; ++i) {
-        xr[i] = xr[i] + alpha * ((c[i] - xr[i]) - (l[i] + u[i]));
+        if constexpr (CHEB) {
+          d[i] = rec.cd[s] * d[i] + rec.cz[s] * ((c[i] - xr[i]) - (l[i] + u[i]));
+          xr[i] = xr[i] + d[i];
+        } else {
+          xr[i] = xr[i] + rec.alpha * ((c[i] - xr[i]) - (l[i] + u[i]));
+        }
         sx[i][t] = xr[i];
       }
     }
@@ -186,19 +214,19 @@ void launch_matvec(const float* ad, const float* al, const float* au, const floa
   bt_matvec_kernel<BS><<<grid, kThreads, 0, stream>>>(ad, al, au, x, y, n);
 }
 
-template <int BS>
+template <int BS, bool CHEB>
 void launch_multisweep(const float* ml, const float* mu, const float* sinv, const float* ad,
                        const float* x, const float* b, float* x_out, float* r_out,
-                       long long n, int n_sweeps, float alpha, cudaStream_t stream) {
+                       long long n, int n_sweeps, const Recurrence& rec, cudaStream_t stream) {
   const int halo = n_sweeps + (r_out != nullptr ? 1 : 0);
   const long long centre = kThreads - 2 * halo;
   const unsigned grid = (unsigned)((n + centre - 1) / centre);
   if (r_out != nullptr) {
-    multisweep_kernel<BS, true><<<grid, kThreads, 0, stream>>>(
-        ml, mu, sinv, ad, x, b, x_out, r_out, n, n_sweeps, halo, alpha);
+    multisweep_kernel<BS, true, CHEB><<<grid, kThreads, 0, stream>>>(
+        ml, mu, sinv, ad, x, b, x_out, r_out, n, n_sweeps, halo, rec);
   } else {
-    multisweep_kernel<BS, false><<<grid, kThreads, 0, stream>>>(
-        ml, mu, sinv, ad, x, b, x_out, r_out, n, n_sweeps, halo, alpha);
+    multisweep_kernel<BS, false, CHEB><<<grid, kThreads, 0, stream>>>(
+        ml, mu, sinv, ad, x, b, x_out, r_out, n, n_sweeps, halo, rec);
   }
 }
 
@@ -231,10 +259,33 @@ int aggmg_bt_matvec(int bs, const void* ad, const void* al, const void* au, cons
 int aggmg_multisweep(int bs, const void* ml, const void* mu, const void* sinv, const void* ad,
                      const void* x, const void* b, void* x_out, void* r_out, long long n,
                      int n_sweeps, float alpha, void* stream) {
-#define AGGMG_CALL(BS)                                                                   \
-  launch_multisweep<BS>((const float*)ml, (const float*)mu, (const float*)sinv,           \
-                        (const float*)ad, (const float*)x, (const float*)b, (float*)x_out, \
-                        (float*)r_out, n, n_sweeps, alpha, (cudaStream_t)stream)
+  if (n_sweeps < 0 || n_sweeps > kMaxSweeps) return -2;
+  Recurrence rec = {};
+  rec.alpha = alpha;
+#define AGGMG_CALL(BS)                                                                        \
+  launch_multisweep<BS, false>((const float*)ml, (const float*)mu, (const float*)sinv,         \
+                               (const float*)ad, (const float*)x, (const float*)b,             \
+                               (float*)x_out, (float*)r_out, n, n_sweeps, rec, (cudaStream_t)stream)
+  AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
+#undef AGGMG_CALL
+  return (int)cudaGetLastError();
+}
+
+// K5.  coef is a HOST array of 2 n_steps floats (cd_0, cz_0, cd_1, cz_1, ...),
+// copied into the kernel's parameters; ad and r_out as for aggmg_multisweep.
+int aggmg_chebyshev(int bs, const void* ml, const void* mu, const void* sinv, const void* ad,
+                    const void* x, const void* b, void* x_out, void* r_out, long long n,
+                    int n_steps, const void* coef, void* stream) {
+  if (n_steps < 0 || n_steps > kMaxSweeps) return -2;
+  Recurrence rec = {};
+  for (int s = 0; s < n_steps; ++s) {
+    rec.cd[s] = ((const float*)coef)[2 * s];
+    rec.cz[s] = ((const float*)coef)[2 * s + 1];
+  }
+#define AGGMG_CALL(BS)                                                                       \
+  launch_multisweep<BS, true>((const float*)ml, (const float*)mu, (const float*)sinv,         \
+                              (const float*)ad, (const float*)x, (const float*)b,             \
+                              (float*)x_out, (float*)r_out, n, n_steps, rec, (cudaStream_t)stream)
   AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
 #undef AGGMG_CALL
   return (int)cudaGetLastError();

@@ -32,6 +32,10 @@ class AggMesh:
     mass_inv: BlockDiag
 
     @property
+    def block_size(self) -> int:
+        return self.p + 1
+
+    @property
     def uniform_r(self) -> int | None:
         """Group size if uniform, else None."""
         s = int(self.sizes[0])

@@ -1,31 +1,61 @@
-"""Multigrid hierarchy construction for DG-topped chains.
+"""Multigrid hierarchy construction.
 
-:func:`build_dg_hierarchy` takes the finest operators and a fine -> coarse
-list of DG and agglomerated meshes; every coarser level Galerkin-projects G, D
-and C *separately* and recombines them with the level's own mass,
-``A = C - D M^-1 G`` (not a triple product of A).  The CG-topped constructor,
-penta-diagonal (mixed-switch) levels, scattered agglomerates and block cyclic
-reduction for large coarse levels are not ported yet.
+Two constructors mirroring the reference:
+
+* :func:`build_hierarchy` — CG-topped (``mesh_heirarchy.jl:30-138``): a chain
+  of CG p-coarsening levels (Galerkin stiffness, pointwise Jacobi or Schwarz
+  smoothing), an optional CG -> DG seam and DG p-coarsening chain, then
+  agglomerated h-coarsening levels;
+* :func:`build_dg_hierarchy` — DG-topped (``mesh_heirarchy.jl:140-181``).
+
+Every DG / agglomerated level below the top Galerkin-projects G, D and C
+*separately* and recombines them with the level's own mass,
+``A = C - D M^-1 G`` (not a triple product of A).  :func:`chebyshev_hierarchy`
+wraps every smoothed level's smoother in Chebyshev acceleration.
+Penta-diagonal (mixed-switch) levels, scattered and ragged agglomerates and
+block cyclic reduction for large coarse levels are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Union
 
 import torch
 
+from ..assembly.agg_assembly import agg_flux_operators
+from ..assembly.dg_assembly import dg_flux_operators
 from ..mesh.agg_mesh import AggMesh
+from ..mesh.cg_mesh import CgMesh
 from ..mesh.dg_mesh import DgMesh
+from ..mesh.topology import BoundaryCondition
 from ..ops.block_diag import BlockDiag
 from ..ops.block_tridiag import BlockTridiag, bd_mul_bt, block_mul, bt_mul_bt, bt_sub, bt_to_dense
+from ..ops.cg_operator import CgOperator, cg_to_dense
 from ..ops.coarse_solve import CoarseSolver, make_coarse_solver
-from ..ops.transfer_ops import bp_galerkin
-from ..smoothers.smoother import BlockJacobiSmoother, dg_smoother
+from ..ops.kernels.block_kernels import MAX_SWEEPS, chebyshev_coefficients
+from ..ops.transfer_ops import bp_galerkin, cgp_galerkin
+from ..smoothers.smoother import (
+    BlockJacobiSmoother,
+    ChebyshevSmoother,
+    Smoother,
+    apply_smoother,
+    cg_smoother,
+    dg_smoother,
+)
 from ..transfer.interpolation import (
     aggdg_aggdg_interpolation,
+    aggdg_cg_interpolation,
     aggdg_dg_interpolation,
+    cg_cg_interpolation,
+    dg_cg_interpolation,
     dg_dg_interpolation,
 )
+
+
+class CgLevel(NamedTuple):
+    a: CgOperator
+    smoother: Smoother
 
 
 class BlockLevel(NamedTuple):
@@ -34,12 +64,15 @@ class BlockLevel(NamedTuple):
     d: BlockTridiag
     c: BlockTridiag
     mass_inv: torch.Tensor  # (bs, bs, n) of the level's own mass
-    smoother: BlockJacobiSmoother
+    smoother: Smoother
+
+
+Level = Union[CgLevel, BlockLevel]
 
 
 class Hierarchy(NamedTuple):
-    levels: tuple  # of BlockLevel, fine -> coarse
-    transfers: tuple  # of BlockProlong, len = n_levels - 1
+    levels: tuple  # of Level, fine -> coarse
+    transfers: tuple  # of BlockProlong / CgProlong / SeamProlong, len = n_levels - 1
     coarse: CoarseSolver  # host-factorized dense solver for the coarsest level
 
     @property
@@ -71,17 +104,99 @@ def _block_level(g, d, c, mass_inv: BlockDiag) -> BlockLevel:
     )
 
 
+MAX_COARSE_DOF = 16384  # dense-solve cap for CG coarsest levels
 DENSE_COARSE_MAX = 2048  # block levels beyond this need cyclic reduction
 
 
-def _coarse_lu(level: BlockLevel) -> CoarseSolver:
+def _coarse_lu(level: Level) -> CoarseSolver:
+    if isinstance(level, CgLevel):
+        if level.a.n_nodes > MAX_COARSE_DOF:
+            raise ValueError(
+                f"coarsest CG level has {level.a.n_nodes} DoF (> {MAX_COARSE_DOF}); "
+                "the dense coarse solve would not fit — add more coarsening levels "
+                "(e.g. agglomeration levels for large element counts)"
+            )
+        return make_coarse_solver(cg_to_dense(level.a))
     if level.a.n_dof > DENSE_COARSE_MAX:
         raise NotImplementedError(
             f"the coarsest level has {level.a.n_dof} DoF (> {DENSE_COARSE_MAX}); block "
-            "cyclic reduction is not ported yet (ROADMAP queue 1, item 5) — add "
+            "cyclic reduction is not ported yet (ROADMAP queue 1, item 13) — add "
             "agglomeration levels"
         )
     return make_coarse_solver(bt_to_dense(level.a))
+
+
+def _agg_interpolation(mesh: AggMesh, fine_mesh):
+    if isinstance(fine_mesh, DgMesh):
+        return aggdg_dg_interpolation(mesh, fine_mesh)
+    return aggdg_aggdg_interpolation(mesh, fine_mesh)
+
+
+def _galerkin_level(l, prev: BlockLevel, mesh) -> BlockLevel:
+    return _block_level(
+        bp_galerkin(l, prev.g), bp_galerkin(l, prev.d), bp_galerkin(l, prev.c), mesh.mass_inv
+    )
+
+
+def _unported_mesh(mesh) -> NotImplementedError:
+    return NotImplementedError(
+        f"{type(mesh).__name__} levels (scattered agglomerates, block-COO operators) "
+        "are not ported yet (ROADMAP queue 1, item 14); the torch port takes CG, DG "
+        "and contiguous agglomerated meshes"
+    )
+
+
+def build_hierarchy(
+    meshes: list,
+    bc: BoundaryCondition,
+    a_fine: CgOperator,
+    *,
+    c_dir: float = 1.0,
+    cg_smoother_kind: str = "jac",
+) -> Hierarchy:
+    """CG-topped hierarchy from a fine -> coarse list of CgMesh / DgMesh /
+    AggMesh, in that order (CG+ [DG*] [Agg*]).  The first DG or agglomerated
+    level below the CG chain assembles its own flux operators (the seam);
+    every level below it is a Galerkin product."""
+    if not isinstance(meshes[0], CgMesh):
+        raise ValueError("at least one CG mesh required at the top")
+
+    levels: list = [CgLevel(a=a_fine, smoother=cg_smoother(a_fine, cg_smoother_kind))]
+    transfers: list = []
+    for i in range(1, len(meshes)):
+        fine_mesh, mesh = meshes[i - 1], meshes[i]
+        prev = levels[-1]
+        if isinstance(mesh, CgMesh):
+            if not isinstance(fine_mesh, CgMesh):
+                raise ValueError("CG level below a non-CG level")
+            l = cg_cg_interpolation(mesh, fine_mesh)
+            a = cgp_galerkin(l, prev.a)
+            levels.append(CgLevel(a=a, smoother=cg_smoother(a, cg_smoother_kind)))
+        elif isinstance(mesh, (DgMesh, AggMesh)):
+            if isinstance(fine_mesh, CgMesh):
+                # CG -> DG / agg seam: lumped-mass transfer + direct flux assembly
+                if isinstance(mesh, DgMesh):
+                    l = dg_cg_interpolation(mesh, fine_mesh)
+                    g, d, c = dg_flux_operators(mesh, bc, c_dir)
+                else:
+                    l = aggdg_cg_interpolation(mesh, fine_mesh)
+                    g, d, c = agg_flux_operators(mesh, bc, c_dir)
+                levels.append(_block_level(g, d, c, mesh.mass_inv))
+            elif isinstance(mesh, DgMesh):
+                if not isinstance(fine_mesh, DgMesh):
+                    raise ValueError("DG level below an agglomerated level")
+                l = dg_dg_interpolation(mesh, fine_mesh)
+                levels.append(_galerkin_level(l, prev, mesh))
+            else:
+                l = _agg_interpolation(mesh, fine_mesh)
+                levels.append(_galerkin_level(l, prev, mesh))
+        else:
+            raise _unported_mesh(mesh)
+        transfers.append(l)
+
+    return Hierarchy(
+        levels=tuple(levels), transfers=tuple(transfers), coarse=_coarse_lu(levels[-1])
+    )
 
 
 def build_dg_hierarchy(
@@ -109,26 +224,15 @@ def build_dg_hierarchy(
     transfers = []
     for i in range(1, len(meshes)):
         fine_mesh, mesh = meshes[i - 1], meshes[i]
-        prev = levels[-1]
         if isinstance(mesh, DgMesh):
             if not isinstance(fine_mesh, DgMesh):
                 raise ValueError("DG level below an agglomerated level")
             l = dg_dg_interpolation(mesh, fine_mesh)
         elif isinstance(mesh, AggMesh):
-            if isinstance(fine_mesh, DgMesh):
-                l = aggdg_dg_interpolation(mesh, fine_mesh)
-            else:
-                l = aggdg_aggdg_interpolation(mesh, fine_mesh)
+            l = _agg_interpolation(mesh, fine_mesh)
         else:
-            raise NotImplementedError(
-                f"{type(mesh).__name__} levels (scattered agglomerates, block-COO "
-                "operators) are not ported yet (ROADMAP queue 1, item 14); the torch "
-                "port takes DG and contiguous agglomerated meshes"
-            )
-        gc = bp_galerkin(l, prev.g)
-        dc = bp_galerkin(l, prev.d)
-        cc = bp_galerkin(l, prev.c)
-        levels.append(_block_level(gc, dc, cc, mesh.mass_inv))
+            raise _unported_mesh(mesh)
+        levels.append(_galerkin_level(l, levels[-1], mesh))
         transfers.append(l)
 
     return Hierarchy(
@@ -136,17 +240,85 @@ def build_dg_hierarchy(
     )
 
 
-def prepare_fast_smoothers(h: Hierarchy) -> Hierarchy:
-    """Populate the M-form streams (``ml = S^-1 A_lower``, ``mu = S^-1 A_upper``)
-    on every float32 level's block-Jacobi smoother, for the multisweep kernels
-    (``make_low_precision_hierarchy`` calls this after the cast)."""
+def _chebyshev_table(s: ChebyshevSmoother) -> tuple:
+    """The float32 recurrence table of a float32 level (one host read of its
+    interval, at setup)."""
+    tab = chebyshev_coefficients(float(s.lam_lo), float(s.lam_hi), MAX_SWEEPS)
+    return tuple(tuple(row) for row in tab.tolist())
 
-    def fix(lv: BlockLevel) -> BlockLevel:
+
+def prepare_fast_smoothers(h: Hierarchy) -> Hierarchy:
+    """Populate, on every float32 level, what the fused kernels read: the
+    M-form streams (``ml = S^-1 A_lower``, ``mu = S^-1 A_upper``) of a
+    block-Jacobi smoother, also under a Chebyshev wrap, and a Chebyshev
+    smoother's recurrence table (``make_low_precision_hierarchy`` calls this
+    after the cast)."""
+
+    def fix_base(lv, s):
+        if not isinstance(lv, BlockLevel) or not isinstance(s, BlockJacobiSmoother) or s.ml is not None:
+            return s
+        return s._replace(ml=block_mul(s.inv, lv.a.lower), mu=block_mul(s.inv, lv.a.upper))
+
+    def fix(lv):
         s = lv.smoother
-        if lv.a.diag.dtype != torch.float32 or s.ml is not None:
-            return lv
-        ml = block_mul(s.inv, lv.a.lower)
-        mu = block_mul(s.inv, lv.a.upper)
-        return lv._replace(smoother=s._replace(ml=ml, mu=mu))
+        if isinstance(s, ChebyshevSmoother):
+            if s.lam_hi.dtype != torch.float32:
+                return lv
+            s = s._replace(base=fix_base(lv, s.base))
+            if s.coef is None:
+                s = s._replace(coef=_chebyshev_table(s))
+            return lv._replace(smoother=s)
+        if isinstance(lv, BlockLevel) and lv.a.diag.dtype == torch.float32:
+            return lv._replace(smoother=fix_base(lv, s))
+        return lv
 
     return h._replace(levels=tuple(fix(lv) for lv in h.levels))
+
+
+def chebyshev_hierarchy(
+    h: Hierarchy,
+    *,
+    ratio: float = 4.0,
+    power_iters: int = 20,
+    safety: float = 1.05,
+) -> Hierarchy:
+    """Wrap every smoothed level's smoother in Chebyshev acceleration.
+
+    ``lambda_max(S A)`` per level comes from ``power_iters`` power iterations
+    with a deterministic start vector; the smoothed interval is
+    ``[lam_hi / ratio, lam_hi * safety]``.  Use with the same ``n_pre`` /
+    ``n_post`` as before: each sweep becomes one degree of the Chebyshev
+    recurrence at the same cost.  Run it on the float64 hierarchy and cast
+    afterwards (``make_low_precision_hierarchy``), as the JAX package does;
+    on a float32 hierarchy the recurrence tables are filled here."""
+    new_levels = []
+    for k, level in enumerate(h.levels):
+        if k == len(h.levels) - 1:
+            new_levels.append(level)  # the coarsest level never smooths
+            continue
+        if isinstance(level, CgLevel):
+            shape, like = (level.a.n_nodes,), level.a.band
+        else:
+            shape, like = (level.a.block_size, level.a.n_blocks), level.a.diag
+        i = torch.arange(math.prod(shape), dtype=like.dtype, device=like.device)
+        x0 = torch.cos(1.7 * i).reshape(shape) + 0.5
+        lam = _power_lam(level, x0, power_iters)
+        s = ChebyshevSmoother(base=level.smoother, lam_lo=lam * safety / ratio, lam_hi=lam * safety)
+        if like.dtype == torch.float32:
+            s = s._replace(coef=_chebyshev_table(s))
+        new_levels.append(level._replace(smoother=s))
+    return h._replace(levels=tuple(new_levels))
+
+
+def _power_lam(level: Level, x0: torch.Tensor, iters: int) -> torch.Tensor:
+    """lambda_max(S A) by power iteration, a host loop of ``iters`` steps that
+    never reads the device: the estimate stays a 0-d tensor."""
+    from .solvers import level_matvec
+
+    x = x0 / torch.linalg.vector_norm(x0.reshape(-1))
+    lam = torch.ones((), dtype=x0.dtype, device=x0.device)
+    for _ in range(iters):
+        y = apply_smoother(level.smoother, level_matvec(level, x))
+        lam = torch.linalg.vector_norm(y.reshape(-1))
+        x = y / lam
+    return lam

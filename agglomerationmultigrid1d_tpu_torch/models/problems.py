@@ -1,5 +1,10 @@
-"""Canonical DG-topped problem setups (``tests/dg_heirarchy_test.jl`` of the
-reference), as one-call constructors.
+"""Canonical problem setups mirroring the reference's test scripts, as
+one-call constructors:
+
+* :func:`poisson_cg_hierarchy`      — ``tests/cg_heirarchy_test.jl``
+* :func:`poisson_dg_cg_hierarchy`   — ``tests/dg_cg_heirarchy_test.jl``
+* :func:`poisson_dg_hierarchy`      — ``tests/dg_heirarchy_test.jl``
+* :func:`poisson_full_hierarchy`    — ``tests/full_heirarchy_test.jl`` (the flagship)
 
 Model problem: -u'' = cos(x) on [0, 1], u = cos (Neumann left, Dirichlet right).
 Setup runs on the host in float64 (vectorised NumPy / torch); the finished
@@ -14,15 +19,17 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..assembly.cg_assembly import cg_stiffness_and_rhs
 from ..assembly.dg_assembly import dg_flux_operators, dg_flux_rhs
 from ..mesh.agg_mesh import coarsen_agg_mesh, make_agg_mesh
+from ..mesh.cg_mesh import make_cg_mesh
 from ..mesh.dg_mesh import make_dg_mesh
 from ..mesh.topology import BoundaryCondition, create_uniform_mesh
 from ..ops.block_diag import bd_matvec
 from ..ops.block_tridiag import bt_matvec
 from ..utils.config import HierarchySpec
 from ..utils.precision import tree_to
-from .hierarchy import Hierarchy, build_dg_hierarchy, schur_stiffness
+from .hierarchy import Hierarchy, build_dg_hierarchy, build_hierarchy, schur_stiffness
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,21 +48,21 @@ def build_problem(
     mesh=None,
     device="cpu",
 ) -> Problem:
-    """DG-topped hierarchy from a :class:`~..utils.config.HierarchySpec`
-    (``mesh_heirarchy.jl:140-181``): DG levels of ``spec.dg_orders``, then
-    ``spec.n_agg_levels`` agglomerated levels (``first_agg_factor`` base
-    elements per agglomerate, then ``agg_factor`` per level)."""
-    if spec.cg_orders:
-        raise NotImplementedError(
-            "CG-topped hierarchies are not ported yet (ROADMAP queue 1, item 10)"
-        )
+    """Any of the reference's hierarchy configurations from a
+    :class:`~..utils.config.HierarchySpec`: CG levels of ``spec.cg_orders``,
+    DG levels of ``spec.dg_orders``, then ``spec.n_agg_levels`` agglomerated
+    levels (``first_agg_factor`` base elements per agglomerate, then
+    ``agg_factor`` per level).  ``spec.cg_orders`` empty selects the DG-topped
+    constructor (``mesh_heirarchy.jl:140-181``), otherwise the CG-topped one
+    (``:30-138``)."""
     func_, u_ex, ux_ex = default_model_problem()
     func = func or func_
     bc = bc or _default_bc(u_ex, ux_ex)
     if mesh is None:
         mesh = create_uniform_mesh(n, 0.0, 1.0)
 
-    meshes: list = [make_dg_mesh(mesh, p) for p in spec.dg_orders]
+    meshes: list = [make_cg_mesh(mesh, p) for p in spec.cg_orders]
+    meshes += [make_dg_mesh(mesh, p) for p in spec.dg_orders]
     for i in range(spec.n_agg_levels):
         if i == 0:
             n_base, r = mesh.n_elements, spec.first_agg_factor
@@ -76,12 +83,16 @@ def build_problem(
             else:
                 meshes.append(coarsen_agg_mesh(fine, spec.agg_factor))
 
-    dg = meshes[0]
-    g, d, c = dg_flux_operators(dg, bc, spec.c_dir)
-    a = schur_stiffness(g, d, c, dg.mass_inv)
-    f, r = dg_flux_rhs(dg, func, bc, spec.c_dir)
-    b = f - bt_matvec(d, bd_matvec(dg.mass_inv, r))
-    h = build_dg_hierarchy(meshes, a, g, d, c)
+    if spec.cg_orders:
+        a, b = cg_stiffness_and_rhs(meshes[0], func, bc)
+        h = build_hierarchy(meshes, bc, a, c_dir=spec.c_dir, cg_smoother_kind=spec.cg_smoother)
+    else:
+        dg = meshes[0]
+        g, d, c = dg_flux_operators(dg, bc, spec.c_dir)
+        a = schur_stiffness(g, d, c, dg.mass_inv)
+        f, r = dg_flux_rhs(dg, func, bc, spec.c_dir)
+        b = f - bt_matvec(d, bd_matvec(dg.mass_inv, r))
+        h = build_dg_hierarchy(meshes, a, g, d, c)
     return Problem(hierarchy=tree_to(h, device), b=b.to(device), meshes=meshes, bc=bc)
 
 
@@ -106,14 +117,52 @@ def _default_bc(u_exact, ux_exact, xin=0.0, xout=1.0) -> BoundaryCondition:
     return BoundaryCondition(("neu", ux_exact(xin)), ("dir", u_exact(xout)))
 
 
-def _dg_orders(max_p: int, n_dg: int) -> list[int]:
-    """p, p//2, p//4, ..."""
+def _orders(max_p: int, n: int) -> list[int]:
+    """p, p//2, p//4, ... (cf. cg_heirarchy_test.jl:29-34)."""
     orders = []
     p = max_p
-    for _ in range(n_dg):
+    for _ in range(n):
         orders.append(p)
         p //= 2
     return orders
+
+
+def poisson_cg_hierarchy(
+    n: int = 128,
+    max_p: int = 8,
+    n_cg: int = 4,
+    func: Callable | None = None,
+    bc: BoundaryCondition | None = None,
+    cg_smoother: str = "jac",
+    device="cpu",
+) -> Problem:
+    """CG levels p, p/2, ... only, dense coarse solve on the last
+    (cg_heirarchy_test.jl)."""
+    spec = HierarchySpec(
+        cg_orders=tuple(_orders(max_p, n_cg)), n_agg_levels=0, cg_smoother=cg_smoother
+    )
+    return build_problem(spec, n, func, bc, device=device)
+
+
+def poisson_dg_cg_hierarchy(
+    n: int = 128,
+    max_p: int = 8,
+    n_cg: int = 4,
+    n_dg: int = 1,
+    c_dir: float | None = None,
+    func: Callable | None = None,
+    bc: BoundaryCondition | None = None,
+    device="cpu",
+) -> Problem:
+    """CG chain then DG levels continuing the p-halving (reaching p = 0 for the
+    default 4 + 1 configuration, as in dg_cg_heirarchy_test.jl:31-45)."""
+    orders = _orders(max_p, n_cg + n_dg)
+    spec = HierarchySpec(
+        cg_orders=tuple(orders[:n_cg]),
+        dg_orders=tuple(orders[n_cg:]),
+        c_dir=1000.0 * n if c_dir is None else c_dir,
+    )
+    return build_problem(spec, n, func, bc, device=device)
 
 
 def poisson_dg_hierarchy(
@@ -133,7 +182,32 @@ def poisson_dg_hierarchy(
     after), which keeps the coarsest level small for large element counts."""
     spec = HierarchySpec(
         cg_orders=(),
-        dg_orders=tuple(_dg_orders(max_p, n_dg)),
+        dg_orders=tuple(_orders(max_p, n_dg)),
+        n_agg_levels=n_agg,
+        p_agg=p_agg,
+        c_dir=1000.0 * n if c_dir is None else c_dir,
+    )
+    return build_problem(spec, n, func, bc, device=device)
+
+
+def poisson_full_hierarchy(
+    n: int = 128,
+    max_p: int = 8,
+    n_cg: int = 4,
+    n_agg: int | None = None,
+    p_agg: int = 1,
+    c_dir: float | None = None,
+    func: Callable | None = None,
+    bc: BoundaryCondition | None = None,
+    device="cpu",
+) -> Problem:
+    """The flagship configuration (full_heirarchy_test.jl:30-92): 4 CG levels
+    p = 8, 4, 2, 1, then log2(n) - 1 agglomerated levels (first 4:1, rest 2:1),
+    CDir = 1000 n."""
+    if n_agg is None:
+        n_agg = int(np.log2(n)) - 1
+    spec = HierarchySpec(
+        cg_orders=tuple(_orders(max_p, n_cg)),
         n_agg_levels=n_agg,
         p_agg=p_agg,
         c_dir=1000.0 * n if c_dir is None else c_dir,

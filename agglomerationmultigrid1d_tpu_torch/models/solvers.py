@@ -1,14 +1,17 @@
 """Multigrid V-cycle and outer drivers (counterpart of ``src/solvers.jl``).
 
 The drivers are host loops over eager tensor operations, with the reference's
-observability contract ``(x, iterations, res_history, err_history)``.
+observability contract ``(x, iterations, res_history, err_history)``.  Level
+vectors are ``(n_nodes,)`` on CG levels and ``(bs, n)`` on block levels.
 
-Kernel dispatch is by the tensors (every level is block-tridiagonal with a
-block-Jacobi smoother): on a float32 level, smoothing, the restrict-side
-residual and the inner residual check go through the wrappers of :mod:`..ops.kernels.block_kernels`
-(the CUDA kernels for CUDA tensors, their plain M-form versions for CPU
-tensors); float64 levels run the plain damped sweeps
-``u += alpha S (rhs - A u)``.
+Kernel dispatch is by the level and the tensors: on a float32 block level
+whose smoother is block-Jacobi, smoothing, the restrict-side residual and the
+inner residual check go through the wrappers of
+:mod:`..ops.kernels.block_kernels` (the CUDA kernels for CUDA tensors, their
+plain M-form versions for CPU tensors): K1 / K2 for damped sweeps, K5 when the
+block-Jacobi smoother sits under a Chebyshev wrap.  Every other level (CG
+levels, float64 levels) smooths in plain torch: damped sweeps
+``u += alpha S (rhs - A u)`` or the Chebyshev three-term recurrence.
 """
 
 from __future__ import annotations
@@ -19,35 +22,66 @@ import numpy as np
 import torch
 
 from ..ops.block_tridiag import block_mul, bt_matvec
+from ..ops.cg_operator import cg_matvec
 from ..ops.coarse_solve import coarse_solve
-from ..ops.kernels.block_kernels import fused_bt_matvec, multisweep, multisweep_residual
-from ..ops.transfer_ops import BlockProlong, bp_prolong, bp_restrict
-from ..smoothers.smoother import apply_smoother
-from .hierarchy import BlockLevel, Hierarchy
+from ..ops.kernels.block_kernels import (
+    chebyshev_multisweep,
+    chebyshev_multisweep_residual,
+    fused_bt_matvec,
+    multisweep,
+    multisweep_residual,
+)
+from ..ops.transfer_ops import (
+    BlockProlong,
+    CgProlong,
+    SeamProlong,
+    bp_prolong,
+    bp_restrict,
+    cgp_prolong,
+    cgp_restrict,
+    seam_prolong,
+    seam_restrict,
+)
+from ..smoothers.smoother import BlockJacobiSmoother, ChebyshevSmoother, apply_smoother
+from .hierarchy import BlockLevel, CgLevel, Hierarchy
 
 
-def level_matvec(level: BlockLevel, x: torch.Tensor) -> torch.Tensor:
+def level_matvec(level, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(level, CgLevel):
+        return cg_matvec(level.a, x)
     return bt_matvec(level.a, x)
 
 
-def transfer_prolong(l: BlockProlong, xc: torch.Tensor) -> torch.Tensor:
+def transfer_prolong(l, xc: torch.Tensor) -> torch.Tensor:
+    if isinstance(l, CgProlong):
+        return cgp_prolong(l, xc)
     if isinstance(l, BlockProlong):
         return bp_prolong(l, xc)
+    if isinstance(l, SeamProlong):
+        return seam_prolong(l, xc)
     raise TypeError(type(l))
 
 
-def transfer_restrict(l: BlockProlong, rf: torch.Tensor) -> torch.Tensor:
+def transfer_restrict(l, rf: torch.Tensor) -> torch.Tensor:
+    if isinstance(l, CgProlong):
+        return cgp_restrict(l, rf)
     if isinstance(l, BlockProlong):
         return bp_restrict(l, rf)
+    if isinstance(l, SeamProlong):
+        return seam_restrict(l, rf)
     raise TypeError(type(l))
 
 
 def _flatten_level_vec(x: torch.Tensor) -> torch.Tensor:
-    """Level vector ``(bs, n)`` -> flat DoF vector (dof = k * bs + i)."""
+    """Level vector -> flat DoF vector (block levels: dof = k * bs + i)."""
+    if x.ndim == 1:
+        return x
     return x.T.reshape(-1)
 
 
 def _unflatten_level_vec(flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if like.ndim == 1:
+        return flat
     bs, n = like.shape
     return flat.reshape(n, bs).T
 
@@ -56,17 +90,80 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(x.reshape(-1))
 
 
+def _base_smoother(level):
+    s = level.smoother
+    return s.base if isinstance(s, ChebyshevSmoother) else s
+
+
+def _on_kernels(level, u: torch.Tensor) -> bool:
+    """Whether the level smooths through the fused block kernels: float32
+    data on a block level with a block-Jacobi (base) smoother."""
+    return (
+        u.dtype == torch.float32
+        and isinstance(level, BlockLevel)
+        and isinstance(_base_smoother(level), BlockJacobiSmoother)
+    )
+
+
 def _mform(level: BlockLevel):
     """``(ML, MU)`` — precomputed by ``prepare_fast_smoothers``, or formed here."""
-    s = level.smoother
+    s = _base_smoother(level)
     ml = s.ml if s.ml is not None else block_mul(s.inv, level.a.lower)
     mu = s.mu if s.mu is not None else block_mul(s.inv, level.a.upper)
     return ml, mu
 
 
+def _smooth_cheb(level, u, rhs, degree, emit_residual=False):
+    """Degree-``degree`` Chebyshev smoothing (see ChebyshevSmoother): the
+    classic three-term recurrence on the preconditioned residual, one matvec
+    and one base-smoother application per degree, the cost of a damped sweep.
+
+    On a kernel level all degrees (and optionally the restrict-side residual)
+    run in one K5 launch, with the level's float32 recurrence table; elsewhere
+    the recurrence runs in plain torch on the level's own-precision interval
+    (no host read)."""
+    s = level.smoother
+    if _on_kernels(level, u):
+        if s.coef is None or degree > len(s.coef):
+            raise ValueError(
+                "a float32 Chebyshev level needs its recurrence table for "
+                f"{degree} steps: build the hierarchy with make_low_precision_hierarchy "
+                "(or prepare_fast_smoothers)"
+            )
+        ml, mu = _mform(level)
+        coef = s.coef[:degree]
+        if emit_residual:
+            return chebyshev_multisweep_residual(
+                ml, mu, s.base.inv, level.a.diag, u.contiguous(), rhs.contiguous(), coef
+            )
+        return chebyshev_multisweep(ml, mu, s.base.inv, u.contiguous(), rhs.contiguous(), coef)
+
+    theta = 0.5 * (s.lam_hi + s.lam_lo)
+    delta = 0.5 * (s.lam_hi - s.lam_lo)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+
+    z = apply_smoother(s.base, rhs - _level_matvec_opt(level, u))
+    d = z / theta
+    u = u + d
+    for _ in range(1, degree):
+        z = apply_smoother(s.base, rhs - _level_matvec_opt(level, u))
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        d = (rho_new * rho) * d + (2.0 * rho_new / delta) * z
+        u = u + d
+        rho = rho_new
+    if emit_residual:
+        return u, rhs - _level_matvec_opt(level, u)
+    return u
+
+
 def _smooth_n(level, u, rhs, n_sweeps, alpha):
-    """``n_sweeps`` damped smoother applications ``u += alpha S (rhs - A u)``."""
-    if u.dtype == torch.float32:
+    """``n_sweeps`` damped smoother applications ``u += alpha S (rhs - A u)``;
+    a Chebyshev level runs the degree-``n_sweeps`` recurrence instead
+    (``alpha`` is ignored: the damping is in the polynomial)."""
+    if isinstance(level.smoother, ChebyshevSmoother):
+        return _smooth_cheb(level, u, rhs, n_sweeps)
+    if _on_kernels(level, u):
         ml, mu = _mform(level)
         return multisweep(
             ml, mu, level.smoother.inv, u.contiguous(), rhs.contiguous(),
@@ -79,7 +176,9 @@ def _smooth_n(level, u, rhs, n_sweeps, alpha):
 
 def _smooth_n_residual(level, u, rhs, n_sweeps, alpha):
     """``_smooth_n`` plus the residual ``rhs - A u`` of the smoothed ``u``."""
-    if u.dtype == torch.float32:
+    if isinstance(level.smoother, ChebyshevSmoother):
+        return _smooth_cheb(level, u, rhs, n_sweeps, emit_residual=True)
+    if _on_kernels(level, u):
         ml, mu = _mform(level)
         return multisweep_residual(
             ml, mu, level.smoother.inv, level.a.diag, u.contiguous(), rhs.contiguous(),
@@ -90,7 +189,7 @@ def _smooth_n_residual(level, u, rhs, n_sweeps, alpha):
 
 
 def _level_matvec_opt(level, x):
-    if x.dtype == torch.float32:
+    if isinstance(level, BlockLevel) and x.dtype == torch.float32:
         return fused_bt_matvec(level.a, x.contiguous())
     return level_matvec(level, x)
 
@@ -231,7 +330,9 @@ def _mixed_inner_solve(h_low, r, inner_tol, max_cycles, *, n_pre, n_post, alpha)
 def _mixed_loop(h, h_low, x, b, norm_b, *, maxiter, tol, inner_tol, max_inner, kw):
     """Guarded iterative refinement, with x and the defect ``b - A x`` in
     float64 (counterpart of the JAX package's ``_mixed_loop_ff``, whose
-    float-float pairs stand in for the float64 a TPU lacks).
+    float-float pairs stand in for the float64 a TPU lacks): the fine level's
+    own matvec in native float64, ``cg_matvec`` on a CG level where JAX uses
+    ``ff_cg_defect``.
 
     Each proposed correction is judged by the float64 defect: a step that
     does not improve on the best iterate is rejected, and the next proposal
@@ -245,6 +346,7 @@ def _mixed_loop(h, h_low, x, b, norm_b, *, maxiter, tol, inner_tol, max_inner, k
     after each outer step.
     """
     fine = h.levels[0]
+    low_dtype = h_low.levels[0].a[0].dtype  # the first tensor of the fine operator
     rel_h = np.full((maxiter,), np.nan)
 
     def rel_defect(x):
@@ -274,9 +376,7 @@ def _mixed_loop(h, h_low, x, b, norm_b, *, maxiter, tol, inner_tol, max_inner, k
         # next proposal, from the best iterate
         probe = 1 if (i % 4 == 0 and improved) else 0
         cap = min((limit if improved else 1) + probe, max_inner)
-        e, n_cyc, i_best = _mixed_inner_solve(
-            h_low, r_best.to(h_low.levels[0].a.diag.dtype), inner_tol, cap, **kw
-        )
+        e, n_cyc, i_best = _mixed_inner_solve(h_low, r_best.to(low_dtype), inner_tol, cap, **kw)
         scale = 0.5**streak if streak > 0 else 1.0
         x_cur = x_best + scale * e.to(x_best.dtype)
         cycles += n_cyc

@@ -95,6 +95,12 @@ def bt_mul_bt(a: BlockTridiag, b: BlockTridiag) -> BlockTridiag:
     return BlockTridiag(lower, diag, upper)
 
 
+def bt_diagonal(a: BlockTridiag) -> torch.Tensor:
+    """Scalar main diagonal as ``(bs, n)``."""
+    i = torch.arange(a.block_size, device=a.diag.device)
+    return a.diag[i, i, :]
+
+
 def bt_diag_blocks(a: BlockTridiag) -> BlockDiag:
     return BlockDiag(a.diag)
 

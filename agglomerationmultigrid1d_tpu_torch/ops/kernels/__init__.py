@@ -3,7 +3,13 @@ Importing this package builds nothing: the kernels compile at first launch."""
 
 from .block_kernels import (
     LAUNCHES,
+    MAX_SWEEPS,
     bt_matvec_plain,
+    chebyshev_coefficients,
+    chebyshev_multisweep,
+    chebyshev_multisweep_plain,
+    chebyshev_multisweep_residual,
+    chebyshev_multisweep_residual_plain,
     fused_bt_matvec,
     multisweep,
     multisweep_plain,
@@ -14,7 +20,13 @@ from .block_kernels import (
 
 __all__ = [
     "LAUNCHES",
+    "MAX_SWEEPS",
     "bt_matvec_plain",
+    "chebyshev_coefficients",
+    "chebyshev_multisweep",
+    "chebyshev_multisweep_plain",
+    "chebyshev_multisweep_residual",
+    "chebyshev_multisweep_residual_plain",
     "fused_bt_matvec",
     "multisweep",
     "multisweep_plain",

@@ -1,8 +1,12 @@
-"""The V-cycle's three hot kernels: CUDA wrappers and their plain versions.
+"""The V-cycle's hot kernels: CUDA wrappers and their plain versions.
 
 * K3 :func:`fused_bt_matvec` — ``y = A_D x + A_L x_{-1} + A_U x_{+1}``;
 * K2 :func:`multisweep` — ``n_sweeps`` damped block-Jacobi sweeps in M-form;
-* K1 :func:`multisweep_residual` — K2 plus the residual ``b - A x``.
+* K1 :func:`multisweep_residual` — K2 plus the residual ``b - A x``;
+* K5 :func:`chebyshev_multisweep` / :func:`chebyshev_multisweep_residual` —
+  ``k`` steps of the Chebyshev recurrence over block-Jacobi in M-form
+  (``z = (c - x) - (ML x_{-1} + MU x_{+1})``, ``d = c_d d + c_z z``,
+  ``x += d``, with ``d = 0`` at the start), without or with the residual.
 
 M-form: with ``S^-1`` the exact inverse of ``A_D``, the damped sweep
 ``x + alpha S^-1 (b - A x)`` equals ``x + alpha ((c - x) - (ML x_{-1} + MU x_{+1}))``
@@ -19,6 +23,9 @@ version: a build or launch failure raises.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain runs do not count), so
 a run can show that it went through the kernels.
+
+K5's coefficient table (:func:`chebyshev_coefficients`) is passed to the
+kernel by value, as host floats: a launch reads no scalar from the device.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..block_tridiag import BlockTridiag
@@ -42,7 +50,13 @@ _PKG_DIR = Path(__file__).resolve().parents[2]
 SOURCE = _PKG_DIR / "csrc" / "block_kernels.cu"
 BUILD_DIR = _PKG_DIR.parent / "build" / "aggmg_torch_kernels"
 
-LAUNCHES = {"bt_matvec": 0, "multisweep": 0, "multisweep_residual": 0}
+LAUNCHES = {
+    "bt_matvec": 0,
+    "multisweep": 0,
+    "multisweep_residual": 0,
+    "chebyshev_multisweep": 0,
+    "chebyshev_multisweep_residual": 0,
+}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -82,6 +96,43 @@ def multisweep_residual_plain(
     ml, mu, s_inv, a_diag, x, b, n_sweeps: int = 3, alpha: float = 2.0 / 3.0
 ):
     x = multisweep_plain(ml, mu, s_inv, x, b, n_sweeps, alpha)
+    t = (x + _mat(ml, shift(x, -1))) + _mat(mu, shift(x, +1))
+    return x, b - _mat(a_diag, t)
+
+
+def chebyshev_coefficients(lam_lo, lam_hi, degree: int) -> np.ndarray:
+    """``(degree, 2)`` recurrence coefficients ``[c_d, c_z]`` of the classic
+    Chebyshev smoother on ``[lam_lo, lam_hi]`` (step s: ``d = c_d d + c_z z;
+    x += d``).  Computed in float32 arithmetic from the float32 interval, in
+    the JAX package's order of operations, so both packages hold the same
+    table.  Row s does not depend on ``degree``."""
+    f = np.float32
+    lam_lo, lam_hi = f(lam_lo), f(lam_hi)
+    theta = f(0.5) * (lam_hi + lam_lo)
+    delta = f(0.5) * (lam_hi - lam_lo)
+    sigma = theta / delta
+    rows = [(f(0.0), f(1.0) / theta)]
+    rho = f(1.0) / sigma
+    for _ in range(1, degree):
+        rho_new = f(1.0) / (f(2.0) * sigma - rho)
+        rows.append((rho_new * rho, f(2.0) * rho_new / delta))
+        rho = rho_new
+    return np.asarray(rows, dtype=np.float32).reshape(degree, 2)
+
+
+def chebyshev_multisweep_plain(ml, mu, s_inv, x, b, coef):
+    """``len(coef)`` Chebyshev steps in M-form; ``coef`` rows are ``(c_d, c_z)``."""
+    c = _mat(s_inv, b)
+    d = torch.zeros_like(x)
+    for c_d, c_z in coef:
+        t = _mat(ml, shift(x, -1)) + _mat(mu, shift(x, +1))
+        d = float(c_d) * d + float(c_z) * ((c - x) - t)
+        x = x + d
+    return x
+
+
+def chebyshev_multisweep_residual_plain(ml, mu, s_inv, a_diag, x, b, coef):
+    x = chebyshev_multisweep_plain(ml, mu, s_inv, x, b, coef)
     t = (x + _mat(ml, shift(x, -1))) + _mat(mu, shift(x, +1))
     return x, b - _mat(a_diag, t)
 
@@ -136,6 +187,8 @@ def _lib():
             lib.aggmg_bt_matvec.restype = i
             lib.aggmg_multisweep.argtypes = [i, p, p, p, p, p, p, p, p, ll, i, f, p]
             lib.aggmg_multisweep.restype = i
+            lib.aggmg_chebyshev.argtypes = [i, p, p, p, p, p, p, p, p, ll, i, p, p]
+            lib.aggmg_chebyshev.restype = i
             _LIB = lib
     return _LIB
 
@@ -171,7 +224,8 @@ def _check(ops, vecs) -> tuple[int, int, torch.device]:
 
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: {'unsupported block size' if rc == -1 else f'CUDA error {rc}'}")
+        why = {-1: "unsupported block size", -2: "too many steps"}.get(rc, f"CUDA error {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: {why}")
 
 
 def _stream(dev: torch.device) -> int:
@@ -241,4 +295,55 @@ def multisweep_residual(
         )
     _raise_on(rc, "multisweep_residual")
     LAUNCHES["multisweep_residual"] += 1
+    return x_out, r_out
+
+
+def _coef_rows(coef) -> list:
+    rows = [(float(c_d), float(c_z)) for c_d, c_z in coef]
+    _check_sweeps(len(rows))
+    return rows
+
+
+def _launch_chebyshev(ml, mu, s_inv, a_diag, x, b, rows, dev, n, bs):
+    """K5 on the card; ``a_diag`` None for the variant without the residual."""
+    x_out = torch.empty_like(x)
+    r_out = torch.empty_like(x) if a_diag is not None else None
+    table = (ctypes.c_float * (2 * MAX_SWEEPS))(*[v for row in rows for v in row])
+    with torch.cuda.device(dev):
+        rc = _lib().aggmg_chebyshev(
+            bs, ml.data_ptr(), mu.data_ptr(), s_inv.data_ptr(),
+            None if a_diag is None else a_diag.data_ptr(), x.data_ptr(), b.data_ptr(),
+            x_out.data_ptr(), None if r_out is None else r_out.data_ptr(), n, len(rows),
+            ctypes.cast(table, ctypes.c_void_p), _stream(dev),
+        )
+    return rc, x_out, r_out
+
+
+def chebyshev_multisweep(ml, mu, s_inv, x, b, coef):
+    """K5: ``len(coef)`` Chebyshev steps over block-Jacobi in one pass
+    (M-form); ``coef`` rows are ``(c_d, c_z)`` from :func:`chebyshev_coefficients`."""
+    rows = _coef_rows(coef)
+    bs, n, dev = _check((ml, mu, s_inv), (x, b))
+    if dev.type == "cpu":
+        return chebyshev_multisweep_plain(ml, mu, s_inv, x, b, rows)
+    if n == 0:
+        return torch.empty_like(x)
+    rc, x_out, _ = _launch_chebyshev(ml, mu, s_inv, None, x, b, rows, dev, n, bs)
+    _raise_on(rc, "chebyshev_multisweep")
+    LAUNCHES["chebyshev_multisweep"] += 1
+    return x_out
+
+
+def chebyshev_multisweep_residual(ml, mu, s_inv, a_diag, x, b, coef):
+    """K5 plus the residual ``r = b - A x`` of the smoothed ``x``, from the
+    same pass; returns ``(x, r)``."""
+    rows = _coef_rows(coef)
+    bs, n, dev = _check((ml, mu, s_inv, a_diag), (x, b))
+    if dev.type == "cpu":
+        return chebyshev_multisweep_residual_plain(ml, mu, s_inv, a_diag, x, b, rows)
+    if n == 0:
+        return torch.empty_like(x), torch.empty_like(x)
+    rc, x_out, r_out = _launch_chebyshev(ml, mu, s_inv, a_diag, x, b, rows, dev, n, bs)
+    _raise_on(rc, "chebyshev_multisweep_residual")
+    LAUNCHES["chebyshev_multisweep_residual"] += 1
     return x_out, r_out

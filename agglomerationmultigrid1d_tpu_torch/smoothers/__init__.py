@@ -1,3 +1,19 @@
-from .smoother import BlockJacobiSmoother, apply_smoother, dg_smoother
+from .smoother import (
+    BlockJacobiSmoother,
+    ChebyshevSmoother,
+    JacobiSmoother,
+    SchwarzSmoother,
+    apply_smoother,
+    cg_smoother,
+    dg_smoother,
+)
 
-__all__ = ["BlockJacobiSmoother", "apply_smoother", "dg_smoother"]
+__all__ = [
+    "BlockJacobiSmoother",
+    "ChebyshevSmoother",
+    "JacobiSmoother",
+    "SchwarzSmoother",
+    "apply_smoother",
+    "cg_smoother",
+    "dg_smoother",
+]

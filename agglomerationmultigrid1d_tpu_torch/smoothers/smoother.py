@@ -1,17 +1,36 @@
-"""Block-Jacobi smoothing, applied as  x += alpha * S * r.
+"""Smoothers, applied as  x += alpha * S * r.
 
-The per-block LU backsolves of the reference become one batched product with
-block inverses precomputed at setup.
+* :class:`JacobiSmoother` — pointwise diagonal scaling; works on CG node
+  vectors ``(n_nodes,)`` and block vectors ``(bs, n)`` alike.
+* :class:`BlockJacobiSmoother` — per-element block solve on DG / agglomerated
+  levels; the per-block LU backsolves of the reference become one batched
+  product with block inverses precomputed at setup.
+* :class:`SchwarzSmoother` — overlapping element-block solves on CG levels:
+  additive (overlaps summed) or hybrid (divided by node multiplicity),
+  depending on ``mult_inv``.
+* :class:`ChebyshevSmoother` — Chebyshev acceleration over any of the above
+  (an extension of the JAX package beyond the reference's damped sweeps).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import torch
 
 from ..ops.block_diag import BlockDiag, bd_matvec
-from ..ops.block_tridiag import BlockTridiag, block_mul, bt_diag_blocks
+from ..ops.block_tridiag import BlockTridiag, block_mul, bt_diag_blocks, bt_diagonal
+from ..ops.cg_operator import (
+    CgOperator,
+    cg_element_nodes,
+    cg_assembled_windows,
+    cg_diagonal,
+    cg_node_multiplicity,
+)
+
+
+class JacobiSmoother(NamedTuple):
+    inv_diag: torch.Tensor  # same shape as the level's vectors
 
 
 class BlockJacobiSmoother(NamedTuple):
@@ -24,9 +43,54 @@ class BlockJacobiSmoother(NamedTuple):
     mu: torch.Tensor | None = None
 
 
-def apply_smoother(s: BlockJacobiSmoother, r: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+class SchwarzSmoother(NamedTuple):
+    inv_windows: torch.Tensor  # (w, w, n_el) inverses of assembled element windows
+    mult_inv: torch.Tensor | None  # (n_nodes,): set => hybrid, None => additive
+
+    @property
+    def p(self) -> int:
+        return self.inv_windows.shape[0] - 1
+
+    @property
+    def n_el(self) -> int:
+        return self.inv_windows.shape[2]
+
+
+class ChebyshevSmoother(NamedTuple):
+    """Chebyshev-accelerated smoothing over a base smoother.
+
+    ``k`` applications target the interval ``[lam_lo, lam_hi]`` of the
+    preconditioned spectrum ``S A``: a degree-k Chebyshev polynomial damps the
+    upper part of the spectrum far faster than k fixed-damping sweeps.
+    ``coef`` is the recurrence table of
+    :func:`..ops.kernels.block_kernels.chebyshev_coefficients` for
+    ``MAX_SWEEPS`` steps, as host floats, on float32 levels only (filled by
+    ``models.hierarchy.prepare_fast_smoothers``): the fused kernel takes it
+    by value, so smoothing reads no scalar back from the device."""
+
+    base: "Smoother"
+    lam_lo: torch.Tensor  # 0-d, lower edge of the damped interval
+    lam_hi: torch.Tensor  # 0-d, estimate of lambda_max(S A), slightly inflated
+    coef: tuple | None = None  # ((c_d, c_z), ...) float32 values, MAX_SWEEPS rows
+
+
+Smoother = Union[JacobiSmoother, BlockJacobiSmoother, SchwarzSmoother, ChebyshevSmoother]
+
+
+def apply_smoother(s: Smoother, r: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
     """``alpha * S r``."""
-    return alpha * bd_matvec(BlockDiag(s.inv), r)
+    if isinstance(s, JacobiSmoother):
+        return alpha * (s.inv_diag * r)
+    if isinstance(s, BlockJacobiSmoother):
+        return alpha * bd_matvec(BlockDiag(s.inv), r)
+    if isinstance(s, SchwarzSmoother):
+        idx = cg_element_nodes(s.p, s.n_el, r.device)
+        y_win = torch.einsum("abn,bn->an", s.inv_windows, r[idx])
+        y = torch.zeros_like(r).index_add_(0, idx.reshape(-1), y_win.reshape(-1))
+        if s.mult_inv is not None:
+            y = y * s.mult_inv
+        return alpha * y
+    raise TypeError(f"unknown smoother {type(s)}")
 
 
 def _invert_windows(windows: torch.Tensor) -> torch.Tensor:
@@ -42,13 +106,29 @@ def _invert_windows(windows: torch.Tensor) -> torch.Tensor:
     return torch.movedim(torch.linalg.inv(torch.movedim(windows, -1, 0)), 0, -1).contiguous()
 
 
-def dg_smoother(a: BlockTridiag, kind: str = "blockJac") -> BlockJacobiSmoother:
-    """Block-Jacobi smoother of a DG / agglomerated level: its inverted
-    diagonal blocks, plus the M-form streams on a float32 level."""
+def cg_smoother(a: CgOperator, kind: str = "jac") -> Smoother:
+    """Smoother of a CG level: ``"jac"``, ``"addSchwarz"`` or ``"hybridSchwarz"``."""
+    if kind == "jac":
+        return JacobiSmoother(inv_diag=1.0 / cg_diagonal(a))
+    if kind in ("addSchwarz", "hybridSchwarz"):
+        inv_win = _invert_windows(cg_assembled_windows(a))
+        mult_inv = None
+        if kind == "hybridSchwarz":
+            mult_inv = 1.0 / cg_node_multiplicity(
+                a.p, a.n_el, dtype=a.band.dtype, device=a.band.device
+            )
+        return SchwarzSmoother(inv_windows=inv_win, mult_inv=mult_inv)
+    raise ValueError(f"unknown CG smoother kind {kind!r}")
+
+
+def dg_smoother(a: BlockTridiag, kind: str = "blockJac") -> Smoother:
+    """Smoother of a DG / agglomerated level: ``"jac"`` (pointwise) or
+    ``"blockJac"`` (inverted diagonal blocks, plus the M-form streams on a
+    float32 level)."""
+    if kind == "jac":
+        return JacobiSmoother(inv_diag=1.0 / bt_diagonal(a))
     if kind != "blockJac":
-        raise NotImplementedError(
-            f"smoother kind {kind!r} is not ported yet; the torch port has blockJac only"
-        )
+        raise ValueError(f"unknown DG smoother kind {kind!r}")
     inv = _invert_windows(bt_diag_blocks(a).blocks)
     ml = mu = None
     if a.diag.dtype == torch.float32:

@@ -1,24 +1,66 @@
-"""Inter-level prolongation builders for the DG-topped chain.
+"""Inter-level prolongation constructors.
 
 ``<coarse>_<fine>_interpolation`` builds the prolongation L mapping the coarse
 space into the fine space; restriction is L^T, applied by the solver.  Only
 uniform groupings are ported (every level of a power-of-two chain); a ragged
-partition raises.
+partition raises.  Built on the host in float64.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..mesh.agg_mesh import AggMesh
+from ..mesh.cg_mesh import CgMesh
 from ..mesh.dg_mesh import DgMesh
-from ..numerics import evaluate_nodal_basis
-from ..ops.transfer_ops import BlockProlong, block_prolong_constant
+from ..numerics import evaluate_nodal_basis, gauss_quad, modal_basis_vals_batched
+from ..ops.transfer_ops import BlockProlong, CgProlong, SeamProlong, block_prolong_constant
 
 _RAGGED = (
     "ragged agglomerates need RaggedBlockProlong, which the torch port does not "
     "have yet (ROADMAP queue 1, item 14)"
 )
+
+
+def cg_cg_interpolation(low: CgMesh, high: CgMesh) -> CgProlong:
+    """Coarse (low-order) nodal basis evaluated at fine nodes, grid order."""
+    x_fine_pos = high.ref.nodes_x[high.ref.pos_to_slot]
+    e_slotcols = evaluate_nodal_basis(low.ref.basis_coeff, x_fine_pos)  # (w_f, w_c slots)
+    return CgProlong(e=torch.from_numpy(np.ascontiguousarray(e_slotcols[:, low.ref.pos_to_slot])))
+
+
+def dg_cg_interpolation(low: DgMesh, high: CgMesh) -> SeamProlong:
+    """Lumped-mass-scaled L2 projection of the DG space into the CG space (the
+    hierarchy's seam, ``interp_flag = 1`` of the reference)."""
+    qx, qw = gauss_quad(low.p + high.p)
+    cg_b = evaluate_nodal_basis(high.ref.basis_coeff, qx)[:, high.ref.pos_to_slot]
+    dg_b = evaluate_nodal_basis(low.ref.basis_coeff, qx)  # (n_q, bs) slot order
+    n_ref = torch.from_numpy(np.einsum("l,la,lm->am", qw, cg_b, dg_b))  # (w_cg, bs)
+    n_win = n_ref[:, :, None, None] * torch.from_numpy(high.mesh.jacobians)
+    return SeamProlong(n_win=n_win, inv_lump=1.0 / high.lumped_mass)
+
+
+def aggdg_cg_interpolation(agg: AggMesh, base: CgMesh) -> SeamProlong:
+    """Lumped-mass-scaled L2 projection of the agglomerate modal basis into the
+    base CG space, integrated base element by base element (``interp_flag =
+    1`` of the reference)."""
+    r = agg.uniform_r
+    if r is None:
+        raise NotImplementedError(_RAGGED)
+    m = agg.n_agg
+    ref = base.ref
+    centers = base.mesh.centers.reshape(m, r)
+    jacs = base.mesh.jacobians.reshape(m, r)
+    xq = centers[:, :, None] + jacs[:, :, None] * ref.quad_nodes[None, None, :]
+    cg_b = ref.basis_at_quad[:, ref.pos_to_slot]  # (n_q, w_cg) position order
+    agg_b = modal_basis_vals_batched(agg.p, agg.boxes, xq)  # (m, r, n_q, bs)
+    n_win = np.einsum("cs,l,la,cslm->csam", jacs, ref.quad_weights, cg_b, agg_b)
+    # (m, r, w_cg, bs) -> (w_cg, bs, r, m)
+    return SeamProlong(
+        n_win=torch.from_numpy(np.ascontiguousarray(n_win.transpose(2, 3, 1, 0))),
+        inv_lump=1.0 / base.lumped_mass,
+    )
 
 
 def dg_dg_interpolation(low: DgMesh, high: DgMesh) -> BlockProlong:

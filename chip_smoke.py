@@ -7,16 +7,23 @@ one CUDA card.
 Phases, one line of numbers each:
 
 1. the card: its name, and its name and power limit from ``nvidia-smi``;
-2. the CUDA kernels K1-K3, built from ``csrc/block_kernels.cu`` into
-   ``build/aggmg_torch_kernels/``, against their plain PyTorch versions on
-   the same tensors on the card (to 1e-5 of ``max|out|``), and both timed with
-   CUDA events (median of 20 launches after a warm-up);
-3. the main path: the 2,097,152-DoF DG-topped problem (DG p=3 on 524,288
+2. the CUDA kernels K1-K3 and K5 (with and without the residual), built from
+   ``csrc/block_kernels.cu`` into ``build/aggmg_torch_kernels/``, against
+   their plain PyTorch versions on the same tensors on the card (to 1e-5 of
+   ``max|out|``), and both timed with CUDA events (median of 20 launches after
+   a warm-up);
+3. the DG-topped path: the 2,097,152-DoF problem (DG p=3 on 524,288
    elements, DG p=1, 12 agglomerated levels, dense coarse solve) solved to
-   1e-10 by ``multigrid_mixed`` with float32 V-cycles through the kernels;
-   the launch counts of that solve show it went through every kernel;
+   1e-10 by ``multigrid_mixed`` with float32 V-cycles through K1-K3; the
+   launch counts of that solve show it went through every kernel;
 4. the float64 reference entry point ``multigrid`` at 16,384 DoF, and the
-   mixed solve of the same problem held against it.
+   mixed solve of the same problem held against it;
+5. the Chebyshev path: the same 2,097,152-DoF problem under
+   ``chebyshev_hierarchy`` (a power iteration per level), solved to 1e-10 by
+   ``multigrid_mixed`` through K5 on every block level;
+6. the CG-topped flagship ``poisson_full_hierarchy(n=16384)`` (131,073 DoF;
+   CG p = 8, 4, 2, 1, then 13 agglomerated levels): float64 ``multigrid`` and
+   ``multigrid_mixed``, each with damped and with Chebyshev smoothing.
 
 Then a JSON line with the kernels' numbers, and last a JSON line with the
 device.  Any failure raises, and the exit code is non-zero; without a CUDA
@@ -42,7 +49,17 @@ SHAPES = [(4, 4194304), (4, 524288), (2, 524288), (2, 131072), (2, 128), (4, 100
 TOL = 1e-5  # of max|out|: float32 kernels with FMA against unfused plain torch
 SLICE = dict(n=524288, max_p=3, n_dg=2, n_agg=12)
 SMALL = dict(n=4096, max_p=3, n_dg=2, n_agg=5)
+FLAGSHIP_N = 16384
 SEED = 0
+DAMPED = ("bt_matvec", "multisweep", "multisweep_residual")  # K3, K2, K1: the damped solves' kernels
+CHEB_INTERVAL = (0.3, 1.2)  # K5's coefficients in the kernel phase, k = 3
+# iterations of the JAX package on the CPU at the same sizes (its
+# multigrid_mixed with use_pallas=False), for comparison
+JAX_CPU = {
+    "slice_cheb": "15 outer / 19 inner (BENCH_r05.json: 19 V-cycles)",
+    "flagship_f64": "12", "flagship_f64_cheb": "7",
+    "flagship_mixed": "14 outer / 20 inner", "flagship_mixed_cheb": "13 outer / 18 inner",
+}
 
 
 def check(ok: bool, what: str) -> None:
@@ -88,9 +105,12 @@ def phase_kernels(bk) -> dict:
             "K1": 4 * bs * bs + 2 * bs + 2 * bs,
             "K2": 3 * bs * bs + 2 * bs + bs,
             "K3": 3 * bs * bs + bs + bs,
+            "K5": 3 * bs * bs + 2 * bs + bs,
+            "K5r": 4 * bs * bs + 2 * bs + 2 * bs,
         }[name]
 
-    results = {k: {"max_abs_err": 0.0} for k in ("K1", "K2", "K3")}
+    coef = bk.chebyshev_coefficients(*CHEB_INTERVAL, 3)
+    results = {k: {"max_abs_err": 0.0} for k in ("K1", "K2", "K3", "K5", "K5r")}
     for bs, n in SHAPES:
         a, sinv, ml, mu, x, b = kernel_inputs(bs, n, SEED + bs * n)
         runs = {
@@ -99,6 +119,10 @@ def phase_kernels(bk) -> dict:
             "K2": (lambda: bk.multisweep(ml, mu, sinv, x, b),
                    lambda: bk.multisweep_plain(ml, mu, sinv, x, b)),
             "K3": (lambda: bk.fused_bt_matvec(a, x), lambda: bk.bt_matvec_plain(a, x)),
+            "K5": (lambda: bk.chebyshev_multisweep(ml, mu, sinv, x, b, coef),
+                   lambda: bk.chebyshev_multisweep_plain(ml, mu, sinv, x, b, coef)),
+            "K5r": (lambda: bk.chebyshev_multisweep_residual(ml, mu, sinv, a.diag, x, b, coef),
+                    lambda: bk.chebyshev_multisweep_residual_plain(ml, mu, sinv, a.diag, x, b, coef)),
         }
         line = [f"kernels bs={bs} n={n}:"]
         for name, (kern, plain) in runs.items():
@@ -118,6 +142,7 @@ def phase_kernels(bk) -> dict:
             )
             r = results[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
+            r[(bs, n)] = (ms, plain_ms)
             if (bs, n) == SHAPES[0]:
                 r.update(ms=ms, plain_ms=plain_ms, gbps=gbps)
         print(" ".join(line), flush=True)
@@ -128,10 +153,10 @@ def phase_kernels(bk) -> dict:
 
 def rel_residual(prob, x) -> float:
     """||b - A x|| / ||b|| in float64 on the card, on the float64 fine operator."""
-    from agglomerationmultigrid1d_tpu_torch.ops.block_tridiag import bt_matvec
+    from agglomerationmultigrid1d_tpu_torch.models.solvers import level_matvec
 
     b = prob.b
-    r = b - bt_matvec(prob.hierarchy.levels[0].a, x.to(torch.float64))
+    r = b - level_matvec(prob.hierarchy.levels[0], x.to(torch.float64))
     return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
 
 
@@ -175,7 +200,7 @@ def phase_slice(bk) -> dict:
     )
     check(tuple(res.x.shape) == (4, SLICE["n"]) and bool(torch.isfinite(res.x).all()), "slice x")
     check(rel < 1e-10, f"slice relative residual {rel:.3e} >= 1e-10")
-    check(all(v > 0 for v in launches.values()), f"a kernel was not launched by the solve: {launches}")
+    check(all(launches[k] > 0 for k in DAMPED), f"a kernel was not launched by the solve: {launches}")
     return launches
 
 
@@ -206,7 +231,106 @@ def phase_reference(bk) -> None:
     check(rel_ref < 1e-10, f"f64 multigrid relative residual {rel_ref:.3e}")
     check(rel_mixed < 1e-10, f"small mixed relative residual {rel_mixed:.3e}")
     check(diff < 1e-4, f"mixed and f64 solutions differ by {diff:.3e}")
-    check(all(bk.LAUNCHES[k] > before[k] for k in before), "small mixed solve skipped a kernel")
+    check(all(bk.LAUNCHES[k] > before[k] for k in DAMPED), "small mixed solve skipped a kernel")
+
+
+def phase_chebyshev(bk) -> dict:
+    """The DG-topped Chebyshev mixed solve at full width; returns its K5 launches."""
+    from agglomerationmultigrid1d_tpu_torch.models import (
+        chebyshev_hierarchy,
+        make_low_precision_hierarchy,
+        multigrid_mixed,
+        poisson_dg_hierarchy,
+    )
+
+    t0 = time.perf_counter()
+    prob = poisson_dg_hierarchy(**SLICE, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    h = chebyshev_hierarchy(prob.hierarchy)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    h32 = make_low_precision_hierarchy(h)
+    torch.cuda.synchronize()
+    setup_s, lam_s = time.perf_counter() - t0, t2 - t1
+    b = prob.b
+
+    t0 = time.perf_counter()
+    multigrid_mixed(h, h32, torch.zeros_like(b), b, 80, 1e-10)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    bk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = multigrid_mixed(h, h32, torch.zeros_like(b), b, 80, 1e-10)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = dict(bk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    rel = rel_residual(prob, res.x)
+    print(
+        f"chebyshev {b.numel()} DoF, {h.n_levels} levels: setup_s={setup_s:.3f} "
+        f"(lambda estimation {lam_s:.3f}) first_solve_s={first_s:.3f} solve_s={solve_s:.3f} "
+        f"outer={res.iterations} inner_cycles={res.inner_cycles} rel_residual={rel:.3e} "
+        f"launches={launches} peak_mem_bytes={peak} (JAX on the CPU at this size: "
+        f"{JAX_CPU['slice_cheb']})",
+        flush=True,
+    )
+    check(tuple(res.x.shape) == (4, SLICE["n"]) and bool(torch.isfinite(res.x).all()), "chebyshev x")
+    check(rel < 1e-10, f"chebyshev relative residual {rel:.3e} >= 1e-10")
+    k5 = {k: launches[k] for k in ("chebyshev_multisweep", "chebyshev_multisweep_residual")}
+    check(all(v > 0 for v in k5.values()), f"K5 was not launched by the Chebyshev solve: {launches}")
+    return k5
+
+
+def phase_flagship(bk) -> None:
+    from agglomerationmultigrid1d_tpu_torch.models import (
+        chebyshev_hierarchy,
+        make_low_precision_hierarchy,
+        multigrid,
+        multigrid_mixed,
+        poisson_full_hierarchy,
+    )
+
+    t0 = time.perf_counter()
+    prob = poisson_full_hierarchy(n=FLAGSHIP_N, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    h = prob.hierarchy
+    check(h.n_levels == 17 and tuple(prob.b.shape) == (8 * FLAGSHIP_N + 1,), "flagship shape")
+    b = prob.b
+    line = [f"flagship {b.numel()} DoF, {h.n_levels} levels: setup_s={setup_s:.3f};"]
+    for cheb in (False, True):
+        hh = chebyshev_hierarchy(h) if cheb else h
+        tag = "_cheb" if cheb else ""
+        t0 = time.perf_counter()
+        ref = multigrid(hh, torch.zeros_like(b), b, 100, 1e-10, compute_error=False)
+        torch.cuda.synchronize()
+        f64_s = time.perf_counter() - t0
+        rel_ref = rel_residual(prob, ref.x)
+        h32 = make_low_precision_hierarchy(hh)
+        bk.reset_launch_counts()
+        t0 = time.perf_counter()
+        mixed = multigrid_mixed(hh, h32, torch.zeros_like(b), b, 80, 1e-10)
+        torch.cuda.synchronize()
+        mixed_s = time.perf_counter() - t0
+        launches = dict(bk.LAUNCHES)
+        rel_mixed = rel_residual(prob, mixed.x)
+        line.append(
+            f"{'chebyshev' if cheb else 'damped'}: f64 iterations={ref.iterations} "
+            f"(JAX on the CPU: {JAX_CPU['flagship_f64' + tag]}) rel_residual={rel_ref:.3e} "
+            f"first_solve_s={f64_s:.3f}; mixed outer={mixed.iterations} inner_cycles={mixed.inner_cycles} "
+            f"(JAX on the CPU: {JAX_CPU['flagship_mixed' + tag]}) rel_residual={rel_mixed:.3e} "
+            f"first_solve_s={mixed_s:.3f} launches={launches};"
+        )
+        check(rel_ref < 1e-10, f"flagship f64{tag} relative residual {rel_ref:.3e}")
+        check(rel_mixed < 1e-10, f"flagship mixed{tag} relative residual {rel_mixed:.3e}")
+        used = ("chebyshev_multisweep", "chebyshev_multisweep_residual") if cheb else (
+            "multisweep", "multisweep_residual")
+        check(all(launches[k] > 0 for k in used), f"flagship mixed{tag} skipped a kernel: {launches}")
+    print(" ".join(line), flush=True)
 
 
 def main() -> int:
@@ -231,19 +355,22 @@ def main() -> int:
     kernels = phase_kernels(bk)
     launches = phase_slice(bk)
     phase_reference(bk)
+    launches.update(phase_chebyshev(bk))
+    phase_flagship(bk)
 
-    meta = {
-        "K1": ("multisweep_residual", ":510"),
-        "K2": ("multisweep", ":495"),
-        "K3": ("fused_bt_matvec", ":130"),
+    meta = {  # kernel: (label, wrapper, launch counter, line of the Pallas wrapper)
+        "K1": ("K1", "multisweep_residual", "multisweep_residual", ":510"),
+        "K2": ("K2", "multisweep", "multisweep", ":495"),
+        "K3": ("K3", "fused_bt_matvec", "bt_matvec", ":130"),
+        "K5": ("K5", "chebyshev_multisweep", "chebyshev_multisweep", ":422"),
+        "K5r": ("K5", "chebyshev_multisweep_residual", "chebyshev_multisweep_residual", ":422"),
     }
     out = []
-    for k, (wrapper, line) in meta.items():
+    for k, (label, wrapper, counter, line) in meta.items():
         r = kernels[k]
-        key = "bt_matvec" if k == "K3" else wrapper
         out.append({
-            "name": f"{k} {wrapper}", "route": "cuda", "source": SOURCE,
-            "replaces": PALLAS + line, "launches": launches[key],
+            "name": f"{label} {wrapper}", "route": "cuda", "source": SOURCE,
+            "replaces": PALLAS + line, "launches": launches[counter],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         })
     print(json.dumps({"kernels": out}), flush=True)

@@ -12,10 +12,12 @@ import pytest
 import torch
 
 from agglomerationmultigrid1d_tpu_torch.models import (
+    chebyshev_hierarchy,
     make_low_precision_hierarchy,
     multigrid,
     multigrid_mixed,
     poisson_dg_hierarchy,
+    poisson_full_hierarchy,
 )
 from agglomerationmultigrid1d_tpu_torch.ops.block_tridiag import BlockTridiag, block_mul, bt_matvec
 from agglomerationmultigrid1d_tpu_torch.ops.kernels import block_kernels as bk
@@ -63,7 +65,29 @@ def test_cuda_kernels_match_plain(cuda, bs, n):
     torch.cuda.synchronize()
     for got, want in pairs:
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-    assert bk.LAUNCHES == {"bt_matvec": 1, "multisweep": 3, "multisweep_residual": 3}
+    assert {k: bk.LAUNCHES[k] for k in ("bt_matvec", "multisweep", "multisweep_residual")} == {
+        "bt_matvec": 1, "multisweep": 3, "multisweep_residual": 3,
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,n", [(1, 777), (2, 1000), (2, 131072), (3, 4097), (4, 65536), (9, 640)])
+def test_cuda_chebyshev_kernel_matches_plain(cuda, bs, n):
+    """K5, without and with the residual, for 1, 3 and MAX_SWEEPS steps."""
+    l, d, u, sinv, ml, mu, x, b = _inputs(bs * n + 1, bs, n, cuda)
+    table = bk.chebyshev_coefficients(0.3, 1.2, bk.MAX_SWEEPS)
+    bk.reset_launch_counts()
+    pairs = []
+    for k in (1, 3, bk.MAX_SWEEPS):
+        coef = table[:k]
+        pairs.append((bk.chebyshev_multisweep(ml, mu, sinv, x, b, coef),
+                      bk.chebyshev_multisweep_plain(ml, mu, sinv, x, b, coef)))
+        pairs += list(zip(bk.chebyshev_multisweep_residual(ml, mu, sinv, d, x, b, coef),
+                          bk.chebyshev_multisweep_residual_plain(ml, mu, sinv, d, x, b, coef)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert bk.LAUNCHES["chebyshev_multisweep"] == 3 and bk.LAUNCHES["chebyshev_multisweep_residual"] == 3
 
 
 @pytest.mark.cuda
@@ -74,9 +98,26 @@ def test_cuda_mixed_solve_uses_kernels_and_matches_f64(cuda):
     bk.reset_launch_counts()
     res = multigrid_mixed(prob.hierarchy, h32, torch.zeros_like(b), b, 80, 1e-10)
     counts = dict(bk.LAUNCHES)
-    assert all(v > 0 for v in counts.values()), counts
+    assert all(counts[k] > 0 for k in ("bt_matvec", "multisweep", "multisweep_residual")), counts
     nb = float(torch.linalg.vector_norm(b))
     rel = float(torch.linalg.vector_norm(bt_matvec(prob.hierarchy.levels[0].a, res.x) - b)) / nb
     assert rel < 1e-10
     ref = multigrid(prob.hierarchy, torch.zeros_like(b), b, 80, 1e-10, compute_error=False)
     assert float((res.x - ref.x).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_chebyshev_flagship_solve_uses_k5(cuda):
+    """A small Chebyshev mixed solve of the CG-topped flagship reaches 1e-10
+    through K5 on its agglomerated levels."""
+    prob = poisson_full_hierarchy(n=1024, device=cuda)
+    h = chebyshev_hierarchy(prob.hierarchy)
+    b = prob.b
+    bk.reset_launch_counts()
+    res = multigrid_mixed(h, make_low_precision_hierarchy(h), torch.zeros_like(b), b, 80, 1e-10)
+    assert bk.LAUNCHES["chebyshev_multisweep"] > 0 and bk.LAUNCHES["chebyshev_multisweep_residual"] > 0
+    assert bk.LAUNCHES["multisweep"] == 0  # every smoothed block level is Chebyshev
+    from agglomerationmultigrid1d_tpu_torch.ops.cg_operator import cg_matvec
+
+    rel = float(torch.linalg.vector_norm(cg_matvec(prob.hierarchy.levels[0].a, res.x) - b))
+    assert rel / float(torch.linalg.vector_norm(b)) < 1e-10
