@@ -77,20 +77,28 @@ def dg_flux_operators(
     return g, d, c
 
 
-def dg_load_vector(dg: DgMesh, func: Callable) -> torch.Tensor:
-    """Volume load  f[i, k] = J_k sum_l w_l phi_i f(x_kl)  as ``(bs, n)``;
-    ``func`` maps a float64 tensor of points to values."""
-    ref = dg.ref
-    wphi = torch.from_numpy(ref.quad_weights[:, None] * ref.basis_at_quad)  # (n_q, bs)
-    jac = torch.from_numpy(dg.mesh.jacobians)
-    centers = torch.from_numpy(dg.mesh.centers)
-    quad = torch.from_numpy(ref.quad_nodes)
-    xq = centers[None, :] + jac[None, :] * quad[:, None]  # (n_q, n)
+def dg_load(jac, centers, quad_nodes, wphi, func: Callable) -> torch.Tensor:
+    """Volume load from per-element jacobians and centers (``(n,)``), the
+    reference quadrature nodes ``(n_q,)`` and ``wphi = w_l phi_i(x_l)``
+    ``(n_q, bs)``, on the tensors' device: the JAX package's ``_dg_load_jit``.
+    The stencil setup calls it on the card in float64 for the full-size rhs."""
+    xq = centers[None, :] + jac[None, :] * quad_nodes[:, None]  # (n_q, n)
     fv = func(xq) * jac[None, :]
     out = wphi[0][:, None] * fv[0][None, :]
     for l in range(1, wphi.shape[0]):
         out = out + wphi[l][:, None] * fv[l][None, :]
     return out
+
+
+def dg_load_vector(dg: DgMesh, func: Callable) -> torch.Tensor:
+    """Volume load  f[i, k] = J_k sum_l w_l phi_i f(x_kl)  as ``(bs, n)``;
+    ``func`` maps a float64 tensor of points to values."""
+    ref = dg.ref
+    t = torch.from_numpy
+    return dg_load(
+        t(dg.mesh.jacobians), t(dg.mesh.centers), t(ref.quad_nodes),
+        t(ref.quad_weights[:, None] * ref.basis_at_quad), func,
+    )
 
 
 def dg_flux_rhs(

@@ -12,13 +12,15 @@
 //
 // Arithmetic order follows the plain PyTorch versions in
 // ops/kernels/block_kernels.py: block contractions sum over j in ascending
-// order, and the off-diagonal term is formed as (lower + upper).  FMA
-// contraction is allowed, so results agree with the plain versions to a few
-// float32 ulps, not bit for bit.
+// order, and the off-diagonal term is formed as (lower + upper).  In K1-K5
+// FMA contraction is allowed, so results agree with the plain versions to a
+// few float32 ulps, not bit for bit; K6 rounds every operation on its own
+// and equals its plain version bit for bit.
 //
 // Host entry points have a plain C interface (loaded with ctypes) and return
 // cudaGetLastError() after the launch; -1 means an unsupported block size,
-// -2 more sweeps than kMaxSweeps.
+// -2 more sweeps than kMaxSweeps.  K6 (ff_stencil_defect_kernel) takes
+// float-float pairs: two (bs, n) arrays per vector.
 
 #include <cuda_runtime.h>
 
@@ -207,6 +209,138 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K6: the float-float stencil defect r = b - A x of the true-precision cycle.
+//
+// Replaces pallas_ff_stencil_mid_defect
+// (agglomerationmultigrid1d_tpu/ops/pallas/block_kernels.py:621, body
+// _ff_stencil_defect_kernel :595) together with the caller's boundary splice
+// (agglomerationmultigrid1d_tpu/ops/df64.py:352-372, ff_bt_defect_stencil).
+// Every vector is a float-float pair (hi, lo) of (bs, n) float32 arrays; the
+// operator is a stencil: one (bs, bs) hi/lo block per diagonal for every
+// column, except the first and last bw columns, which have blocks of their
+// own.  `blocks` packs them as (2, 3, bs, bs, 2 bw + 1): hi / lo, then diag /
+// lower / upper, then the bw left columns, the mid column, the bw right ones.
+//
+// Arithmetic: the error-free transformations of ops/df64.py (Knuth's
+// two_sum, Dekker's two_prod with 12-bit splitting), in the JAX package's
+// order: acc = b; for each diagonal (diag on x, lower on x_{-1}, upper on
+// x_{+1}) and each block column j ascending, t = ff_mul(A[:, j], v[j]),
+// acc = ff_add(acc, -t).  The EFTs assume every operation rounds once, so
+// every product and sum is an explicit __fmul_rn / __fadd_rn / __fsub_rn,
+// which nvcc never contracts into an FMA (the file's -O3 and default --fmad
+// stay as they are for K1-K5).  The result equals the plain torch chain
+// (ops/kernels/block_kernels.py: ff_stencil_mid_defect_plain: the interior
+// pass with the mid blocks, then the two boundary windows spliced in) bit
+// for bit: a boundary column's window defect reads the same neighbours, with
+// the same zero outside [0, n), as this kernel does.
+//
+// Cost per block column: 24 bs bytes (x and b pairs in, r pair out: 2.4 GB
+// per launch at the 1e8-DoF north star, bs = 2) and about 35 float32
+// operations per block entry, 105 bs^2 per column, none of which may fuse:
+// at bs = 2 the two bounds are of the same order on an H100 (~0.7 ms of
+// bytes, ~0.6 ms of non-FMA issue).  Design: one thread per block column,
+// coalesced reads of the column and its two neighbours (the neighbours come
+// from L1), the stencil's blocks read through the read-only cache (every
+// interior thread reads the same mid block, a broadcast), and the split of
+// each x value made once per column and reused by all bs rows.
+namespace eft {
+
+__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
+  s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+}
+
+__device__ __forceinline__ void quick_two_sum(float a, float b, float& s, float& e) {
+  s = __fadd_rn(a, b);
+  e = __fsub_rn(b, __fsub_rn(s, a));
+}
+
+__device__ __forceinline__ void split(float a, float& hi, float& lo) {
+  const float t = __fmul_rn(4097.0f, a);  // 2^12 + 1
+  hi = __fsub_rn(t, __fsub_rn(t, a));
+  lo = __fsub_rn(a, hi);
+}
+
+// acc <- ff_add(acc, -ff_mul((a_hi, a_lo), (v_hi, v_lo))); (vh, vl) is the split of v_hi.
+__device__ __forceinline__ void sub_product(float& acc_hi, float& acc_lo, float a_hi, float a_lo,
+                                            float v_hi, float v_lo, float vh, float vl) {
+  // ff_mul: Dekker's two_prod of the hi parts, then the cross terms
+  const float p = __fmul_rn(a_hi, v_hi);
+  float ah, al;
+  split(a_hi, ah, al);
+  float e = __fadd_rn(__fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(ah, vh), p), __fmul_rn(ah, vl)),
+                                __fmul_rn(al, vh)),
+                      __fmul_rn(al, vl));
+  e = __fadd_rn(e, __fadd_rn(__fmul_rn(a_hi, v_lo), __fmul_rn(a_lo, v_hi)));
+  float t_hi, t_lo;
+  quick_two_sum(p, e, t_hi, t_lo);
+  // ff_add(acc, ff_neg(t)), the "sloppy" add
+  float s, f;
+  two_sum(acc_hi, -t_hi, s, f);
+  f = __fadd_rn(f, __fadd_rn(acc_lo, -t_lo));
+  quick_two_sum(s, f, acc_hi, acc_lo);
+}
+
+}  // namespace eft
+
+template <int BS>
+__global__ void __launch_bounds__(kThreads)
+    ff_stencil_defect_kernel(const float* __restrict__ blocks, int bw,
+                             const float* __restrict__ x_hi, const float* __restrict__ x_lo,
+                             const float* __restrict__ b_hi, const float* __restrict__ b_lo,
+                             float* __restrict__ r_hi, float* __restrict__ r_lo, long long n) {
+  const long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n) return;
+  const int width = 2 * bw + 1;
+  // the stencil column of block column k: a boundary column's own, else the mid
+  const int c = k < bw ? (int)k : (k >= n - bw ? (int)(k - (n - bw)) + bw + 1 : bw);
+
+  float acc_hi[BS], acc_lo[BS];
+#pragma unroll
+  for (int i = 0; i < BS; ++i) {
+    acc_hi[i] = b_hi[i * n + k];
+    acc_lo[i] = b_lo[i * n + k];
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {  // diag on x_k, lower on x_{k-1}, upper on x_{k+1}
+    const long long kk = d == 0 ? k : (d == 1 ? k - 1 : k + 1);
+    const bool in = kk >= 0 && kk < n;
+    float v_hi[BS], v_lo[BS], vh[BS], vl[BS];
+#pragma unroll
+    for (int j = 0; j < BS; ++j) {
+      v_hi[j] = in ? x_hi[j * n + kk] : 0.f;
+      v_lo[j] = in ? x_lo[j * n + kk] : 0.f;
+      eft::split(v_hi[j], vh[j], vl[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < BS; ++j) {
+#pragma unroll
+      for (int i = 0; i < BS; ++i) {
+        const int e = ((d * BS + i) * BS + j) * width + c;  // hi block entry (i, j)
+        const float a_hi = __ldg(blocks + e);
+        const float a_lo = __ldg(blocks + e + 3 * BS * BS * width);
+        eft::sub_product(acc_hi[i], acc_lo[i], a_hi, a_lo, v_hi[j], v_lo[j], vh[j], vl[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < BS; ++i) {
+    r_hi[i * n + k] = acc_hi[i];
+    r_lo[i * n + k] = acc_lo[i];
+  }
+}
+
+template <int BS>
+void launch_ff_stencil(const float* blocks, int bw, const float* x_hi, const float* x_lo,
+                       const float* b_hi, const float* b_lo, float* r_hi, float* r_lo,
+                       long long n, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  ff_stencil_defect_kernel<BS><<<grid, kThreads, 0, stream>>>(blocks, bw, x_hi, x_lo, b_hi, b_lo,
+                                                              r_hi, r_lo, n);
+}
+
 template <int BS>
 void launch_matvec(const float* ad, const float* al, const float* au, const float* x,
                    float* y, long long n, cudaStream_t stream) {
@@ -286,6 +420,20 @@ int aggmg_chebyshev(int bs, const void* ml, const void* mu, const void* sinv, co
   launch_multisweep<BS, true>((const float*)ml, (const float*)mu, (const float*)sinv,         \
                               (const float*)ad, (const float*)x, (const float*)b,             \
                               (float*)x_out, (float*)r_out, n, n_steps, rec, (cudaStream_t)stream)
+  AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
+#undef AGGMG_CALL
+  return (int)cudaGetLastError();
+}
+
+// K6.  blocks is the packed stencil (2, 3, bs, bs, 2 bw + 1); n >= 2 bw + 2
+// when bw > 0 (checked by the wrapper).
+int aggmg_ff_stencil_defect(int bs, const void* blocks, int bw, const void* x_hi,
+                            const void* x_lo, const void* b_hi, const void* b_lo, void* r_hi,
+                            void* r_lo, long long n, void* stream) {
+#define AGGMG_CALL(BS)                                                                          \
+  launch_ff_stencil<BS>((const float*)blocks, bw, (const float*)x_hi, (const float*)x_lo,      \
+                        (const float*)b_hi, (const float*)b_lo, (float*)r_hi, (float*)r_lo, n, \
+                        (cudaStream_t)stream)
   AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
 #undef AGGMG_CALL
   return (int)cudaGetLastError();

@@ -12,8 +12,8 @@ Every DG / agglomerated level below the top Galerkin-projects G, D and C
 *separately* and recombines them with the level's own mass,
 ``A = C - D M^-1 G`` (not a triple product of A).  :func:`chebyshev_hierarchy`
 wraps every smoothed level's smoother in Chebyshev acceleration.
-Penta-diagonal (mixed-switch) levels, scattered and ragged agglomerates and
-block cyclic reduction for large coarse levels are not ported yet.
+Penta-diagonal (mixed-switch) levels and scattered and ragged agglomerates
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from ..mesh.topology import BoundaryCondition
 from ..ops.block_diag import BlockDiag
 from ..ops.block_tridiag import BlockTridiag, bd_mul_bt, block_mul, bt_mul_bt, bt_sub, bt_to_dense
 from ..ops.cg_operator import CgOperator, cg_to_dense
-from ..ops.coarse_solve import CoarseSolver, make_coarse_solver
+from ..ops.coarse_solve import CoarseSolver, make_bt_coarse_solver, make_coarse_solver
 from ..ops.kernels.block_kernels import MAX_SWEEPS, chebyshev_coefficients
 from ..ops.transfer_ops import bp_galerkin, cgp_galerkin
 from ..smoothers.smoother import (
@@ -73,7 +73,7 @@ Level = Union[CgLevel, BlockLevel]
 class Hierarchy(NamedTuple):
     levels: tuple  # of Level, fine -> coarse
     transfers: tuple  # of BlockProlong / CgProlong / SeamProlong, len = n_levels - 1
-    coarse: CoarseSolver  # host-factorized dense solver for the coarsest level
+    coarse: CoarseSolver  # host-factorized coarsest-level solver (dense, or BTCoarseSolver)
 
     @property
     def n_levels(self) -> int:
@@ -118,11 +118,8 @@ def _coarse_lu(level: Level) -> CoarseSolver:
             )
         return make_coarse_solver(cg_to_dense(level.a))
     if level.a.n_dof > DENSE_COARSE_MAX:
-        raise NotImplementedError(
-            f"the coarsest level has {level.a.n_dof} DoF (> {DENSE_COARSE_MAX}); block "
-            "cyclic reduction is not ported yet (ROADMAP queue 1, item 13) — add "
-            "agglomeration levels"
-        )
+        # block cyclic reduction: O(n bs^2) memory, no size cliff
+        return make_bt_coarse_solver(level.a)
     return make_coarse_solver(bt_to_dense(level.a))
 
 
@@ -238,6 +235,22 @@ def build_dg_hierarchy(
     return Hierarchy(
         levels=tuple(levels), transfers=tuple(transfers), coarse=_coarse_lu(levels[-1])
     )
+
+
+def strip_hierarchy(h: Hierarchy) -> Hierarchy:
+    """Drop construction-only operator storage (G, D, C, level masses) from
+    every block level, keeping what the solve reads: ``a``, the smoother, the
+    transfers and the coarse factorization (at 10^8 DoF the dropped tensors
+    are ~3x the solve's footprint)."""
+
+    def strip(lv):
+        if not isinstance(lv, BlockLevel):
+            return lv
+        e = torch.zeros((0, 0, 0), dtype=lv.a.diag.dtype, device=lv.a.diag.device)
+        empty = BlockTridiag(e, e, e)
+        return lv._replace(g=empty, d=empty, c=empty, mass_inv=e)
+
+    return h._replace(levels=tuple(strip(lv) for lv in h.levels))
 
 
 def _chebyshev_table(s: ChebyshevSmoother) -> tuple:

@@ -12,6 +12,13 @@ plain M-form versions for CPU tensors): K1 / K2 for damped sweeps, K5 when the
 block-Jacobi smoother sits under a Chebyshev wrap.  Every other level (CG
 levels, float64 levels) smooths in plain torch: damped sweeps
 ``u += alpha S (rhs - A u)`` or the Chebyshev three-term recurrence.
+
+Beyond float64 (:func:`multigrid`) and mixed precision
+(:func:`multigrid_mixed`): progressive precision (:func:`v_cycle_ff`,
+:func:`multigrid_progressive`; float32 sweeps, float-float residuals and
+transfers) and TRUE precision (:func:`v_cycle_true`, :func:`multigrid_true`;
+value-accurate operators throughout, the north-star solver), whose
+fine-level float-float defects on a stencil operator go through kernel K6.
 """
 
 from __future__ import annotations
@@ -24,6 +31,17 @@ import torch
 from ..ops.block_tridiag import block_mul, bt_matvec
 from ..ops.cg_operator import cg_matvec
 from ..ops.coarse_solve import coarse_solve
+from ..ops.df64 import (
+    FF,
+    BTFFStencil,
+    bt_split,
+    cg_band_split,
+    f64_bt_defect_stencil,
+    ff_add,
+    ff_defect,
+    ff_join,
+    ff_split,
+)
 from ..ops.kernels.block_kernels import (
     chebyshev_multisweep,
     chebyshev_multisweep_residual,
@@ -416,9 +434,12 @@ def multigrid_mixed(
     norm after each, ending with the returned iterate's); ``inner_cycles`` is
     the total number of low-precision V-cycles.
 
-    Raises ``NotImplementedError`` where the JAX package would continue with
-    progressive-precision cycles: the guarded loop stopped above ``tol`` with
-    iterations left (ROADMAP queue 1, item 12).
+    Where the guarded loop stops above ``tol`` with iterations left (the
+    low-precision inner V-cycle is not a contraction for this operator,
+    ``cond(A) >~ 1/eps_f32``), the solve continues with progressive-precision
+    cycles (:func:`_progressive_loop`) from the float-float split of ``x``,
+    as the JAX package does; their steps are appended to ``res_history`` and
+    counted in ``iterations`` and ``inner_cycles``.
     """
     norm_b = float(_norm(b))
     kw = dict(n_pre=n_pre, n_post=n_post, alpha=alpha)
@@ -429,16 +450,332 @@ def multigrid_mixed(
     rel_out = rel_h[outer - 1] if outer > 0 else np.inf
     remaining = maxiter - max(cycles, outer)
     if rel_out > tol and remaining > 0:
-        raise NotImplementedError(
-            f"the guarded refinement stalled at relative residual {rel_out:.3e} > tol "
-            f"{tol:.1e} after {outer} steps with {remaining} iterations left; the "
-            "progressive-precision continuation is not ported yet (ROADMAP queue 1, "
-            "item 12)"
+        a_ffs = tuple(_ff_split_level(lv) for lv in h.levels)
+        x_ff, it2, res2 = _progressive_loop(
+            h_low, a_ffs, ff_split(x), ff_split(b), np.float32(1.0 / norm_b),
+            maxiter=remaining, tol=tol, **kw,
         )
+        rel_h[outer : outer + it2] = res2[:it2]
+        outer += it2
+        cycles += it2
+        x = ff_join(x_ff)
     return MultigridResult(
         x=x,
         iterations=outer,
         res_history=torch.from_numpy(rel_h * norm_b),
         err_history=torch.full((maxiter,), float("nan"), dtype=torch.float64, device="cpu"),
         inner_cycles=cycles,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Progressive precision: float-float V-cycle with float32 smoothers
+# ---------------------------------------------------------------------------
+
+
+def _ff_split_level(lv):
+    """Level operator -> float-float representation (CG band or tridiagonal)."""
+    if isinstance(lv, CgLevel):
+        return cg_band_split(lv.a.band)
+    return bt_split(lv.a)
+
+
+def _ff_zeros_like(x: FF) -> FF:
+    return FF(torch.zeros_like(x.hi), torch.zeros_like(x.lo))
+
+
+def _smooth_ff(level, u_ff: FF, rhs_ff: FF, n_sweeps: int, alpha: float) -> FF:
+    """Low-precision smoothing as a float-float-accumulated correction: the
+    sweeps run in float32 on the hi parts (K2 / K5 on float32 block levels),
+    and the change they make is folded into the float-float iterate, so the
+    iterate's smooth-mode content is never truncated to float32."""
+    u32 = _smooth_n(level, u_ff.hi, rhs_ff.hi, n_sweeps, alpha)
+    delta = u32 - u_ff.hi
+    return ff_add(u_ff, FF(delta, torch.zeros_like(delta)))
+
+
+def _true_coarse_solve(coarse64, rhs_ff: FF) -> FF:
+    """The coarsest solve from the float64 factorization, split to float-float."""
+    flat = _flatten_level_vec(rhs_ff.hi).to(torch.float64) + _flatten_level_vec(rhs_ff.lo).to(torch.float64)
+    sp = ff_split(coarse_solve(coarse64, flat))
+    like = rhs_ff.hi
+    return FF(_unflatten_level_vec(sp.hi, like), _unflatten_level_vec(sp.lo, like))
+
+
+def _coarse_ff(h_low: Hierarchy, a_ff_c, r: FF, coarse64) -> FF:
+    """The coarsest solve of :func:`v_cycle_ff`: from the float64
+    factorization ``coarse64`` when given, else a float32 solve plus one
+    float-float-defect refinement step (enough while the coarse operator is
+    mildly conditioned)."""
+    if coarse64 is not None:
+        return _true_coarse_solve(coarse64, r)
+    like = r.hi
+    e1 = _unflatten_level_vec(coarse_solve(h_low.coarse, _flatten_level_vec(r.hi)), like)
+    e_ff = FF(e1, torch.zeros_like(e1))
+    d = ff_defect(a_ff_c, e_ff, r)
+    e2 = _unflatten_level_vec(coarse_solve(h_low.coarse, _flatten_level_vec(d.hi)), like)
+    return ff_add(e_ff, FF(e2, torch.zeros_like(e2)))
+
+
+def v_cycle_ff(
+    h_low: Hierarchy,
+    a_ffs,
+    u_ff: FF,
+    rhs_ff: FF,
+    coarse64=None,
+    *,
+    n_pre: int = 3,
+    n_post: int = 3,
+    alpha: float = 2.0 / 3.0,
+) -> FF:
+    """One *progressive-precision* V-cycle: the control flow of
+    :func:`v_cycle`, with every residual, transfer and iterate update in
+    float-float while the smoother sweeps (and, without ``coarse64``, the
+    coarse solve) run in float32 on ``h_low``.  ``a_ffs`` holds the per-level
+    float-float operators split from the float64 hierarchy."""
+    n = h_low.n_levels
+    u = [None] * n
+    rhs = [None] * n
+    u[0], rhs[0] = u_ff, rhs_ff
+
+    for k in range(n - 1):
+        level = h_low.levels[k]
+        if k > 0:
+            u[k] = _ff_zeros_like(rhs[k])
+        u[k] = _smooth_ff(level, u[k], rhs[k], n_pre, alpha)
+        r_ff = ff_defect(a_ffs[k], u[k], rhs[k])
+        t = h_low.transfers[k]
+        rhs[k + 1] = FF(transfer_restrict(t, r_ff.hi), transfer_restrict(t, r_ff.lo))
+
+    u[n - 1] = _coarse_ff(h_low, a_ffs[n - 1], rhs[n - 1], coarse64)
+
+    for k in range(n - 2, -1, -1):
+        t = h_low.transfers[k]
+        corr = FF(transfer_prolong(t, u[k + 1].hi), transfer_prolong(t, u[k + 1].lo))
+        u[k] = ff_add(u[k], corr)
+        u[k] = _smooth_ff(h_low.levels[k], u[k], rhs[k], n_post, alpha)
+    return u[0]
+
+
+def _ff_rel_defect(a_ff, x_ff: FF, b_ff: FF, inv_norm_b) -> tuple:
+    """``(r_ff, ||r_hi|| * inv_norm_b)``, the norm in float32 as in the JAX package."""
+    r_ff = ff_defect(a_ff, x_ff, b_ff)
+    return r_ff, _norm(_flatten_level_vec(r_ff.hi) * float(inv_norm_b))
+
+
+def _progressive_loop(
+    h_low, a_ffs, x_ff, b_ff, inv_norm_b, coarse64=None, *, maxiter, tol, n_pre, n_post, alpha
+):
+    """Progressive-precision iteration, a host loop: each cycle solves the
+    CORRECTION equation ``A e = r`` from zero (with a well-scaled rhs every
+    float32 cancellation inside the cycle is relative to the current
+    residual, so the contraction holds down to the float-float defect's
+    ~2^-48 floor), until the float32 relative defect is below ``tol``.
+    Returns ``(x_ff, iterations, rel_history)``, the history as float32
+    relative defects after each cycle (the JAX package's ``_progressive_loop``,
+    one host read per cycle)."""
+    kw = dict(n_pre=n_pre, n_post=n_post, alpha=alpha)
+    tol32 = np.float32(tol)
+    res_h = np.full((maxiter,), np.nan, dtype=np.float32)
+    it = 0
+    while it < maxiter:
+        r_ff, rel = _ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b)
+        rel = np.float32(rel)
+        if it > 0:
+            res_h[it - 1] = rel
+        if rel < tol32:
+            break
+        e_ff = v_cycle_ff(h_low, a_ffs, _ff_zeros_like(r_ff), r_ff, coarse64, **kw)
+        x_ff = ff_add(x_ff, e_ff)
+        it += 1
+    if it > 0:  # the defect of the final iterate
+        res_h[it - 1] = np.float32(_ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b)[1])
+    return x_ff, it, res_h
+
+
+def multigrid_progressive(
+    h: Hierarchy,
+    h_low: Hierarchy,
+    x0: torch.Tensor,
+    b: torch.Tensor,
+    maxiter: int = 100,
+    tol: float = 1e-10,
+    *,
+    n_pre: int = 3,
+    n_post: int = 3,
+    alpha: float = 2.0 / 3.0,
+) -> MultigridResult:
+    """Multigrid with progressive-precision V-cycles (:func:`v_cycle_ff`):
+    float32 smoother sweeps and coarse solves, float-float everything else.
+    It converges like the float64 iteration on operators where
+    :func:`multigrid_mixed`'s float32 inner V-cycle is no contraction.
+    ``iterations`` counts V-cycles (``solvers.jl:116-139``); ``x`` is float64."""
+    a_ffs = tuple(_ff_split_level(lv) for lv in h.levels)
+    norm_b = float(_norm(b))
+    x_ff, it, rel_h = _progressive_loop(
+        h_low, a_ffs, ff_split(x0.to(torch.float64)), ff_split(b), np.float32(1.0 / norm_b),
+        maxiter=maxiter, tol=tol, n_pre=n_pre, n_post=n_post, alpha=alpha,
+    )
+    return MultigridResult(
+        x=ff_join(x_ff),
+        iterations=it,
+        res_history=torch.from_numpy(rel_h.astype(np.float64) * norm_b),
+        err_history=torch.full((maxiter,), float("nan"), dtype=torch.float64),
+        inner_cycles=it,
+    )
+
+
+# ---------------------------------------------------------------------------
+# TRUE precision: value-accurate cycles for eps_f32 * kappa_elem(A) > 1
+# ---------------------------------------------------------------------------
+#
+# Once eps_f32 * kappa_elem(A) > 1 (the c_dir = 1000 n penalty crosses that
+# around 3e7 DoF; the 1e8-DoF north star sits at ~6) every float32-VALUED
+# operator application in the correction cycle injects error that the cycle
+# amplifies.  The remedy is value accuracy: smoothing residuals from the
+# float-float operators (kernel K6 on a stencil fine level), transfers applied
+# as T_hi r_hi + (T_hi r_lo + T_lo r_hi), float-float defects, and the coarse
+# solve from the float64 factorization.  The block-Jacobi preconditioner
+# stays float32: a perturbed S is a different but valid smoother.
+
+
+def _smooth_true(level, a_ff_k, u_ff: FF, rhs_ff: FF, n_sweeps: int, alpha: float) -> FF:
+    """Value-accurate smoothing: each sweep's residual is the float-float
+    defect; the float32 preconditioner is applied to its hi part."""
+    s = level.smoother
+    if isinstance(s, ChebyshevSmoother):
+        # the recurrence in the level's own precision, on 0-d tensors (no host read)
+        theta = 0.5 * (s.lam_hi + s.lam_lo)
+        delta = 0.5 * (s.lam_hi - s.lam_lo)
+        sigma = theta / delta
+        rho = 1.0 / sigma
+        r = ff_defect(a_ff_k, u_ff, rhs_ff)
+        d = apply_smoother(s.base, r.hi) / theta
+        u_ff = ff_add(u_ff, FF(d, torch.zeros_like(d)))
+        for _ in range(1, n_sweeps):
+            r = ff_defect(a_ff_k, u_ff, rhs_ff)
+            z = apply_smoother(s.base, r.hi)
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            d = (rho_new * rho) * d + (2.0 * rho_new / delta) * z
+            u_ff = ff_add(u_ff, FF(d, torch.zeros_like(d)))
+            rho = rho_new
+        return u_ff
+    for _ in range(n_sweeps):
+        r = ff_defect(a_ff_k, u_ff, rhs_ff)
+        du = alpha * apply_smoother(s, r.hi)
+        u_ff = ff_add(u_ff, FF(du, torch.zeros_like(du)))
+    return u_ff
+
+
+def _transfer_true(apply, t32, t_lo, v: FF) -> FF:
+    """A transfer at float-float value accuracy: ``T_hi v_hi + (T_hi v_lo + T_lo v_hi)``."""
+    hi = apply(t32, v.hi)
+    cross = apply(t32, v.lo)
+    if t_lo is not None:
+        cross = cross + apply(t_lo, v.hi)
+    return ff_add(FF(hi, torch.zeros_like(hi)), FF(cross, torch.zeros_like(cross)))
+
+
+def _restrict_true(t32, t_lo, r_ff: FF) -> FF:
+    return _transfer_true(transfer_restrict, t32, t_lo, r_ff)
+
+
+def _prolong_true(t32, t_lo, u_c_ff: FF) -> FF:
+    return _transfer_true(transfer_prolong, t32, t_lo, u_c_ff)
+
+
+def v_cycle_true(h_low: Hierarchy, ffops, rhs_ff: FF, k: int = 0, *, n_pre=3, n_post=3, alpha=2.0 / 3.0) -> FF:
+    """One TRUE-precision V-cycle from zero on levels ``k..end`` (see the
+    section comment; ``ffops`` is ``stencil_setup.FFOps``).  On a stencil
+    fine level it launches K6 ``n_pre + 1 + n_post`` times."""
+    if k == h_low.n_levels - 1:
+        return _true_coarse_solve(ffops.coarse64, rhs_ff)
+    lv = h_low.levels[k]
+    t32, t_lo = h_low.transfers[k], ffops.t_los[k]
+    u = _smooth_true(lv, ffops.a_ffs[k], _ff_zeros_like(rhs_ff), rhs_ff, n_pre, alpha)
+    r = ff_defect(ffops.a_ffs[k], u, rhs_ff)
+    e_c = v_cycle_true(
+        h_low, ffops, _restrict_true(t32, t_lo, r), k + 1, n_pre=n_pre, n_post=n_post, alpha=alpha
+    )
+    del r
+    u = ff_add(u, _prolong_true(t32, t_lo, e_c))
+    return _smooth_true(lv, ffops.a_ffs[k], u, rhs_ff, n_post, alpha)
+
+
+def _f64_rel_defect(a_st: BTFFStencil, x_ff: FF, b_ff: FF, inv_norm_b) -> tuple:
+    """The TRUE-float64 outer defect from the stencil operator, split to
+    float-float for the cycle, and its relative norm (float64).  The
+    float-float defect floors around ``2^-48 || |A| |x| || / ||b||`` (~4e-7
+    at the north star); float64 floors ~2^-53 of the same."""
+    r_ff = f64_bt_defect_stencil(a_st, x_ff, b_ff)
+    return r_ff, torch.linalg.vector_norm(ff_join(r_ff).reshape(-1)) * float(inv_norm_b)
+
+
+def _progressive_true_eager(
+    h_low, ffops, x_ff: FF, b_ff: FF, inv_norm_b, *, maxiter: int, tol: float,
+    n_pre: int = 3, n_post: int = 3, alpha: float = 2.0 / 3.0,
+):
+    """TRUE-precision iteration, a host loop: value-accurate cycles on the
+    correction equation, driven by the float64 outer defect (stencil fine
+    operators) or the float-float one.  One host read per cycle.  Returns
+    ``(x_ff, iterations, rel_history)``."""
+    use64 = isinstance(ffops.a_ffs[0], BTFFStencil)
+    defect = _f64_rel_defect if use64 else _ff_rel_defect
+
+    res_h = np.full((maxiter,), np.nan, dtype=np.float64)
+    it = 0
+    while it < maxiter:
+        r_ff, rel = defect(ffops.a_ffs[0], x_ff, b_ff, inv_norm_b)
+        rel = float(rel)
+        if it > 0:
+            res_h[it - 1] = rel
+        if rel < float(tol):
+            break
+        e_ff = v_cycle_true(h_low, ffops, r_ff, n_pre=n_pre, n_post=n_post, alpha=alpha)
+        del r_ff
+        x_ff = ff_add(x_ff, e_ff)
+        del e_ff
+        it += 1
+    if it > 0:
+        res_h[it - 1] = float(defect(ffops.a_ffs[0], x_ff, b_ff, inv_norm_b)[1])
+    return x_ff, it, res_h
+
+
+def multigrid_true(
+    h_low: Hierarchy,
+    ffops,
+    b_ff: FF,
+    norm_b: float,
+    maxiter: int = 40,
+    tol: float = 1e-8,
+    *,
+    x0_ff: FF | None = None,
+    n_pre: int = 3,
+    n_post: int = 3,
+    alpha: float = 2.0 / 3.0,
+) -> MultigridResult:
+    """TRUE-precision progressive multigrid, the north-star solver, with the
+    reference's observability contract (``solvers.jl:116-139``):
+    ``iterations`` counts V-cycles and ``res_history[:iterations]`` is the
+    relative residual times ``norm_b`` after each, from the float64 outer
+    defect (NaN beyond).  Inputs come from
+    ``stencil_setup.build_xl_problem(..., slim_fine=True, ff_levels=True)``::
+
+        h_low, ffops, b_ff, norm_b = build_xl_problem(spec, n, slim_fine=True,
+                                                      ff_levels=True, device="cuda")
+        res = multigrid_true(h_low, ffops, b_ff, norm_b)
+    """
+    if x0_ff is None:
+        zero = torch.zeros_like(b_ff.hi)
+        x0_ff = FF(zero, zero)
+    x_ff, it, res_h = _progressive_true_eager(
+        h_low, ffops, x0_ff, b_ff, np.float32(1.0 / norm_b),
+        maxiter=maxiter, tol=tol, n_pre=n_pre, n_post=n_post, alpha=alpha,
+    )
+    return MultigridResult(
+        x=ff_join(x_ff),
+        iterations=it,
+        res_history=torch.from_numpy(res_h * norm_b),
+        err_history=torch.full((maxiter,), float("nan"), dtype=torch.float64),
+        inner_cycles=it,
     )

@@ -1,0 +1,482 @@
+"""Stencil-inflated hierarchy setup: O(1)-per-level host work at any size.
+
+On a uniform mesh every operator of a DG-topped chain is *translation
+invariant away from the domain boundary*: the volume terms depend only on
+the (constant) jacobian, the flux and penalty couplings only on c_dir and the
+element width, and each Galerkin projection of a constant-interior operator
+through a constant-interior transfer is again constant-interior.
+
+So the hierarchy is built ONCE on the host, in float64, at a small *stencil
+size* ``n0 = n / z`` (the same element width ``h = L / n``, c_dir and
+coarsening plan, so every block value equals the full-size build's away from
+the boundary); per-level stencils are extracted (``bw`` boundary columns each
+side and one interior column) and **inflated** to full size on the target
+device as broadcasts and concatenations.  The only O(n) work, the right-hand
+side, is computed on the target device in float64 (:func:`_uniform_dg_b`).
+
+Level sizes scale uniformly by ``z``, so the real coarsest level has
+``z * n0_coarsest`` blocks and is solved by block cyclic reduction
+(``ops.coarse_solve``).  Chebyshev bounds come from the stencil-size
+hierarchy (50 power steps, safety 1.1), as in the JAX package.
+
+The counterpart of ``agglomerationmultigrid1d_tpu/models/stencil_setup.py``
+for DG-topped chains; CG-topped chains raise ``NotImplementedError``
+(ROADMAP queue 1, item 13).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from ..mesh.topology import BoundaryCondition, Mesh1D
+from ..ops.block_tridiag import BlockTridiag
+from ..ops.transfer_ops import BlockProlong
+from ..smoothers.smoother import BlockJacobiSmoother, ChebyshevSmoother
+from ..utils.config import HierarchySpec
+from ..utils.precision import hierarchy_astype, tree_to
+from .hierarchy import BlockLevel, CgLevel, Hierarchy
+
+# stencil extraction width, in elements (blocks).  Boundary influence never
+# exceeds 2 blocks: the fine Schur product A = C - D M^-1 G reaches blocks
+# 0..1, and every r >= 2 Galerkin projection maps a boundary-affected width w
+# to ceil((w + 1) / r) <= w.
+_BW = 4
+
+
+def _cg_unported() -> NotImplementedError:
+    return NotImplementedError(
+        "stencil inflation of CG-topped chains (CG levels, Schwarz smoothers, "
+        "CG and seam transfers) is not ported yet (ROADMAP queue 1, item 13)"
+    )
+
+
+class _Stencil(NamedTuple):
+    left: np.ndarray  # (..., bw)
+    mid: np.ndarray  # (..., 1)
+    right: np.ndarray  # (..., bw)
+
+
+def _check_constant(arr: np.ndarray, mid: np.ndarray, what: str, rtol) -> None:
+    """The interior columns must all equal the extracted middle.
+
+    float64 inputs carry only the ~1e-16-relative jacobian noise of
+    ``np.diff`` on a uniform mesh (rtol 1e-11); float32 inputs also jitter by
+    one ulp where a float64 value sits near a rounding edge (rtol 2.4e-7).
+    ``rtol=None`` skips the check: the float-float ``lo`` tails jitter by
+    exactly the hi part's allowed ulp flip."""
+    if rtol is None:
+        return
+    if rtol == "auto":
+        rtol = 2.4e-7 if arr.dtype == np.float32 else 1e-11
+    tol = rtol * max(float(np.abs(arr).max()), 1e-300)
+    err = float(np.abs(arr - mid).max())
+    if err > tol:
+        raise ValueError(
+            f"{what}: interior is not translation invariant (max deviation "
+            f"{err:.3e} vs tol {tol:.3e}); stencil inflation requires a "
+            "uniform mesh with uniform partitions"
+        )
+
+
+def _extract_el(arr, bw: int, what: str, rtol="auto") -> _Stencil:
+    """Element-axis stencil: ``arr[..., k]`` constant for bw <= k < n - bw."""
+    a = arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+    n = a.shape[-1]
+    if n < 2 * bw + 2:
+        raise ValueError(f"{what}: need >= {2 * bw + 2} columns, got {n}")
+    mid = a[..., n // 2 : n // 2 + 1]
+    _check_constant(a[..., bw : n - bw], mid, what, rtol)
+    return _Stencil(a[..., :bw].copy(), mid.copy(), a[..., n - bw :].copy())
+
+
+def _inflate_el(st: _Stencil, n_big: int, device) -> torch.Tensor:
+    left, mid, right = (torch.from_numpy(p).to(device) for p in st)
+    reps = n_big - left.shape[-1] - right.shape[-1]
+    return torch.cat([left, mid.expand(*mid.shape[:-1], reps), right], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Hierarchy planner: walk the containers, collect stencils and a rebuild closure
+# ---------------------------------------------------------------------------
+
+
+class _Plan:
+    """Collects element-axis stencils while walking the small hierarchy;
+    :meth:`inflate` makes the full-size tensors, in collection order, which
+    the rebuild closures index."""
+
+    def __init__(self, z: int, bw: int):
+        self.z = z
+        self.bw = bw
+        self.stencils: list = []  # (_Stencil, n_big)
+
+    def el(self, arr, what: str, rtol="auto") -> int:
+        """Register an element-axis leaf; returns its slot index."""
+        self.stencils.append((_extract_el(arr, self.bw, what, rtol), arr.shape[-1] * self.z))
+        return len(self.stencils) - 1
+
+    def inflate(self, device) -> tuple:
+        return tuple(_inflate_el(st, n_big, device) for st, n_big in self.stencils)
+
+
+def _is_empty(t) -> bool:
+    return isinstance(t, torch.Tensor) and t.numel() == 0
+
+
+def _plan_bt(plan: _Plan, a: BlockTridiag, what: str, device, rtol="auto"):
+    # slim fine levels carry empty off-diagonals (the smoother's M-form
+    # streams hold their action); empties pass through
+    def one(t, name):
+        return None if _is_empty(t) else plan.el(t, f"{what}.{name}", rtol)
+
+    i, j, k = one(a.lower, "lower"), one(a.diag, "diag"), one(a.upper, "upper")
+    e_low = a.lower.to(device) if i is None else None
+    e_up = a.upper.to(device) if k is None else None
+    return lambda out: BlockTridiag(
+        lower=e_low if i is None else out[i], diag=out[j], upper=e_up if k is None else out[k]
+    )
+
+
+def _plan_smoother(plan: _Plan, s, level, what: str, device):
+    if isinstance(s, ChebyshevSmoother):
+        base_fn = _plan_smoother(plan, s.base, level, what + ".base", device)
+        lam_lo, lam_hi, coef = s.lam_lo.to(device), s.lam_hi.to(device), s.coef
+        return lambda out: ChebyshevSmoother(
+            base=base_fn(out), lam_lo=lam_lo, lam_hi=lam_hi, coef=coef
+        )
+    if isinstance(level, CgLevel):
+        raise _cg_unported()
+    if isinstance(s, BlockJacobiSmoother):
+        i = plan.el(s.inv, what + ".inv")
+        j = None if s.ml is None else plan.el(s.ml, what + ".ml")
+        k = None if s.mu is None else plan.el(s.mu, what + ".mu")
+        return lambda out: BlockJacobiSmoother(
+            inv=out[i], ml=None if j is None else out[j], mu=None if k is None else out[k]
+        )
+    raise TypeError(f"stencil inflation: unsupported smoother {type(s)}")
+
+
+def _plan_level(plan: _Plan, lv, k: int, device):
+    what = f"level[{k}]"
+    if isinstance(lv, CgLevel):
+        raise _cg_unported()
+    if not all(_is_empty(t) for t in (lv.g.diag, lv.d.diag, lv.c.diag)):
+        raise ValueError(
+            "strip the hierarchy before inflation (strip_hierarchy): the "
+            "construction-only G/D/C operators are not part of the solve path"
+        )
+    a_fn = _plan_bt(plan, lv.a, what + ".a", device)
+    g, d, c, m = (tree_to(t, device) for t in (lv.g, lv.d, lv.c, lv.mass_inv))
+    s_fn = _plan_smoother(plan, lv.smoother, lv, what + ".smoother", device)
+    return lambda out: BlockLevel(a=a_fn(out), g=g, d=d, c=c, mass_inv=m, smoother=s_fn(out))
+
+
+def _plan_transfer(plan: _Plan, t, k: int):
+    if not isinstance(t, BlockProlong):
+        raise _cg_unported()
+    i = plan.el(t.blocks, f"transfer[{k}].blocks")
+    return lambda out: BlockProlong(blocks=out[i])
+
+
+def _inflate_bt_host(a: BlockTridiag, z: int, bw: int, what: str) -> BlockTridiag:
+    """Full-size BlockTridiag on the host (for the coarse factorization: the
+    coarsest level is small, ``z * n0_coarsest`` blocks)."""
+
+    def one(t, name):
+        return _inflate_el(_extract_el(t, bw, f"{what}.{name}"), t.shape[-1] * z, "cpu")
+
+    return BlockTridiag(lower=one(a.lower, "lower"), diag=one(a.diag, "diag"), upper=one(a.upper, "upper"))
+
+
+def _coarse_factor(a_small: BlockTridiag, z: int, bw: int, what: str, device):
+    """The float64 factorization of the inflated coarsest operator, on ``device``."""
+    from .hierarchy import _coarse_lu
+
+    a_big = _inflate_bt_host(a_small, z, bw, what)
+    lv = BlockLevel(a=a_big, g=None, d=None, c=None, mass_inv=None, smoother=None)
+    return tree_to(_coarse_lu(lv), device)
+
+
+def inflate_hierarchy(
+    h_small: Hierarchy, h_small_f64: Hierarchy, z: int, *, bw: int = _BW, device="cpu"
+) -> Hierarchy:
+    """Inflate a stencil-size hierarchy to ``z``-times-larger level sizes.
+
+    ``h_small`` is the stripped (optionally float32 / Chebyshev-wrapped)
+    solve-path hierarchy whose tensors are inflated on ``device``;
+    ``h_small_f64`` supplies the float64 coarsest operator for the full-size
+    coarse factorization (pass ``h_small`` itself for an all-float64
+    inflation).  The coarsest level must be block-tridiagonal: its full-size
+    operator is factorized on the host (cyclic reduction above
+    ``hierarchy.DENSE_COARSE_MAX`` DoF), then cast to ``h_small``'s dtype."""
+    device = torch.device(device)
+    plan = _Plan(z, bw)
+    level_fns = [_plan_level(plan, lv, k, device) for k, lv in enumerate(h_small.levels)]
+    transfer_fns = [_plan_transfer(plan, t, k) for k, t in enumerate(h_small.transfers)]
+    out = plan.inflate(device)
+    levels = tuple(fn(out) for fn in level_fns)
+    transfers = tuple(fn(out) for fn in transfer_fns)
+
+    coarse_lv = h_small_f64.levels[-1]
+    if not isinstance(coarse_lv, BlockLevel):
+        raise _cg_unported()
+    coarse = _coarse_factor(coarse_lv.a, z, bw, "coarse.a", "cpu")
+    coarse = tree_to(hierarchy_astype(coarse, levels[0].a.diag.dtype), device)
+    return Hierarchy(levels=levels, transfers=transfers, coarse=coarse)
+
+
+# ---------------------------------------------------------------------------
+# Full XL problem builder (stencil build -> inflate -> rhs)
+# ---------------------------------------------------------------------------
+
+
+def _stencil_mesh(n0: int, h: float) -> Mesh1D:
+    """A uniform n0-element mesh with EXACTLY the full problem's element
+    width (domain [0, n0 h]): operators depend on h, c_dir and the boundary
+    kinds only, so every interior value matches the full-size build."""
+    return Mesh1D(vertex_x=np.arange(n0 + 1, dtype=np.float64) * h)
+
+
+def default_stencil_factor(spec: HierarchySpec, n: int, bw: int = _BW) -> int:
+    """Largest power-of-two ``z`` keeping every stencil level >= 2 bw + 2
+    blocks (the extraction minimum)."""
+    sizes = [n] * (len(spec.cg_orders) + len(spec.dg_orders))
+    m = n
+    for i in range(spec.n_agg_levels):
+        m //= spec.first_agg_factor if i == 0 else spec.agg_factor
+        sizes.append(m)
+    smallest = min(sizes)
+    z = 1
+    while smallest % (2 * z) == 0 and smallest // (2 * z) >= 2 * bw + 2 and n % (2 * z) == 0:
+        z *= 2
+    return z
+
+
+class FFOps(NamedTuple):
+    """The value-accurate operator bundle of the TRUE-precision cycle
+    (``solvers.v_cycle_true``): per-level float-float operators, per-transfer
+    lo tails (``blocks64 - blocks32`` rounded to float32, so a transfer
+    applies as ``T_hi r_hi + (T_hi r_lo + T_lo r_hi)``), and the float64
+    coarse factorization.
+
+    Once ``eps_f32 * kappa_elem(A) > 1`` (the 1e8-DoF c_dir = 1000 n north
+    star sits at ~6) every float32-VALUED operator application in the
+    correction cycle injects error the V-cycle amplifies; with float-float
+    values throughout it contracts like float64 multigrid."""
+
+    a_ffs: tuple  # per-level float-float operators (a_ffs[0] may be a BTFFStencil)
+    t_los: tuple  # per-transfer lo parts (None where a transfer has none)
+    coarse64: object  # float64 coarse factorization
+
+
+def _tick(timings, key, t0, device) -> float:
+    """Record the seconds since ``t0`` under ``key`` (after the device's queue
+    drained) when ``timings`` is a dict; returns the new start."""
+    if timings is None:
+        return t0
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    timings[key] = timings.get(key, 0.0) + (t1 - t0)
+    return t1
+
+
+def build_xl_problem(
+    spec: HierarchySpec,
+    n: int,
+    func: Callable | None = None,
+    bc: BoundaryCondition | None = None,
+    *,
+    z: int | None = None,
+    bw: int = _BW,
+    dtype: torch.dtype = torch.float32,
+    chebyshev: bool = True,
+    slim_fine: bool = False,
+    ff_levels: bool = False,
+    device="cpu",
+    domain: tuple[float, float] = (0.0, 1.0),
+    timings: dict | None = None,
+):
+    """Build the float32 solve-path hierarchy, the float-float fine operator
+    and the rhs of a uniform-mesh DG-topped problem at ANY size, with O(n0)
+    host work.
+
+    Returns ``(h_low, a_ff, b_ff, norm_b)``, as the JAX package's
+    ``build_xl_problem``:
+
+    * ``slim_fine=True`` drops the fine level's off-diagonals (the M-form
+      smoother streams carry their action) and returns ``a_ff`` as a
+      :class:`~..ops.df64.BTFFStencil`, whose defect contracts with the
+      stencil blocks (kernel K6 on the card);
+    * ``ff_levels=True`` returns an :class:`FFOps` in the ``a_ff`` slot: the
+      inputs of ``solvers.multigrid_true``.
+
+    ``timings``, a dict, receives the seconds of the three setup phases:
+    ``"host_stencil"`` (the float64 stencil-size build, the float32 cast and
+    the Chebyshev bounds), ``"inflate"`` (the full-size tensors and coarse
+    factorizations on ``device``) and ``"rhs"`` (the float64 rhs on
+    ``device``, its norm and its float-float split)."""
+    from ..ops.df64 import ff_split
+    from .hierarchy import chebyshev_hierarchy, prepare_fast_smoothers, strip_hierarchy
+    from .problems import build_problem, default_model_problem
+
+    if spec.cg_orders:
+        raise _cg_unported()
+    device = torch.device(device)
+    if z is None:
+        z = default_stencil_factor(spec, n, bw)
+    if z < 2 or n % z:
+        raise ValueError(f"stencil factor z={z} must be >= 2 and divide n={n}")
+    n0 = n // z
+    xin, xout = domain
+    h = (xout - xin) / n
+
+    func_, u_ex, ux_ex = default_model_problem()
+    func = func or func_
+    if bc is None:
+        bc = BoundaryCondition(("neu", ux_ex(xin)), ("dir", u_ex(xout)))
+
+    # 1) host float64 stencil problem at n0 elements of the REAL width h (its
+    #    rhs is discarded, apart from the boundary patches)
+    t0 = time.perf_counter()
+    prob0 = build_problem(spec, n0, func, bc, mesh=_stencil_mesh(n0, h))
+    h64 = strip_hierarchy(prob0.hierarchy)
+    a_ff_small = _ff_split_fine(h64.levels[0])
+    h_low0 = hierarchy_astype(h64, dtype)
+    if dtype == torch.float32:
+        # the float32 fine operator IS the float-float split's hi part
+        h_low0 = _share_fine_hi(h_low0, a_ff_small)
+        h_low0 = prepare_fast_smoothers(h_low0)
+    if chebyshev:
+        # lambda_max from the stencil-size spectrum, converged, with a safety
+        # margin for its residual size dependence (< 4% between n0 and n)
+        h_low0 = chebyshev_hierarchy(h_low0, power_iters=50, safety=1.1)
+    if slim_fine:
+        if dtype != torch.float32:
+            raise ValueError("slim_fine requires a float32 DG-topped chain")
+        lv0 = h_low0.levels[0]
+        e = torch.zeros((0, 0, 0), dtype=dtype)
+        lv0 = lv0._replace(a=BlockTridiag(lower=e, diag=lv0.a.diag, upper=e))
+        h_low0 = h_low0._replace(levels=(lv0,) + h_low0.levels[1:])
+    t0 = _tick(timings, "host_stencil", t0, device)
+
+    # 2) inflate the solve hierarchy and the float-float operators on the device
+    h_low = inflate_hierarchy(h_low0, h64, z, bw=bw, device=device)
+    if slim_fine:
+        a_ff = _stencil_ff_fine(a_ff_small, n, bw, device)
+    else:
+        a_ff = _inflate_ff_fine(a_ff_small, h_low.levels[0], z, bw, device)
+    if ff_levels:
+        a_ffs = (a_ff,) + _inflate_ff_tail(h64, h_low, z, bw, device)
+        t_los = _inflate_transfer_los(h64, z, bw, device)
+        # the float64 coarse factorization of the progressive cycles
+        coarse64 = _coarse_factor(h64.levels[-1].a, z, bw, "coarse64.a", device)
+        a_ff = FFOps(a_ffs=a_ffs, t_los=t_los, coarse64=coarse64)
+    t0 = _tick(timings, "inflate", t0, device)
+
+    # 3) the O(n) rhs, in float64 on the device, split to float-float
+    b = _uniform_dg_b(prob0, n, h, xin, func, bw, device)
+    norm_b = float(torch.linalg.vector_norm(b))
+    b_ff = ff_split(b)
+    del b
+    _tick(timings, "rhs", t0, device)
+    return h_low, a_ff, b_ff, norm_b
+
+
+def _ff_split_fine(fine64):
+    from ..ops.df64 import bt_split
+
+    return bt_split(fine64.a)
+
+
+def _share_fine_hi(h_low: Hierarchy, a_ff_small) -> Hierarchy:
+    """Point the float32 hierarchy's fine operator at the float-float split's
+    hi part (the same values; sharing halves the fine level's residency)."""
+    lv0 = h_low.levels[0]._replace(a=a_ff_small.hi)
+    return h_low._replace(levels=(lv0,) + h_low.levels[1:])
+
+
+def _stencil_ff_fine(a_ff_small, n: int, bw: int, device):
+    """The float-float fine operator as pure stencils (slim mode): no
+    ``(bs, bs, n)`` stream is materialized."""
+    from ..ops.df64 import BTFFStencil
+
+    def parts(bt: BlockTridiag, rtol):
+        sts = {k: _extract_el(getattr(bt, k), bw, f"a_ff.{k}", rtol) for k in ("lower", "diag", "upper")}
+
+        def mk(i):
+            return BlockTridiag(**{k: torch.from_numpy(sts[k][i]).to(device) for k in sts})
+
+        return mk(0), mk(1), mk(2)
+
+    hi_l, hi_m, hi_r = parts(a_ff_small.hi, "auto")
+    lo_l, lo_m, lo_r = parts(a_ff_small.lo, None)
+    return BTFFStencil(
+        hi_left=hi_l, hi_mid=hi_m, hi_right=hi_r, lo_left=lo_l, lo_mid=lo_m, lo_right=lo_r, n=n
+    )
+
+
+def _inflate_ff_tail(h64: Hierarchy, h_low: Hierarchy, z: int, bw: int, device) -> tuple:
+    """Per-level float-float operators for levels 1..end: hi shares the
+    inflated float32 hierarchy's tensors (the float32 cast equals the split's
+    hi exactly), lo inflates from the stencil-size float64 split."""
+    from ..ops.df64 import BlockTridiagFF, bt_split
+
+    plan = _Plan(z, bw)
+    builders = []
+    for k in range(1, len(h64.levels)):
+        lo_fn = _plan_bt(plan, bt_split(h64.levels[k].a).lo, f"a_ffs[{k}].lo", device, rtol=None)
+        builders.append(lambda out, a=h_low.levels[k].a, lo_fn=lo_fn: BlockTridiagFF(hi=a, lo=lo_fn(out)))
+    out = plan.inflate(device)
+    return tuple(fn(out) for fn in builders)
+
+
+def _inflate_transfer_los(h64: Hierarchy, z: int, bw: int, device) -> tuple:
+    """Per-transfer lo tails ``round32(blocks64 - round32(blocks64))``."""
+    plan = _Plan(z, bw)
+    idxs = []
+    for k, t64 in enumerate(h64.transfers):
+        b64 = t64.blocks.to(torch.float64)
+        lo = (b64 - b64.to(torch.float32).to(torch.float64)).to(torch.float32)
+        idxs.append(plan.el(lo, f"t_lo[{k}]", rtol=None))
+    out = plan.inflate(device)
+    return tuple(BlockProlong(blocks=out[i]) for i in idxs)
+
+
+def _inflate_ff_fine(a_ff_small, fine_low: BlockLevel, z: int, bw: int, device):
+    """The inflated float-float fine operator; hi re-uses the low hierarchy's
+    inflated fine operator (the same values)."""
+    from ..ops.df64 import BlockTridiagFF
+
+    plan = _Plan(z, bw)
+    lo_fn = _plan_bt(plan, a_ff_small.lo, "a_ff.lo", device, rtol=None)
+    return BlockTridiagFF(hi=fine_low.a, lo=lo_fn(plan.inflate(device)))
+
+
+def _uniform_dg_b(prob0, n: int, h: float, xin: float, func, bw: int, device) -> torch.Tensor:
+    """Full-size DG rhs ``b = f - D M^-1 r`` in float64 on ``device``: the
+    volume load is the only position-dependent part; every boundary
+    contribution is an additive, f-independent patch on the outermost
+    elements, taken from the stencil problem (``dg_flux_rhs`` and the
+    ``- D M^-1 r`` lift only add)."""
+    from ..assembly.dg_assembly import dg_load, dg_load_vector
+
+    dg0 = prob0.meshes[0]
+    ref = dg0.ref
+    f64 = dict(dtype=torch.float64, device=device)
+    jac = torch.full((n,), h / 2.0, **f64)
+    centers = xin + (torch.arange(n, **f64) + 0.5) * h
+    load = dg_load(
+        jac, centers, torch.tensor(ref.quad_nodes, **f64),
+        torch.tensor(ref.quad_weights[:, None] * ref.basis_at_quad, **f64), func,
+    )
+    del jac, centers
+    delta = prob0.b.cpu() - dg_load_vector(dg0, func)
+    k = min(bw, delta.shape[1] // 2)
+    load[:, :k] += delta[:, :k].to(device)
+    load[:, -k:] += delta[:, -k:].to(device)
+    return load

@@ -10,6 +10,8 @@ from .block_kernels import (
     chebyshev_multisweep_plain,
     chebyshev_multisweep_residual,
     chebyshev_multisweep_residual_plain,
+    ff_stencil_mid_defect,
+    ff_stencil_mid_defect_plain,
     fused_bt_matvec,
     multisweep,
     multisweep_plain,
@@ -27,6 +29,8 @@ __all__ = [
     "chebyshev_multisweep_plain",
     "chebyshev_multisweep_residual",
     "chebyshev_multisweep_residual_plain",
+    "ff_stencil_mid_defect",
+    "ff_stencil_mid_defect_plain",
     "fused_bt_matvec",
     "multisweep",
     "multisweep_plain",

@@ -6,7 +6,10 @@
 * K5 :func:`chebyshev_multisweep` / :func:`chebyshev_multisweep_residual` —
   ``k`` steps of the Chebyshev recurrence over block-Jacobi in M-form
   (``z = (c - x) - (ML x_{-1} + MU x_{+1})``, ``d = c_d d + c_z z``,
-  ``x += d``, with ``d = 0`` at the start), without or with the residual.
+  ``x += d``, with ``d = 0`` at the start), without or with the residual;
+* K6 :func:`ff_stencil_mid_defect` — the float-float defect ``r = b - A x``
+  of a stencil operator (``ops.df64.BTFFStencil``), error-free arithmetic,
+  bit for bit equal to :func:`ff_stencil_mid_defect_plain`.
 
 M-form: with ``S^-1`` the exact inverse of ``A_D``, the damped sweep
 ``x + alpha S^-1 (b - A x)`` equals ``x + alpha ((c - x) - (ML x_{-1} + MU x_{+1}))``
@@ -56,6 +59,7 @@ LAUNCHES = {
     "multisweep_residual": 0,
     "chebyshev_multisweep": 0,
     "chebyshev_multisweep_residual": 0,
+    "ff_stencil_mid_defect": 0,
 }
 
 _LIB = None
@@ -137,6 +141,50 @@ def chebyshev_multisweep_residual_plain(ml, mu, s_inv, a_diag, x, b, coef):
     return x, b - _mat(a_diag, t)
 
 
+def _stencil_op(blocks: torch.Tensor, cols):
+    """The float-float BlockTridiag of the packed stencil's columns ``cols``."""
+    from ..df64 import BlockTridiagFF
+
+    def bt(h):
+        return BlockTridiag(lower=blocks[h, 1][..., cols], diag=blocks[h, 0][..., cols],
+                            upper=blocks[h, 2][..., cols])
+
+    return BlockTridiagFF(bt(0), bt(1))
+
+
+def ff_stencil_mid_defect_plain(blocks, x_hi, x_lo, b_hi, b_lo):
+    """``r = b - A x`` in float-float for the packed stencil ``blocks``
+    (``(2, 3, bs, bs, 2 bw + 1)``, see ``ops.df64.stencil_blocks``): the
+    interior pass with the mid blocks broadcast over every column (the Pallas
+    kernel's computation), then, for ``bw > 0``, the first and last ``bw``
+    columns recomputed on windows of width ``bw + 2`` with their exact blocks
+    and spliced in (the JAX package's ``ff_bt_defect_stencil``).  Returns
+    ``(r_hi, r_lo)``."""
+    from ..df64 import FF, ff_bt_defect
+
+    bw = (blocks.shape[-1] - 1) // 2
+    n = x_hi.shape[-1]
+    r = ff_bt_defect(_stencil_op(blocks, slice(bw, bw + 1)), FF(x_hi, x_lo), FF(b_hi, b_lo))
+    if bw == 0:
+        return r.hi, r.lo
+    w = bw + 2
+    left = slice(None, w)
+    r_l = ff_bt_defect(
+        _stencil_op(blocks, list(range(bw)) + [bw] * 2),
+        FF(x_hi[:, left], x_lo[:, left]), FF(b_hi[:, left], b_lo[:, left]),
+    )
+    right = slice(n - w, None)
+    r_r = ff_bt_defect(
+        _stencil_op(blocks, [bw] * 2 + list(range(bw + 1, 2 * bw + 1))),
+        FF(x_hi[:, right], x_lo[:, right]), FF(b_hi[:, right], b_lo[:, right]),
+    )
+
+    def splice(full, l, rr):
+        return torch.cat([l[:, :bw], full[:, bw : n - bw], rr[:, -bw:]], dim=1)
+
+    return splice(r.hi, r_l.hi, r_r.hi), splice(r.lo, r_l.lo, r_r.lo)
+
+
 # ---------------------------------------------------------------------------
 # build and load
 # ---------------------------------------------------------------------------
@@ -189,6 +237,8 @@ def _lib():
             lib.aggmg_multisweep.restype = i
             lib.aggmg_chebyshev.argtypes = [i, p, p, p, p, p, p, p, p, ll, i, p, p]
             lib.aggmg_chebyshev.restype = i
+            lib.aggmg_ff_stencil_defect.argtypes = [i, p, i, p, p, p, p, p, p, ll, p]
+            lib.aggmg_ff_stencil_defect.restype = i
             _LIB = lib
     return _LIB
 
@@ -198,27 +248,32 @@ def _lib():
 # ---------------------------------------------------------------------------
 
 
-def _check(ops, vecs) -> tuple[int, int, torch.device]:
-    """Validate operator streams ``(bs, bs, n)`` and vectors ``(bs, n)``."""
-    bs, _, n = ops[0].shape
-    dev = ops[0].device
-    for t in (*ops, *vecs):
+def _check_tensors(tensors, bs: int, dev: torch.device) -> None:
+    """float32, contiguous, on ``dev``; a block size the kernels have on CUDA."""
+    for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"the block kernels take float32 only, got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"all inputs must be on one device ({dev} and {t.device})")
         if not t.is_contiguous():
             raise ValueError("the block kernels take contiguous tensors")
+    if dev.type == "cuda" and bs not in SUPPORTED_BLOCK_SIZES:
+        raise ValueError(f"block size {bs} has no kernel (supported: {SUPPORTED_BLOCK_SIZES})")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _check(ops, vecs) -> tuple[int, int, torch.device]:
+    """Validate operator streams ``(bs, bs, n)`` and vectors ``(bs, n)``."""
+    bs, _, n = ops[0].shape
+    dev = ops[0].device
+    _check_tensors((*ops, *vecs), bs, dev)
     for m in ops:
         if tuple(m.shape) != (bs, bs, n):
             raise ValueError(f"operator stream of shape {tuple(m.shape)}, expected {(bs, bs, n)}")
     for v in vecs:
         if tuple(v.shape) != (bs, n):
             raise ValueError(f"vector of shape {tuple(v.shape)}, expected {(bs, n)}")
-    if dev.type == "cuda" and bs not in SUPPORTED_BLOCK_SIZES:
-        raise ValueError(f"block size {bs} has no kernel (supported: {SUPPORTED_BLOCK_SIZES})")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
     return bs, n, dev
 
 
@@ -347,3 +402,38 @@ def chebyshev_multisweep_residual(ml, mu, s_inv, a_diag, x, b, coef):
     _raise_on(rc, "chebyshev_multisweep_residual")
     LAUNCHES["chebyshev_multisweep_residual"] += 1
     return x_out, r_out
+
+
+def ff_stencil_mid_defect(blocks, x_hi, x_lo, b_hi, b_lo):
+    """K6: the float-float stencil defect ``r = b - A x`` of
+    :func:`ff_stencil_mid_defect_plain` (interior pass and boundary columns)
+    in one launch; returns ``(r_hi, r_lo)``.  The kernel equals the plain
+    version bit for bit."""
+    if x_hi.dim() != 2:
+        raise ValueError(f"vector of shape {tuple(x_hi.shape)}, expected (bs, n)")
+    bs, n = x_hi.shape
+    if blocks.dim() != 5 or tuple(blocks.shape[:4]) != (2, 3, bs, bs) or blocks.shape[-1] % 2 != 1:
+        raise ValueError(
+            f"packed stencil of shape {tuple(blocks.shape)}, expected (2, 3, {bs}, {bs}, 2 bw + 1)"
+        )
+    dev = x_hi.device
+    _check_tensors((blocks, x_hi, x_lo, b_hi, b_lo), bs, dev)
+    for v in (x_lo, b_hi, b_lo):
+        if v.shape != x_hi.shape:
+            raise ValueError(f"vector of shape {tuple(v.shape)}, expected {tuple(x_hi.shape)}")
+    bw = (blocks.shape[-1] - 1) // 2
+    if bw > 0 and n < 2 * bw + 2:
+        raise ValueError(f"{n} columns do not hold the {bw}-column boundary windows")
+    if dev.type == "cpu":
+        return ff_stencil_mid_defect_plain(blocks, x_hi, x_lo, b_hi, b_lo)
+    r_hi, r_lo = torch.empty_like(x_hi), torch.empty_like(x_lo)
+    if n == 0:
+        return r_hi, r_lo
+    with torch.cuda.device(dev):
+        rc = _lib().aggmg_ff_stencil_defect(
+            bs, blocks.data_ptr(), bw, x_hi.data_ptr(), x_lo.data_ptr(), b_hi.data_ptr(),
+            b_lo.data_ptr(), r_hi.data_ptr(), r_lo.data_ptr(), n, _stream(dev),
+        )
+    _raise_on(rc, "ff_stencil_mid_defect")
+    LAUNCHES["ff_stencil_mid_defect"] += 1
+    return r_hi, r_lo

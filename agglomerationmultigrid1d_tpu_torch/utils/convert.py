@@ -3,8 +3,10 @@
 :func:`hierarchy_from_numpy` reads a hierarchy whose leaves are NumPy arrays —
 for example the JAX package's ``Hierarchy`` after
 ``jax.tree_util.tree_map(np.asarray, h)`` — by field name alone, so this
-module never imports the other package.  The tests use it to feed one
-hierarchy to both packages.
+module never imports the other package.  :func:`xl_problem_from_numpy` does
+the same for the four outputs of the JAX package's
+``build_xl_problem(..., slim_fine=True, ff_levels=True)``.  The tests use
+them to feed identical inputs to both packages.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch
 from ..models.hierarchy import BlockLevel, CgLevel, Hierarchy, _chebyshev_table
 from ..ops.block_tridiag import BlockTridiag
 from ..ops.cg_operator import CgOperator
-from ..ops.coarse_solve import CoarseSolver
+from ..ops.coarse_solve import BTCoarseSolver, CoarseSolver
+from ..ops.df64 import FF, BlockTridiagFF, BTFFStencil
 from ..ops.transfer_ops import BlockProlong, CgProlong, SeamProlong
 from ..smoothers.smoother import (
     BlockJacobiSmoother,
@@ -36,13 +39,10 @@ def hierarchy_from_numpy(h, device="cpu", dtype: torch.dtype | None = None) -> H
     precision; a float32 Chebyshev level gets its recurrence table."""
 
     def t(x):
-        if x is None:
-            return None
-        out = torch.tensor(np.asarray(x), device=device)  # copies: the source may be read-only
-        return out if dtype is None else out.to(dtype)
+        return None if x is None else _tensor(x, device, dtype)
 
     def bt(op) -> BlockTridiag:
-        return BlockTridiag(lower=t(op.lower), diag=t(op.diag), upper=t(op.upper))
+        return _bt(op, device, dtype)
 
     def smoother(s):
         if hasattr(s, "base"):
@@ -78,9 +78,56 @@ def hierarchy_from_numpy(h, device="cpu", dtype: torch.dtype | None = None) -> H
             return SeamProlong(n_win=t(tr.n_win), inv_lump=t(tr.inv_lump))
         return BlockProlong(t(tr.blocks))
 
-    coarse = CoarseSolver(a_dense=t(h.coarse.a_dense), a_inv=t(h.coarse.a_inv))
     return Hierarchy(
         levels=tuple(level(lv) for lv in h.levels),
         transfers=tuple(transfer(tr) for tr in h.transfers),
-        coarse=coarse,
+        coarse=coarse_from_numpy(h.coarse, device, dtype),
     )
+
+
+def _tensor(x, device, dtype=None) -> torch.Tensor:
+    out = torch.tensor(np.asarray(x), device=device)  # copies: the source may be read-only
+    return out if dtype is None else out.to(dtype)
+
+
+def _bt(op, device, dtype=None) -> BlockTridiag:
+    return BlockTridiag(*(_tensor(getattr(op, k), device, dtype) for k in ("lower", "diag", "upper")))
+
+
+def coarse_from_numpy(c, device="cpu", dtype: torch.dtype | None = None):
+    """A dense (``a_dense``, ``a_inv``) or cyclic-reduction (``f``, ``g``,
+    ``dinv_odd``, ``l_odd``, ``u_odd``, ``root_inv``, ``a``) coarse solver."""
+    if hasattr(c, "root_inv"):
+        ts = lambda xs: tuple(_tensor(x, device, dtype) for x in xs)  # noqa: E731
+        return BTCoarseSolver(
+            f=ts(c.f), g=ts(c.g), dinv_odd=ts(c.dinv_odd), l_odd=ts(c.l_odd), u_odd=ts(c.u_odd),
+            root_inv=_tensor(c.root_inv, device, dtype), a=_bt(c.a, device, dtype),
+        )
+    return CoarseSolver(a_dense=_tensor(c.a_dense, device, dtype), a_inv=_tensor(c.a_inv, device, dtype))
+
+
+def _ff_operator(a, device):
+    """A float-float stencil (``hi_left ... lo_right``, ``n``) or BlockTridiag pair (``hi``, ``lo``)."""
+    if hasattr(a, "hi_mid"):
+        parts = {k: _bt(getattr(a, k), device)
+                 for k in ("hi_left", "hi_mid", "hi_right", "lo_left", "lo_mid", "lo_right")}
+        return BTFFStencil(**parts, n=int(a.n))
+    return BlockTridiagFF(hi=_bt(a.hi, device), lo=_bt(a.lo, device))
+
+
+def xl_problem_from_numpy(h_low, ffops, b_ff, norm_b: float, device="cpu"):
+    """The outputs of ``build_xl_problem(..., slim_fine=True, ff_levels=True)``
+    with NumPy leaves -> this package's ``(h_low, FFOps, b_ff, norm_b)``:
+    the float32 hierarchy, the float-float operators (a stencil
+    ``hi_left ... lo_right, n`` fine operator, ``hi / lo`` BlockTridiag pairs
+    below it), the transfers' lo tails, the float64 coarse factorization, and
+    the rhs as an (hi, lo) pair."""
+    from ..models.stencil_setup import FFOps
+
+    ops = FFOps(
+        a_ffs=tuple(_ff_operator(a, device) for a in ffops.a_ffs),
+        t_los=tuple(None if t is None else BlockProlong(_tensor(t.blocks, device)) for t in ffops.t_los),
+        coarse64=coarse_from_numpy(ffops.coarse64, device),
+    )
+    b = FF(_tensor(b_ff.hi, device), _tensor(b_ff.lo, device))
+    return hierarchy_from_numpy(h_low, device), ops, b, float(norm_b)

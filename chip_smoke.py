@@ -23,7 +23,16 @@ Phases, one line of numbers each:
    ``multigrid_mixed`` through K5 on every block level;
 6. the CG-topped flagship ``poisson_full_hierarchy(n=16384)`` (131,073 DoF;
    CG p = 8, 4, 2, 1, then 13 agglomerated levels): float64 ``multigrid`` and
-   ``multigrid_mixed``, each with damped and with Chebyshev smoothing.
+   ``multigrid_mixed``, each with damped and with Chebyshev smoothing;
+7. the 1e8-DoF north star (``examples/xl_north_star.py``): 50,331,648 DG p=1
+   elements (100,663,296 DoF), 6 agglomerated levels at 4:1, c_dir = 1000 n,
+   built by ``build_xl_problem(..., slim_fine=True, ff_levels=True)`` on the
+   card and solved to 1e-8 by ``multigrid_true``, whose fine-level defects go
+   through K6 (7 launches per V-cycle); the relative residual is recomputed
+   independently in float64 from the materialized fine operator.
+
+The kernel phase also holds K6 (the float-float stencil defect) to its plain
+version bit for bit, hi and lo.
 
 Then a JSON line with the kernels' numbers, and last a JSON line with the
 device.  Any failure raises, and the exit code is non-zero; without a CUDA
@@ -53,6 +62,12 @@ FLAGSHIP_N = 16384
 SEED = 0
 DAMPED = ("bt_matvec", "multisweep", "multisweep_residual")  # K3, K2, K1: the damped solves' kernels
 CHEB_INTERVAL = (0.3, 1.2)  # K5's coefficients in the kernel phase, k = 3
+# K6's (bs, n): the north star's fine level, the JAX test's shape, the width of
+# K1-K3's headline, an awkward size
+K6_SHAPES = [(2, 50331648), (2, 16384), (4, 4194304), (2, 1000)]
+K6_BW = 4  # boundary columns of the stencil, as the setup extracts them
+NORTH_STAR_N = 50331648  # DG p=1 elements: 100,663,296 DoF
+NORTH_STAR_JAX_CYCLES = 15  # BENCH_r05.json (cycles do not depend on the hardware)
 # iterations of the JAX package on the CPU at the same sizes (its
 # multigrid_mixed with use_pallas=False), for comparison
 JAX_CPU = {
@@ -149,6 +164,110 @@ def phase_kernels(bk) -> dict:
         del a, sinv, ml, mu, x, b, runs
         torch.cuda.empty_cache()
     return results
+
+
+def phase_k6(bk) -> dict:
+    """K6 against its plain version, bit for bit, on random stencils with
+    boundary columns; both timed with CUDA events."""
+    out = {"max_abs_err": 0.0}
+    for bs, n in K6_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 7 * bs + n)
+        rnd = lambda *s, scale=1.0: scale * torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+        blocks = torch.stack([rnd(3, bs, bs, 2 * K6_BW + 1, scale=1e3),
+                              rnd(3, bs, bs, 2 * K6_BW + 1, scale=1e-4)]).contiguous()
+        x_hi, x_lo = rnd(bs, n), rnd(bs, n, scale=1e-8)
+        b_hi, b_lo = rnd(bs, n, scale=1e3), rnd(bs, n, scale=1e-5)
+        args = (blocks, x_hi, x_lo, b_hi, b_lo)
+        got, want = bk.ff_stencil_mid_defect(*args), bk.ff_stencil_mid_defect_plain(*args)
+        torch.cuda.synchronize()
+        err = max(float((got_ - want_).abs().max()) for got_, want_ in zip(got, want))
+        n_diff = sum(int((got_ != want_).sum()) for got_, want_ in zip(got, want))
+        check(all(bool(torch.isfinite(t).all()) for t in got), f"K6 non-finite at {bs},{n}")
+        check(n_diff == 0, f"K6 differs from plain at bs={bs} n={n}: {n_diff} elements, max {err}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        del got, want
+        ms = time_ms(lambda: bk.ff_stencil_mid_defect(*args))
+        plain_ms = time_ms(lambda: bk.ff_stencil_mid_defect_plain(*args), reps=5)
+        gbps = 24 * bs * n / (ms * 1e-3) / 1e9  # x and b pairs in, r pair out
+        print(f"K6 bs={bs} n={n}: bit-exact (hi and lo) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"GB/s={gbps:.1f}", flush=True)
+        out[(bs, n)] = (ms, plain_ms)
+        if (bs, n) == K6_SHAPES[0]:
+            out.update(ms=ms, plain_ms=plain_ms, gbps=gbps)
+        del args, blocks, x_hi, x_lo, b_hi, b_lo
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_north_star(bk) -> int:
+    """The 100,663,296-DoF north star: build on the card, one warm-up cycle,
+    then the solve to 1e-8; returns the solve's K6 launches."""
+    from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem, default_stencil_factor, multigrid_true
+    from agglomerationmultigrid1d_tpu_torch.ops.block_tridiag import BlockTridiag, bt_matvec
+    from agglomerationmultigrid1d_tpu_torch.ops.coarse_solve import BTCoarseSolver
+    from agglomerationmultigrid1d_tpu_torch.ops.df64 import ff_join
+    from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
+
+    n = NORTH_STAR_N
+    spec = HierarchySpec(cg_orders=(), dg_orders=(1,), n_agg_levels=6, p_agg=1, agg_factor=4,
+                         c_dir=1000.0 * n)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    t0 = time.perf_counter()
+    h, ffops, b_ff, norm_b = build_xl_problem(spec, n, slim_fine=True, ff_levels=True, device="cuda",
+                                              timings=timings)
+    setup_s = time.perf_counter() - t0
+    coarse = ffops.coarse64
+    blocks_c = h.levels[-1].a.n_blocks
+    print(f"north star {2 * n} DoF: setup_s={setup_s:.3f} (host stencil {timings['host_stencil']:.3f}, "
+          f"inflation {timings['inflate']:.3f}, device rhs {timings['rhs']:.3f}); levels={h.n_levels} "
+          f"coarsest={blocks_c} blocks ({type(coarse).__name__}); stencil factor z={default_stencil_factor(spec, n)}",
+          flush=True)
+    check(h.n_levels == 7 and blocks_c == 12288 and isinstance(coarse, BTCoarseSolver), "north star shape")
+
+    t0 = time.perf_counter()
+    multigrid_true(h, ffops, b_ff, norm_b, 1, 1e-8)  # warm-up: one V-cycle
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    bk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = multigrid_true(h, ffops, b_ff, norm_b, 40, 1e-8)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    k6 = bk.LAUNCHES["ff_stencil_mid_defect"]
+    peak = torch.cuda.max_memory_allocated()
+    it = res.iterations
+    hist = (res.res_history[:it] / norm_b).tolist()
+
+    # independent check: the fine operator materialized in float64 from the
+    # stencil (hi + lo joined, interior broadcast, boundary columns spliced)
+    st = ffops.a_ffs[0]
+
+    def full(name):
+        parts = []
+        for side, reps in (("left", 1), ("mid", n - 2 * st.bw), ("right", 1)):
+            v = getattr(getattr(st, "hi_" + side), name).double() + getattr(getattr(st, "lo_" + side), name).double()
+            parts.append(v.expand(*v.shape[:-1], reps) if side == "mid" else v)
+        return torch.cat(parts, dim=-1)
+
+    x = res.x
+    del ffops, h
+    b64 = ff_join(b_ff)
+    a64 = BlockTridiag(lower=full("lower"), diag=full("diag"), upper=full("upper"))
+    rel = float(torch.linalg.vector_norm(b64 - bt_matvec(a64, x)) / torch.linalg.vector_norm(b64))
+    del a64, b64
+    print(f"north star solve: cycles={it} (JAX: {NORTH_STAR_JAX_CYCLES}, BENCH_r05.json) "
+          f"solve_s={solve_s:.3f} warmup_cycle_s={warm_s:.3f} rel_residual_f64={rel:.3e} "
+          f"K6_launches={k6} peak_mem_bytes={peak} res_history={[f'{v:.3e}' for v in hist]}",
+          flush=True)
+    check(tuple(x.shape) == (2, n) and bool(torch.isfinite(x).all()), "north star x")
+    check(rel < 1e-8, f"north star relative residual {rel:.3e} >= 1e-8")
+    check(k6 == 7 * it, f"K6 launched {k6} times in {it} cycles, expected {7 * it}")
+    del res, x
+    torch.cuda.empty_cache()
+    return k6
 
 
 def rel_residual(prob, x) -> float:
@@ -353,10 +472,12 @@ def main() -> int:
     print(f"build {time.perf_counter() - t0:.1f} s -> {so.name}", flush=True)
 
     kernels = phase_kernels(bk)
+    kernels["K6"] = phase_k6(bk)
     launches = phase_slice(bk)
     phase_reference(bk)
     launches.update(phase_chebyshev(bk))
     phase_flagship(bk)
+    launches["ff_stencil_mid_defect"] = phase_north_star(bk)
 
     meta = {  # kernel: (label, wrapper, launch counter, line of the Pallas wrapper)
         "K1": ("K1", "multisweep_residual", "multisweep_residual", ":510"),
@@ -364,6 +485,7 @@ def main() -> int:
         "K3": ("K3", "fused_bt_matvec", "bt_matvec", ":130"),
         "K5": ("K5", "chebyshev_multisweep", "chebyshev_multisweep", ":422"),
         "K5r": ("K5", "chebyshev_multisweep_residual", "chebyshev_multisweep_residual", ":422"),
+        "K6": ("K6", "ff_stencil_mid_defect", "ff_stencil_mid_defect", ":621"),
     }
     out = []
     for k, (label, wrapper, counter, line) in meta.items():

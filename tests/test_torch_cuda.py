@@ -1,4 +1,5 @@
-"""The torch port's CUDA kernels and its mixed solve on a CUDA card.
+"""The torch port's CUDA kernels (K1-K3, K5, and K6 bit for bit), its mixed
+solve and its true-precision solve on a CUDA card.
 
 Every test here needs the card (marker ``cuda``) and skips without one.  This
 file imports neither JAX nor the JAX package, so it also runs where JAX is
@@ -121,3 +122,47 @@ def test_cuda_chebyshev_flagship_solve_uses_k5(cuda):
 
     rel = float(torch.linalg.vector_norm(cg_matvec(prob.hierarchy.levels[0].a, res.x) - b))
     assert rel / float(torch.linalg.vector_norm(b)) < 1e-10
+
+
+def _k6_inputs(seed, bs, n, bw, device):
+    """A random float-float stencil (packed, hi ~ 1e3, lo ~ 1e-4) and x, b pairs."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    blocks = torch.stack([t(rng.standard_normal((3, bs, bs, 2 * bw + 1)) * 1e3),
+                          t(rng.standard_normal((3, bs, bs, 2 * bw + 1)) * 1e-4)]).contiguous()
+    x_hi, b_hi = t(rng.standard_normal((bs, n))), t(rng.standard_normal((bs, n)) * 1e3)
+    return blocks, x_hi, t(rng.standard_normal((bs, n)) * 1e-8), b_hi, t(rng.standard_normal((bs, n)) * 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,n,bw", [(2, 16384, 4), (4, 1000, 4), (2, 777, 0), (9, 300, 4)])
+def test_cuda_k6_bit_exact(cuda, bs, n, bw):
+    """K6 equals its plain version bit for bit, hi and lo, with and without
+    boundary columns."""
+    args = _k6_inputs(bs * n + bw, bs, n, bw, cuda)
+    bk.reset_launch_counts()
+    got = bk.ff_stencil_mid_defect(*args)
+    want = bk.ff_stencil_mid_defect_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bk.LAUNCHES["ff_stencil_mid_defect"] == 1
+    with pytest.raises(TypeError):  # no plain path for a CUDA tensor of another type
+        bk.ff_stencil_mid_defect(args[0], args[1].double(), *args[2:])
+
+
+@pytest.mark.cuda
+def test_cuda_multigrid_true_launches_k6(cuda):
+    """The n=4096 stencil configuration built and solved on the card:
+    converges to 1e-8 and launches K6 n_pre + 1 + n_post = 7 times per cycle."""
+    from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem, multigrid_true
+    from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
+
+    n = 4096
+    spec = HierarchySpec(cg_orders=(), dg_orders=(1,), n_agg_levels=4, p_agg=1, c_dir=1000.0 * n)
+    h, ffops, b_ff, norm_b = build_xl_problem(spec, n, z=8, slim_fine=True, ff_levels=True, device=cuda)
+    bk.reset_launch_counts()
+    res = multigrid_true(h, ffops, b_ff, norm_b, 40, 1e-8)
+    it = res.iterations
+    assert 0 < it < 40 and float(res.res_history[it - 1]) < 1e-8 * norm_b
+    assert bk.LAUNCHES["ff_stencil_mid_defect"] == 7 * it
+    assert res.x.device.type == "cuda" and bool(torch.isfinite(res.x).all())

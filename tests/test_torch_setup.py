@@ -105,8 +105,6 @@ def test_unported_configurations_raise():
         build_problem(HierarchySpec(cg_orders=(2, 1), n_agg_levels=1), 18)
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # ragged agglomerates
         poisson_dg_hierarchy(n=20, max_p=1, n_dg=1, n_agg=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # coarsest level too large
-        poisson_dg_hierarchy(n=2048, max_p=1, n_dg=1)
     mesh = create_uniform_mesh(8, 0.0, 1.0)
     dg = make_dg_mesh(mesh, 1, switch=np.array([False, False, False, True, True, True, True]))
     bc = BoundaryCondition(("neu", 0.0), ("dir", 1.0))
