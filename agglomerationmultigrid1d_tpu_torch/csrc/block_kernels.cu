@@ -20,7 +20,9 @@
 // Host entry points have a plain C interface (loaded with ctypes) and return
 // cudaGetLastError() after the launch; -1 means an unsupported block size,
 // -2 more sweeps than kMaxSweeps.  K6 (ff_stencil_defect_kernel) takes
-// float-float pairs: two (bs, n) arrays per vector.
+// float-float pairs: two (bs, n) arrays per vector.  K7 is the multisweep
+// kernel with ghost columns (a shard's neighbours), K8 one A-form sweep, K4
+// the bandwidth yardstick that reads the multisweep's operands.
 
 #include <cuda_runtime.h>
 
@@ -55,6 +57,26 @@ __device__ __forceinline__ void mat(const float (&m)[BS][BS], const float (&v)[B
     for (int j = 1; j < BS; ++j) acc = acc + m[i][j] * v[j];
     out[i] = acc;
   }
+}
+
+// One window column of the multisweep: its ML and MU blocks, x, b and
+// c = S^-1 b, from streams whose column stride is `stride`.
+template <int BS>
+__device__ __forceinline__ void load_column(float (&m_l)[BS][BS], float (&m_u)[BS][BS],
+                                            float (&xr)[BS], float (&bv)[BS], float (&c)[BS],
+                                            const float* __restrict__ ml,
+                                            const float* __restrict__ mu,
+                                            const float* __restrict__ sinv,
+                                            const float* __restrict__ x,
+                                            const float* __restrict__ b, long long stride,
+                                            long long k) {
+  load_block<BS>(m_l, ml, stride, k);
+  load_block<BS>(m_u, mu, stride, k);
+  load_vec<BS>(xr, x, stride, k);
+  load_vec<BS>(bv, b, stride, k);
+  float s[BS][BS];
+  load_block<BS>(s, sinv, stride, k);
+  mat<BS>(s, bv, c);
 }
 
 // K3: y = A_D x + A_L x_{-1} + A_U x_{+1}.
@@ -126,27 +148,52 @@ struct Recurrence {
 // memory.  The window's outermost columns see a zero neighbour and go wrong by
 // one column per sweep, which never reaches the centre.  So operators are read
 // once per launch (plus the 2 halo / kThreads overlap) instead of once per sweep.
+//
+// K7 (g > 0): the same kernel on one shard of an element-sharded operator,
+// with the neighbours' columns as ghosts.  Replaces the ghosted
+// _multisweep_impl(..., ghosts=) (ops/pallas/block_kernels.py:522, body
+// _wide_sweep_kernel :257) and pallas_chebyshev_multisweep(..., ghosts=)
+// (:421, body _wide_cheb_kernel :325), driven by
+// parallel/sharded_kernels.py:117-218.  The ghost layout is the JAX
+// package's: gops (n_ops >= 3, bs, bs, 2g) holds ML, MU, S^-1 (a fourth
+// stream, A_D, is not read), gvec (2, bs, 2g) x and b; in each, the left
+// neighbour's last g columns and then the right neighbour's first g.  A
+// window column in [-g, 0) or [n, n + g) reads its ghost column and sweeps
+// like any other; beyond the ghosts the column is zero, as without them.  So
+// the result is the multisweep of [left ghosts | shard | right ghosts],
+// cropped to the shard, which equals the unsharded result for g >= halo.
+// The window reads at most `halo` ghost columns a side: a launch moves K1/K2/
+// K5's bytes plus 2 halo ghost columns, whatever g is (the TPU's 128-column
+// ghosts are its tiling rule).
+//
+// Every launch computes the output columns [col_lo, col_hi) of the (bs, n)
+// arrays x_out / r_out and leaves the others untouched: [0, n) for a whole
+// pass, the s edge columns for the sharded path's strips, which so recompute
+// their columns in place (their inner neighbours are the shard's own columns).
 template <int BS, bool EMIT_RESIDUAL, bool CHEB>
 __global__ void __launch_bounds__(kThreads)
     multisweep_kernel(const float* __restrict__ ml, const float* __restrict__ mu,
                       const float* __restrict__ sinv, const float* __restrict__ ad,
                       const float* __restrict__ x, const float* __restrict__ b,
+                      const float* __restrict__ gops, const float* __restrict__ gvec, int g,
                       float* __restrict__ x_out, float* __restrict__ r_out, long long n,
-                      int n_sweeps, int halo, const Recurrence rec) {
+                      long long col_lo, long long col_hi, int n_sweeps, int halo,
+                      const Recurrence rec) {
   __shared__ float sx[BS][kThreads];
   const int t = threadIdx.x;
-  const long long col = (long long)blockIdx.x * (kThreads - 2 * halo) + t - halo;
+  const long long col = col_lo + (long long)blockIdx.x * (kThreads - 2 * halo) + t - halo;
   const bool inside = col >= 0 && col < n;
+  const long long gcol = col < 0 ? g + col : col - n + g;  // ghost array column (outside [0, n))
+  const bool ghost = !inside && gcol >= 0 && gcol < 2LL * g;
+  const bool live = inside || ghost;
 
   float m_l[BS][BS], m_u[BS][BS], xr[BS], bv[BS], c[BS];
   if (inside) {
-    load_block<BS>(m_l, ml, n, col);
-    load_block<BS>(m_u, mu, n, col);
-    load_vec<BS>(xr, x, n, col);
-    load_vec<BS>(bv, b, n, col);
-    float s[BS][BS];
-    load_block<BS>(s, sinv, n, col);
-    mat<BS>(s, bv, c);
+    load_column<BS>(m_l, m_u, xr, bv, c, ml, mu, sinv, x, b, n, col);
+  } else if (ghost) {
+    const long long gw = 2LL * g;
+    load_column<BS>(m_l, m_u, xr, bv, c, gops, gops + BS * BS * gw, gops + 2 * BS * BS * gw,
+                    gvec, gvec + BS * gw, gw, gcol);
   } else {
 #pragma unroll
     for (int i = 0; i < BS; ++i) {
@@ -173,7 +220,7 @@ __global__ void __launch_bounds__(kThreads)
     mat<BS>(m_l, xm, l);
     mat<BS>(m_u, xp, u);
     __syncthreads();  // every neighbour read of this sweep is done
-    if (inside) {
+    if (live) {
 #pragma unroll
       for (int i = 0; i < BS; ++i) {
         if constexpr (CHEB) {
@@ -188,7 +235,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  if (!inside || t < halo || t >= kThreads - halo) return;
+  if (!inside || col >= col_hi || t < halo || t >= kThreads - halo) return;
 #pragma unroll
   for (int i = 0; i < BS; ++i) x_out[i * n + col] = xr[i];
   if (EMIT_RESIDUAL) {
@@ -350,18 +397,101 @@ void launch_matvec(const float* ad, const float* al, const float* au, const floa
 
 template <int BS, bool CHEB>
 void launch_multisweep(const float* ml, const float* mu, const float* sinv, const float* ad,
-                       const float* x, const float* b, float* x_out, float* r_out,
-                       long long n, int n_sweeps, const Recurrence& rec, cudaStream_t stream) {
+                       const float* x, const float* b, const float* gops, const float* gvec,
+                       int g, float* x_out, float* r_out, long long n, long long col_lo,
+                       long long col_hi, int n_sweeps, const Recurrence& rec,
+                       cudaStream_t stream) {
   const int halo = n_sweeps + (r_out != nullptr ? 1 : 0);
   const long long centre = kThreads - 2 * halo;
-  const unsigned grid = (unsigned)((n + centre - 1) / centre);
+  const unsigned grid = (unsigned)((col_hi - col_lo + centre - 1) / centre);
   if (r_out != nullptr) {
     multisweep_kernel<BS, true, CHEB><<<grid, kThreads, 0, stream>>>(
-        ml, mu, sinv, ad, x, b, x_out, r_out, n, n_sweeps, halo, rec);
+        ml, mu, sinv, ad, x, b, gops, gvec, g, x_out, r_out, n, col_lo, col_hi, n_sweeps, halo,
+        rec);
   } else {
     multisweep_kernel<BS, false, CHEB><<<grid, kThreads, 0, stream>>>(
-        ml, mu, sinv, ad, x, b, x_out, r_out, n, n_sweeps, halo, rec);
+        ml, mu, sinv, ad, x, b, gops, gvec, g, x_out, r_out, n, col_lo, col_hi, n_sweeps, halo,
+        rec);
   }
+}
+
+// K8: one A-form damped block-Jacobi sweep, x + alpha S^-1 (b - A x), with
+// the residual formed as ((b - A_D x) - A_L x_{-1}) - A_U x_{+1}.  Replaces
+// pallas_block_jacobi_sweep (ops/pallas/block_kernels.py:103, body
+// _sweep_kernel :71).  Per block column it reads four operator streams
+// (A_L, A_D, A_U, S^-1), x and b, and writes x: (4 bs^2 + 2 bs + bs) floats,
+// 304 B at bs = 4, so device-memory bandwidth bounds it.  One thread per
+// block column, as K3; the x neighbours come from L1/L2.
+template <int BS>
+__global__ void __launch_bounds__(kThreads)
+    sweep_kernel(const float* __restrict__ ad, const float* __restrict__ al,
+                 const float* __restrict__ au, const float* __restrict__ sinv,
+                 const float* __restrict__ x, const float* __restrict__ b,
+                 float* __restrict__ x_out, long long n, float alpha) {
+  const long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n) return;
+  float xc[BS], xm[BS], xp[BS];
+#pragma unroll
+  for (int j = 0; j < BS; ++j) {
+    xc[j] = x[j * n + k];
+    xm[j] = k > 0 ? x[j * n + k - 1] : 0.f;
+    xp[j] = k + 1 < n ? x[j * n + k + 1] : 0.f;
+  }
+  float m[BS][BS], d[BS], l[BS], u[BS], r[BS], z[BS];
+  load_block<BS>(m, ad, n, k);
+  mat<BS>(m, xc, d);
+  load_block<BS>(m, al, n, k);
+  mat<BS>(m, xm, l);
+  load_block<BS>(m, au, n, k);
+  mat<BS>(m, xp, u);
+#pragma unroll
+  for (int i = 0; i < BS; ++i) r[i] = ((b[i * n + k] - d[i]) - l[i]) - u[i];
+  load_block<BS>(m, sinv, n, k);
+  mat<BS>(m, r, z);
+#pragma unroll
+  for (int i = 0; i < BS; ++i) x_out[i * n + k] = xc[i] + alpha * z[i];
+}
+
+// K4: the bandwidth yardstick of the multisweep.  Reads the multisweep's
+// operands once (ML, MU, S^-1, x, b: K2's 240 B per block column at bs = 4)
+// and writes one vector, one add per element read:
+//   out[i] = (x[i] + b[i]) + sum over ML, MU, S^-1 in turn of sum_j M[i][j].
+// Replaces bench.py:bench_stream_bw._stream_kernel (bench.py:159), which
+// prices the multisweep against the achievable bandwidth of its operand mix.
+// One thread per block column; nothing is re-read, so its bytes are exactly
+// K2's (no halo factor: the TPU's (tile + 2 128) / tile belongs to its tiles).
+template <int BS>
+__global__ void __launch_bounds__(kThreads)
+    stream_kernel(const float* __restrict__ ml, const float* __restrict__ mu,
+                  const float* __restrict__ sinv, const float* __restrict__ x,
+                  const float* __restrict__ b, float* __restrict__ out, long long n) {
+  const long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n) return;
+  const float* ops[3] = {ml, mu, sinv};
+#pragma unroll
+  for (int i = 0; i < BS; ++i) {
+    float acc = x[i * n + k] + b[i * n + k];
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+#pragma unroll
+      for (int j = 0; j < BS; ++j) acc = acc + ops[s][(i * BS + j) * n + k];
+    out[i * n + k] = acc;
+  }
+}
+
+template <int BS>
+void launch_sweep(const float* ad, const float* al, const float* au, const float* sinv,
+                  const float* x, const float* b, float* x_out, long long n, float alpha,
+                  cudaStream_t stream) {
+  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  sweep_kernel<BS><<<grid, kThreads, 0, stream>>>(ad, al, au, sinv, x, b, x_out, n, alpha);
+}
+
+template <int BS>
+void launch_stream(const float* ml, const float* mu, const float* sinv, const float* x,
+                   const float* b, float* out, long long n, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  stream_kernel<BS><<<grid, kThreads, 0, stream>>>(ml, mu, sinv, x, b, out, n);
 }
 
 }  // namespace
@@ -389,9 +519,12 @@ int aggmg_bt_matvec(int bs, const void* ad, const void* al, const void* au, cons
   return (int)cudaGetLastError();
 }
 
-// ad and r_out are null for K2 (no residual) and both set for K1.
+// ad and r_out are null for K2 (no residual) and both set for K1; gops and
+// gvec are null with g = 0 for K1/K2, set with the ghost width g for K7; the
+// launch writes the output columns [col_lo, col_hi), 0 <= col_lo < col_hi <= n.
 int aggmg_multisweep(int bs, const void* ml, const void* mu, const void* sinv, const void* ad,
-                     const void* x, const void* b, void* x_out, void* r_out, long long n,
+                     const void* x, const void* b, const void* gops, const void* gvec, int g,
+                     void* x_out, void* r_out, long long n, long long col_lo, long long col_hi,
                      int n_sweeps, float alpha, void* stream) {
   if (n_sweeps < 0 || n_sweeps > kMaxSweeps) return -2;
   Recurrence rec = {};
@@ -399,16 +532,20 @@ int aggmg_multisweep(int bs, const void* ml, const void* mu, const void* sinv, c
 #define AGGMG_CALL(BS)                                                                        \
   launch_multisweep<BS, false>((const float*)ml, (const float*)mu, (const float*)sinv,         \
                                (const float*)ad, (const float*)x, (const float*)b,             \
-                               (float*)x_out, (float*)r_out, n, n_sweeps, rec, (cudaStream_t)stream)
+                               (const float*)gops, (const float*)gvec, g, (float*)x_out,       \
+                               (float*)r_out, n, col_lo, col_hi, n_sweeps, rec,                \
+                               (cudaStream_t)stream)
   AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
 #undef AGGMG_CALL
   return (int)cudaGetLastError();
 }
 
 // K5.  coef is a HOST array of 2 n_steps floats (cd_0, cz_0, cd_1, cz_1, ...),
-// copied into the kernel's parameters; ad and r_out as for aggmg_multisweep.
+// copied into the kernel's parameters; ad, r_out and the ghosts (K7) as for
+// aggmg_multisweep.
 int aggmg_chebyshev(int bs, const void* ml, const void* mu, const void* sinv, const void* ad,
-                    const void* x, const void* b, void* x_out, void* r_out, long long n,
+                    const void* x, const void* b, const void* gops, const void* gvec, int g,
+                    void* x_out, void* r_out, long long n, long long col_lo, long long col_hi,
                     int n_steps, const void* coef, void* stream) {
   if (n_steps < 0 || n_steps > kMaxSweeps) return -2;
   Recurrence rec = {};
@@ -419,7 +556,9 @@ int aggmg_chebyshev(int bs, const void* ml, const void* mu, const void* sinv, co
 #define AGGMG_CALL(BS)                                                                       \
   launch_multisweep<BS, true>((const float*)ml, (const float*)mu, (const float*)sinv,         \
                               (const float*)ad, (const float*)x, (const float*)b,             \
-                              (float*)x_out, (float*)r_out, n, n_steps, rec, (cudaStream_t)stream)
+                              (const float*)gops, (const float*)gvec, g, (float*)x_out,       \
+                              (float*)r_out, n, col_lo, col_hi, n_steps, rec,                 \
+                              (cudaStream_t)stream)
   AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
 #undef AGGMG_CALL
   return (int)cudaGetLastError();
@@ -434,6 +573,30 @@ int aggmg_ff_stencil_defect(int bs, const void* blocks, int bw, const void* x_hi
   launch_ff_stencil<BS>((const float*)blocks, bw, (const float*)x_hi, (const float*)x_lo,      \
                         (const float*)b_hi, (const float*)b_lo, (float*)r_hi, (float*)r_lo, n, \
                         (cudaStream_t)stream)
+  AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
+#undef AGGMG_CALL
+  return (int)cudaGetLastError();
+}
+
+// K8.
+int aggmg_block_jacobi_sweep(int bs, const void* ad, const void* al, const void* au,
+                             const void* sinv, const void* x, const void* b, void* x_out,
+                             long long n, float alpha, void* stream) {
+#define AGGMG_CALL(BS)                                                                      \
+  launch_sweep<BS>((const float*)ad, (const float*)al, (const float*)au, (const float*)sinv, \
+                   (const float*)x, (const float*)b, (float*)x_out, n, alpha,               \
+                   (cudaStream_t)stream)
+  AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
+#undef AGGMG_CALL
+  return (int)cudaGetLastError();
+}
+
+// K4.
+int aggmg_stream(int bs, const void* ml, const void* mu, const void* sinv, const void* x,
+                 const void* b, void* out, long long n, void* stream) {
+#define AGGMG_CALL(BS)                                                                    \
+  launch_stream<BS>((const float*)ml, (const float*)mu, (const float*)sinv, (const float*)x, \
+                    (const float*)b, (float*)out, n, (cudaStream_t)stream)
   AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
 #undef AGGMG_CALL
   return (int)cudaGetLastError();

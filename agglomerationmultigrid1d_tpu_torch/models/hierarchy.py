@@ -70,10 +70,20 @@ class BlockLevel(NamedTuple):
 Level = Union[CgLevel, BlockLevel]
 
 
+class ShardLayout(NamedTuple):
+    """How a hierarchy is spread over the ranks of a solve (set by
+    ``parallel.distributed.shard_hierarchy``): level ``k`` holds the rank's
+    columns of its element axis when ``sharded[k]``, else all of them."""
+
+    group: object  # parallel.multihost.SolverGroup
+    sharded: tuple  # of bool, one per level
+
+
 class Hierarchy(NamedTuple):
     levels: tuple  # of Level, fine -> coarse
     transfers: tuple  # of BlockProlong / CgProlong / SeamProlong, len = n_levels - 1
     coarse: CoarseSolver  # host-factorized coarsest-level solver (dense, or BTCoarseSolver)
+    layout: ShardLayout | None = None  # None: every level whole on one device
 
     @property
     def n_levels(self) -> int:
@@ -265,7 +275,8 @@ def prepare_fast_smoothers(h: Hierarchy) -> Hierarchy:
     M-form streams (``ml = S^-1 A_lower``, ``mu = S^-1 A_upper``) of a
     block-Jacobi smoother, also under a Chebyshev wrap, and a Chebyshev
     smoother's recurrence table (``make_low_precision_hierarchy`` calls this
-    after the cast)."""
+    after the cast); on a sharded hierarchy also K7's operator ghosts
+    (``parallel.distributed.attach_operator_ghosts``, a collective)."""
 
     def fix_base(lv, s):
         if not isinstance(lv, BlockLevel) or not isinstance(s, BlockJacobiSmoother) or s.ml is not None:
@@ -285,7 +296,12 @@ def prepare_fast_smoothers(h: Hierarchy) -> Hierarchy:
             return lv._replace(smoother=fix_base(lv, s))
         return lv
 
-    return h._replace(levels=tuple(fix(lv) for lv in h.levels))
+    h = h._replace(levels=tuple(fix(lv) for lv in h.levels))
+    if h.layout is None:
+        return h
+    from ..parallel.distributed import attach_operator_ghosts
+
+    return attach_operator_ghosts(h)
 
 
 def chebyshev_hierarchy(
@@ -303,7 +319,10 @@ def chebyshev_hierarchy(
     ``n_post`` as before: each sweep becomes one degree of the Chebyshev
     recurrence at the same cost.  Run it on the float64 hierarchy and cast
     afterwards (``make_low_precision_hierarchy``), as the JAX package does;
-    on a float32 hierarchy the recurrence tables are filled here."""
+    on a float32 hierarchy the recurrence tables are filled here.  Wrap
+    before sharding: the power iteration runs on whole levels."""
+    if h.layout is not None:
+        raise ValueError("chebyshev_hierarchy takes an unsharded hierarchy: wrap it, then shard it")
     new_levels = []
     for k, level in enumerate(h.levels):
         if k == len(h.levels) - 1:

@@ -46,7 +46,7 @@ def build_problem(
     func: Callable | None = None,
     bc: BoundaryCondition | None = None,
     mesh=None,
-    device="cpu",
+    device="cuda",
 ) -> Problem:
     """Any of the reference's hierarchy configurations from a
     :class:`~..utils.config.HierarchySpec`: CG levels of ``spec.cg_orders``,
@@ -134,7 +134,7 @@ def poisson_cg_hierarchy(
     func: Callable | None = None,
     bc: BoundaryCondition | None = None,
     cg_smoother: str = "jac",
-    device="cpu",
+    device="cuda",
 ) -> Problem:
     """CG levels p, p/2, ... only, dense coarse solve on the last
     (cg_heirarchy_test.jl)."""
@@ -152,7 +152,7 @@ def poisson_dg_cg_hierarchy(
     c_dir: float | None = None,
     func: Callable | None = None,
     bc: BoundaryCondition | None = None,
-    device="cpu",
+    device="cuda",
 ) -> Problem:
     """CG chain then DG levels continuing the p-halving (reaching p = 0 for the
     default 4 + 1 configuration, as in dg_cg_heirarchy_test.jl:31-45)."""
@@ -174,7 +174,7 @@ def poisson_dg_hierarchy(
     c_dir: float | None = None,
     func: Callable | None = None,
     bc: BoundaryCondition | None = None,
-    device="cpu",
+    device="cuda",
 ) -> Problem:
     """DG-topped hierarchy; finest operators assembled directly and
     ``b = f - D M^-1 r`` (dg_heirarchy_test.jl:38-46).  ``n_agg`` appends
@@ -199,7 +199,7 @@ def poisson_full_hierarchy(
     c_dir: float | None = None,
     func: Callable | None = None,
     bc: BoundaryCondition | None = None,
-    device="cpu",
+    device="cuda",
 ) -> Problem:
     """The flagship configuration (full_heirarchy_test.jl:30-92): 4 CG levels
     p = 8, 4, 2, 1, then log2(n) - 1 agglomerated levels (first 4:1, rest 2:1),

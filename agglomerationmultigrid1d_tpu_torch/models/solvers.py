@@ -19,6 +19,15 @@ Beyond float64 (:func:`multigrid`) and mixed precision
 transfers) and TRUE precision (:func:`v_cycle_true`, :func:`multigrid_true`;
 value-accurate operators throughout, the north-star solver), whose
 fine-level float-float defects on a stencil operator go through kernel K6.
+
+Sharded hierarchies (``parallel.distributed.shard_hierarchy``) run through the
+same functions: on a level that ``h.layout`` holds sharded, every matvec takes
+its two halo columns from the neighbour ranks, norms all-reduce, transfers
+stay local (the last sharded level restricts locally, then gathers), and the
+coarsest level is solved whole on every rank.  A sharded float32 block level
+smooths through ``parallel.sharded_kernels`` (K7's schedule), a sharded
+float64 level with plain A-form sweeps on halo matvecs.  ``multigrid_true``
+stays unsharded, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from ..ops.df64 import (
     ff_join,
     ff_split,
 )
+from ..ops.df64 import BlockTridiagFF, ff_bt_defect
 from ..ops.kernels.block_kernels import (
     chebyshev_multisweep,
     chebyshev_multisweep_residual,
@@ -49,6 +59,9 @@ from ..ops.kernels.block_kernels import (
     multisweep,
     multisweep_residual,
 )
+from ..parallel.halo import edge_columns, halo_neighbours
+from ..parallel.multihost import all_gather_cols, all_reduce_sum, local_range
+from ..parallel.sharded_kernels import sharded_chebyshev_multisweep, sharded_multisweep
 from ..ops.transfer_ops import (
     BlockProlong,
     CgProlong,
@@ -64,10 +77,19 @@ from ..smoothers.smoother import BlockJacobiSmoother, ChebyshevSmoother, apply_s
 from .hierarchy import BlockLevel, CgLevel, Hierarchy
 
 
-def level_matvec(level, x: torch.Tensor) -> torch.Tensor:
+def _group(h: Hierarchy, k: int):
+    """The SolverGroup of level ``k`` when ``h`` holds it sharded, else None."""
+    lay = h.layout
+    return lay.group if lay is not None and lay.sharded[k] else None
+
+
+def level_matvec(level, x: torch.Tensor, group=None) -> torch.Tensor:
+    """``A x``; with ``group``, ``x`` is the rank's shard of a sharded level."""
     if isinstance(level, CgLevel):
         return cg_matvec(level.a, x)
-    return bt_matvec(level.a, x)
+    if group is None:
+        return bt_matvec(level.a, x)
+    return bt_matvec(level.a, x, *halo_neighbours(x, group))
 
 
 def transfer_prolong(l, xc: torch.Tensor) -> torch.Tensor:
@@ -104,8 +126,37 @@ def _unflatten_level_vec(flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor
     return flat.reshape(n, bs).T
 
 
-def _norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.vector_norm(x.reshape(-1))
+def _norm(x: torch.Tensor, group=None) -> torch.Tensor:
+    """2-norm of a level vector; with ``group``, of the vector whose shard ``x`` is."""
+    if group is None:
+        return torch.linalg.vector_norm(x.reshape(-1))
+    return torch.sqrt(all_reduce_sum(torch.sum(x * x), group))
+
+
+def _local_transfer(t: BlockProlong, group) -> BlockProlong:
+    """The rank's coarse columns of a whole block transfer."""
+    lo, hi = local_range(t.n_coarse, group)
+    return BlockProlong(t.blocks[..., lo:hi])
+
+
+def _restrict(h: Hierarchy, k: int, r: torch.Tensor) -> torch.Tensor:
+    """Restrict level ``k``'s residual to level ``k + 1``.  Below the last
+    sharded level the rank's agglomerates are whole (``shard_hierarchy``
+    checks it), so the restriction is local, then gathered."""
+    t, g = h.transfers[k], _group(h, k)
+    if g is not None and _group(h, k + 1) is None:
+        return all_gather_cols(transfer_restrict(_local_transfer(t, g), r), g)
+    return transfer_restrict(t, r)
+
+
+def _prolong(h: Hierarchy, k: int, uc: torch.Tensor) -> torch.Tensor:
+    """Prolong level ``k + 1``'s correction to level ``k``; from a whole
+    coarse level onto a sharded one, the rank's part only."""
+    t, g = h.transfers[k], _group(h, k)
+    if g is not None and _group(h, k + 1) is None:
+        lo, hi = local_range(t.n_coarse, g)
+        return transfer_prolong(_local_transfer(t, g), uc[..., lo:hi])
+    return transfer_prolong(t, uc)
 
 
 def _base_smoother(level):
@@ -131,7 +182,7 @@ def _mform(level: BlockLevel):
     return ml, mu
 
 
-def _smooth_cheb(level, u, rhs, degree, emit_residual=False):
+def _smooth_cheb(level, u, rhs, degree, emit_residual=False, group=None):
     """Degree-``degree`` Chebyshev smoothing (see ChebyshevSmoother): the
     classic three-term recurrence on the preconditioned residual, one matvec
     and one base-smoother application per degree, the cost of a damped sweep.
@@ -139,7 +190,9 @@ def _smooth_cheb(level, u, rhs, degree, emit_residual=False):
     On a kernel level all degrees (and optionally the restrict-side residual)
     run in one K5 launch, with the level's float32 recurrence table; elsewhere
     the recurrence runs in plain torch on the level's own-precision interval
-    (no host read)."""
+    (no host read).  ``group`` marks ``u`` as the rank's shard of a sharded
+    level: the kernel level then runs K7's schedule
+    (``parallel.sharded_kernels``), the plain recurrence takes halo matvecs."""
     s = level.smoother
     if _on_kernels(level, u):
         if s.coef is None or degree > len(s.coef):
@@ -150,6 +203,11 @@ def _smooth_cheb(level, u, rhs, degree, emit_residual=False):
             )
         ml, mu = _mform(level)
         coef = s.coef[:degree]
+        if group is not None:
+            return sharded_chebyshev_multisweep(
+                group, level.a, s.base.inv, u, rhs, coef, degree=degree,
+                emit_residual=emit_residual, ml=ml, mu=mu, op_ghosts=s.base.ghosts,
+            )
         if emit_residual:
             return chebyshev_multisweep_residual(
                 ml, mu, s.base.inv, level.a.diag, u.contiguous(), rhs.contiguous(), coef
@@ -161,55 +219,74 @@ def _smooth_cheb(level, u, rhs, degree, emit_residual=False):
     sigma = theta / delta
     rho = 1.0 / sigma
 
-    z = apply_smoother(s.base, rhs - _level_matvec_opt(level, u))
+    z = apply_smoother(s.base, rhs - _level_matvec_opt(level, u, group))
     d = z / theta
     u = u + d
     for _ in range(1, degree):
-        z = apply_smoother(s.base, rhs - _level_matvec_opt(level, u))
+        z = apply_smoother(s.base, rhs - _level_matvec_opt(level, u, group))
         rho_new = 1.0 / (2.0 * sigma - rho)
         d = (rho_new * rho) * d + (2.0 * rho_new / delta) * z
         u = u + d
         rho = rho_new
     if emit_residual:
-        return u, rhs - _level_matvec_opt(level, u)
+        return u, rhs - _level_matvec_opt(level, u, group)
     return u
 
 
-def _smooth_n(level, u, rhs, n_sweeps, alpha):
+def _smooth_n(level, u, rhs, n_sweeps, alpha, group=None):
     """``n_sweeps`` damped smoother applications ``u += alpha S (rhs - A u)``;
     a Chebyshev level runs the degree-``n_sweeps`` recurrence instead
-    (``alpha`` is ignored: the damping is in the polynomial)."""
+    (``alpha`` is ignored: the damping is in the polynomial).  ``group`` as
+    in :func:`_smooth_cheb`."""
     if isinstance(level.smoother, ChebyshevSmoother):
-        return _smooth_cheb(level, u, rhs, n_sweeps)
+        return _smooth_cheb(level, u, rhs, n_sweeps, group=group)
     if _on_kernels(level, u):
         ml, mu = _mform(level)
+        if group is not None:
+            return sharded_multisweep(
+                group, level.a, level.smoother.inv, u, rhs, n_sweeps=n_sweeps, alpha=alpha,
+                ml=ml, mu=mu, op_ghosts=level.smoother.ghosts,
+            )
         return multisweep(
             ml, mu, level.smoother.inv, u.contiguous(), rhs.contiguous(),
             n_sweeps=n_sweeps, alpha=alpha,
         )
     for _ in range(n_sweeps):
-        u = u + apply_smoother(level.smoother, rhs - level_matvec(level, u), alpha=alpha)
+        u = u + apply_smoother(level.smoother, rhs - level_matvec(level, u, group), alpha=alpha)
     return u
 
 
-def _smooth_n_residual(level, u, rhs, n_sweeps, alpha):
+def _smooth_n_residual(level, u, rhs, n_sweeps, alpha, group=None):
     """``_smooth_n`` plus the residual ``rhs - A u`` of the smoothed ``u``."""
     if isinstance(level.smoother, ChebyshevSmoother):
-        return _smooth_cheb(level, u, rhs, n_sweeps, emit_residual=True)
+        return _smooth_cheb(level, u, rhs, n_sweeps, emit_residual=True, group=group)
     if _on_kernels(level, u):
         ml, mu = _mform(level)
+        if group is not None:
+            return sharded_multisweep(
+                group, level.a, level.smoother.inv, u, rhs, n_sweeps=n_sweeps, alpha=alpha,
+                emit_residual=True, ml=ml, mu=mu, op_ghosts=level.smoother.ghosts,
+            )
         return multisweep_residual(
             ml, mu, level.smoother.inv, level.a.diag, u.contiguous(), rhs.contiguous(),
             n_sweeps=n_sweeps, alpha=alpha,
         )
-    u = _smooth_n(level, u, rhs, n_sweeps, alpha)
-    return u, rhs - _level_matvec_opt(level, u)
+    u = _smooth_n(level, u, rhs, n_sweeps, alpha, group=group)
+    return u, rhs - _level_matvec_opt(level, u, group)
 
 
-def _level_matvec_opt(level, x):
+def _level_matvec_opt(level, x, group=None):
+    """``A x`` through K3 on float32 block levels.  On a shard, K3 sees zeros
+    beyond its two edge columns; the neighbours' columns are then added to
+    those two columns (``A_L x_{-1}`` on the first, ``A_U x_{+1}`` on the last)."""
     if isinstance(level, BlockLevel) and x.dtype == torch.float32:
-        return fused_bt_matvec(level.a, x.contiguous())
-    return level_matvec(level, x)
+        y = fused_bt_matvec(level.a, x.contiguous())
+        if group is not None:
+            left, right = edge_columns(x, group)
+            y[:, :1] += torch.einsum("ijn,jn->in", level.a.lower[..., :1], left)
+            y[:, -1:] += torch.einsum("ijn,jn->in", level.a.upper[..., -1:], right)
+        return y
+    return level_matvec(level, x, group)
 
 
 def v_cycle(
@@ -221,7 +298,9 @@ def v_cycle(
     n_post: int = 3,
     alpha: float = 2.0 / 3.0,
 ) -> torch.Tensor:
-    """One multigrid V-cycle (cf. ``solvers.jl:19-50``)."""
+    """One multigrid V-cycle (cf. ``solvers.jl:19-50``); on a sharded
+    hierarchy ``x0``, ``b`` and the result are the rank's shards (see the
+    module docstring)."""
     n = h.n_levels
     u = [None] * n
     rhs = [None] * n
@@ -231,17 +310,19 @@ def v_cycle(
         level = h.levels[k]
         if k > 0:
             u[k] = torch.zeros_like(rhs[k])
-        u[k], r_k = _smooth_n_residual(level, u[k], rhs[k], n_pre, alpha)
-        rhs[k + 1] = transfer_restrict(h.transfers[k], r_k)
+        u[k], r_k = _smooth_n_residual(
+            level, u[k], rhs[k], n_pre, alpha, group=_group(h, k)
+        )
+        rhs[k + 1] = _restrict(h, k, r_k)
 
-    # coarsest level: dense direct solve (cf. solvers.jl:39)
+    # coarsest level: dense direct solve (cf. solvers.jl:39), whole on every rank
     flat = _flatten_level_vec(rhs[n - 1])
     u[n - 1] = _unflatten_level_vec(coarse_solve(h.coarse, flat), rhs[n - 1])
 
     for k in range(n - 2, -1, -1):
         level = h.levels[k]
-        u[k] = u[k] + transfer_prolong(h.transfers[k], u[k + 1])
-        u[k] = _smooth_n(level, u[k], rhs[k], n_post, alpha)
+        u[k] = u[k] + _prolong(h, k, u[k + 1])
+        u[k] = _smooth_n(level, u[k], rhs[k], n_post, alpha, group=_group(h, k))
     return u[0]
 
 
@@ -260,11 +341,21 @@ class MultigridResult(NamedTuple):
 
 def _dense_fine_solve(h: Hierarchy, b: torch.Tensor) -> torch.Tensor:
     """Host banded direct solve of the finest operator (the reference's
-    ``u_exact = A \\ b``, ``solvers.jl:120``); observability only."""
+    ``u_exact = A \\ b``, ``solvers.jl:120``); observability only.  On a
+    sharded fine level every rank gathers the operator and ``b``, solves, and
+    keeps its own columns of the flat solution."""
     from ..ops.banded_solve import fine_direct_solve
 
-    sol = fine_direct_solve(h.levels[0], _flatten_level_vec(b).detach().cpu().numpy())
-    return torch.from_numpy(sol).to(device=b.device, dtype=b.dtype)
+    fine, g = h.levels[0], _group(h, 0)
+    b_all = b
+    if g is not None:
+        fine = fine._replace(a=type(fine.a)(*(all_gather_cols(t, g) for t in fine.a)))
+        b_all = all_gather_cols(b, g)
+    sol = torch.from_numpy(fine_direct_solve(fine, _flatten_level_vec(b_all).detach().cpu().numpy()))
+    if g is not None:
+        lo, hi = local_range(b_all.shape[-1], g)
+        sol = sol[lo * b.shape[0] : hi * b.shape[0]]
+    return sol.to(device=b.device, dtype=b.dtype)
 
 
 def multigrid(
@@ -283,20 +374,21 @@ def multigrid(
 
     ``err_history`` tracks ``||x - A^-1 b||`` against a banded direct solve of
     the finest operator; ``compute_error=False`` skips it for large problems.
+    On a sharded hierarchy ``x0``, ``b`` and ``x`` are the rank's shards.
     """
     u_exact = _dense_fine_solve(h, b) if compute_error else None
-    fine = h.levels[0]
-    norm_b = float(_norm(b))
+    fine, g0 = h.levels[0], _group(h, 0)
+    norm_b = float(_norm(b, g0))
     res_h = torch.full((maxiter,), float("nan"), dtype=torch.float64, device="cpu")
     err_h = torch.full((maxiter,), float("nan"), dtype=torch.float64, device="cpu")
     x = x0
     it = 0
     while it < maxiter:
         x = v_cycle(h, x, b, n_pre=n_pre, n_post=n_post, alpha=alpha)
-        res = float(_norm(level_matvec(fine, x) - b))
+        res = float(_norm(level_matvec(fine, x, g0) - b, g0))
         res_h[it] = res
         if u_exact is not None:
-            err_h[it] = float(_norm(_flatten_level_vec(x) - u_exact))
+            err_h[it] = float(_norm(_flatten_level_vec(x) - u_exact, g0))
         it += 1
         if res < tol * norm_b:
             break
@@ -330,15 +422,15 @@ def _mixed_inner_solve(h_low, r, inner_tol, max_cycles, *, n_pre, n_post, alpha)
     Returns ``(e_best, n_cycles, i_best)``: the iterate with the smallest
     inner residual, the cycles run, and after how many cycles the best came.
     One residual matvec (kernel K3) per cycle, and one host sync."""
-    fine = h_low.levels[0]
-    norm_r = float(_norm(r))
+    fine, g0 = h_low.levels[0], _group(h_low, 0)
+    norm_r = float(_norm(r, g0))
     big = float(torch.finfo(r.dtype).max)
     e = torch.zeros_like(r)
     best_e, best_res, best_i = e, big, 0
     i, res, prev = 0, norm_r, big
     while i < max_cycles and not (res < inner_tol * norm_r or res > 0.7 * prev):
         e = v_cycle(h_low, e, r, n_pre=n_pre, n_post=n_post, alpha=alpha)
-        new = float(_norm(r - _level_matvec_opt(fine, e)))
+        new = float(_norm(r - _level_matvec_opt(fine, e, g0), g0))
         if new < best_res:
             best_e, best_res, best_i = e, new, i + 1
         i, res, prev = i + 1, new, res
@@ -363,13 +455,13 @@ def _mixed_loop(h, h_low, x, b, norm_b, *, maxiter, tol, inner_tol, max_inner, k
     Returns ``(x, outer, cycles, rel_history)`` with the best relative defect
     after each outer step.
     """
-    fine = h.levels[0]
+    fine, g0 = h.levels[0], _group(h, 0)
     low_dtype = h_low.levels[0].a[0].dtype  # the first tensor of the fine operator
     rel_h = np.full((maxiter,), np.nan)
 
     def rel_defect(x):
-        r = b - level_matvec(fine, x)
-        return r, float(_norm(r)) / norm_b
+        r = b - level_matvec(fine, x, g0)
+        return r, float(_norm(r, g0)) / norm_b
 
     x_cur = x_best = x
     r_best = torch.zeros_like(x)
@@ -440,8 +532,11 @@ def multigrid_mixed(
     cycles (:func:`_progressive_loop`) from the float-float split of ``x``,
     as the JAX package does; their steps are appended to ``res_history`` and
     counted in ``iterations`` and ``inner_cycles``.
+
+    On sharded hierarchies (``h`` and ``h_low`` from ``shard_hierarchy``)
+    ``x0``, ``b`` and ``x`` are the rank's shards.
     """
-    norm_b = float(_norm(b))
+    norm_b = float(_norm(b, _group(h, 0)))
     kw = dict(n_pre=n_pre, n_post=n_post, alpha=alpha)
     x, outer, cycles, rel_h = _mixed_loop(
         h, h_low, x0.to(torch.float64), b, norm_b,
@@ -484,12 +579,12 @@ def _ff_zeros_like(x: FF) -> FF:
     return FF(torch.zeros_like(x.hi), torch.zeros_like(x.lo))
 
 
-def _smooth_ff(level, u_ff: FF, rhs_ff: FF, n_sweeps: int, alpha: float) -> FF:
+def _smooth_ff(level, u_ff: FF, rhs_ff: FF, n_sweeps: int, alpha: float, group=None) -> FF:
     """Low-precision smoothing as a float-float-accumulated correction: the
     sweeps run in float32 on the hi parts (K2 / K5 on float32 block levels),
     and the change they make is folded into the float-float iterate, so the
     iterate's smooth-mode content is never truncated to float32."""
-    u32 = _smooth_n(level, u_ff.hi, rhs_ff.hi, n_sweeps, alpha)
+    u32 = _smooth_n(level, u_ff.hi, rhs_ff.hi, n_sweeps, alpha, group=group)
     delta = u32 - u_ff.hi
     return ff_add(u_ff, FF(delta, torch.zeros_like(delta)))
 
@@ -517,6 +612,16 @@ def _coarse_ff(h_low: Hierarchy, a_ff_c, r: FF, coarse64) -> FF:
     return ff_add(e_ff, FF(e2, torch.zeros_like(e2)))
 
 
+def _ff_defect(a_ff, x: FF, b: FF, group=None) -> FF:
+    """``ff_defect``; on a shard, with the neighbours' hi and lo edge columns."""
+    if group is None:
+        return ff_defect(a_ff, x, b)
+    if not isinstance(a_ff, BlockTridiagFF):
+        raise NotImplementedError(f"a sharded float-float defect of {type(a_ff).__name__}")
+    xm, xp = halo_neighbours(torch.stack([x.hi, x.lo]), group)  # one exchange for both parts
+    return ff_bt_defect(a_ff, x, b, FF(xm[0], xm[1]), FF(xp[0], xp[1]))
+
+
 def v_cycle_ff(
     h_low: Hierarchy,
     a_ffs,
@@ -539,32 +644,30 @@ def v_cycle_ff(
     u[0], rhs[0] = u_ff, rhs_ff
 
     for k in range(n - 1):
-        level = h_low.levels[k]
+        level, g = h_low.levels[k], _group(h_low, k)
         if k > 0:
             u[k] = _ff_zeros_like(rhs[k])
-        u[k] = _smooth_ff(level, u[k], rhs[k], n_pre, alpha)
-        r_ff = ff_defect(a_ffs[k], u[k], rhs[k])
-        t = h_low.transfers[k]
-        rhs[k + 1] = FF(transfer_restrict(t, r_ff.hi), transfer_restrict(t, r_ff.lo))
+        u[k] = _smooth_ff(level, u[k], rhs[k], n_pre, alpha, group=g)
+        r_ff = _ff_defect(a_ffs[k], u[k], rhs[k], g)
+        rhs[k + 1] = FF(_restrict(h_low, k, r_ff.hi), _restrict(h_low, k, r_ff.lo))
 
     u[n - 1] = _coarse_ff(h_low, a_ffs[n - 1], rhs[n - 1], coarse64)
 
     for k in range(n - 2, -1, -1):
-        t = h_low.transfers[k]
-        corr = FF(transfer_prolong(t, u[k + 1].hi), transfer_prolong(t, u[k + 1].lo))
+        corr = FF(_prolong(h_low, k, u[k + 1].hi), _prolong(h_low, k, u[k + 1].lo))
         u[k] = ff_add(u[k], corr)
-        u[k] = _smooth_ff(h_low.levels[k], u[k], rhs[k], n_post, alpha)
+        u[k] = _smooth_ff(h_low.levels[k], u[k], rhs[k], n_post, alpha, group=_group(h_low, k))
     return u[0]
 
 
-def _ff_rel_defect(a_ff, x_ff: FF, b_ff: FF, inv_norm_b) -> tuple:
+def _ff_rel_defect(a_ff, x_ff: FF, b_ff: FF, inv_norm_b, group=None) -> tuple:
     """``(r_ff, ||r_hi|| * inv_norm_b)``, the norm in float32 as in the JAX package."""
-    r_ff = ff_defect(a_ff, x_ff, b_ff)
-    return r_ff, _norm(_flatten_level_vec(r_ff.hi) * float(inv_norm_b))
+    r_ff = _ff_defect(a_ff, x_ff, b_ff, group)
+    return r_ff, _norm(_flatten_level_vec(r_ff.hi) * float(inv_norm_b), group)
 
 
 def _progressive_loop(
-    h_low, a_ffs, x_ff, b_ff, inv_norm_b, coarse64=None, *, maxiter, tol, n_pre, n_post, alpha
+    h_low, a_ffs, x_ff, b_ff, inv_norm_b, coarse64=None, *, maxiter, tol, n_pre, n_post, alpha,
 ):
     """Progressive-precision iteration, a host loop: each cycle solves the
     CORRECTION equation ``A e = r`` from zero (with a well-scaled rhs every
@@ -575,11 +678,12 @@ def _progressive_loop(
     relative defects after each cycle (the JAX package's ``_progressive_loop``,
     one host read per cycle)."""
     kw = dict(n_pre=n_pre, n_post=n_post, alpha=alpha)
+    g0 = _group(h_low, 0)
     tol32 = np.float32(tol)
     res_h = np.full((maxiter,), np.nan, dtype=np.float32)
     it = 0
     while it < maxiter:
-        r_ff, rel = _ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b)
+        r_ff, rel = _ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b, g0)
         rel = np.float32(rel)
         if it > 0:
             res_h[it - 1] = rel
@@ -589,7 +693,7 @@ def _progressive_loop(
         x_ff = ff_add(x_ff, e_ff)
         it += 1
     if it > 0:  # the defect of the final iterate
-        res_h[it - 1] = np.float32(_ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b)[1])
+        res_h[it - 1] = np.float32(_ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b, g0)[1])
     return x_ff, it, res_h
 
 
@@ -609,9 +713,10 @@ def multigrid_progressive(
     float32 smoother sweeps and coarse solves, float-float everything else.
     It converges like the float64 iteration on operators where
     :func:`multigrid_mixed`'s float32 inner V-cycle is no contraction.
-    ``iterations`` counts V-cycles (``solvers.jl:116-139``); ``x`` is float64."""
+    ``iterations`` counts V-cycles (``solvers.jl:116-139``); ``x`` is float64.
+    Sharded hierarchies as in :func:`multigrid_mixed`."""
     a_ffs = tuple(_ff_split_level(lv) for lv in h.levels)
-    norm_b = float(_norm(b))
+    norm_b = float(_norm(b, _group(h, 0)))
     x_ff, it, rel_h = _progressive_loop(
         h_low, a_ffs, ff_split(x0.to(torch.float64)), ff_split(b), np.float32(1.0 / norm_b),
         maxiter=maxiter, tol=tol, n_pre=n_pre, n_post=n_post, alpha=alpha,
@@ -764,7 +869,12 @@ def multigrid_true(
         h_low, ffops, b_ff, norm_b = build_xl_problem(spec, n, slim_fine=True,
                                                       ff_levels=True, device="cuda")
         res = multigrid_true(h_low, ffops, b_ff, norm_b)
+
+    It runs on whole hierarchies only, as in the JAX package (whose sharded
+    build has no ``t_los`` or ``coarse64``).
     """
+    if h_low.layout is not None:
+        raise ValueError("multigrid_true takes an unsharded hierarchy")
     if x0_ff is None:
         zero = torch.zeros_like(b_ff.hi)
         x0_ff = FF(zero, zero)

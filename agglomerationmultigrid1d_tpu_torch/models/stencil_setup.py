@@ -202,7 +202,7 @@ def _coarse_factor(a_small: BlockTridiag, z: int, bw: int, what: str, device):
 
 
 def inflate_hierarchy(
-    h_small: Hierarchy, h_small_f64: Hierarchy, z: int, *, bw: int = _BW, device="cpu"
+    h_small: Hierarchy, h_small_f64: Hierarchy, z: int, *, bw: int = _BW, device="cuda"
 ) -> Hierarchy:
     """Inflate a stencil-size hierarchy to ``z``-times-larger level sizes.
 
@@ -297,7 +297,7 @@ def build_xl_problem(
     chebyshev: bool = True,
     slim_fine: bool = False,
     ff_levels: bool = False,
-    device="cpu",
+    device="cuda",
     domain: tuple[float, float] = (0.0, 1.0),
     timings: dict | None = None,
 ):
@@ -343,7 +343,7 @@ def build_xl_problem(
     # 1) host float64 stencil problem at n0 elements of the REAL width h (its
     #    rhs is discarded, apart from the boundary patches)
     t0 = time.perf_counter()
-    prob0 = build_problem(spec, n0, func, bc, mesh=_stencil_mesh(n0, h))
+    prob0 = build_problem(spec, n0, func, bc, mesh=_stencil_mesh(n0, h), device="cpu")
     h64 = strip_hierarchy(prob0.hierarchy)
     a_ff_small = _ff_split_fine(h64.levels[0])
     h_low0 = hierarchy_astype(h64, dtype)

@@ -47,11 +47,14 @@ def block_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def bt_matvec(a: BlockTridiag, x: torch.Tensor) -> torch.Tensor:
-    """``y[:, k] = lower_k x_{k-1} + diag_k x_k + upper_k x_{k+1}``; x is ``(bs, n)``."""
+def bt_matvec(a: BlockTridiag, x: torch.Tensor, xm=None, xp=None) -> torch.Tensor:
+    """``y[:, k] = lower_k x_{k-1} + diag_k x_k + upper_k x_{k+1}``; x is ``(bs, n)``.
+    ``xm`` / ``xp`` are ``x_{k-1}`` / ``x_{k+1}`` where the caller has them
+    (a shard's, with its neighbours' edge columns); by default the
+    zero-padded shifts of ``x``."""
     y = torch.einsum("ijn,jn->in", a.diag, x)
-    y = y + torch.einsum("ijn,jn->in", a.lower, shift(x, -1))
-    y = y + torch.einsum("ijn,jn->in", a.upper, shift(x, +1))
+    y = y + torch.einsum("ijn,jn->in", a.lower, shift(x, -1) if xm is None else xm)
+    y = y + torch.einsum("ijn,jn->in", a.upper, shift(x, +1) if xp is None else xp)
     return y
 
 

@@ -139,11 +139,13 @@ def ff_bt_matvec(a: BlockTridiagFF, x: FF) -> FF:
     return _contract_ff(a, lambda t: t.upper, _shifted(x, +1), acc, +1.0)
 
 
-def ff_bt_defect(a: BlockTridiagFF, x: FF, b: FF) -> FF:
-    """``r = b - A x`` in float-float, ~2^-48-accurate."""
+def ff_bt_defect(a: BlockTridiagFF, x: FF, b: FF, xm: FF | None = None, xp: FF | None = None) -> FF:
+    """``r = b - A x`` in float-float, ~2^-48-accurate.  ``xm`` / ``xp`` are
+    ``x_{k-1}`` / ``x_{k+1}`` where the caller has them (a shard's, with its
+    neighbours' edge columns); by default the zero-padded shifts."""
     acc = _contract_ff(a, lambda t: t.diag, x, b, -1.0)
-    acc = _contract_ff(a, lambda t: t.lower, _shifted(x, -1), acc, -1.0)
-    return _contract_ff(a, lambda t: t.upper, _shifted(x, +1), acc, -1.0)
+    acc = _contract_ff(a, lambda t: t.lower, _shifted(x, -1) if xm is None else xm, acc, -1.0)
+    return _contract_ff(a, lambda t: t.upper, _shifted(x, +1) if xp is None else xp, acc, -1.0)
 
 
 def _bt_broadcast(t: BlockTridiag, n: int) -> BlockTridiag:

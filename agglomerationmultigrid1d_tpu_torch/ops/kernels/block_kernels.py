@@ -9,7 +9,15 @@
   ``x += d``, with ``d = 0`` at the start), without or with the residual;
 * K6 :func:`ff_stencil_mid_defect` — the float-float defect ``r = b - A x``
   of a stencil operator (``ops.df64.BTFFStencil``), error-free arithmetic,
-  bit for bit equal to :func:`ff_stencil_mid_defect_plain`.
+  bit for bit equal to :func:`ff_stencil_mid_defect_plain`;
+* K7 — K1, K2 and K5 (four forms) with ``ghosts=(gops, gvec)``: one shard of
+  an element-sharded operator, with its neighbours' columns as ghosts
+  (``parallel.sharded_kernels``); the result is the sweeps over
+  ``[left ghosts | shard | right ghosts]``, cropped to the shard;
+* K8 :func:`block_jacobi_sweep` — one A-form sweep ``x + alpha S^-1 (b - A x)``
+  on four operator streams (a public op; no solver path calls it);
+* K4 :func:`stream_kernel` — the bandwidth yardstick: reads the multisweep's
+  operands (ML, MU, S^-1, x, b) once and writes one vector, one add each.
 
 M-form: with ``S^-1`` the exact inverse of ``A_D``, the damped sweep
 ``x + alpha S^-1 (b - A x)`` equals ``x + alpha ((c - x) - (ML x_{-1} + MU x_{+1}))``
@@ -25,7 +33,8 @@ order of operations.  There is no fallback from a CUDA tensor to the plain
 version: a build or launch failure raises.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain runs do not count), so
-a run can show that it went through the kernels.
+a run can show that it went through the kernels; K7's four forms count
+under the ``*_ghost`` names.
 
 K5's coefficient table (:func:`chebyshev_coefficients`) is passed to the
 kernel by value, as host floats: a launch reads no scalar from the device.
@@ -60,6 +69,12 @@ LAUNCHES = {
     "chebyshev_multisweep": 0,
     "chebyshev_multisweep_residual": 0,
     "ff_stencil_mid_defect": 0,
+    "multisweep_ghost": 0,
+    "multisweep_residual_ghost": 0,
+    "chebyshev_multisweep_ghost": 0,
+    "chebyshev_multisweep_residual_ghost": 0,
+    "block_jacobi_sweep": 0,
+    "stream_kernel": 0,
 }
 
 _LIB = None
@@ -88,7 +103,29 @@ def bt_matvec_plain(a: BlockTridiag, x: torch.Tensor) -> torch.Tensor:
     return (_mat(a.diag, x) + _mat(a.lower, shift(x, -1))) + _mat(a.upper, shift(x, +1))
 
 
-def multisweep_plain(ml, mu, s_inv, x, b, n_sweeps: int = 3, alpha: float = 2.0 / 3.0):
+def _ghost_window(ghosts, ops, vecs):
+    """K7's plain form: the operator streams and vectors widened to
+    ``[left ghosts | shard | right ghosts]``; a stream with no ghost stream
+    (A_D, which only the shard's own residual reads) is widened with zeros.
+    Returns ``(ops, vecs, g)``."""
+    gops, gvec = ghosts
+    g = gops.shape[-1] // 2
+
+    def wide(t, gt):
+        return torch.cat([gt[..., :g], t, gt[..., g:]], dim=-1)
+
+    ops = tuple(
+        wide(m, gops[s] if s < gops.shape[0] else torch.zeros_like(gops[0]))
+        for s, m in enumerate(ops)
+    )
+    return ops, tuple(wide(v, gvec[s]) for s, v in enumerate(vecs)), g
+
+
+def multisweep_plain(ml, mu, s_inv, x, b, n_sweeps: int = 3, alpha: float = 2.0 / 3.0, ghosts=None):
+    if ghosts is not None:
+        n = x.shape[-1]
+        (ml, mu, s_inv), (x, b), g = _ghost_window(ghosts, (ml, mu, s_inv), (x, b))
+        return multisweep_plain(ml, mu, s_inv, x, b, n_sweeps, alpha)[:, g : g + n]
     c = _mat(s_inv, b)
     for _ in range(n_sweeps):
         t = _mat(ml, shift(x, -1)) + _mat(mu, shift(x, +1))
@@ -97,8 +134,13 @@ def multisweep_plain(ml, mu, s_inv, x, b, n_sweeps: int = 3, alpha: float = 2.0 
 
 
 def multisweep_residual_plain(
-    ml, mu, s_inv, a_diag, x, b, n_sweeps: int = 3, alpha: float = 2.0 / 3.0
+    ml, mu, s_inv, a_diag, x, b, n_sweeps: int = 3, alpha: float = 2.0 / 3.0, ghosts=None
 ):
+    if ghosts is not None:
+        n = x.shape[-1]
+        ops, (x, b), g = _ghost_window(ghosts, (ml, mu, s_inv, a_diag), (x, b))
+        out = multisweep_residual_plain(*ops, x, b, n_sweeps, alpha)
+        return tuple(t[:, g : g + n] for t in out)
     x = multisweep_plain(ml, mu, s_inv, x, b, n_sweeps, alpha)
     t = (x + _mat(ml, shift(x, -1))) + _mat(mu, shift(x, +1))
     return x, b - _mat(a_diag, t)
@@ -124,8 +166,12 @@ def chebyshev_coefficients(lam_lo, lam_hi, degree: int) -> np.ndarray:
     return np.asarray(rows, dtype=np.float32).reshape(degree, 2)
 
 
-def chebyshev_multisweep_plain(ml, mu, s_inv, x, b, coef):
+def chebyshev_multisweep_plain(ml, mu, s_inv, x, b, coef, ghosts=None):
     """``len(coef)`` Chebyshev steps in M-form; ``coef`` rows are ``(c_d, c_z)``."""
+    if ghosts is not None:
+        n = x.shape[-1]
+        (ml, mu, s_inv), (x, b), g = _ghost_window(ghosts, (ml, mu, s_inv), (x, b))
+        return chebyshev_multisweep_plain(ml, mu, s_inv, x, b, coef)[:, g : g + n]
     c = _mat(s_inv, b)
     d = torch.zeros_like(x)
     for c_d, c_z in coef:
@@ -135,10 +181,32 @@ def chebyshev_multisweep_plain(ml, mu, s_inv, x, b, coef):
     return x
 
 
-def chebyshev_multisweep_residual_plain(ml, mu, s_inv, a_diag, x, b, coef):
+def chebyshev_multisweep_residual_plain(ml, mu, s_inv, a_diag, x, b, coef, ghosts=None):
+    if ghosts is not None:
+        n = x.shape[-1]
+        ops, (x, b), g = _ghost_window(ghosts, (ml, mu, s_inv, a_diag), (x, b))
+        out = chebyshev_multisweep_residual_plain(*ops, x, b, coef)
+        return tuple(t[:, g : g + n] for t in out)
     x = chebyshev_multisweep_plain(ml, mu, s_inv, x, b, coef)
     t = (x + _mat(ml, shift(x, -1))) + _mat(mu, shift(x, +1))
     return x, b - _mat(a_diag, t)
+
+
+def block_jacobi_sweep_plain(a: BlockTridiag, s_inv, x, b, alpha: float = 2.0 / 3.0):
+    """K8's plain version: ``x + alpha S^-1 r`` with
+    ``r = ((b - A_D x) - A_L x_{-1}) - A_U x_{+1}``, the Pallas body's order."""
+    r = ((b - _mat(a.diag, x)) - _mat(a.lower, shift(x, -1))) - _mat(a.upper, shift(x, +1))
+    return x + alpha * _mat(s_inv, r)
+
+
+def stream_kernel_plain(ml, mu, s_inv, x, b):
+    """K4's plain version: ``(x + b)`` plus every entry of row ``i`` of ML,
+    then MU, then S^-1, block columns ascending."""
+    acc = x + b
+    for m in (ml, mu, s_inv):
+        for j in range(m.shape[1]):
+            acc = acc + m[:, j, :]
+    return acc
 
 
 def _stencil_op(blocks: torch.Tensor, cols):
@@ -233,12 +301,16 @@ def _lib():
             p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
             lib.aggmg_bt_matvec.argtypes = [i, p, p, p, p, p, ll, p]
             lib.aggmg_bt_matvec.restype = i
-            lib.aggmg_multisweep.argtypes = [i, p, p, p, p, p, p, p, p, ll, i, f, p]
+            lib.aggmg_multisweep.argtypes = [i, p, p, p, p, p, p, p, p, i, p, p, ll, ll, ll, i, f, p]
             lib.aggmg_multisweep.restype = i
-            lib.aggmg_chebyshev.argtypes = [i, p, p, p, p, p, p, p, p, ll, i, p, p]
+            lib.aggmg_chebyshev.argtypes = [i, p, p, p, p, p, p, p, p, i, p, p, ll, ll, ll, i, p, p]
             lib.aggmg_chebyshev.restype = i
             lib.aggmg_ff_stencil_defect.argtypes = [i, p, i, p, p, p, p, p, p, ll, p]
             lib.aggmg_ff_stencil_defect.restype = i
+            lib.aggmg_block_jacobi_sweep.argtypes = [i, p, p, p, p, p, p, p, ll, f, p]
+            lib.aggmg_block_jacobi_sweep.restype = i
+            lib.aggmg_stream.argtypes = [i, p, p, p, p, p, p, ll, p]
+            lib.aggmg_stream.restype = i
             _LIB = lib
     return _LIB
 
@@ -310,47 +382,109 @@ def _check_sweeps(n_sweeps: int) -> None:
         raise ValueError(f"n_sweeps must be in [0, {MAX_SWEEPS}], got {n_sweeps}")
 
 
-def multisweep(ml, mu, s_inv, x, b, n_sweeps: int = 3, alpha: float = 2.0 / 3.0):
-    """K2: ``n_sweeps`` damped block-Jacobi sweeps in one pass (M-form)."""
-    _check_sweeps(n_sweeps)
-    bs, n, dev = _check((ml, mu, s_inv), (x, b))
+def _check_ghosts(ghosts, bs: int, dev: torch.device, reach: int):
+    """K7's ghosts ``(gops, gvec)``: ``gops (n_ops >= 3, bs, bs, 2g)`` (ML,
+    MU, S^-1; a fourth stream is not read), ``gvec (2, bs, 2g)`` (x, b).
+    ``g`` must cover the ``reach`` columns the sweeps (and the residual) see.
+    Returns the pointers and ``g`` for the launch; none without ghosts."""
+    if ghosts is None:
+        return None, None, 0
+    gops, gvec = ghosts
+    _check_tensors((gops, gvec), bs, dev)
+    w = gops.shape[-1]
+    if gops.dim() != 4 or gops.shape[0] < 3 or tuple(gops.shape[1:3]) != (bs, bs) or w % 2:
+        raise ValueError(f"ghost operators of shape {tuple(gops.shape)}, expected (3 or 4, {bs}, {bs}, 2 g)")
+    if tuple(gvec.shape) != (2, bs, w):
+        raise ValueError(f"ghost vectors of shape {tuple(gvec.shape)}, expected {(2, bs, w)}")
+    if w // 2 < reach:
+        raise ValueError(f"ghost width {w // 2} is below the {reach} columns the sweeps reach")
+    return gops.data_ptr(), gvec.data_ptr(), w // 2
+
+
+def _outputs(x, n_out: int, out, cols):
+    """The output tensors and the columns ``(lo, hi)`` a launch writes: fresh
+    tensors and every column, or, with ``cols``, the caller's ``out`` (one
+    tensor, or ``(x_out, r_out)`` with the residual), written in place."""
+    if cols is None:
+        if out is not None:
+            raise ValueError("out= goes with cols=")
+        return tuple(torch.empty_like(x) for _ in range(n_out)), (0, x.shape[-1])
+    if out is None:
+        raise ValueError("cols= writes into out=; pass the output tensors")
+    outs = out if isinstance(out, tuple) else (out,)
+    lo, hi = cols
+    if len(outs) != n_out or not 0 <= lo < hi <= x.shape[-1]:
+        raise ValueError(f"cols={cols} with {len(outs)} outputs for {n_out}, {x.shape[-1]} columns")
+    _check_tensors(outs, x.shape[0], x.device)
+    for t in outs:
+        if t.shape != x.shape:
+            raise ValueError(f"output of shape {tuple(t.shape)}, expected {tuple(x.shape)}")
+    return outs, (lo, hi)
+
+
+def _sweeps(name, plain, ops, x, b, n_steps, residual, ghosts, out, cols, launch_args):
+    """The shared wrapper of K1, K2, K5 and K7: checks, then the plain version
+    on a CPU tensor or one launch on a CUDA one.  ``ops`` are ML, MU, S^-1
+    (and A_D with the residual); ``launch_args(lib)`` gives the C entry point
+    and its arguments after ``n``."""
+    _check_sweeps(n_steps)
+    bs, n, dev = _check(ops, (x, b))
+    ghost_args = _check_ghosts(ghosts, bs, dev, n_steps + (1 if residual else 0))
+    n_out = 2 if residual else 1
+    outs, (lo, hi) = _outputs(x, n_out, out, cols)
     if dev.type == "cpu":
-        return multisweep_plain(ml, mu, s_inv, x, b, n_sweeps, alpha)
-    x_out = torch.empty_like(x)
-    if n == 0:
-        return x_out
-    with torch.cuda.device(dev):
-        rc = _lib().aggmg_multisweep(
-            bs, ml.data_ptr(), mu.data_ptr(), s_inv.data_ptr(), None, x.data_ptr(),
-            b.data_ptr(), x_out.data_ptr(), None, n, n_sweeps, alpha, _stream(dev),
-        )
-    _raise_on(rc, "multisweep")
-    LAUNCHES["multisweep"] += 1
-    return x_out
+        res = plain()
+        if cols is None:
+            return res
+        for t, r in zip(outs, res if residual else (res,)):
+            t[:, lo:hi] = r[:, lo:hi]
+        return out
+    if n > 0:
+        name = name if ghosts is None else name + "_ghost"
+        fn, tail = launch_args(_lib())
+        with torch.cuda.device(dev):
+            rc = fn(
+                bs, ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
+                ops[3].data_ptr() if residual else None, x.data_ptr(), b.data_ptr(), *ghost_args,
+                outs[0].data_ptr(), outs[1].data_ptr() if residual else None, n, lo, hi, *tail,
+                _stream(dev),
+            )
+        _raise_on(rc, name)
+        LAUNCHES[name] += 1
+    if cols is not None:
+        return out
+    return outs if residual else outs[0]
+
+
+def _damped(n_sweeps, alpha):
+    return lambda lib: (lib.aggmg_multisweep, (n_sweeps, alpha))
+
+
+def multisweep(
+    ml, mu, s_inv, x, b, n_sweeps: int = 3, alpha: float = 2.0 / 3.0, ghosts=None, out=None, cols=None
+):
+    """K2: ``n_sweeps`` damped block-Jacobi sweeps in one pass (M-form).
+    With ``ghosts`` K7 (see the module docstring); ``cols=(lo, hi)`` writes
+    only those output columns, into ``out`` in place (the sharded path's
+    edge strips)."""
+    return _sweeps(
+        "multisweep", lambda: multisweep_plain(ml, mu, s_inv, x, b, n_sweeps, alpha, ghosts),
+        (ml, mu, s_inv), x, b, n_sweeps, False, ghosts, out, cols, _damped(n_sweeps, alpha),
+    )
 
 
 def multisweep_residual(
-    ml, mu, s_inv, a_diag, x, b, n_sweeps: int = 3, alpha: float = 2.0 / 3.0
+    ml, mu, s_inv, a_diag, x, b, n_sweeps: int = 3, alpha: float = 2.0 / 3.0, ghosts=None, out=None,
+    cols=None,
 ):
     """K1: K2 plus the residual ``r = b - A x`` of the smoothed ``x``, from the
-    same pass; returns ``(x, r)``."""
-    _check_sweeps(n_sweeps)
-    bs, n, dev = _check((ml, mu, s_inv, a_diag), (x, b))
-    if dev.type == "cpu":
-        return multisweep_residual_plain(ml, mu, s_inv, a_diag, x, b, n_sweeps, alpha)
-    x_out = torch.empty_like(x)
-    r_out = torch.empty_like(x)
-    if n == 0:
-        return x_out, r_out
-    with torch.cuda.device(dev):
-        rc = _lib().aggmg_multisweep(
-            bs, ml.data_ptr(), mu.data_ptr(), s_inv.data_ptr(), a_diag.data_ptr(),
-            x.data_ptr(), b.data_ptr(), x_out.data_ptr(), r_out.data_ptr(), n, n_sweeps,
-            alpha, _stream(dev),
-        )
-    _raise_on(rc, "multisweep_residual")
-    LAUNCHES["multisweep_residual"] += 1
-    return x_out, r_out
+    same pass; returns ``(x, r)``.  ``ghosts``, ``out=(x_out, r_out)`` and
+    ``cols`` as for :func:`multisweep`."""
+    return _sweeps(
+        "multisweep_residual",
+        lambda: multisweep_residual_plain(ml, mu, s_inv, a_diag, x, b, n_sweeps, alpha, ghosts),
+        (ml, mu, s_inv, a_diag), x, b, n_sweeps, True, ghosts, out, cols, _damped(n_sweeps, alpha),
+    )
 
 
 def _coef_rows(coef) -> list:
@@ -359,49 +493,73 @@ def _coef_rows(coef) -> list:
     return rows
 
 
-def _launch_chebyshev(ml, mu, s_inv, a_diag, x, b, rows, dev, n, bs):
-    """K5 on the card; ``a_diag`` None for the variant without the residual."""
-    x_out = torch.empty_like(x)
-    r_out = torch.empty_like(x) if a_diag is not None else None
+def _chebyshev(rows):
+    """K5's coefficient table, passed to the kernel by value as host floats."""
     table = (ctypes.c_float * (2 * MAX_SWEEPS))(*[v for row in rows for v in row])
-    with torch.cuda.device(dev):
-        rc = _lib().aggmg_chebyshev(
-            bs, ml.data_ptr(), mu.data_ptr(), s_inv.data_ptr(),
-            None if a_diag is None else a_diag.data_ptr(), x.data_ptr(), b.data_ptr(),
-            x_out.data_ptr(), None if r_out is None else r_out.data_ptr(), n, len(rows),
-            ctypes.cast(table, ctypes.c_void_p), _stream(dev),
-        )
-    return rc, x_out, r_out
+    return lambda lib: (lib.aggmg_chebyshev, (len(rows), ctypes.cast(table, ctypes.c_void_p)))
 
 
-def chebyshev_multisweep(ml, mu, s_inv, x, b, coef):
+def chebyshev_multisweep(ml, mu, s_inv, x, b, coef, ghosts=None, out=None, cols=None):
     """K5: ``len(coef)`` Chebyshev steps over block-Jacobi in one pass
-    (M-form); ``coef`` rows are ``(c_d, c_z)`` from :func:`chebyshev_coefficients`."""
+    (M-form); ``coef`` rows are ``(c_d, c_z)`` from :func:`chebyshev_coefficients`.
+    ``ghosts``, ``out`` and ``cols`` as for :func:`multisweep`."""
     rows = _coef_rows(coef)
-    bs, n, dev = _check((ml, mu, s_inv), (x, b))
+    return _sweeps(
+        "chebyshev_multisweep", lambda: chebyshev_multisweep_plain(ml, mu, s_inv, x, b, rows, ghosts),
+        (ml, mu, s_inv), x, b, len(rows), False, ghosts, out, cols, _chebyshev(rows),
+    )
+
+
+def chebyshev_multisweep_residual(ml, mu, s_inv, a_diag, x, b, coef, ghosts=None, out=None, cols=None):
+    """K5 plus the residual ``r = b - A x`` of the smoothed ``x``, from the
+    same pass; returns ``(x, r)``.  ``ghosts``, ``out`` and ``cols`` as for
+    :func:`multisweep_residual`."""
+    rows = _coef_rows(coef)
+    return _sweeps(
+        "chebyshev_multisweep_residual",
+        lambda: chebyshev_multisweep_residual_plain(ml, mu, s_inv, a_diag, x, b, rows, ghosts),
+        (ml, mu, s_inv, a_diag), x, b, len(rows), True, ghosts, out, cols, _chebyshev(rows),
+    )
+
+
+def block_jacobi_sweep(a: BlockTridiag, s_inv, x, b, alpha: float = 2.0 / 3.0):
+    """K8: one damped block-Jacobi sweep ``x + alpha S^-1 (b - A x)`` in one
+    pass over the four operator streams (A-form: ``s_inv`` need not be the
+    exact inverse of ``a.diag``)."""
+    bs, n, dev = _check((a.diag, a.lower, a.upper, s_inv), (x, b))
     if dev.type == "cpu":
-        return chebyshev_multisweep_plain(ml, mu, s_inv, x, b, rows)
+        return block_jacobi_sweep_plain(a, s_inv, x, b, alpha)
+    x_out = torch.empty_like(x)
     if n == 0:
-        return torch.empty_like(x)
-    rc, x_out, _ = _launch_chebyshev(ml, mu, s_inv, None, x, b, rows, dev, n, bs)
-    _raise_on(rc, "chebyshev_multisweep")
-    LAUNCHES["chebyshev_multisweep"] += 1
+        return x_out
+    with torch.cuda.device(dev):
+        rc = _lib().aggmg_block_jacobi_sweep(
+            bs, a.diag.data_ptr(), a.lower.data_ptr(), a.upper.data_ptr(), s_inv.data_ptr(),
+            x.data_ptr(), b.data_ptr(), x_out.data_ptr(), n, alpha, _stream(dev),
+        )
+    _raise_on(rc, "block_jacobi_sweep")
+    LAUNCHES["block_jacobi_sweep"] += 1
     return x_out
 
 
-def chebyshev_multisweep_residual(ml, mu, s_inv, a_diag, x, b, coef):
-    """K5 plus the residual ``r = b - A x`` of the smoothed ``x``, from the
-    same pass; returns ``(x, r)``."""
-    rows = _coef_rows(coef)
-    bs, n, dev = _check((ml, mu, s_inv, a_diag), (x, b))
+def stream_kernel(ml, mu, s_inv, x, b):
+    """K4: read the multisweep's operands once, write one vector (see
+    :func:`stream_kernel_plain`); the achievable-bandwidth yardstick that K1,
+    K2, K5 and K7 are priced against."""
+    bs, n, dev = _check((ml, mu, s_inv), (x, b))
     if dev.type == "cpu":
-        return chebyshev_multisweep_residual_plain(ml, mu, s_inv, a_diag, x, b, rows)
+        return stream_kernel_plain(ml, mu, s_inv, x, b)
+    out = torch.empty_like(x)
     if n == 0:
-        return torch.empty_like(x), torch.empty_like(x)
-    rc, x_out, r_out = _launch_chebyshev(ml, mu, s_inv, a_diag, x, b, rows, dev, n, bs)
-    _raise_on(rc, "chebyshev_multisweep_residual")
-    LAUNCHES["chebyshev_multisweep_residual"] += 1
-    return x_out, r_out
+        return out
+    with torch.cuda.device(dev):
+        rc = _lib().aggmg_stream(
+            bs, ml.data_ptr(), mu.data_ptr(), s_inv.data_ptr(), x.data_ptr(), b.data_ptr(),
+            out.data_ptr(), n, _stream(dev),
+        )
+    _raise_on(rc, "stream_kernel")
+    LAUNCHES["stream_kernel"] += 1
+    return out
 
 
 def ff_stencil_mid_defect(blocks, x_hi, x_lo, b_hi, b_lo):

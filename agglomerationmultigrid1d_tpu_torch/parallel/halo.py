@@ -1,0 +1,104 @@
+"""Neighbour exchange along the sharded element axis.
+
+:func:`halo_shift` is the distributed twin of ``ops.shifts.shift``: the local
+zero-padded shift, with the edge column patched from the neighbour's shard
+(the JAX package's ``parallel/halo.py``, where ``lax.ppermute`` moves it).
+Ring ends keep the zero fill, which is the global zero-Dirichlet boundary.
+
+Every exchange goes through :func:`start_exchange`, which posts the
+point-to-point operations (``torch.distributed.batch_isend_irecv``) and
+returns at once, so the caller can launch work that does not need the
+ghosts before it waits.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.distributed as dist
+
+from ..ops.shifts import shift
+from .multihost import SolverGroup
+
+
+class Exchange(NamedTuple):
+    """A posted ring exchange; :meth:`wait` returns ``(from_left, from_right)``."""
+
+    works: list
+    from_left: torch.Tensor | None
+    from_right: torch.Tensor | None
+    sent: tuple  # the staged send buffers, alive until the exchange is done
+    device: torch.device
+
+    def wait(self) -> tuple:
+        for w in self.works:
+            w.wait()
+        return tuple(None if t is None else t.to(self.device) for t in (self.from_left, self.from_right))
+
+
+def start_exchange(to_left, to_right, g: SolverGroup) -> Exchange:
+    """Post one ring exchange: rank ``r`` sends ``to_left`` to ``r - 1`` and
+    ``to_right`` to ``r + 1``, and receives ``r - 1``'s ``to_right`` (its
+    ``from_left``) and ``r + 1``'s ``to_left`` (its ``from_right``).  Ring
+    ends receive zeros.  Either may be None (that direction is not
+    exchanged); every rank passes the same shapes.  A side without a
+    neighbour only gives the shape (it is neither read nor copied).  On gloo
+    the buffers are host copies."""
+    dev = g.transport
+
+    def recv_buf(like):
+        return None if like is None else torch.zeros(like.shape, dtype=like.dtype, device=dev)
+
+    from_left, from_right = recv_buf(to_right), recv_buf(to_left)
+    r, last = g.rank, g.world - 1
+    ops, sent = [], []
+
+    def send(t, peer):
+        t = t.to(dev).contiguous()
+        sent.append(t)
+        ops.append(dist.P2POp(dist.isend, t, g.peer(peer), g.group))
+
+    if to_left is not None:
+        if r > 0:
+            send(to_left, r - 1)
+        if r < last:
+            ops.append(dist.P2POp(dist.irecv, from_right, g.peer(r + 1), g.group))
+    if to_right is not None:
+        if r < last:
+            send(to_right, r + 1)
+        if r > 0:
+            ops.append(dist.P2POp(dist.irecv, from_left, g.peer(r - 1), g.group))
+    with g.on_device():
+        works = dist.batch_isend_irecv(ops) if ops else []
+    return Exchange(works, from_left, from_right, tuple(sent), g.device)
+
+
+def edge_columns(x: torch.Tensor, g: SolverGroup, width: int = 1) -> tuple:
+    """``(left, right)``: the left neighbour's last ``width`` columns and the
+    right neighbour's first ``width``, zeros at the ring ends."""
+    return start_exchange(x[..., :width], x[..., -width:], g).wait()
+
+
+def halo_neighbours(x: torch.Tensor, g: SolverGroup) -> tuple:
+    """``(x_{-1}, x_{+1})`` of the global vector, on the local shard, from
+    one exchange of both edge columns."""
+    left, right = edge_columns(x, g)
+    return torch.cat([left, x[..., :-1]], dim=-1), torch.cat([x[..., 1:], right], dim=-1)
+
+
+def halo_shift(x: torch.Tensor, d: int, g: SolverGroup) -> torch.Tensor:
+    """``out[..., k] = x_global[..., k + d]`` on the local shard."""
+    if d == 0:
+        return x
+    if abs(d) != 1:  # compose unit shifts, one exchange each, as the JAX package does
+        step = 1 if d > 0 else -1
+        for _ in range(abs(d)):
+            x = halo_shift(x, step, g)
+        return x
+    local = shift(x, d)
+    if d > 0:  # the right neighbour's first column into the last slot
+        _, right = start_exchange(x[..., :1], None, g).wait()
+        return torch.cat([local[..., :-1], right], dim=-1)
+    left, _ = start_exchange(None, x[..., -1:], g).wait()
+    return torch.cat([left, local[..., 1:]], dim=-1)

@@ -41,6 +41,11 @@ class BlockJacobiSmoother(NamedTuple):
     # contraction (S^-1 A_D = I).  None on float64 levels.
     ml: torch.Tensor | None = None
     mu: torch.Tensor | None = None
+    # On a sharded float32 level: the ring neighbours' edge columns of ml, mu
+    # and inv, (3, bs, bs, 2 g), left neighbour's last g then right's first g
+    # (kernel K7's operator ghosts), exchanged once when the level is sharded
+    # (parallel.distributed.attach_operator_ghosts).  None elsewhere.
+    ghosts: torch.Tensor | None = None
 
 
 class SchwarzSmoother(NamedTuple):

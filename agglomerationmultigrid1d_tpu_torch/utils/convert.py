@@ -28,7 +28,7 @@ from ..smoothers.smoother import (
 )
 
 
-def hierarchy_from_numpy(h, device="cpu", dtype: torch.dtype | None = None) -> Hierarchy:
+def hierarchy_from_numpy(h, device="cuda", dtype: torch.dtype | None = None) -> Hierarchy:
     """Duck-typed conversion.  Reads ``levels`` — block levels with ``a``,
     ``g``, ``d``, ``c`` as ``lower/diag/upper`` and ``mass_inv``, CG levels
     with ``a`` as ``windows/band`` — each with a ``smoother`` (block-Jacobi
@@ -94,7 +94,7 @@ def _bt(op, device, dtype=None) -> BlockTridiag:
     return BlockTridiag(*(_tensor(getattr(op, k), device, dtype) for k in ("lower", "diag", "upper")))
 
 
-def coarse_from_numpy(c, device="cpu", dtype: torch.dtype | None = None):
+def coarse_from_numpy(c, device="cuda", dtype: torch.dtype | None = None):
     """A dense (``a_dense``, ``a_inv``) or cyclic-reduction (``f``, ``g``,
     ``dinv_odd``, ``l_odd``, ``u_odd``, ``root_inv``, ``a``) coarse solver."""
     if hasattr(c, "root_inv"):
@@ -115,7 +115,7 @@ def _ff_operator(a, device):
     return BlockTridiagFF(hi=_bt(a.hi, device), lo=_bt(a.lo, device))
 
 
-def xl_problem_from_numpy(h_low, ffops, b_ff, norm_b: float, device="cpu"):
+def xl_problem_from_numpy(h_low, ffops, b_ff, norm_b: float, device="cuda"):
     """The outputs of ``build_xl_problem(..., slim_fine=True, ff_levels=True)``
     with NumPy leaves -> this package's ``(h_low, FFOps, b_ff, norm_b)``:
     the float32 hierarchy, the float-float operators (a stencil

@@ -31,22 +31,54 @@ Phases, one line of numbers each:
    through K6 (7 launches per V-cycle); the relative residual is recomputed
    independently in float64 from the materialized fine operator.
 
+8. K7, the ghosted multisweep (four forms: damped and Chebyshev, each with
+   and without the residual), in the form the sharded path launches it: the
+   two in-place 4-column edge strips (``out=``, ``cols=``) of every sharded
+   level of the one-rank slice solve, at that level's local shape, with
+   random non-zero ghosts of the path's width, into an output filled with a
+   sentinel; the edge columns are held to the plain version of the whole
+   shard and the rest must keep the sentinel; the strip launch is timed
+   against the plain sweeps of its window.  Then the whole-shard ghosted
+   launch (the schedule of ``overlap=False`` and of shards narrower than two
+   strips, which no path here runs) at (4, 4,194,304) and (2, 524,288), and
+   four virtual shards of a (4, 4,194,304) problem, each swept by K7 with
+   ghosts cut from its neighbours, stitched and held to K2 / K1 / K5 on the
+   whole problem;
+9. the sweep bench of ``bench.py:bench_sweeps`` on the port: K4 (the
+   bandwidth yardstick of the multisweep's operand mix) and K8 (one A-form
+   sweep) at (4, 4,194,304), and every multisweep-family kernel's share of
+   K4's bandwidth and of the 3.35 TB/s data-sheet peak;
+10. the element-sharded solve on a one-rank NCCL group: the 2,097,152-DoF
+   slice sharded by ``shard_hierarchy`` and solved by ``multigrid_mixed``,
+   damped and Chebyshev (K7's overlapped schedule on every sharded level),
+   and float64 ``multigrid`` on the sharded 16,384-DoF problem, each beside
+   the unsharded solve in the same run (equal counts); ``sharded_multisweep``
+   timed against K2 at the headline shape;
+11. two ranks on the one card over gloo (spawned processes, kernels built
+   once here first): the same sharded damped ``multigrid_mixed`` of the
+   slice, held to the one-rank result.
+
 The kernel phase also holds K6 (the float-float stencil defect) to its plain
 version bit for bit, hi and lo.
 
-Then a JSON line with the kernels' numbers, and last a JSON line with the
-device.  Any failure raises, and the exit code is non-zero; without a CUDA
-device the script exits with code 2 and prints no result.
+Then a JSON line with the kernels' numbers (each kernel's launches from the
+path that runs it, counted from zero just before that path), and last a JSON
+line with the device.  Any failure raises, and the exit code is non-zero;
+without a CUDA device the script exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing as mp
 import os
+import queue
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 
 import torch
 
@@ -61,7 +93,22 @@ SMALL = dict(n=4096, max_p=3, n_dg=2, n_agg=5)
 FLAGSHIP_N = 16384
 SEED = 0
 DAMPED = ("bt_matvec", "multisweep", "multisweep_residual")  # K3, K2, K1: the damped solves' kernels
-CHEB_INTERVAL = (0.3, 1.2)  # K5's coefficients in the kernel phase, k = 3
+CHEB_INTERVAL = (0.3, 1.2)  # K5's and K7's coefficients in the kernel phases, k = 3
+K7_SHAPES = [(4, 4194304), (2, 524288)]  # the whole-shard form: the headline shard and the slice's bs=2 level
+# the one-rank sharded slice's sharded levels (all but the coarsest), local
+# (bs, n): DG p=3, DG p=1, then 11 agglomerated levels, 4:1 first, then 2:1
+SLICE_SHARDED = [(4, 524288), (2, 524288)] + [(2, 131072 >> i) for i in range(11)]
+STRIP = 4  # the sharded path's edge strip: s = k + 1 columns for k = 3
+GHOST = 9  # its ghost width: min(GHOST_W, n) = 9 columns a side on every sharded slice level
+K7_FORMS = {  # label: (ghosted wrapper, its launch counter, the unsharded kernel it extends)
+    "K7": ("multisweep", "multisweep_ghost", "K2"),
+    "K7r": ("multisweep_residual", "multisweep_residual_ghost", "K1"),
+    "K7c": ("chebyshev_multisweep", "chebyshev_multisweep_ghost", "K5"),
+    "K7cr": ("chebyshev_multisweep_residual", "chebyshev_multisweep_residual_ghost", "K5r"),
+}
+PEAK_BPS = 3.35e12  # H100 SXM data sheet: HBM3 bytes/s
+PEAK_FLOPS = 67e12  # H100 SXM data sheet: float32 outside the tensor cores
+CHILD_TIMEOUT_S = 300  # each spawned rank of the two-rank phase
 # K6's (bs, n): the north star's fine level, the JAX test's shape, the width of
 # K1-K3's headline, an awkward size
 K6_SHAPES = [(2, 50331648), (2, 16384), (4, 4194304), (2, 1000)]
@@ -113,19 +160,88 @@ def kernel_inputs(bs: int, n: int, seed: int):
     return BlockTridiag(l, d, u), sinv, block_mul(sinv, l), block_mul(sinv, u), x, b
 
 
-def phase_kernels(bk) -> dict:
-    # floats per block column (in + out), the bytes each kernel must move
-    def col_bytes(name, bs):
-        return 4 * {
-            "K1": 4 * bs * bs + 2 * bs + 2 * bs,
-            "K2": 3 * bs * bs + 2 * bs + bs,
-            "K3": 3 * bs * bs + bs + bs,
-            "K5": 3 * bs * bs + 2 * bs + bs,
-            "K5r": 4 * bs * bs + 2 * bs + 2 * bs,
-        }[name]
+def col_bytes(name, bs):
+    """Bytes per block column a kernel must move: each input read once, each
+    output written once (K7: those of the kernel it extends; its ghosts are
+    priced per launch by ``ghost_bytes``)."""
+    name = K7_FORMS[name][2] if name in K7_FORMS else name
+    return 4 * {
+        "K1": 4 * bs * bs + 2 * bs + 2 * bs,
+        "K2": 3 * bs * bs + 2 * bs + bs,
+        "K3": 3 * bs * bs + bs + bs,
+        "K5": 3 * bs * bs + 2 * bs + bs,
+        "K5r": 4 * bs * bs + 2 * bs + 2 * bs,
+        "K6": 6 * bs,
+        "K8": 4 * bs * bs + 2 * bs + bs,
+        "K4": 3 * bs * bs + 2 * bs + bs,
+    }[name]
 
+
+def ghost_bytes(name, bs):
+    """K7's ghost columns a launch reads: ML, MU, S^-1, x, b of the
+    ``k (+1)`` nearest ghost columns a side (the kernel's window halo)."""
+    halo = 3 + (1 if name in ("K7r", "K7cr") else 0)
+    return 4 * 2 * halo * (3 * bs * bs + 2 * bs)
+
+
+def col_ops(name, bs, k=3):
+    """Float32 operations per block column (an FMA is two): the
+    contractions and updates of the kernel's arithmetic."""
+    name = K7_FORMS[name][2] if name in K7_FORMS else name
+    mat = 2 * bs * bs
+    sweeps = 2 * mat + 4 * bs
+    return {
+        "K1": mat + k * sweeps + 2 * mat + 3 * bs + mat + bs,
+        "K2": mat + k * sweeps,
+        "K3": 3 * mat + 2 * bs,
+        "K5": mat + k * (sweeps + 3 * bs),
+        "K5r": mat + k * (sweeps + 3 * bs) + 2 * mat + 3 * bs + mat + bs,
+        "K6": 105 * bs * bs,
+        "K8": 4 * mat + 5 * bs,
+        "K4": 3 * bs * bs + 2 * bs,
+    }[name]
+
+
+def bound(name, bs, n) -> tuple:
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of bytes / 3.35 TB/s and operations / 67 TFLOP/s (float32)."""
+    nbytes = col_bytes(name, bs) * n + (ghost_bytes(name, bs) if name in K7_FORMS else 0)
+    t_bytes, t_ops = nbytes / PEAK_BPS * 1e3, col_ops(name, bs) * n / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hold(name, kern, plain, bs, n, results, line, timed=True):
+    """Run a kernel and its plain version on the same tensors, check the
+    kernel (finite, within TOL of max|out|), time both with CUDA events and
+    record the numbers under ``results[name]``."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(float((g_ - w_).abs().max()) for g_, w_ in zip(got, want))
+    scale = max(float(w_.abs().max()) for w_ in want)
+    check(all(bool(torch.isfinite(g_).all()) for g_ in got), f"{name} non-finite at {bs},{n}")
+    check(err <= TOL * scale, f"{name} differs from plain at bs={bs} n={n}: {err} > {TOL} * {scale}")
+    r = results.setdefault(name, {"max_abs_err": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    if not timed:
+        line.append(f"{name} err={err:.3e} (rel {err / scale:.2e});")
+        return
+    ms, plain_ms = time_ms(kern), time_ms(plain)
+    gbps = col_bytes(name, bs) * n / (ms * 1e-3) / 1e9
+    line.append(
+        f"{name} err={err:.3e} (rel {err / scale:.2e}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"GB/s={gbps:.1f} plain_GB/s={col_bytes(name, bs) * n / (plain_ms * 1e-3) / 1e9:.1f};"
+    )
+    r[(bs, n)] = (ms, plain_ms)
+    if "ms" not in r:  # the first shape timed is the headline
+        bound_ms, bound_by = bound(name, bs, n)
+        r.update(ms=ms, plain_ms=plain_ms, gbps=gbps, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_kernels(bk) -> dict:
     coef = bk.chebyshev_coefficients(*CHEB_INTERVAL, 3)
-    results = {k: {"max_abs_err": 0.0} for k in ("K1", "K2", "K3", "K5", "K5r")}
+    results = {}
     for bs, n in SHAPES:
         a, sinv, ml, mu, x, b = kernel_inputs(bs, n, SEED + bs * n)
         runs = {
@@ -138,28 +254,12 @@ def phase_kernels(bk) -> dict:
                    lambda: bk.chebyshev_multisweep_plain(ml, mu, sinv, x, b, coef)),
             "K5r": (lambda: bk.chebyshev_multisweep_residual(ml, mu, sinv, a.diag, x, b, coef),
                     lambda: bk.chebyshev_multisweep_residual_plain(ml, mu, sinv, a.diag, x, b, coef)),
+            "K8": (lambda: bk.block_jacobi_sweep(a, sinv, x, b), lambda: bk.block_jacobi_sweep_plain(a, sinv, x, b)),
+            "K4": (lambda: bk.stream_kernel(ml, mu, sinv, x, b), lambda: bk.stream_kernel_plain(ml, mu, sinv, x, b)),
         }
         line = [f"kernels bs={bs} n={n}:"]
         for name, (kern, plain) in runs.items():
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            err = max(float((g_ - w_).abs().max()) for g_, w_ in zip(got, want))
-            scale = max(float(w_.abs().max()) for w_ in want)
-            check(all(bool(torch.isfinite(g_).all()) for g_ in got), f"{name} non-finite at {bs},{n}")
-            check(err <= TOL * scale, f"{name} differs from plain at bs={bs} n={n}: {err} > {TOL} * {scale}")
-            ms, plain_ms = time_ms(kern), time_ms(plain)
-            gbps = col_bytes(name, bs) * n / (ms * 1e-3) / 1e9
-            line.append(
-                f"{name} err={err:.3e} (rel {err / scale:.2e}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"GB/s={gbps:.1f} plain_GB/s={col_bytes(name, bs) * n / (plain_ms * 1e-3) / 1e9:.1f};"
-            )
-            r = results[name]
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            r[(bs, n)] = (ms, plain_ms)
-            if (bs, n) == SHAPES[0]:
-                r.update(ms=ms, plain_ms=plain_ms, gbps=gbps)
+            hold(name, kern, plain, bs, n, results, line)
         print(" ".join(line), flush=True)
         del a, sinv, ml, mu, x, b, runs
         torch.cuda.empty_cache()
@@ -193,7 +293,8 @@ def phase_k6(bk) -> dict:
               f"GB/s={gbps:.1f}", flush=True)
         out[(bs, n)] = (ms, plain_ms)
         if (bs, n) == K6_SHAPES[0]:
-            out.update(ms=ms, plain_ms=plain_ms, gbps=gbps)
+            bound_ms, bound_by = bound("K6", bs, n)
+            out.update(ms=ms, plain_ms=plain_ms, gbps=gbps, bound_ms=bound_ms, bound_by=bound_by)
         del args, blocks, x_hi, x_lo, b_hi, b_lo
         torch.cuda.empty_cache()
     return out
@@ -452,6 +553,370 @@ def phase_flagship(bk) -> None:
     print(" ".join(line), flush=True)
 
 
+def strip_bound(name, bs, s=STRIP) -> tuple:
+    """(bound_ms, bound_by) of one K7 strip launch: read the ``s`` output
+    columns and ``reach`` columns on either side of them once (ML, MU, S^-1,
+    x, b; A_D of the outputs with the residual), write the ``s`` columns;
+    the operations of the ``s`` output columns."""
+    residual = name in ("K7r", "K7cr")
+    reach = 3 + (1 if residual else 0)
+    nbytes = 4 * ((s + 2 * reach) * (3 * bs * bs + 2 * bs) + s * (bs * bs if residual else 0)
+                  + s * bs * (2 if residual else 1))
+    t_bytes, t_ops = nbytes / PEAK_BPS * 1e3, col_ops(name, bs) * s / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def strip_plain(plain, ops, x, b, ghosts, side: int, s=STRIP):
+    """The plain version of one strip launch: the plain ghosted sweeps on the
+    shard's ``s + g`` edge columns, with the exchanged ghosts outside and
+    zeros inside (the ``s`` columns do not reach them), cropped to the strip."""
+    gops, gvec = ghosts
+    g = gops.shape[-1] // 2
+    cut = slice(None, s + g) if side == 0 else slice(-(s + g), None)
+    outer = slice(None, g) if side == 0 else slice(g, None)
+
+    def ghost(t):
+        pair = [t[..., outer], torch.zeros_like(t[..., :g])]
+        return torch.cat(pair if side == 0 else pair[::-1], dim=-1)
+
+    out = plain([t[..., cut] for t in ops], x[:, cut], b[:, cut], (ghost(gops), ghost(gvec)))
+    crop = slice(None, s) if side == 0 else slice(-s, None)
+    return tuple(t[:, crop] for t in out) if isinstance(out, tuple) else out[:, crop]
+
+
+def ghost_inputs(bs: int, g: int, seed: int):
+    """Non-zero K7 ghosts ``(gops, gvec)``: the columns of another random
+    operator of the same kind (ML, MU, S^-1 and x, b), 2 g wide."""
+    _, sinv, ml, mu, x, b = kernel_inputs(bs, 2 * g, seed)
+    return torch.stack([ml, mu, sinv]).contiguous(), torch.stack([x, b]).contiguous()
+
+
+def k7_forms(bk, coef):
+    """label -> (K7 wrapper, its plain version, residual?), each taking
+    ``(ops, x, b, ghosts, **kw)`` with ``ops = (ML, MU, S^-1, A_D)``."""
+    return {
+        "K7": (lambda o, x, b, gh, **kw: bk.multisweep(*o[:3], x, b, ghosts=gh, **kw),
+               lambda o, x, b, gh: bk.multisweep_plain(*o[:3], x, b, ghosts=gh), False),
+        "K7r": (lambda o, x, b, gh, **kw: bk.multisweep_residual(*o, x, b, ghosts=gh, **kw),
+                lambda o, x, b, gh: bk.multisweep_residual_plain(*o, x, b, ghosts=gh), True),
+        "K7c": (lambda o, x, b, gh, **kw: bk.chebyshev_multisweep(*o[:3], x, b, coef, ghosts=gh, **kw),
+                lambda o, x, b, gh: bk.chebyshev_multisweep_plain(*o[:3], x, b, coef, ghosts=gh), False),
+        "K7cr": (lambda o, x, b, gh, **kw: bk.chebyshev_multisweep_residual(*o, x, b, coef, ghosts=gh, **kw),
+                 lambda o, x, b, gh: bk.chebyshev_multisweep_residual_plain(*o, x, b, coef, ghosts=gh), True),
+    }
+
+
+def k7_runs(bk, ops, x, b, ghosts, coef):
+    """label -> (whole-shard K7 launch, plain version) on the same tensors."""
+    return {name: ((lambda k=kern: k(ops, x, b, ghosts)), (lambda p=plain: p(ops, x, b, ghosts)))
+            for name, (kern, plain, _) in k7_forms(bk, coef).items()}
+
+
+def phase_k7(bk) -> tuple:
+    """K7's four forms against their plain versions with random non-zero
+    ghosts: the path's form (two in-place edge strips, at every sharded
+    slice level's local shape; timed at the finest) and the whole-shard
+    form.  Returns (strip results, whole-shard results)."""
+    coef = bk.chebyshev_coefficients(*CHEB_INTERVAL, 3)
+    forms = k7_forms(bk, coef)
+    strips = {name: {"max_abs_err": 0.0} for name in forms}
+    sentinel = 7.0
+    for bs, n in SLICE_SHARDED:
+        a, sinv, ml, mu, x, b = kernel_inputs(bs, n, SEED + 11 * bs + n)
+        ops = (ml, mu, sinv, a.diag)
+        ghosts = ghost_inputs(bs, GHOST, SEED + 13 * bs + n)
+        line = [f"K7 edge strips bs={bs} n={n} ghosts={GHOST} cols=(0,{STRIP}),({n - STRIP},{n}):"]
+        for name, (kern, plain, residual) in forms.items():
+            want = plain(ops, x, b, ghosts)
+            want = want if residual else (want,)
+            out = tuple(torch.full_like(x, sentinel) for _ in want)
+            for cols in ((0, STRIP), (n - STRIP, n)):
+                kern(ops, x, b, ghosts, out=out if residual else out[0], cols=cols)
+            torch.cuda.synchronize()
+            scale = max(float(w_.abs().max()) for w_ in want)
+            err = 0.0
+            for o_, w_ in zip(out, want):
+                for crop in (slice(None, STRIP), slice(-STRIP, None)):
+                    err = max(err, float((o_[:, crop] - w_[:, crop]).abs().max()))
+                check(bool(torch.isfinite(o_[:, :STRIP]).all() and torch.isfinite(o_[:, -STRIP:]).all()),
+                      f"{name} strip non-finite at {bs},{n}")
+                check(bool((o_[:, STRIP:-STRIP] == sentinel).all()), f"{name} strip wrote outside cols at {bs},{n}")
+            for side in (0, 1):  # the strip window's plain version is the whole shard's, cropped
+                ref = strip_plain(plain, ops, x, b, ghosts, side)
+                ref = ref if residual else (ref,)
+                crop = slice(None, STRIP) if side == 0 else slice(-STRIP, None)
+                d = max(float((r_ - w_[:, crop]).abs().max()) for r_, w_ in zip(ref, want))
+                check(d <= TOL * scale, f"{name} strip window plain differs from the whole shard's: {d}")
+            check(err <= TOL * scale, f"{name} strips differ from plain at bs={bs} n={n}: {err} > {TOL} * {scale}")
+            r = strips[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if (bs, n) == SLICE_SHARDED[0]:
+                ms = time_ms(lambda: kern(ops, x, b, ghosts, out=out if residual else out[0], cols=(0, STRIP)))
+                plain_ms = time_ms(lambda: strip_plain(plain, ops, x, b, ghosts, 0))
+                bound_ms, bound_by = strip_bound(name, bs)
+                r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                line.append(f"{name} err={err:.3e} (rel {err / scale:.2e}) strip_ms={ms:.4f} "
+                            f"strip_plain_ms={plain_ms:.4f} bound_ms={bound_ms:.2e};")
+            else:
+                line.append(f"{name} err={err:.3e};")
+        print(" ".join(line), flush=True)
+        del a, sinv, ml, mu, x, b, ghosts, ops
+        torch.cuda.empty_cache()
+
+    whole = {}
+    for bs, n in K7_SHAPES:
+        a, sinv, ml, mu, x, b = kernel_inputs(bs, n, SEED + 11 * bs + n)
+        ghosts = ghost_inputs(bs, GHOST, SEED + 13 * bs + n)
+        line = [f"K7 whole-shard form (overlap=False / narrow shards; no path here runs it) bs={bs} n={n} "
+                f"ghosts={GHOST}:"]
+        for name, (kern, plain) in k7_runs(bk, (ml, mu, sinv, a.diag), x, b, ghosts, coef).items():
+            hold(name, kern, plain, bs, n, whole, line)
+        print(" ".join(line), flush=True)
+        del a, sinv, ml, mu, x, b, ghosts
+        torch.cuda.empty_cache()
+    return strips, whole
+
+
+def phase_four_shards(bk) -> None:
+    """Four virtual shards of one (4, 4,194,304) problem: K7 on each with the
+    neighbours' STRIP edge columns as ghosts (zeros at the ends), stitched,
+    against K2 / K1 / K5 / K5 + residual on the whole problem."""
+    bs, n, world = 4, 4194304, 4
+    coef = bk.chebyshev_coefficients(*CHEB_INTERVAL, 3)
+    a, sinv, ml, mu, x, b = kernel_inputs(bs, n, SEED + 4)
+    ops = (ml, mu, sinv, a.diag)
+    whole = {
+        "K7": bk.multisweep(ml, mu, sinv, x, b),
+        "K7r": bk.multisweep_residual(ml, mu, sinv, a.diag, x, b),
+        "K7c": bk.chebyshev_multisweep(ml, mu, sinv, x, b, coef),
+        "K7cr": bk.chebyshev_multisweep_residual(ml, mu, sinv, a.diag, x, b, coef),
+    }
+    parts = {name: [] for name in whole}
+    g = STRIP
+    for r in range(world):
+        lo, hi = r * n // world, (r + 1) * n // world
+
+        def ghost(t):
+            left = t[..., lo - g : lo] if r > 0 else torch.zeros_like(t[..., :g])
+            right = t[..., hi : hi + g] if r < world - 1 else torch.zeros_like(t[..., :g])
+            return torch.cat([left, right], dim=-1)
+
+        ghosts = (torch.stack([ghost(m) for m in ops[:3]]).contiguous(), torch.stack([ghost(x), ghost(b)]).contiguous())
+        cut = [t[..., lo:hi].contiguous() for t in (*ops, x, b)]
+        for name, (kern, _) in k7_runs(bk, cut[:4], cut[4], cut[5], ghosts, coef).items():
+            parts[name].append(kern())
+    torch.cuda.synchronize()
+    line = [f"four shards of (4, {n}), ghosts {g}, stitched against the unsharded kernels:"]
+    for name, want in whole.items():
+        want = want if isinstance(want, tuple) else (want,)
+        got = parts[name]
+        got = tuple(torch.cat([p[i] if isinstance(p, tuple) else p for p in got], dim=-1) for i in range(len(want)))
+        err = max(float((g_ - w_).abs().max()) for g_, w_ in zip(got, want))
+        scale = max(float(w_.abs().max()) for w_ in want)
+        check(err <= TOL * scale, f"four-shard {name} differs from {K7_FORMS[name][2]}: {err} > {TOL} * {scale}")
+        line.append(f"{name} vs {K7_FORMS[name][2]} err={err:.3e} (rel {err / scale:.2e});")
+    print(" ".join(line), flush=True)
+    del a, sinv, ml, mu, x, b, whole, parts
+    torch.cuda.empty_cache()
+
+
+def phase_sweep_bench(bk, kernels: dict, k7_whole: dict) -> dict:
+    """``bench.py:bench_sweeps`` on the port at (4, 4,194,304): K4, the
+    achievable bandwidth of the multisweep's operand mix, and K8, the A-form
+    single sweep; counts reset just before, so this path's launches are K4's
+    and K8's.  Prints every multisweep-family kernel's share of K4's GB/s
+    and of the data-sheet peak (K7's from its whole-shard form: a strip
+    launch moves too few bytes for a rate)."""
+    bs, n = SHAPES[0]
+    a, sinv, ml, mu, x, b = kernel_inputs(bs, n, SEED + 99)
+    bk.reset_launch_counts()
+    stream_ms = time_ms(lambda: bk.stream_kernel(ml, mu, sinv, x, b))
+    sweep_ms = time_ms(lambda: bk.block_jacobi_sweep(a, sinv, x, b))
+    launches = {k: bk.LAUNCHES[k] for k in ("stream_kernel", "block_jacobi_sweep")}
+    stream_gbps = col_bytes("K4", bs) * n / (stream_ms * 1e-3) / 1e9
+    sweep_gbps = col_bytes("K8", bs) * n / (sweep_ms * 1e-3) / 1e9
+    line = [f"sweep bench bs={bs} n={n}: K4 stream ms={stream_ms:.4f} GB/s={stream_gbps:.1f} "
+            f"({100 * stream_gbps * 1e9 / PEAK_BPS:.1f} % of 3.35 TB/s); K8 sweep ms={sweep_ms:.4f} "
+            f"GB/s={sweep_gbps:.1f}; shares of K4 / of the peak:"]
+    for name in ("K1", "K2", "K5", "K5r", "K7", "K7r", "K7c", "K7cr", "K8"):
+        gbps = sweep_gbps if name == "K8" else (k7_whole if name in K7_FORMS else kernels)[name]["gbps"]
+        label = f"{name} (whole shard)" if name in K7_FORMS else name
+        line.append(f"{label} {100 * gbps / stream_gbps:.1f} % / {100 * gbps * 1e9 / PEAK_BPS:.1f} %;")
+    print(" ".join(line), f"launches={launches}", flush=True)
+    check(all(v > 0 for v in launches.values()), f"the sweep bench skipped a kernel: {launches}")
+    del a, sinv, ml, mu, x, b
+    torch.cuda.empty_cache()
+    return launches
+
+
+def timed_solve(fn, bk) -> tuple:
+    """``fn()`` after a warm-up call, with the launch counts set to 0 just
+    before the timed call: (result, seconds, launches)."""
+    fn()
+    torch.cuda.synchronize()
+    bk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(bk.LAUNCHES)
+
+
+def phase_sharded(bk) -> dict:
+    """The element-sharded solve on a one-rank NCCL group (the whole path,
+    K7's overlapped schedule included; a one-rank ring exchanges nothing, so
+    the ghosts are the zeros of the global boundary).  Returns the K7
+    launches of its paths and the damped one-rank solution."""
+    from agglomerationmultigrid1d_tpu_torch.models import (
+        chebyshev_hierarchy,
+        make_low_precision_hierarchy,
+        multigrid,
+        multigrid_mixed,
+        poisson_dg_hierarchy,
+    )
+    from agglomerationmultigrid1d_tpu_torch.parallel import (
+        initialize,
+        operator_ghosts,
+        shard_hierarchy,
+        shard_vector,
+        sharded_multisweep,
+        shutdown,
+        unshard_vector,
+    )
+
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        grp = initialize(0, 1, store_path=os.path.join(td, "store"))
+        try:
+            prob = poisson_dg_hierarchy(**SLICE, device="cuda")
+            b = prob.b
+            for cheb in (False, True):
+                tag = "chebyshev" if cheb else "damped"
+                h = chebyshev_hierarchy(prob.hierarchy) if cheb else prob.hierarchy
+                h32 = make_low_precision_hierarchy(h)
+                hs, h32s, bl = shard_hierarchy(h, grp), shard_hierarchy(h32, grp), shard_vector(b, grp)
+                flags = h32s.layout.sharded
+                local = [(lv.a.block_size, lv.a.n_blocks) for lv, sh in zip(h32s.levels, flags) if sh]
+                check(local == SLICE_SHARDED, f"the sharded levels' local shapes {local} are not K7's phase's")
+                ref, ref_s, _ = timed_solve(lambda: multigrid_mixed(h, h32, torch.zeros_like(b), b, 80, 1e-10), bk)
+                res, solve_s, launches = timed_solve(
+                    lambda: multigrid_mixed(hs, h32s, torch.zeros_like(bl), bl, 80, 1e-10), bk
+                )
+                x = unshard_vector(res.x, hs)
+                rel = rel_residual(prob, x)
+                k7 = {label: launches[K7_FORMS[label][1]] for label in K7_FORMS}
+                print(f"sharded {tag} slice, one-rank NCCL group, sharded={flags}: outer={res.iterations} "
+                      f"inner_cycles={res.inner_cycles} (unsharded: {ref.iterations} / {ref.inner_cycles}) "
+                      f"rel_residual_f64={rel:.3e} solve_s={solve_s:.3f} unsharded_solve_s={ref_s:.3f} "
+                      f"K7_launches={k7} launches={launches}", flush=True)
+                check(rel < 1e-10, f"sharded {tag} relative residual {rel:.3e} >= 1e-10")
+                check((res.iterations, res.inner_cycles) == (ref.iterations, ref.inner_cycles),
+                      f"sharded {tag} counts differ from the unsharded solve's")
+                used = ("K7c", "K7cr") if cheb else ("K7", "K7r")
+                check(all(k7[k] > 0 for k in used), f"the sharded {tag} solve skipped K7: {k7}")
+                out.update({k: k7[k] for k in used})
+                if not cheb:
+                    out.update(x_one_rank=x, outer_one_rank=res.iterations, norm_b=float(torch.linalg.vector_norm(b)))
+                del h, h32, hs, h32s, res, ref, x
+
+            small = poisson_dg_hierarchy(**SMALL, device="cuda")
+            hs, bl = shard_hierarchy(small.hierarchy, grp), shard_vector(small.b, grp)
+            ref = multigrid(small.hierarchy, torch.zeros_like(small.b), small.b, 80, 1e-10, compute_error=False)
+            res = multigrid(hs, torch.zeros_like(bl), bl, 80, 1e-10, compute_error=False)
+            rel = rel_residual(small, unshard_vector(res.x, hs))
+            print(f"sharded f64 multigrid {small.b.numel()} DoF: iterations={res.iterations} "
+                  f"(unsharded {ref.iterations}) rel_residual={rel:.3e}", flush=True)
+            check(rel < 1e-10 and res.iterations == ref.iterations, "sharded f64 multigrid")
+
+            bs, n = SHAPES[0]  # the sharded smoother against K2: no cliff (bench.py:247-261)
+            a, sinv, ml, mu, x, bb = kernel_inputs(bs, n, SEED + 5)
+            gops = operator_ghosts(ml, mu, sinv, grp)  # exchanged once, as shard_hierarchy does
+            sharded_ms = time_ms(lambda: sharded_multisweep(grp, a, sinv, x, bb, ml=ml, mu=mu, op_ghosts=gops))
+            plain_k2_ms = time_ms(lambda: bk.multisweep(ml, mu, sinv, x, bb))
+            print(f"sharded_multisweep (overlapped, one rank) bs={bs} n={n}: ms={sharded_ms:.4f} "
+                  f"K2 ms={plain_k2_ms:.4f} ratio={sharded_ms / plain_k2_ms:.2f}", flush=True)
+        finally:
+            shutdown()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _two_rank_child(rank: int, store_path: str, q) -> None:
+    """One rank of the gloo phase: the sharded damped slice solve on the card."""
+    try:
+        from agglomerationmultigrid1d_tpu_torch.models import (
+            make_low_precision_hierarchy,
+            multigrid_mixed,
+            poisson_dg_hierarchy,
+        )
+        from agglomerationmultigrid1d_tpu_torch.ops.kernels import block_kernels as bk
+        from agglomerationmultigrid1d_tpu_torch.parallel import (
+            initialize,
+            shard_hierarchy,
+            shard_vector,
+            shutdown,
+            unshard_vector,
+        )
+
+        grp = initialize(rank, 2, store_path=store_path, device="cuda", backend="gloo", timeout_s=CHILD_TIMEOUT_S)
+        prob = poisson_dg_hierarchy(**SLICE, device="cuda")
+        h = shard_hierarchy(prob.hierarchy, grp)
+        h32 = shard_hierarchy(make_low_precision_hierarchy(prob.hierarchy), grp)
+        b = shard_vector(prob.b, grp)
+        res, solve_s, launches = timed_solve(
+            lambda: multigrid_mixed(h, h32, torch.zeros_like(b), b, 80, 1e-10), bk
+        )
+        x = unshard_vector(res.x, h)
+        rel = rel_residual(prob, x)
+        out = None
+        if rank == 0:
+            out = dict(outer=res.iterations, inner=res.inner_cycles, solve_s=solve_s, rel=rel,
+                       launches=launches, flags=h32.layout.sharded, x=x.cpu().numpy())  # plain bytes, not a shared tensor
+        shutdown()
+        q.put((rank, "ok", out))
+    except BaseException:
+        q.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def phase_two_ranks(one_rank: dict) -> None:
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device): spawned processes, each with a time limit; the kernels were
+    built by this process first, so the children load the same library."""
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as td:
+        procs = [ctx.Process(target=_two_rank_child, args=(r, os.path.join(td, "store"), q)) for r in range(2)]
+        for p in procs:
+            p.start()
+        msgs = {}
+        try:
+            for _ in range(2):
+                rank, status, payload = q.get(timeout=CHILD_TIMEOUT_S)
+                msgs[rank] = (status, payload)
+        except queue.Empty:
+            raise RuntimeError(f"chip_smoke: the two-rank gloo phase did not finish in {CHILD_TIMEOUT_S} s") from None
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    for rank, (status, payload) in sorted(msgs.items()):
+        check(status == "ok", f"two-rank gloo phase, rank {rank}:\n{payload}")
+    r0 = msgs[0][1]
+    x1 = one_rank["x_one_rank"]
+    diff = float((torch.from_numpy(r0["x"]).to(x1.device) - x1).abs().max())
+    nb = one_rank["norm_b"]
+    k7 = {k: r0["launches"][K7_FORMS[k][1]] for k in ("K7", "K7r")}
+    print(f"two ranks on one card over gloo, sharded={r0['flags']}: outer={r0['outer']} inner_cycles={r0['inner']} "
+          f"(one rank: {one_rank['outer_one_rank']}) rel_residual_f64={r0['rel']:.3e} solve_s={r0['solve_s']:.3f} "
+          f"max|x - x_one_rank|={diff:.3e} ({diff / nb:.2e} of ||b||) K7_launches={k7}", flush=True)
+    check(r0["rel"] < 1e-10, f"two-rank relative residual {r0['rel']:.3e} >= 1e-10")
+    check(abs(r0["outer"] - one_rank["outer_one_rank"]) <= 1, "two-rank outer steps differ by more than one")
+    check(diff <= 1e-9 * nb, f"two-rank solution differs from the one-rank one by {diff:.3e}")
+    check(all(v > 0 for v in k7.values()), f"the two-rank solve skipped K7: {k7}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a card", file=sys.stderr)
@@ -473,27 +938,48 @@ def main() -> int:
 
     kernels = phase_kernels(bk)
     kernels["K6"] = phase_k6(bk)
+    k7_strips, k7_whole = phase_k7(bk)
+    kernels.update(k7_strips)
+    phase_four_shards(bk)
+    bench_launches = phase_sweep_bench(bk, kernels, k7_whole)
     launches = phase_slice(bk)
     phase_reference(bk)
     launches.update(phase_chebyshev(bk))
     phase_flagship(bk)
     launches["ff_stencil_mid_defect"] = phase_north_star(bk)
+    one_rank = phase_sharded(bk)
+    launches.update({K7_FORMS[k][1]: one_rank[k] for k in K7_FORMS})
+    launches.update(bench_launches)
+    torch.cuda.empty_cache()
+    phase_two_ranks(one_rank)
 
-    meta = {  # kernel: (label, wrapper, launch counter, line of the Pallas wrapper)
-        "K1": ("K1", "multisweep_residual", "multisweep_residual", ":510"),
-        "K2": ("K2", "multisweep", "multisweep", ":495"),
-        "K3": ("K3", "fused_bt_matvec", "bt_matvec", ":130"),
-        "K5": ("K5", "chebyshev_multisweep", "chebyshev_multisweep", ":422"),
-        "K5r": ("K5", "chebyshev_multisweep_residual", "chebyshev_multisweep_residual", ":422"),
-        "K6": ("K6", "ff_stencil_mid_defect", "ff_stencil_mid_defect", ":621"),
+    # kernel: (label, wrapper, launch counter, the TPU kernel it replaces)
+    meta = {
+        "K1": ("K1", "multisweep_residual", "multisweep_residual", PALLAS + ":510"),
+        "K2": ("K2", "multisweep", "multisweep", PALLAS + ":495"),
+        "K3": ("K3", "fused_bt_matvec", "bt_matvec", PALLAS + ":130"),
+        "K5": ("K5", "chebyshev_multisweep", "chebyshev_multisweep", PALLAS + ":422"),
+        "K5r": ("K5", "chebyshev_multisweep_residual", "chebyshev_multisweep_residual", PALLAS + ":422"),
+        "K6": ("K6", "ff_stencil_mid_defect", "ff_stencil_mid_defect", PALLAS + ":621"),
+        # K7 as the sharded path launches it: one in-place edge strip
+        "K7": ("K7", "multisweep(ghosts=, cols=) edge strip", "multisweep_ghost", PALLAS + ":522"),
+        "K7r": ("K7", "multisweep_residual(ghosts=, cols=) edge strip", "multisweep_residual_ghost",
+                PALLAS + ":522"),
+        "K7c": ("K7", "chebyshev_multisweep(ghosts=, cols=) edge strip", "chebyshev_multisweep_ghost",
+                PALLAS + ":422"),
+        "K7cr": ("K7", "chebyshev_multisweep_residual(ghosts=, cols=) edge strip",
+                 "chebyshev_multisweep_residual_ghost", PALLAS + ":422"),
+        "K8": ("K8", "block_jacobi_sweep", "block_jacobi_sweep", PALLAS + ":103"),
+        "K4": ("K4", "stream_kernel", "stream_kernel", "bench.py:159"),
     }
     out = []
-    for k, (label, wrapper, counter, line) in meta.items():
+    for k, (label, wrapper, counter, replaces) in meta.items():
         r = kernels[k]
         out.append({
-            "name": f"{label} {wrapper}", "route": "cuda", "source": SOURCE,
-            "replaces": PALLAS + line, "launches": launches[counter],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "name": f"{label} {wrapper}", "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": launches[counter], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes any of these functions
         })
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

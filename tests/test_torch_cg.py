@@ -208,7 +208,7 @@ PORT = {"full": poisson_full_hierarchy, "cg": poisson_cg_hierarchy, "dg_cg": poi
 def _pair(name):
     kind, kw = CONFIGS[name]
     jprob = getattr(jproblems, f"poisson_{kind}_hierarchy")(**kw)
-    return PORT[kind](**kw), jax.tree_util.tree_map(np.asarray, jprob.hierarchy), np.asarray(jprob.b)
+    return PORT[kind](**kw, device="cpu"), jax.tree_util.tree_map(np.asarray, jprob.hierarchy), np.asarray(jprob.b)
 
 
 def _walk(got, want, path):
@@ -264,4 +264,4 @@ def test_unported_cg_configurations_raise():
         tint.aggdg_cg_interpolation(make_agg_mesh(1, mesh, partition=[4, 4, 4, 3, 3]), make_cg_mesh(mesh, 2))
     # a ragged agglomerated level below a uniform seam (20 -> 5 -> 3 + 2 agglomerates)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        poisson_full_hierarchy(n=20)
+        poisson_full_hierarchy(n=20, device="cpu")

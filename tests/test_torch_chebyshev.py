@@ -55,7 +55,7 @@ CONFIGS = {
 def _pair(name):
     """(port problem, its Chebyshev hierarchy, JAX problem, JAX Chebyshev hierarchy)."""
     port, jax_fn, kw = CONFIGS[name]
-    prob, jprob = port(**kw), jax_fn(**kw)
+    prob, jprob = port(**kw, device="cpu"), jax_fn(**kw)
     return prob, chebyshev_hierarchy(prob.hierarchy), jprob, jcheb(jprob.hierarchy)
 
 
@@ -179,7 +179,7 @@ def test_smooth_cheb_float64_matches_jax(level, emit_residual):
     flagship's CG p=8 level (Jacobi base), level 4 its first agglomerated
     level (block-Jacobi base)."""
     _, _, jprob, jh = _pair("full-32")
-    h = hierarchy_from_numpy(jax.tree_util.tree_map(np.asarray, jh))
+    h = hierarchy_from_numpy(jax.tree_util.tree_map(np.asarray, jh), device="cpu")
     jlv, lv = jh.levels[level], h.levels[level]
     rng = np.random.default_rng(level)
     shape = tuple(np.asarray(jprob.b).shape) if level == 0 else (2, 8)
@@ -197,9 +197,9 @@ def test_chebyshev_cuts_cycle_count_with_jax_counts(family):
     (``tests/test_smoothers.py:120-146``), and in as many as JAX's."""
     if family == "dg":
         kw = dict(n=256, max_p=3, n_dg=2, n_agg=4)
-        prob, jprob = poisson_dg_hierarchy(**kw), jproblems.poisson_dg_hierarchy(**kw)
+        prob, jprob = poisson_dg_hierarchy(**kw, device="cpu"), jproblems.poisson_dg_hierarchy(**kw)
     else:
-        prob, jprob = poisson_full_hierarchy(n=256), jproblems.poisson_full_hierarchy(n=256)
+        prob, jprob = poisson_full_hierarchy(n=256, device="cpu"), jproblems.poisson_full_hierarchy(n=256)
     b = prob.b
     r0 = multigrid(prob.hierarchy, torch.zeros_like(b), b, 100, 1e-10, compute_error=False)
     rc = multigrid(chebyshev_hierarchy(prob.hierarchy), torch.zeros_like(b), b, 100, 1e-10, compute_error=False)

@@ -71,7 +71,7 @@ def test_hierarchy_uses_bcr_above_dense_max():
     """A coarsest level above ``DENSE_COARSE_MAX`` DoF gets cyclic reduction
     (the port raised ``NotImplementedError`` there before); below, the dense
     inverse.  A float32 cast keeps the factorization's type."""
-    big = poisson_dg_hierarchy(n=2048, max_p=1, n_dg=1)
+    big = poisson_dg_hierarchy(n=2048, max_p=1, n_dg=1, device="cpu")
     assert big.hierarchy.levels[-1].a.n_dof > DENSE_COARSE_MAX
     c = big.hierarchy.coarse
     assert isinstance(c, BTCoarseSolver) and c.n == 4096
@@ -87,5 +87,5 @@ def test_hierarchy_uses_bcr_above_dense_max():
     assert isinstance(c32, BTCoarseSolver) and c32.root_inv.dtype == torch.float32
     x32 = coarse_solve(c32, b.float()).double().numpy()
     assert np.linalg.norm(a_dense @ x32 - b.numpy()) <= 1e-5 * scale
-    small = poisson_dg_hierarchy(n=64, max_p=1, n_dg=1)
+    small = poisson_dg_hierarchy(n=64, max_p=1, n_dg=1, device="cpu")
     assert isinstance(small.hierarchy.coarse, CoarseSolver)

@@ -1,5 +1,6 @@
-"""The torch port's CUDA kernels (K1-K3, K5, and K6 bit for bit), its mixed
-solve and its true-precision solve on a CUDA card.
+"""The torch port's CUDA kernels (K1-K3, K5, K6 bit for bit, K7 with ghosts
+and in-place columns, K8, K4), its mixed solve, its true-precision solve and
+its sharded solve on a one-rank NCCL group, on a CUDA card.
 
 Every test here needs the card (marker ``cuda``) and skips without one.  This
 file imports neither JAX nor the JAX package, so it also runs where JAX is
@@ -166,3 +167,108 @@ def test_cuda_multigrid_true_launches_k6(cuda):
     assert 0 < it < 40 and float(res.res_history[it - 1]) < 1e-8 * norm_b
     assert bk.LAUNCHES["ff_stencil_mid_defect"] == 7 * it
     assert res.x.device.type == "cuda" and bool(torch.isfinite(res.x).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,n,g", [(2, 1000, 4), (4, 65536, 4), (3, 777, 9), (4, 300, 128)])
+def test_cuda_k7_matches_plain(cuda, bs, n, g):
+    """K7's four forms with non-zero ghosts of width g, whole and as the two
+    in-place edge strips of the sharded path."""
+    l, d, u, sinv, ml, mu, x, b = _inputs(bs * n + g, bs, n, cuda)
+    _, _, _, gs, gml, gmu, gx, gb = _inputs(g, bs, 2 * g, cuda)
+    ghosts = (torch.stack([gml, gmu, gs]).contiguous(), torch.stack([gx, gb]).contiguous())
+    coef = bk.chebyshev_coefficients(0.3, 1.2, 3)
+    forms = [
+        (lambda **kw: bk.multisweep(ml, mu, sinv, x, b, 3, ghosts=ghosts, **kw),
+         bk.multisweep_plain(ml, mu, sinv, x, b, 3, ghosts=ghosts)),
+        (lambda **kw: bk.multisweep_residual(ml, mu, sinv, d, x, b, 3, ghosts=ghosts, **kw),
+         bk.multisweep_residual_plain(ml, mu, sinv, d, x, b, 3, ghosts=ghosts)),
+        (lambda **kw: bk.chebyshev_multisweep(ml, mu, sinv, x, b, coef, ghosts=ghosts, **kw),
+         bk.chebyshev_multisweep_plain(ml, mu, sinv, x, b, coef, ghosts=ghosts)),
+        (lambda **kw: bk.chebyshev_multisweep_residual(ml, mu, sinv, d, x, b, coef, ghosts=ghosts, **kw),
+         bk.chebyshev_multisweep_residual_plain(ml, mu, sinv, d, x, b, coef, ghosts=ghosts)),
+    ]
+    bk.reset_launch_counts()
+    for kern, want in forms:
+        want = want if isinstance(want, tuple) else (want,)
+        got = kern()
+        got = got if isinstance(got, tuple) else (got,)
+        out = tuple(torch.full_like(w, 7.0) for w in want)
+        for cols in ((0, 4), (n - 4, n)):
+            kern(out=out if len(out) > 1 else out[0], cols=cols)
+        torch.cuda.synchronize()
+        for g_, o_, w_ in zip(got, out, want):
+            assert float((g_ - w_).abs().max()) <= 1e-5 * float(w_.abs().max())
+            edges = torch.cat([o_[:, :4], o_[:, -4:]], dim=1)
+            assert float((edges - torch.cat([w_[:, :4], w_[:, -4:]], dim=1)).abs().max()) <= 1e-5 * float(w_.abs().max())
+            assert bool((o_[:, 4:-4] == 7.0).all())  # the columns outside cols are untouched
+    assert all(bk.LAUNCHES[k] == 3 for k in ("multisweep_ghost", "multisweep_residual_ghost",
+                                              "chebyshev_multisweep_ghost", "chebyshev_multisweep_residual_ghost"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,n", [(2, 1000), (4, 65536), (9, 640)])
+def test_cuda_k8_and_k4_match_plain(cuda, bs, n):
+    l, d, u, sinv, ml, mu, x, b = _inputs(bs * n + 2, bs, n, cuda)
+    a = BlockTridiag(l, d, u)
+    bk.reset_launch_counts()
+    pairs = [(bk.block_jacobi_sweep(a, sinv, x, b), bk.block_jacobi_sweep_plain(a, sinv, x, b)),
+             (bk.stream_kernel(ml, mu, sinv, x, b), bk.stream_kernel_plain(ml, mu, sinv, x, b))]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert bk.LAUNCHES["block_jacobi_sweep"] == 1 and bk.LAUNCHES["stream_kernel"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_solve_on_one_rank(cuda, tmp_path):
+    """The sharded mixed solve on a one-rank NCCL group: K7 launched, the
+    unsharded solve's counts and a 1e-10 residual."""
+    from agglomerationmultigrid1d_tpu_torch.parallel import (
+        initialize,
+        shard_hierarchy,
+        shard_vector,
+        shutdown,
+        unshard_vector,
+    )
+
+    prob = poisson_dg_hierarchy(n=4096, max_p=3, n_dg=2, n_agg=5, device=cuda)
+    h32 = make_low_precision_hierarchy(prob.hierarchy)
+    b = prob.b
+    ref = multigrid_mixed(prob.hierarchy, h32, torch.zeros_like(b), b, 80, 1e-10)
+    g = initialize(0, 1, store_path=str(tmp_path / "store"))
+    try:
+        h, hl = shard_hierarchy(prob.hierarchy, g), shard_hierarchy(h32, g)
+        bl = shard_vector(b, g)
+        bk.reset_launch_counts()
+        res = multigrid_mixed(h, hl, torch.zeros_like(bl), bl, 80, 1e-10)
+        x = unshard_vector(res.x, h)
+    finally:
+        shutdown()
+    assert bk.LAUNCHES["multisweep_ghost"] > 0 and bk.LAUNCHES["multisweep_residual_ghost"] > 0
+    assert (res.iterations, res.inner_cycles) == (ref.iterations, ref.inner_cycles)
+    rel = float(torch.linalg.vector_norm(bt_matvec(prob.hierarchy.levels[0].a, x) - b) / torch.linalg.vector_norm(b))
+    assert rel < 1e-10
+
+
+@pytest.mark.cuda
+def test_cuda_narrow_shards_take_k7_or_raise(cuda):
+    """On the card a float32 shard never takes the plain sweep: narrower than
+    two strips it runs one whole-shard K7 launch (equal to the unsharded
+    K2 on a one-rank ring, whose ghosts are the zero boundary), narrower than
+    the k + 1 ghost columns it raises."""
+    from agglomerationmultigrid1d_tpu_torch.parallel import SolverGroup, sharded_multisweep
+
+    g = SolverGroup(group=None, rank=0, world=1, device=cuda, backend="nccl")  # a ring of one: no exchange
+    for n in (5, 3):
+        l, d, u, sinv, ml, mu, x, b = _inputs(n, 2, n, cuda)
+        a = BlockTridiag(l, d, u)
+        bk.reset_launch_counts()
+        if n == 3:
+            with pytest.raises(ValueError, match="narrower"):
+                sharded_multisweep(g, a, sinv, x, b, ml=ml, mu=mu)
+            continue
+        got = sharded_multisweep(g, a, sinv, x, b, ml=ml, mu=mu)
+        want = bk.multisweep_plain(ml, mu, sinv, x, b)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+        assert bk.LAUNCHES["multisweep_ghost"] == 1 and bk.LAUNCHES["multisweep"] == 0

@@ -47,7 +47,7 @@ def _norm(b) -> float:
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_multigrid_progressive_matches_jax(name):
     port, jax_fn, kw = CONFIGS[name]
-    prob, jprob = port(**kw), jax_fn(**kw)
+    prob, jprob = port(**kw, device="cpu"), jax_fn(**kw)
     b = prob.b
     res = multigrid_progressive(prob.hierarchy, make_low_precision_hierarchy(prob.hierarchy),
                                 torch.zeros_like(b), b, 60, 1e-10)
@@ -76,7 +76,7 @@ def _spy(monkeypatch, module, calls):
 
 
 def _mixed_both(kw, maxiter):
-    prob, jprob = poisson_dg_hierarchy(**kw), jproblems.poisson_dg_hierarchy(**kw)
+    prob, jprob = poisson_dg_hierarchy(**kw, device="cpu"), jproblems.poisson_dg_hierarchy(**kw)
     res = multigrid_mixed(prob.hierarchy, make_low_precision_hierarchy(prob.hierarchy),
                           torch.zeros_like(prob.b), prob.b, maxiter, 1e-10)
     jres = jsolvers.multigrid_mixed(
@@ -111,7 +111,7 @@ def test_mixed_handover_contracts_with_a_float64_coarse_solve(monkeypatch):
     continuation lowers the defect every cycle and needs no more cycles than
     JAX's (3), and fewer steps in all."""
     kw = dict(n=1024, max_p=1, n_dg=1, n_agg=3, c_dir=1e10)
-    prob = poisson_dg_hierarchy(**kw)
+    prob = poisson_dg_hierarchy(**kw, device="cpu")
     steps = []
     loop, coarse_ff = tsolvers._progressive_loop, tsolvers._coarse_ff
 

@@ -37,7 +37,7 @@ def _pair(name):
     kw = CONFIGS[name]
     jprob = jax_problem(**kw)
     jh = jax.tree_util.tree_map(np.asarray, jprob.hierarchy)
-    return poisson_dg_hierarchy(**kw), jh, np.asarray(jprob.b)
+    return poisson_dg_hierarchy(**kw, device="cpu"), jh, np.asarray(jprob.b)
 
 
 def _close(got: torch.Tensor, want, what):
@@ -102,9 +102,9 @@ def test_device_argument_places_everything():
 
 def test_unported_configurations_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # a ragged CG -> agg seam
-        build_problem(HierarchySpec(cg_orders=(2, 1), n_agg_levels=1), 18)
+        build_problem(HierarchySpec(cg_orders=(2, 1), n_agg_levels=1), 18, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # ragged agglomerates
-        poisson_dg_hierarchy(n=20, max_p=1, n_dg=1, n_agg=2)
+        poisson_dg_hierarchy(n=20, max_p=1, n_dg=1, n_agg=2, device="cpu")
     mesh = create_uniform_mesh(8, 0.0, 1.0)
     dg = make_dg_mesh(mesh, 1, switch=np.array([False, False, False, True, True, True, True]))
     bc = BoundaryCondition(("neu", 0.0), ("dir", 1.0))

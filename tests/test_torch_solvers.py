@@ -52,7 +52,7 @@ def _jax_problem(n, max_p, n_dg, n_agg=0):
 
 def _converted(**kw):
     jprob = _jax_problem(**kw)
-    h = hierarchy_from_numpy(jax.tree_util.tree_map(np.asarray, jprob.hierarchy))
+    h = hierarchy_from_numpy(jax.tree_util.tree_map(np.asarray, jprob.hierarchy), device="cpu")
     return jprob, h, torch.tensor(np.asarray(jprob.b))
 
 
@@ -89,7 +89,7 @@ def _mixed_pair(kw):
     jres = jsolvers.multigrid_mixed(
         jprob.hierarchy, jh32, jnp.zeros_like(jprob.b), jprob.b, 80, 1e-10, use_pallas=False
     )
-    prob = poisson_dg_hierarchy(**kw)
+    prob = poisson_dg_hierarchy(**kw, device="cpu")
     h32 = make_low_precision_hierarchy(prob.hierarchy)
     res = multigrid_mixed(prob.hierarchy, h32, torch.zeros_like(prob.b), prob.b, 80, 1e-10)
     return prob, res, jres
@@ -120,7 +120,7 @@ def test_multigrid_mixed_raises_where_progressive_would_take_over(monkeypatch):
     iterations left the solve no longer raises there (as it did before the
     progressive cycles were ported) but continues with progressive-precision
     cycles, as the JAX package does, and converges."""
-    prob = poisson_dg_hierarchy(n=32, max_p=1, n_dg=1, n_agg=2)
+    prob = poisson_dg_hierarchy(n=32, max_p=1, n_dg=1, n_agg=2, device="cpu")
     h32 = make_low_precision_hierarchy(prob.hierarchy)
 
     def useless_inner(h_low, r, inner_tol, max_cycles, **kw):
@@ -138,7 +138,7 @@ def test_multigrid_mixed_raises_where_progressive_would_take_over(monkeypatch):
 def test_multigrid_mixed_runs_out_of_iterations_quietly():
     """Spending ``maxiter`` (outer steps or inner cycles, whichever runs out
     first, as in the JAX package) is a normal end, as for ``multigrid``."""
-    prob = poisson_dg_hierarchy(n=256, max_p=4, n_dg=3)
+    prob = poisson_dg_hierarchy(n=256, max_p=4, n_dg=3, device="cpu")
     h32 = make_low_precision_hierarchy(prob.hierarchy)
     res = multigrid_mixed(prob.hierarchy, h32, torch.zeros_like(prob.b), prob.b, 4, 1e-30)
     assert max(res.iterations, res.inner_cycles) >= 4
@@ -154,7 +154,7 @@ def _flagship_pair(n):
     in random directions."""
     jprob = jproblems.poisson_full_hierarchy(n=n)
     jres = jsolvers.multigrid(jprob.hierarchy, jnp.zeros_like(jprob.b), jprob.b, 100, 1e-10)
-    prob = poisson_full_hierarchy(n=n)
+    prob = poisson_full_hierarchy(n=n, device="cpu")
     b = prob.b
     res = multigrid(prob.hierarchy, torch.zeros_like(b), b, 100, 1e-10)
     signs = torch.from_numpy(np.random.default_rng(n).choice([-1.0, 1.0], size=tuple(b.shape)))
@@ -201,7 +201,7 @@ def _mixed_counts(port_fn, jax_fn, kw, cheb):
         jh, jsolvers.make_low_precision_hierarchy(jh), jnp.zeros_like(jprob.b), jprob.b, 80,
         1e-10, use_pallas=False,
     )
-    prob = port_fn(**kw)
+    prob = port_fn(**kw, device="cpu")
     h = chebyshev_hierarchy(prob.hierarchy) if cheb else prob.hierarchy
     res = multigrid_mixed(h, make_low_precision_hierarchy(h), torch.zeros_like(prob.b), prob.b, 80, 1e-10)
     return prob, res, jres

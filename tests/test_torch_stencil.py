@@ -64,7 +64,7 @@ def _jax_xl(n, spec_items, z):
 
 @functools.lru_cache(maxsize=None)
 def _port_xl(n, spec_items, z):
-    return build_xl_problem(HierarchySpec(**dict(spec_items)), n, z=z, slim_fine=True, ff_levels=True)
+    return build_xl_problem(HierarchySpec(**dict(spec_items)), n, z=z, slim_fine=True, ff_levels=True, device="cpu")
 
 
 def _walk(want, got, path, out):
@@ -147,7 +147,7 @@ def test_rhs_and_stencil_factor():
     plus the boundary patches of the stencil problem) against the direct
     full-size build, and the default stencil factor against JAX's."""
     h, ff, b, nb = _port_xl(N, tuple(SPEC.items()), 8)
-    direct = build_problem(HierarchySpec(**SPEC), N).b
+    direct = build_problem(HierarchySpec(**SPEC), N, device="cpu").b
     np.testing.assert_allclose(ff_join(b).numpy(), direct.numpy(), rtol=0,
                                atol=1e-14 * float(direct.abs().max()))
     np.testing.assert_allclose(nb, float(torch.linalg.vector_norm(direct)), rtol=1e-14)
@@ -160,10 +160,10 @@ def test_rhs_and_stencil_factor():
 
 def test_setup_timings_and_unported_chains():
     timings = {}
-    build_xl_problem(HierarchySpec(**SPEC), 1024, slim_fine=True, ff_levels=True, timings=timings)
+    build_xl_problem(HierarchySpec(**SPEC), 1024, slim_fine=True, ff_levels=True, timings=timings, device="cpu")
     assert set(timings) == {"host_stencil", "inflate", "rhs"} and all(v >= 0 for v in timings.values())
     with pytest.raises(NotImplementedError, match="item 13"):
-        build_xl_problem(HierarchySpec(cg_orders=(2, 1), n_agg_levels=3, c_dir=1000.0 * 2048), 2048)
+        build_xl_problem(HierarchySpec(cg_orders=(2, 1), n_agg_levels=3, c_dir=1000.0 * 2048), 2048, device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -174,7 +174,7 @@ def test_setup_timings_and_unported_chains():
 def test_multigrid_true_matches_jax_on_shared_inputs(n, spec, z, maxiter, tol, exact):
     (jh, jff, jb, jnb), (jh_np, jff_np, jb_np) = _jax_xl(n, tuple(spec.items()), z)
     jres = jmultigrid_true(jh, jff, jb, jnb, maxiter, tol)
-    res = multigrid_true(*xl_problem_from_numpy(jh_np, jff_np, jb_np, jnb), maxiter, tol)
+    res = multigrid_true(*xl_problem_from_numpy(jh_np, jff_np, jb_np, jnb, device="cpu"), maxiter, tol)
     j_it = int(jres.iterations)
     j_hist, hist = np.asarray(jres.res_history), res.res_history.numpy()
     assert j_hist[j_it - 1] < tol * jnb and hist[res.iterations - 1] < tol * jnb
@@ -214,7 +214,7 @@ def test_true_cycle_contracts_with_a_fused_prolongation(monkeypatch):
     import agglomerationmultigrid1d_tpu_torch.models.solvers as tsolvers
 
     (jh, jff, jb, jnb), (jh_np, jff_np, jb_np) = _jax_xl(N_KAPPA, tuple(SPEC_KAPPA.items()), None)
-    args = xl_problem_from_numpy(jh_np, jff_np, jb_np, jnb)
+    args = xl_problem_from_numpy(jh_np, jff_np, jb_np, jnb, device="cpu")
     monkeypatch.setattr(tsolvers, "bp_prolong", _prolong_fused)
     j_it = int(jmultigrid_true(jh, jff, jb, jnb, 25, 1e-10).iterations)
     assert multigrid_true(*args, 25, 1e-10).iterations <= j_it
@@ -273,9 +273,9 @@ def test_inflate_float64_identity_roundtrip():
 
     n, z = 2048, 4
     spec = HierarchySpec(**dict(SPEC, c_dir=1000.0 * n))
-    small = strip_hierarchy(build_problem(spec, n // z, mesh=_stencil_mesh(n // z, 1.0 / n)).hierarchy)
-    big = inflate_hierarchy(small, small, z)
-    ref = strip_hierarchy(build_problem(spec, n).hierarchy)
+    small = strip_hierarchy(build_problem(spec, n // z, mesh=_stencil_mesh(n // z, 1.0 / n), device="cpu").hierarchy)
+    big = inflate_hierarchy(small, small, z, device="cpu")
+    ref = strip_hierarchy(build_problem(spec, n, device="cpu").hierarchy)
     got, want = [], []
     tree_map(got.append, (big.levels, big.transfers))
     tree_map(want.append, (ref.levels, ref.transfers))
@@ -295,6 +295,6 @@ def test_inflation_rejects_nonuniform():
 
     n, z = 2048, 8
     spec = HierarchySpec(**dict(SPEC, c_dir=1000.0 * n))
-    small = strip_hierarchy(build_problem(spec, n // z, mesh=create_graded_mesh(n // z, 0.0, 1.0)).hierarchy)
+    small = strip_hierarchy(build_problem(spec, n // z, mesh=create_graded_mesh(n // z, 0.0, 1.0), device="cpu").hierarchy)
     with pytest.raises(ValueError, match="translation invariant"):
-        inflate_hierarchy(small, small, z)
+        inflate_hierarchy(small, small, z, device="cpu")
