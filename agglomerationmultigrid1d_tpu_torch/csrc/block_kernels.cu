@@ -19,10 +19,16 @@
 //
 // Host entry points have a plain C interface (loaded with ctypes) and return
 // cudaGetLastError() after the launch; -1 means an unsupported block size,
-// -2 more sweeps than kMaxSweeps.  K6 (ff_stencil_defect_kernel) takes
-// float-float pairs: two (bs, n) arrays per vector.  K7 is the multisweep
-// kernel with ghost columns (a shard's neighbours), K8 one A-form sweep, K4
-// the bandwidth yardstick that reads the multisweep's operands.
+// -2 more sweeps than kMaxSweeps, -3 a shard or ghost width the edge pair does
+// not take.  K6 (ff_stencil_defect_kernel) takes float-float pairs: two
+// (bs, n) arrays per vector.  K7 is the multisweep kernel with ghost columns
+// (a shard's neighbours), K8 one A-form sweep, K4 the bandwidth yardstick that
+// reads the multisweep's operands.  The sharded path's per-smoothing pair:
+// pack_edges_kernel copies a shard's edge columns of x and b into the two
+// messages its ring neighbours receive, and edge_pair_kernel recomputes both
+// shard edges of a zero-ghost pass in one launch, reading the received
+// messages where the exchange left them.  aggmg_empty launches nothing but
+// an empty kernel: the launch floor those two are measured against.
 
 #include <cuda_runtime.h>
 
@@ -60,23 +66,40 @@ __device__ __forceinline__ void mat(const float (&m)[BS][BS], const float (&v)[B
 }
 
 // One window column of the multisweep: its ML and MU blocks, x, b and
-// c = S^-1 b, from streams whose column stride is `stride`.
+// c = S^-1 b.  The operator streams have column stride `op_stride` and are
+// read at column `op_k`, the vectors `vec_stride` and `vec_k` (they differ
+// where the vector ghosts are a received message, see edge_pair_kernel).
 template <int BS>
 __device__ __forceinline__ void load_column(float (&m_l)[BS][BS], float (&m_u)[BS][BS],
                                             float (&xr)[BS], float (&bv)[BS], float (&c)[BS],
                                             const float* __restrict__ ml,
                                             const float* __restrict__ mu,
-                                            const float* __restrict__ sinv,
-                                            const float* __restrict__ x,
-                                            const float* __restrict__ b, long long stride,
-                                            long long k) {
-  load_block<BS>(m_l, ml, stride, k);
-  load_block<BS>(m_u, mu, stride, k);
-  load_vec<BS>(xr, x, stride, k);
-  load_vec<BS>(bv, b, stride, k);
+                                            const float* __restrict__ sinv, long long op_stride,
+                                            long long op_k, const float* __restrict__ x,
+                                            const float* __restrict__ b, long long vec_stride,
+                                            long long vec_k) {
+  load_block<BS>(m_l, ml, op_stride, op_k);
+  load_block<BS>(m_u, mu, op_stride, op_k);
+  load_vec<BS>(xr, x, vec_stride, vec_k);
+  load_vec<BS>(bv, b, vec_stride, vec_k);
   float s[BS][BS];
-  load_block<BS>(s, sinv, stride, k);
+  load_block<BS>(s, sinv, op_stride, op_k);
   mat<BS>(s, bv, c);
+}
+
+// A window column beyond the shard and its ghosts: the zero of the global
+// Dirichlet boundary.  It is never updated.
+template <int BS>
+__device__ __forceinline__ void zero_column(float (&m_l)[BS][BS], float (&m_u)[BS][BS],
+                                            float (&xr)[BS], float (&bv)[BS], float (&c)[BS]) {
+#pragma unroll
+  for (int i = 0; i < BS; ++i) {
+    xr[i] = 0.f;
+    bv[i] = 0.f;
+    c[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < BS; ++j) m_l[i][j] = m_u[i][j] = 0.f;
+  }
 }
 
 // K3: y = A_D x + A_L x_{-1} + A_U x_{+1}.
@@ -118,6 +141,50 @@ struct Recurrence {
   float cd[kMaxSweeps];   // Chebyshev (K5): d = cd[s] d + cz[s] z, x += d
   float cz[kMaxSweeps];
 };
+
+// One sweep's update of a column from its neighbours' x (xm, xp): damped
+// block-Jacobi, or one step of the Chebyshev recurrence (d carries over).
+template <int BS, bool CHEB>
+__device__ __forceinline__ void sweep_column(float (&xr)[BS], float (&d)[BS],
+                                             const float (&m_l)[BS][BS],
+                                             const float (&m_u)[BS][BS], const float (&c)[BS],
+                                             const float (&xm)[BS], const float (&xp)[BS],
+                                             const Recurrence& rec, int s, bool live) {
+  float l[BS], u[BS];
+  mat<BS>(m_l, xm, l);
+  mat<BS>(m_u, xp, u);
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < BS; ++i) {
+    if constexpr (CHEB) {
+      d[i] = rec.cd[s] * d[i] + rec.cz[s] * ((c[i] - xr[i]) - (l[i] + u[i]));
+      xr[i] = xr[i] + d[i];
+    } else {
+      xr[i] = xr[i] + rec.alpha * ((c[i] - xr[i]) - (l[i] + u[i]));
+    }
+  }
+}
+
+// r = b - A_D ((x + ML x_{-1}) + MU x_{+1}) of a swept column `col` of the
+// shard, written to r_out.
+template <int BS>
+__device__ __forceinline__ void column_residual(const float (&xr)[BS], const float (&bv)[BS],
+                                                const float (&m_l)[BS][BS],
+                                                const float (&m_u)[BS][BS],
+                                                const float (&xm)[BS], const float (&xp)[BS],
+                                                const float* __restrict__ ad,
+                                                float* __restrict__ r_out, long long n,
+                                                long long col) {
+  float l[BS], u[BS], tt[BS], ax[BS], m[BS][BS];
+  mat<BS>(m_l, xm, l);
+  mat<BS>(m_u, xp, u);
+#pragma unroll
+  for (int i = 0; i < BS; ++i) tt[i] = (xr[i] + l[i]) + u[i];
+  load_block<BS>(m, ad, n, col);
+  mat<BS>(m, tt, ax);
+#pragma unroll
+  for (int i = 0; i < BS; ++i) r_out[i * n + col] = bv[i] - ax[i];
+}
 
 // K2 / K1: n_sweeps damped block-Jacobi sweeps in M-form, in one pass.
 //   c = S^-1 b;  n_sweeps times  x <- x + alpha ((c - x) - (ML x_{-1} + MU x_{+1}))
@@ -168,8 +235,9 @@ struct Recurrence {
 //
 // Every launch computes the output columns [col_lo, col_hi) of the (bs, n)
 // arrays x_out / r_out and leaves the others untouched: [0, n) for a whole
-// pass, the s edge columns for the sharded path's strips, which so recompute
-// their columns in place (their inner neighbours are the shard's own columns).
+// pass, or a strip of edge columns recomputed in place (its inner neighbours
+// are the shard's own columns).  The sharded path recomputes both edges with
+// edge_pair_kernel below; the strip form stays as the public cols= of K7.
 template <int BS, bool EMIT_RESIDUAL, bool CHEB>
 __global__ void __launch_bounds__(kThreads)
     multisweep_kernel(const float* __restrict__ ml, const float* __restrict__ mu,
@@ -189,26 +257,19 @@ __global__ void __launch_bounds__(kThreads)
 
   float m_l[BS][BS], m_u[BS][BS], xr[BS], bv[BS], c[BS];
   if (inside) {
-    load_column<BS>(m_l, m_u, xr, bv, c, ml, mu, sinv, x, b, n, col);
+    load_column<BS>(m_l, m_u, xr, bv, c, ml, mu, sinv, n, col, x, b, n, col);
   } else if (ghost) {
     const long long gw = 2LL * g;
-    load_column<BS>(m_l, m_u, xr, bv, c, gops, gops + BS * BS * gw, gops + 2 * BS * BS * gw,
-                    gvec, gvec + BS * gw, gw, gcol);
+    load_column<BS>(m_l, m_u, xr, bv, c, gops, gops + BS * BS * gw, gops + 2 * BS * BS * gw, gw,
+                    gcol, gvec, gvec + BS * gw, gw, gcol);
   } else {
-#pragma unroll
-    for (int i = 0; i < BS; ++i) {
-      xr[i] = 0.f;
-      bv[i] = 0.f;
-      c[i] = 0.f;
-#pragma unroll
-      for (int j = 0; j < BS; ++j) m_l[i][j] = m_u[i][j] = 0.f;
-    }
+    zero_column<BS>(m_l, m_u, xr, bv, c);
   }
 #pragma unroll
   for (int i = 0; i < BS; ++i) sx[i][t] = xr[i];
   __syncthreads();
 
-  float xm[BS], xp[BS], l[BS], u[BS], d[BS];
+  float xm[BS], xp[BS], d[BS];
 #pragma unroll
   for (int i = 0; i < BS; ++i) d[i] = 0.f;
   for (int s = 0; s < n_sweeps; ++s) {
@@ -217,20 +278,11 @@ __global__ void __launch_bounds__(kThreads)
       xm[j] = t > 0 ? sx[j][t - 1] : 0.f;
       xp[j] = t < kThreads - 1 ? sx[j][t + 1] : 0.f;
     }
-    mat<BS>(m_l, xm, l);
-    mat<BS>(m_u, xp, u);
     __syncthreads();  // every neighbour read of this sweep is done
+    sweep_column<BS, CHEB>(xr, d, m_l, m_u, c, xm, xp, rec, s, live);
     if (live) {
 #pragma unroll
-      for (int i = 0; i < BS; ++i) {
-        if constexpr (CHEB) {
-          d[i] = rec.cd[s] * d[i] + rec.cz[s] * ((c[i] - xr[i]) - (l[i] + u[i]));
-          xr[i] = xr[i] + d[i];
-        } else {
-          xr[i] = xr[i] + rec.alpha * ((c[i] - xr[i]) - (l[i] + u[i]));
-        }
-        sx[i][t] = xr[i];
-      }
+      for (int i = 0; i < BS; ++i) sx[i][t] = xr[i];
     }
     __syncthreads();
   }
@@ -244,17 +296,138 @@ __global__ void __launch_bounds__(kThreads)
       xm[j] = sx[j][t - 1];
       xp[j] = sx[j][t + 1];
     }
-    mat<BS>(m_l, xm, l);
-    mat<BS>(m_u, xp, u);
-    float tt[BS], ax[BS], m[BS][BS];
-#pragma unroll
-    for (int i = 0; i < BS; ++i) tt[i] = (xr[i] + l[i]) + u[i];
-    load_block<BS>(m, ad, n, col);
-    mat<BS>(m, tt, ax);
-#pragma unroll
-    for (int i = 0; i < BS; ++i) r_out[i * n + col] = bv[i] - ax[i];
+    column_residual<BS>(xr, bv, m_l, m_u, xm, xp, ad, r_out, n, col);
   }
 }
+
+// ---------------------------------------------------------------------------
+// The sharded path's edge pair: both shard edges of a zero-ghost pass,
+// recomputed in place with the neighbours' columns, in ONE launch.
+//
+// Replaces, on the TPU side, _strip_ghosts and _overlap_splice
+// (agglomerationmultigrid1d_tpu/parallel/sharded_kernels.py:81-114) around the
+// ghosted _multisweep_impl (ops/pallas/block_kernels.py:522) and
+// pallas_chebyshev_multisweep (:422): there two 640-column strips are cut,
+// swept with their inner columns as ghosts, and spliced back.  Here it also
+// replaces two launches of multisweep_kernel with cols= (one per edge).
+//
+// What bounds it: a launch reads 2 (s + 2 halo) <= 54 columns and writes
+// 2 s <= 18, a few kilobytes: its bytes take under a microsecond, and so does
+// its arithmetic.  Launch latency and the host's time per call bound it, not
+// bytes.  The design therefore removes calls and host work, not bytes:
+// * one launch for both edges: block 0 is the left edge, block 1 the right.
+//   Two blocks of one warp each, not one block of two warps: the sides share
+//   nothing, each lands on an SM of its own, and blockIdx is the side, so no
+//   code divides the block;
+// * a side is one warp, one thread per window column: s = k + 1 output
+//   columns and halo = k (k + 1 with the residual) on either side of them, at
+//   most 9 + 2 * 9 = 27 of the 32 lanes.  x moves between neighbouring
+//   columns by warp shuffles: no shared memory, no __syncthreads, no 256-wide
+//   window of which 229 columns are masked;
+// * the vector ghosts are read where the ring exchange left them:
+//   from_left / from_right are the received messages (2, bs, g), the
+//   neighbour's x and then b edge columns, so the host concatenates nothing.
+//   A null message is a ring end: those columns are the zero boundary (and
+//   the operator ghosts of that side are not read).  The operator ghosts
+//   stay the level's gops (3, bs, bs, 2 g) in K7's layout, exchanged once;
+// * the inner neighbours are the shard's own columns [s, s + halo) and
+//   [n - s - halo, n - s), read in place.
+//
+// The arithmetic is multisweep_kernel's, through the same device functions
+// (load_column, sweep_column, column_residual), in the same order on the same
+// columns; a window column beyond the halo differs from multisweep_kernel's
+// 256-column window, and goes wrong by one column per sweep from the window's
+// inner end, which never reaches the s outputs.  Needs halo <= g and
+// n >= 2 s (then every inner column lies inside the shard).
+constexpr int kWarp = 32;
+
+template <int BS, bool EMIT_RESIDUAL, bool CHEB>
+__global__ void __launch_bounds__(kWarp)
+    edge_pair_kernel(const float* __restrict__ ml, const float* __restrict__ mu,
+                     const float* __restrict__ sinv, const float* __restrict__ ad,
+                     const float* __restrict__ x, const float* __restrict__ b,
+                     const float* __restrict__ gops, const float* __restrict__ from_left,
+                     const float* __restrict__ from_right, int g, float* __restrict__ x_out,
+                     float* __restrict__ r_out, long long n, int n_sweeps, int halo,
+                     const Recurrence rec) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int t = threadIdx.x;
+  const bool right = blockIdx.x == 1;
+  const int s = n_sweeps + 1;
+  // window column t is shard column w: [-halo, s + halo) on the left edge,
+  // [n - s - halo, n + halo) on the right
+  const long long w = (right ? n - s - halo : -(long long)halo) + t;
+  const bool in_window = t < s + 2 * halo;
+  const bool inside = in_window && w >= 0 && w < n;
+  const float* __restrict__ msg = right ? from_right : from_left;
+  const bool ghost = in_window && !inside && msg != nullptr;
+  const bool live = inside || ghost;
+
+  float m_l[BS][BS], m_u[BS][BS], xr[BS], bv[BS], c[BS];
+  if (inside) {
+    load_column<BS>(m_l, m_u, xr, bv, c, ml, mu, sinv, n, w, x, b, n, w);
+  } else if (ghost) {
+    // the message's column: the neighbour's last g columns end at -1, its first g start at n
+    const long long mcol = right ? w - n : g + w;
+    const long long gw = 2LL * g;
+    load_column<BS>(m_l, m_u, xr, bv, c, gops, gops + BS * BS * gw, gops + 2 * BS * BS * gw, gw,
+                    right ? g + mcol : mcol, msg, msg + BS * g, g, mcol);
+  } else {
+    zero_column<BS>(m_l, m_u, xr, bv, c);
+  }
+
+  float xm[BS], xp[BS], d[BS];
+#pragma unroll
+  for (int i = 0; i < BS; ++i) d[i] = 0.f;
+  for (int sw = 0; sw < n_sweeps; ++sw) {
+#pragma unroll
+    for (int j = 0; j < BS; ++j) {
+      const float up = __shfl_up_sync(kAll, xr[j], 1);
+      const float down = __shfl_down_sync(kAll, xr[j], 1);
+      xm[j] = t > 0 ? up : 0.f;
+      xp[j] = t < kWarp - 1 ? down : 0.f;
+    }
+    sweep_column<BS, CHEB>(xr, d, m_l, m_u, c, xm, xp, rec, sw, live);
+  }
+  if (EMIT_RESIDUAL) {  // every lane takes part in the shuffles
+#pragma unroll
+    for (int j = 0; j < BS; ++j) {
+      xm[j] = __shfl_up_sync(kAll, xr[j], 1);
+      xp[j] = __shfl_down_sync(kAll, xr[j], 1);
+    }
+  }
+  if (t < halo || t >= halo + s) return;
+#pragma unroll
+  for (int i = 0; i < BS; ++i) x_out[i * n + w] = xr[i];
+  if (EMIT_RESIDUAL) column_residual<BS>(xr, bv, m_l, m_u, xm, xp, ad, r_out, n, w);
+}
+
+// The send side of the edge pair: the first g columns of x and of b into
+// to_left (2, bs, g), the last g into to_right, in one launch (in place of
+// two stacks over four slices).  A null message is a side without a
+// neighbour and is skipped.  At most 2 * 2 * 9 * 9 = 324 floats: one block,
+// bound by launch latency like the edge pair.
+constexpr int kPackThreads = 128;
+
+template <int BS>
+__global__ void __launch_bounds__(kPackThreads)
+    pack_edges_kernel(const float* __restrict__ x, const float* __restrict__ b,
+                      float* __restrict__ to_left, float* __restrict__ to_right, int g,
+                      long long n) {
+  const int per = 2 * BS * g;  // floats of one message
+  for (int e = threadIdx.x; e < 2 * per; e += kPackThreads) {
+    const bool right = e >= per;
+    float* __restrict__ dst = right ? to_right : to_left;
+    if (dst == nullptr) continue;
+    const int m = right ? e - per : e;  // (vector, row, column) of the message
+    const int c = m % g, i = (m / g) % BS;
+    const float* __restrict__ src = m < BS * g ? x : b;
+    dst[m] = src[i * n + (right ? n - g + c : c)];
+  }
+}
+
+// Nothing: what a launch through this file's route costs at the least.
+__global__ void empty_kernel() {}
 
 // ---------------------------------------------------------------------------
 // K6: the float-float stencil defect r = b - A x of the true-precision cycle.
@@ -415,6 +588,29 @@ void launch_multisweep(const float* ml, const float* mu, const float* sinv, cons
   }
 }
 
+template <int BS, bool CHEB>
+void launch_edge_pair(const float* ml, const float* mu, const float* sinv, const float* ad,
+                      const float* x, const float* b, const float* gops, const float* from_left,
+                      const float* from_right, int g, float* x_out, float* r_out, long long n,
+                      int n_sweeps, const Recurrence& rec, cudaStream_t stream) {
+  const int halo = n_sweeps + (r_out != nullptr ? 1 : 0);
+  if (r_out != nullptr) {
+    edge_pair_kernel<BS, true, CHEB><<<2, kWarp, 0, stream>>>(
+        ml, mu, sinv, ad, x, b, gops, from_left, from_right, g, x_out, r_out, n, n_sweeps, halo,
+        rec);
+  } else {
+    edge_pair_kernel<BS, false, CHEB><<<2, kWarp, 0, stream>>>(
+        ml, mu, sinv, ad, x, b, gops, from_left, from_right, g, x_out, r_out, n, n_sweeps, halo,
+        rec);
+  }
+}
+
+template <int BS>
+void launch_pack_edges(const float* x, const float* b, float* to_left, float* to_right, int g,
+                       long long n, cudaStream_t stream) {
+  pack_edges_kernel<BS><<<1, kPackThreads, 0, stream>>>(x, b, to_left, to_right, g, n);
+}
+
 // K8: one A-form damped block-Jacobi sweep, x + alpha S^-1 (b - A x), with
 // the residual formed as ((b - A_D x) - A_L x_{-1}) - A_U x_{+1}.  Replaces
 // pallas_block_jacobi_sweep (ops/pallas/block_kernels.py:103, body
@@ -561,6 +757,74 @@ int aggmg_chebyshev(int bs, const void* ml, const void* mu, const void* sinv, co
                               (cudaStream_t)stream)
   AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
 #undef AGGMG_CALL
+  return (int)cudaGetLastError();
+}
+
+// The edge pair, damped.  from_left / from_right are the received messages
+// (2, bs, g) or null at a ring end; ad and r_out are null without the
+// residual.  Writes columns [0, s) and [n - s, n), s = n_sweeps + 1.
+static int edge_pair_refused(int n_steps, bool residual, int g, long long n) {
+  if (n_steps < 0 || n_steps > kMaxSweeps) return -2;
+  if (n_steps + (residual ? 1 : 0) > g || n < 2LL * (n_steps + 1)) return -3;
+  return 0;
+}
+
+int aggmg_edge_pair(int bs, const void* ml, const void* mu, const void* sinv, const void* ad,
+                    const void* x, const void* b, const void* gops, const void* from_left,
+                    const void* from_right, int g, void* x_out, void* r_out, long long n,
+                    int n_sweeps, float alpha, void* stream) {
+  if (const int rc = edge_pair_refused(n_sweeps, r_out != nullptr, g, n)) return rc;
+  Recurrence rec = {};
+  rec.alpha = alpha;
+#define AGGMG_CALL(BS)                                                                         \
+  launch_edge_pair<BS, false>((const float*)ml, (const float*)mu, (const float*)sinv,           \
+                              (const float*)ad, (const float*)x, (const float*)b,               \
+                              (const float*)gops, (const float*)from_left,                      \
+                              (const float*)from_right, g, (float*)x_out, (float*)r_out, n,     \
+                              n_sweeps, rec, (cudaStream_t)stream)
+  AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
+#undef AGGMG_CALL
+  return (int)cudaGetLastError();
+}
+
+// The edge pair, Chebyshev; coef as for aggmg_chebyshev.
+int aggmg_edge_pair_chebyshev(int bs, const void* ml, const void* mu, const void* sinv,
+                              const void* ad, const void* x, const void* b, const void* gops,
+                              const void* from_left, const void* from_right, int g, void* x_out,
+                              void* r_out, long long n, int n_steps, const void* coef,
+                              void* stream) {
+  if (const int rc = edge_pair_refused(n_steps, r_out != nullptr, g, n)) return rc;
+  Recurrence rec = {};
+  for (int s = 0; s < n_steps; ++s) {
+    rec.cd[s] = ((const float*)coef)[2 * s];
+    rec.cz[s] = ((const float*)coef)[2 * s + 1];
+  }
+#define AGGMG_CALL(BS)                                                                        \
+  launch_edge_pair<BS, true>((const float*)ml, (const float*)mu, (const float*)sinv,           \
+                             (const float*)ad, (const float*)x, (const float*)b,               \
+                             (const float*)gops, (const float*)from_left,                      \
+                             (const float*)from_right, g, (float*)x_out, (float*)r_out, n,     \
+                             n_steps, rec, (cudaStream_t)stream)
+  AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
+#undef AGGMG_CALL
+  return (int)cudaGetLastError();
+}
+
+// The edge columns of x and b into the send messages; a null message is skipped.
+int aggmg_pack_edges(int bs, const void* x, const void* b, void* to_left, void* to_right, int g,
+                     long long n, void* stream) {
+  if (g < 0 || n < g) return -3;
+#define AGGMG_CALL(BS)                                                                    \
+  launch_pack_edges<BS>((const float*)x, (const float*)b, (float*)to_left, (float*)to_right, g, \
+                        n, (cudaStream_t)stream)
+  AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
+#undef AGGMG_CALL
+  return (int)cudaGetLastError();
+}
+
+// The launch floor: one empty kernel on `stream`.
+int aggmg_empty(void* stream) {
+  empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

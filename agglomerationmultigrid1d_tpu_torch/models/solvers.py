@@ -206,7 +206,7 @@ def _smooth_cheb(level, u, rhs, degree, emit_residual=False, group=None):
         if group is not None:
             return sharded_chebyshev_multisweep(
                 group, level.a, s.base.inv, u, rhs, coef, degree=degree,
-                emit_residual=emit_residual, ml=ml, mu=mu, op_ghosts=s.base.ghosts,
+                emit_residual=emit_residual, ml=ml, mu=mu, op_ghosts=s.base.ghosts, plan=s.base.plan,
             )
         if emit_residual:
             return chebyshev_multisweep_residual(
@@ -245,7 +245,7 @@ def _smooth_n(level, u, rhs, n_sweeps, alpha, group=None):
         if group is not None:
             return sharded_multisweep(
                 group, level.a, level.smoother.inv, u, rhs, n_sweeps=n_sweeps, alpha=alpha,
-                ml=ml, mu=mu, op_ghosts=level.smoother.ghosts,
+                ml=ml, mu=mu, op_ghosts=level.smoother.ghosts, plan=level.smoother.plan,
             )
         return multisweep(
             ml, mu, level.smoother.inv, u.contiguous(), rhs.contiguous(),
@@ -266,6 +266,7 @@ def _smooth_n_residual(level, u, rhs, n_sweeps, alpha, group=None):
             return sharded_multisweep(
                 group, level.a, level.smoother.inv, u, rhs, n_sweeps=n_sweeps, alpha=alpha,
                 emit_residual=True, ml=ml, mu=mu, op_ghosts=level.smoother.ghosts,
+                plan=level.smoother.plan,
             )
         return multisweep_residual(
             ml, mu, level.smoother.inv, level.a.diag, u.contiguous(), rhs.contiguous(),

@@ -14,6 +14,13 @@
   an element-sharded operator, with its neighbours' columns as ghosts
   (``parallel.sharded_kernels``); the result is the sweeps over
   ``[left ghosts | shard | right ghosts]``, cropped to the shard;
+* the edge pair, :class:`EdgePlan` — what the sharded path launches per
+  smoothing in K7's place: :meth:`EdgePlan.pack` copies the shard's edge
+  columns of x and b into the two messages its ring neighbours receive (one
+  launch), and :meth:`EdgePlan.sweep_edges` / :meth:`EdgePlan.chebyshev_edges`
+  recompute both shard edges of a zero-ghost K1 / K2 / K5 pass in place in ONE
+  launch, reading the received messages where the exchange left them.  A plan
+  binds a level's operators, checked once, and owns the messages;
 * K8 :func:`block_jacobi_sweep` — one A-form sweep ``x + alpha S^-1 (b - A x)``
   on four operator streams (a public op; no solver path calls it);
 * K4 :func:`stream_kernel` — the bandwidth yardstick: reads the multisweep's
@@ -34,7 +41,8 @@ version: a build or launch failure raises.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain runs do not count), so
 a run can show that it went through the kernels; K7's four forms count
-under the ``*_ghost`` names.
+under the ``*_ghost`` names, the edge pair's under the ``*edge_pair*`` names
+and its packing under ``pack_edges``.
 
 K5's coefficient table (:func:`chebyshev_coefficients`) is passed to the
 kernel by value, as host floats: a launch reads no scalar from the device.
@@ -75,6 +83,11 @@ LAUNCHES = {
     "chebyshev_multisweep_residual_ghost": 0,
     "block_jacobi_sweep": 0,
     "stream_kernel": 0,
+    "edge_pair": 0,
+    "edge_pair_residual": 0,
+    "chebyshev_edge_pair": 0,
+    "chebyshev_edge_pair_residual": 0,
+    "pack_edges": 0,
 }
 
 _LIB = None
@@ -190,6 +203,97 @@ def chebyshev_multisweep_residual_plain(ml, mu, s_inv, a_diag, x, b, coef, ghost
     x = chebyshev_multisweep_plain(ml, mu, s_inv, x, b, coef)
     t = (x + _mat(ml, shift(x, -1))) + _mat(mu, shift(x, +1))
     return x, b - _mat(a_diag, t)
+
+
+def pack_edges_plain(x, b, g: int, left: bool = True, right: bool = True) -> tuple:
+    """The two messages ``(2, bs, g)`` a shard sends its ring neighbours: the
+    first ``g`` columns of x and of b to the left, the last ``g`` to the
+    right; None on a side without a neighbour."""
+    n = x.shape[-1]
+    to_left = torch.stack([x[:, :g], b[:, :g]]) if left else None
+    to_right = torch.stack([x[:, n - g :], b[:, n - g :]]) if right else None
+    return to_left, to_right
+
+
+def _edge_windows(ops, x, b, gops, from_left, from_right, s: int, halo: int):
+    """The edge pair's two windows, left then right: per side the operator
+    streams and ``(x, b)`` on the ``s`` edge columns with ``halo`` columns on
+    either side of them: outside, the neighbour's nearest columns (the
+    operators from K7's ``gops``, x and b from the received message
+    ``(2, bs, g)``; zeros for a None message, a ring end), inside, the
+    shard's own.  A stream with no ghost stream (A_D) is widened with zeros."""
+    n, g = x.shape[-1], gops.shape[-1] // 2
+    if halo > g or n < 2 * s:
+        raise ValueError(f"the edge pair needs {halo} <= {g} ghost columns and {n} >= {2 * s} columns")
+    for side, msg in ((0, from_left), (1, from_right)):
+        inner = slice(0, s + halo) if side == 0 else slice(n - s - halo, n)
+        near = slice(g - halo, g) if side == 0 else slice(0, halo)  # of the neighbour's g columns
+        gcols = near if side == 0 else slice(g, g + halo)
+
+        def wide(t, gt):
+            gt = torch.zeros_like(t[..., :halo]) if gt is None else gt
+            pair = [gt, t[..., inner]]
+            return torch.cat(pair if side == 0 else pair[::-1], dim=-1)
+
+        w_ops = tuple(
+            wide(m, gops[k][..., gcols] if msg is not None and k < gops.shape[0] else None)
+            for k, m in enumerate(ops)
+        )
+        yield w_ops, tuple(wide(v, None if msg is None else msg[k][:, near]) for k, v in enumerate((x, b)))
+
+
+def _edges_plain(sweep, ops, x, b, gops, from_left, from_right, k: int, residual: bool) -> tuple:
+    """``sweep(ops, x, b)`` (a plain multisweep, zeros beyond the window as
+    in the kernel) on each edge window, cropped to its ``s = k + 1`` output
+    columns: ``(x_left, x_right)``, with the residual also ``r_left, r_right``."""
+    s, halo = k + 1, k + (1 if residual else 0)
+    outs = []
+    for w_ops, (wx, wb) in _edge_windows(ops, x, b, gops, from_left, from_right, s, halo):
+        res = sweep(w_ops, wx, wb)
+        outs.append(tuple(t[:, halo : halo + s] for t in (res if residual else (res,))))
+    return tuple(side[i] for i in range(len(outs[0])) for side in outs)
+
+
+def multisweep_edges_plain(
+    ml, mu, s_inv, x, b, gops, from_left, from_right, n_sweeps: int = 3, alpha: float = 2.0 / 3.0
+):
+    """The edge pair's plain version, damped: the ``s = n_sweeps + 1`` first
+    and last columns of the sweeps over ``[left ghosts | shard | right
+    ghosts]``, each computed from its own window of ``s + 2 n_sweeps`` columns
+    in the kernel's order of operations (not by sweeping the shard).
+    ``from_left`` / ``from_right``: the neighbours' messages ``(2, bs, g)``
+    (:func:`pack_edges_plain`), None at a ring end.  Returns ``(x_left, x_right)``."""
+    return _edges_plain(
+        lambda o, xx, bb: multisweep_plain(*o, xx, bb, n_sweeps, alpha),
+        (ml, mu, s_inv), x, b, gops, from_left, from_right, n_sweeps, False,
+    )
+
+
+def multisweep_residual_edges_plain(
+    ml, mu, s_inv, a_diag, x, b, gops, from_left, from_right, n_sweeps: int = 3, alpha: float = 2.0 / 3.0
+):
+    """:func:`multisweep_edges_plain` plus the residual's edge columns, from
+    windows one column wider a side: ``(x_left, x_right, r_left, r_right)``."""
+    return _edges_plain(
+        lambda o, xx, bb: multisweep_residual_plain(*o, xx, bb, n_sweeps, alpha),
+        (ml, mu, s_inv, a_diag), x, b, gops, from_left, from_right, n_sweeps, True,
+    )
+
+
+def chebyshev_multisweep_edges_plain(ml, mu, s_inv, x, b, coef, gops, from_left, from_right):
+    """The edge pair's plain version, Chebyshev (``coef`` rows ``(c_d, c_z)``);
+    see :func:`multisweep_edges_plain`."""
+    return _edges_plain(
+        lambda o, xx, bb: chebyshev_multisweep_plain(*o, xx, bb, coef),
+        (ml, mu, s_inv), x, b, gops, from_left, from_right, len(coef), False,
+    )
+
+
+def chebyshev_multisweep_residual_edges_plain(ml, mu, s_inv, a_diag, x, b, coef, gops, from_left, from_right):
+    return _edges_plain(
+        lambda o, xx, bb: chebyshev_multisweep_residual_plain(*o, xx, bb, coef),
+        (ml, mu, s_inv, a_diag), x, b, gops, from_left, from_right, len(coef), True,
+    )
 
 
 def block_jacobi_sweep_plain(a: BlockTridiag, s_inv, x, b, alpha: float = 2.0 / 3.0):
@@ -311,6 +415,14 @@ def _lib():
             lib.aggmg_block_jacobi_sweep.restype = i
             lib.aggmg_stream.argtypes = [i, p, p, p, p, p, p, ll, p]
             lib.aggmg_stream.restype = i
+            lib.aggmg_edge_pair.argtypes = [i, p, p, p, p, p, p, p, p, p, i, p, p, ll, i, f, p]
+            lib.aggmg_edge_pair.restype = i
+            lib.aggmg_edge_pair_chebyshev.argtypes = [i, p, p, p, p, p, p, p, p, p, i, p, p, ll, i, p, p]
+            lib.aggmg_edge_pair_chebyshev.restype = i
+            lib.aggmg_pack_edges.argtypes = [i, p, p, p, p, i, ll, p]
+            lib.aggmg_pack_edges.restype = i
+            lib.aggmg_empty.argtypes = [p]
+            lib.aggmg_empty.restype = i
             _LIB = lib
     return _LIB
 
@@ -351,12 +463,31 @@ def _check(ops, vecs) -> tuple[int, int, torch.device]:
 
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
-        why = {-1: "unsupported block size", -2: "too many steps"}.get(rc, f"CUDA error {rc}")
+        why = {-1: "unsupported block size", -2: "too many steps",
+               -3: "shard or ghost width out of range"}.get(rc, f"CUDA error {rc}")
         raise RuntimeError(f"{name} kernel launch failed: {why}")
 
 
+# The current stream's handle without building a torch.cuda.Stream object (a
+# lookup that costs more than the launch itself on a busy host); the public
+# form where this torch has no such function.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream(dev: torch.device) -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(dev.index)
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch(dev: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` on ``dev``'s current stream.  The launch goes to
+    the current device, so ``dev``'s context is entered where it is not the
+    current one (it is, on the solvers' paths: nothing is entered there)."""
+    if torch.cuda.current_device() == dev.index:
+        return fn(*args, _stream(dev))
+    with torch.cuda.device(dev):
+        return fn(*args, _stream(dev))
 
 
 def fused_bt_matvec(a: BlockTridiag, x: torch.Tensor) -> torch.Tensor:
@@ -367,11 +498,10 @@ def fused_bt_matvec(a: BlockTridiag, x: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(x)
     if n == 0:
         return y
-    with torch.cuda.device(dev):
-        rc = _lib().aggmg_bt_matvec(
-            bs, a.diag.data_ptr(), a.lower.data_ptr(), a.upper.data_ptr(), x.data_ptr(),
-            y.data_ptr(), n, _stream(dev),
-        )
+    rc = _launch(
+        dev, _lib().aggmg_bt_matvec, bs, a.diag.data_ptr(), a.lower.data_ptr(), a.upper.data_ptr(),
+        x.data_ptr(), y.data_ptr(), n,
+    )
     _raise_on(rc, "bt_matvec")
     LAUNCHES["bt_matvec"] += 1
     return y
@@ -380,6 +510,14 @@ def fused_bt_matvec(a: BlockTridiag, x: torch.Tensor) -> torch.Tensor:
 def _check_sweeps(n_sweeps: int) -> None:
     if not 0 <= n_sweeps <= MAX_SWEEPS:
         raise ValueError(f"n_sweeps must be in [0, {MAX_SWEEPS}], got {n_sweeps}")
+
+
+def _ghost_ops_width(gops, bs: int) -> int:
+    """K7's operator ghosts ``(n_ops >= 3, bs, bs, 2 g)``: their ``2 g``."""
+    w = gops.shape[-1] if gops.dim() == 4 else 1
+    if gops.dim() != 4 or gops.shape[0] < 3 or tuple(gops.shape[1:3]) != (bs, bs) or w % 2:
+        raise ValueError(f"ghost operators of shape {tuple(gops.shape)}, expected (3 or 4, {bs}, {bs}, 2 g)")
+    return w
 
 
 def _check_ghosts(ghosts, bs: int, dev: torch.device, reach: int):
@@ -391,9 +529,7 @@ def _check_ghosts(ghosts, bs: int, dev: torch.device, reach: int):
         return None, None, 0
     gops, gvec = ghosts
     _check_tensors((gops, gvec), bs, dev)
-    w = gops.shape[-1]
-    if gops.dim() != 4 or gops.shape[0] < 3 or tuple(gops.shape[1:3]) != (bs, bs) or w % 2:
-        raise ValueError(f"ghost operators of shape {tuple(gops.shape)}, expected (3 or 4, {bs}, {bs}, 2 g)")
+    w = _ghost_ops_width(gops, bs)
     if tuple(gvec.shape) != (2, bs, w):
         raise ValueError(f"ghost vectors of shape {tuple(gvec.shape)}, expected {(2, bs, w)}")
     if w // 2 < reach:
@@ -442,13 +578,11 @@ def _sweeps(name, plain, ops, x, b, n_steps, residual, ghosts, out, cols, launch
     if n > 0:
         name = name if ghosts is None else name + "_ghost"
         fn, tail = launch_args(_lib())
-        with torch.cuda.device(dev):
-            rc = fn(
-                bs, ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
-                ops[3].data_ptr() if residual else None, x.data_ptr(), b.data_ptr(), *ghost_args,
-                outs[0].data_ptr(), outs[1].data_ptr() if residual else None, n, lo, hi, *tail,
-                _stream(dev),
-            )
+        rc = _launch(
+            dev, fn, bs, ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
+            ops[3].data_ptr() if residual else None, x.data_ptr(), b.data_ptr(), *ghost_args,
+            outs[0].data_ptr(), outs[1].data_ptr() if residual else None, n, lo, hi, *tail,
+        )
         _raise_on(rc, name)
         LAUNCHES[name] += 1
     if cols is not None:
@@ -522,6 +656,175 @@ def chebyshev_multisweep_residual(ml, mu, s_inv, a_diag, x, b, coef, ghosts=None
     )
 
 
+class EdgePlan:
+    """One sharded level's edge pair: its operators bound once, its messages
+    allocated once, so a smoothing costs one packing launch and one edge-pair
+    launch with next to no host work between them.
+
+    Built once per level (``parallel.distributed.attach_operator_ghosts``)
+    from ML, MU, S^-1, A_D ``(bs, bs, n)`` and K7's operator ghosts ``gops
+    (3, bs, bs, 2 g)``, which are checked here and never again (float32,
+    contiguous, one device, shapes, a block size the kernels have).
+    ``left`` / ``right`` say whether the shard has a ring neighbour on that
+    side; for each it has, the plan owns a send message ``to_*`` and a
+    receive message ``from_*``, both ``(2, bs, g)`` (x's then b's edge
+    columns) on the operators' device.  A side without a neighbour has
+    neither: the kernel gets a null pointer and takes those columns as the
+    zero Dirichlet boundary.
+
+    Per smoothing the caller runs :meth:`pack`, moves ``to_left`` /
+    ``to_right`` into the neighbours' ``from_right`` / ``from_left`` (the
+    ring exchange, ``parallel.halo.RingExchange``), launches the zero-ghost
+    full-shard pass, and hands its output to :meth:`sweep_edges` or
+    :meth:`chebyshev_edges`.  Those check only x, b and the outputs (dtype,
+    device, shape, contiguity) and the step count against ``g``.
+
+    On a CUDA device every method launches its kernel or raises; on the CPU
+    it runs the plain versions.  The messages live across calls: the caller
+    must not :meth:`pack` again before the exchange that reads ``to_*`` is
+    done (``RingExchange.wait``)."""
+
+    ring = None  # the level's RingExchange, set by parallel.sharded_kernels.edge_plan
+
+    def __init__(self, ml, mu, s_inv, a_diag, gops, *, left: bool, right: bool):
+        bs, n, dev = _check((ml, mu, s_inv, a_diag), ())
+        _check_tensors((gops,), bs, dev)
+        self.g = _ghost_ops_width(gops, bs) // 2
+        if not 0 < self.g <= n:
+            raise ValueError(f"{self.g} ghost columns a side for a shard of {n} columns")
+        self.ops, self.gops = (ml, mu, s_inv, a_diag), gops
+        self.bs, self.n, self.device = bs, n, dev
+
+        def message(has_peer):
+            return torch.zeros((2, bs, self.g), dtype=torch.float32, device=dev) if has_peer else None
+
+        self.to_left, self.from_left = message(left), message(left)
+        self.to_right, self.from_right = message(right), message(right)
+        self._tables = {}  # Chebyshev coefficient rows -> the host table the launch passes by value
+        if dev.type == "cuda":
+            ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+            self._lib = _lib()  # builds at setup, not inside the first smoothing
+            self._op_ptrs = tuple(ptr(t) for t in (*self.ops[:3], gops, self.from_left, self.from_right))
+            self._ad_ptr = a_diag.data_ptr()
+            self._send_ptrs = (ptr(self.to_left), ptr(self.to_right))
+
+    def bound_to(self, ml, mu, s_inv, a_diag, gops) -> bool:
+        """Whether the plan was built from these very tensors."""
+        return all(t is mine for t, mine in zip((ml, mu, s_inv, a_diag, gops), (*self.ops, self.gops)))
+
+    def _check_vectors(self, tensors) -> None:
+        for t in tensors:
+            if t.dtype != torch.float32:
+                raise TypeError(f"the block kernels take float32 only, got {t.dtype}")
+            if t.device != self.device:
+                raise ValueError(f"all inputs must be on one device ({self.device} and {t.device})")
+            if t.shape != (self.bs, self.n):
+                raise ValueError(f"vector of shape {tuple(t.shape)}, expected {(self.bs, self.n)}")
+            if not t.is_contiguous():
+                raise ValueError("the block kernels take contiguous tensors")
+
+    def pack(self, x, b) -> None:
+        """Fill ``to_left`` / ``to_right`` with the shard's edge columns of x
+        and b: one launch; nothing where the shard has no neighbour."""
+        self._check_vectors((x, b))
+        if self.to_left is None and self.to_right is None:
+            return
+        if self.device.type == "cpu":
+            for dst, src in zip((self.to_left, self.to_right),
+                                pack_edges_plain(x, b, self.g, self.to_left is not None, self.to_right is not None)):
+                if dst is not None:
+                    dst.copy_(src)
+            return
+        rc = _launch(
+            self.device, self._lib.aggmg_pack_edges, self.bs, x.data_ptr(), b.data_ptr(), *self._send_ptrs,
+            self.g, self.n,
+        )
+        _raise_on(rc, "pack_edges")
+        LAUNCHES["pack_edges"] += 1
+
+    def _edges(self, name, fn, plain, x, b, out, n_steps: int, tail: tuple):
+        """The shared body of the two edge-pair methods: checks, then
+        ``plain(ops, ghosts)`` on a CPU tensor or one launch of ``fn`` (whose
+        arguments after ``n_steps`` are ``tail``) on a CUDA one."""
+        residual = isinstance(out, tuple)
+        outs = out if residual else (out,)
+        if len(outs) != (2 if residual else 1):
+            raise ValueError(f"{len(outs)} outputs: x_out, or (x_out, r_out) with the residual")
+        self._check_vectors((x, b, *outs))
+        _check_sweeps(n_steps)
+        s, reach = n_steps + 1, n_steps + (1 if residual else 0)
+        if reach > self.g:
+            raise ValueError(f"ghost width {self.g} is below the {reach} columns the sweeps reach")
+        if self.n < 2 * s:
+            raise ValueError(f"a shard of {self.n} columns is narrower than two {s}-column edges")
+        if self.device.type == "cpu":
+            res = plain(self.ops if residual else self.ops[:3], (self.gops, self.from_left, self.from_right))
+            for i, t in enumerate(outs):
+                t[:, :s] = res[2 * i]
+                t[:, self.n - s :] = res[2 * i + 1]
+            return out
+        p = self._op_ptrs
+        rc = _launch(
+            self.device, fn, self.bs, p[0], p[1], p[2], self._ad_ptr if residual else None, x.data_ptr(),
+            b.data_ptr(), p[3], p[4], p[5], self.g, outs[0].data_ptr(),
+            outs[1].data_ptr() if residual else None, self.n, n_steps, *tail,
+        )
+        name += "_residual" if residual else ""
+        _raise_on(rc, name)
+        LAUNCHES[name] += 1
+        return out
+
+    def sweep_edges(self, x, b, out, n_sweeps: int = 3, alpha: float = 2.0 / 3.0):
+        """Recompute the ``s = n_sweeps + 1`` first and last columns of a
+        zero-ghost K2 pass ``out`` (or, with ``out = (x_out, r_out)``, of a K1
+        pass) with the neighbours' columns, in place: one launch.  The vector
+        ghosts are ``from_left`` / ``from_right`` as the exchange left them.
+        Needs ``n >= 2 s``.  Returns ``out``."""
+        return self._edges(
+            "edge_pair", self._lib.aggmg_edge_pair if self.device.type == "cuda" else None,
+            lambda ops, ghosts: (multisweep_residual_edges_plain if len(ops) == 4 else multisweep_edges_plain)(
+                *ops, x, b, *ghosts, n_sweeps, alpha),
+            x, b, out, n_sweeps, (alpha,),
+        )
+
+    def chebyshev_edges(self, x, b, out, coef):
+        """:meth:`sweep_edges` for a zero-ghost K5 pass: ``len(coef)``
+        Chebyshev steps, ``coef`` rows ``(c_d, c_z)``."""
+        try:
+            cached = self._tables.get(coef)  # a tuple of float rows is its own key
+        except TypeError:  # unhashable rows (a list, an array)
+            cached = None
+        if cached is None:
+            rows = tuple((float(c_d), float(c_z)) for c_d, c_z in coef)
+            _check_sweeps(len(rows))
+            flat = (ctypes.c_float * (2 * MAX_SWEEPS))(*[v for row in rows for v in row])
+            cached = self._tables[rows] = (rows, flat, ctypes.cast(flat, ctypes.c_void_p))
+        rows, _, table = cached
+        return self._edges(
+            "chebyshev_edge_pair",
+            self._lib.aggmg_edge_pair_chebyshev if self.device.type == "cuda" else None,
+            lambda ops, ghosts: (chebyshev_multisweep_residual_edges_plain if len(ops) == 4
+                                 else chebyshev_multisweep_edges_plain)(*ops, x, b, rows, *ghosts),
+            x, b, out, len(rows), (table,),
+        )
+
+    def ghost_vectors(self) -> torch.Tensor:
+        """K7's ``gvec (2, bs, 2 g)`` from the received messages (zeros at a
+        ring end), for the whole-shard ghosted launch of a narrow shard."""
+        zeros = torch.zeros((2, self.bs, self.g), dtype=torch.float32, device=self.device)
+        return torch.cat(
+            [zeros if self.from_left is None else self.from_left,
+             zeros if self.from_right is None else self.from_right], dim=-1,
+        )
+
+
+def launch_floor() -> None:
+    """Launch one empty kernel on the current stream, through the route every
+    kernel here takes (ctypes into the built library): what a launch costs at
+    the least.  The edge pair and the packing are measured against it."""
+    _raise_on(_launch(torch.device("cuda", torch.cuda.current_device()), _lib().aggmg_empty), "empty")
+
+
 def block_jacobi_sweep(a: BlockTridiag, s_inv, x, b, alpha: float = 2.0 / 3.0):
     """K8: one damped block-Jacobi sweep ``x + alpha S^-1 (b - A x)`` in one
     pass over the four operator streams (A-form: ``s_inv`` need not be the
@@ -532,11 +835,10 @@ def block_jacobi_sweep(a: BlockTridiag, s_inv, x, b, alpha: float = 2.0 / 3.0):
     x_out = torch.empty_like(x)
     if n == 0:
         return x_out
-    with torch.cuda.device(dev):
-        rc = _lib().aggmg_block_jacobi_sweep(
-            bs, a.diag.data_ptr(), a.lower.data_ptr(), a.upper.data_ptr(), s_inv.data_ptr(),
-            x.data_ptr(), b.data_ptr(), x_out.data_ptr(), n, alpha, _stream(dev),
-        )
+    rc = _launch(
+        dev, _lib().aggmg_block_jacobi_sweep, bs, a.diag.data_ptr(), a.lower.data_ptr(), a.upper.data_ptr(),
+        s_inv.data_ptr(), x.data_ptr(), b.data_ptr(), x_out.data_ptr(), n, alpha,
+    )
     _raise_on(rc, "block_jacobi_sweep")
     LAUNCHES["block_jacobi_sweep"] += 1
     return x_out
@@ -552,11 +854,10 @@ def stream_kernel(ml, mu, s_inv, x, b):
     out = torch.empty_like(x)
     if n == 0:
         return out
-    with torch.cuda.device(dev):
-        rc = _lib().aggmg_stream(
-            bs, ml.data_ptr(), mu.data_ptr(), s_inv.data_ptr(), x.data_ptr(), b.data_ptr(),
-            out.data_ptr(), n, _stream(dev),
-        )
+    rc = _launch(
+        dev, _lib().aggmg_stream, bs, ml.data_ptr(), mu.data_ptr(), s_inv.data_ptr(), x.data_ptr(),
+        b.data_ptr(), out.data_ptr(), n,
+    )
     _raise_on(rc, "stream_kernel")
     LAUNCHES["stream_kernel"] += 1
     return out
@@ -587,11 +888,10 @@ def ff_stencil_mid_defect(blocks, x_hi, x_lo, b_hi, b_lo):
     r_hi, r_lo = torch.empty_like(x_hi), torch.empty_like(x_lo)
     if n == 0:
         return r_hi, r_lo
-    with torch.cuda.device(dev):
-        rc = _lib().aggmg_ff_stencil_defect(
-            bs, blocks.data_ptr(), bw, x_hi.data_ptr(), x_lo.data_ptr(), b_hi.data_ptr(),
-            b_lo.data_ptr(), r_hi.data_ptr(), r_lo.data_ptr(), n, _stream(dev),
-        )
+    rc = _launch(
+        dev, _lib().aggmg_ff_stencil_defect, bs, blocks.data_ptr(), bw, x_hi.data_ptr(), x_lo.data_ptr(),
+        b_hi.data_ptr(), b_lo.data_ptr(), r_hi.data_ptr(), r_lo.data_ptr(), n,
+    )
     _raise_on(rc, "ff_stencil_mid_defect")
     LAUNCHES["ff_stencil_mid_defect"] += 1
     return r_hi, r_lo

@@ -10,8 +10,9 @@ on a sharded level the solvers take the halo columns of every matvec from
 the neighbours, all-reduce the norms, restrict and prolong locally, gather
 after the last sharded level and solve the replicated coarsest level on
 every rank.  A sharded float32 block level smooths through
-:mod:`.sharded_kernels` (kernel K7), with the operator ghosts K7 reads
-exchanged once, here (:func:`attach_operator_ghosts`).
+:mod:`.sharded_kernels` (kernel K7 and the edge pair), with the operator
+ghosts they read exchanged once and the level's edge plan built once, here
+(:func:`attach_operator_ghosts`).
 
 Typical use, one process per rank::
 
@@ -37,7 +38,7 @@ from ..ops.transfer_ops import BlockProlong
 from ..smoothers.smoother import BlockJacobiSmoother, ChebyshevSmoother
 from ..utils.precision import tree_map, tree_to
 from .multihost import SolverGroup, all_gather_cols, local_range
-from .sharded_kernels import operator_ghosts
+from .sharded_kernels import edge_plan, operator_ghosts
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -128,26 +129,36 @@ def unshard_vector(x: torch.Tensor, h: Hierarchy) -> torch.Tensor:
 
 
 def attach_operator_ghosts(h: Hierarchy) -> Hierarchy:
-    """Store K7's operator ghosts (``sharded_kernels.operator_ghosts``) on
-    every sharded block level whose block-Jacobi smoother (also under a
-    Chebyshev wrap) has its float32 M-form streams and no ghosts yet: one
-    exchange per level, so smoothing exchanges only x and b.  Collective:
-    every rank calls it (``shard_hierarchy`` and, on a sharded hierarchy,
+    """Store K7's operator ghosts (``sharded_kernels.operator_ghosts``) and
+    the edge plan (``sharded_kernels.edge_plan``: the operators checked and
+    bound, the smoothing's messages allocated) on every sharded block level
+    whose block-Jacobi smoother (also under a Chebyshev wrap) has its float32
+    M-form streams: one exchange per level that has no ghosts yet, so
+    smoothing exchanges only x and b; a plan wherever the level has none
+    bound to its present tensors.  Collective: every rank calls it
+    (``shard_hierarchy`` and, on a sharded hierarchy,
     ``models.hierarchy.prepare_fast_smoothers`` do)."""
     if h.layout is None:
         return h
     g = h.layout.group
 
-    def fix_base(s):
-        if not isinstance(s, BlockJacobiSmoother) or s.ml is None or s.ghosts is not None:
+    def fix_base(s, a_diag):
+        if not isinstance(s, BlockJacobiSmoother) or s.ml is None or s.ml.dtype != torch.float32:
             return s
-        return s._replace(ghosts=operator_ghosts(s.ml, s.mu, s.inv, g))
+        gops = s.ghosts if s.ghosts is not None else operator_ghosts(s.ml, s.mu, s.inv, g)
+        if s.plan is not None and s.plan.bound_to(s.ml, s.mu, s.inv, a_diag, gops):
+            return s
+        ops = tuple(t.contiguous() for t in (s.ml, s.mu, s.inv, a_diag))
+        return s._replace(ghosts=gops, plan=edge_plan(*ops, gops.contiguous(), g))
 
     def fix(lv, sharded):
         if not sharded or not isinstance(lv, BlockLevel):
             return lv
         s = lv.smoother
-        s = s._replace(base=fix_base(s.base)) if isinstance(s, ChebyshevSmoother) else fix_base(s)
+        if isinstance(s, ChebyshevSmoother):
+            s = s._replace(base=fix_base(s.base, lv.a.diag))
+        else:
+            s = fix_base(s, lv.a.diag)
         return lv._replace(smoother=s)
 
     return h._replace(levels=tuple(fix(lv, sh) for lv, sh in zip(h.levels, h.layout.sharded)))

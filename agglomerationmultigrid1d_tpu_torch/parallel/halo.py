@@ -8,7 +8,9 @@ Ring ends keep the zero fill, which is the global zero-Dirichlet boundary.
 Every exchange goes through :func:`start_exchange`, which posts the
 point-to-point operations (``torch.distributed.batch_isend_irecv``) and
 returns at once, so the caller can launch work that does not need the
-ghosts before it waits.
+ghosts before it waits.  :class:`RingExchange` is the same exchange for
+messages that live across calls (the sharded smoother's edge columns, once
+per smoothing): nothing is allocated per exchange.
 """
 
 from __future__ import annotations
@@ -72,6 +74,79 @@ def start_exchange(to_left, to_right, g: SolverGroup) -> Exchange:
     with g.on_device():
         works = dist.batch_isend_irecv(ops) if ops else []
     return Exchange(works, from_left, from_right, tuple(sent), g.device)
+
+
+class RingExchange:
+    """The ring exchange of four messages that live across calls: this rank's
+    ``to_left`` goes into the left neighbour's ``from_right`` and its
+    ``to_right`` into the right neighbour's ``from_left``.  The messages are
+    tensors on ``g.device`` that the caller owns (``EdgePlan``'s), None on a
+    side without a neighbour; every rank gives the same shapes.  On gloo with
+    a CUDA device they travel through host copies, allocated here, once.
+
+    :meth:`post` starts the exchange and returns its handles at once;
+    :meth:`wait` returns when ``from_left`` / ``from_right`` hold the
+    neighbours' messages for work queued afterwards on the current stream.
+
+    Reusing the messages is safe because every :meth:`post` is followed by
+    its :meth:`wait` before the caller writes ``to_*`` again:
+    * NCCL: the sends are queued on NCCL's stream, after the work already on
+      the current stream (the packing launch that fills ``to_*``);
+      ``wait`` makes the current stream wait for them, so the next packing
+      launch, queued on that stream later, cannot overtake a send that still
+      reads its message, and whatever reads ``from_*`` runs after the
+      receives;
+    * gloo: ``post`` copies ``to_*`` to the host with a blocking copy, so
+      the copy is complete (and ordered after the packing launch) before the
+      send is posted and long before the card can rewrite the message;
+      ``wait`` blocks the host until the sends have left the host copies
+      and the receives have filled theirs, then copies these to the card
+      from pageable memory, which returns once the source has been staged:
+      the next ``post`` may overwrite both host copies."""
+
+    def __init__(self, to_left, to_right, from_left, from_right, g: SolverGroup):
+        self.group = g
+        self.messages = (to_left, to_right, from_left, from_right)
+        r, last = g.rank, g.world - 1
+        if (to_left is None) != (r == 0) or (from_left is None) != (r == 0):
+            raise ValueError(f"rank {r} of {g.world}: the left messages must be None exactly at the ring's start")
+        if (to_right is None) != (r == last) or (from_right is None) != (r == last):
+            raise ValueError(f"rank {r} of {g.world}: the right messages must be None exactly at the ring's end")
+        self.staged = any(t is not None and t.device != g.transport for t in self.messages)
+        if self.staged:
+            self.wire = tuple(None if t is None else torch.empty(t.shape, dtype=t.dtype, device=g.transport)
+                              for t in self.messages)
+        else:
+            self.wire = self.messages
+        to_l, to_r, from_l, from_r = self.wire
+        self.ops = []  # the batch's order is the same on every rank, as in start_exchange
+        if to_l is not None:
+            self.ops.append((dist.isend, to_l, g.peer(r - 1)))
+        if from_r is not None:
+            self.ops.append((dist.irecv, from_r, g.peer(r + 1)))
+        if to_r is not None:
+            self.ops.append((dist.isend, to_r, g.peer(r + 1)))
+        if from_l is not None:
+            self.ops.append((dist.irecv, from_l, g.peer(r - 1)))
+
+    def post(self) -> list:
+        if not self.ops:
+            return []
+        if self.staged:
+            for wire, dev in zip(self.wire[:2], self.messages[:2]):
+                if wire is not None:
+                    wire.copy_(dev)  # blocking: complete on return
+        g = self.group
+        with g.on_device():
+            return dist.batch_isend_irecv([dist.P2POp(op, t, peer, g.group) for op, t, peer in self.ops])
+
+    def wait(self, works: list) -> None:
+        for w in works:
+            w.wait()
+        if self.staged:
+            for wire, dev in zip(self.wire[2:], self.messages[2:]):
+                if wire is not None:
+                    dev.copy_(wire)
 
 
 def edge_columns(x: torch.Tensor, g: SolverGroup, width: int = 1) -> tuple:

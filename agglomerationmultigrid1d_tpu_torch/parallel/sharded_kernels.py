@@ -3,27 +3,32 @@
 The counterpart of the JAX package's ``parallel/sharded_kernels.py``.
 ``jax.shard_map`` becomes "each rank calls the local function on its local
 tensors": :func:`sharded_multisweep` and :func:`sharded_chebyshev_multisweep`
-take the rank's shard of every operator stream and vector.  K7, the
-multisweep kernel with the neighbours' columns as ghosts, reads ghost columns
-of the streams (ML, MU, S^-1) and of x and b.  The operators never change, so
-their ghosts are exchanged once (:func:`operator_ghosts`;
-``parallel.distributed.shard_hierarchy`` stores them on every sharded
-float32 level); per smoother application only the edge columns of x and b
-go to the two ring neighbours, in one message each way (ring ends keep
-zeros: the global boundary).  Ghosts are ``min(GHOST_W, n)`` columns a side,
-enough for every step count the kernels take.
+take the rank's shard of every operator stream and vector.  The sweeps need
+the neighbours' columns as ghosts: of the streams (ML, MU, S^-1) and of x and
+b.  The operators never change, so their ghosts are exchanged once
+(:func:`operator_ghosts`), and with them the level's :func:`edge_plan` is
+built once (``parallel.distributed.shard_hierarchy`` stores both on every
+sharded float32 level): the operators checked and bound, the four messages
+of the per-smoothing exchange allocated.  Per smoother application only the
+edge columns of x and b go to the two ring neighbours, in one message each
+way (a ring end has none: the global boundary).  Ghosts are
+``min(GHOST_W, n)`` columns a side, enough for every step count the kernels
+take.
 
-``overlap=True`` (the default) orders this as the JAX package does: the
-exchange is posted first, the full-shard K1 / K2 / K5 launch runs with zero
-ghosts while it is in flight, and two K7 launches on the ``s = k + 1``-column
-edge strips recompute the columns the zero ghosts corrupted, writing them
-into the full pass's output in place (:func:`_overlap_splice`).  On NCCL the
-exchange runs on the card beside the kernel; on gloo it runs in the
-process's gloo threads while the card (or, on the CPU, the caller) runs the
-full-shard pass.  A strip is ``s`` columns wide and reads ``s`` columns a
-side: the exchanged ghosts outside, the shard's own columns inside.  The
-TPU's ``5 * 128``-column strip (``_STRIP_W``) is its tiling rule.  A shard
-narrower than two strips, and ``overlap=False``, take one K7 launch over the
+``overlap=True`` (the default) orders a smoothing as the JAX package does,
+in four steps (:func:`_kernel_schedule`): one packing launch copies the
+edge columns of x and b into the plan's send messages; the exchange is
+posted from them; the full-shard K1 / K2 / K5 launch runs with zero ghosts
+while it is in flight; after the wait ONE edge-pair launch
+(``EdgePlan.sweep_edges`` / ``chebyshev_edges``) recomputes the
+``s = k + 1`` columns at both shard edges that the zero ghosts corrupted,
+in place, reading the received messages where the exchange left them.  On
+NCCL the exchange runs on the card beside the kernel; on gloo it runs in
+the process's gloo threads while the card (or, on the CPU, the caller) runs
+the full-shard pass.  An edge reads ``s`` columns a side: the exchanged
+ghosts outside, the shard's own columns inside.  The TPU's two
+``5 * 128``-column strips (``_STRIP_W``) are its tiling rule.  A shard
+narrower than two edges, and ``overlap=False``, take one K7 launch over the
 whole shard once the exchange is done.
 
 Every float32 shard runs that schedule: the kernels on a CUDA tensor, their
@@ -41,12 +46,13 @@ import torch
 from ..ops.block_tridiag import BlockTridiag, block_mul, bt_matvec
 from ..ops.kernels.block_kernels import (
     MAX_SWEEPS,
+    EdgePlan,
     chebyshev_multisweep,
     chebyshev_multisweep_residual,
     multisweep,
     multisweep_residual,
 )
-from .halo import Exchange, halo_neighbours, start_exchange
+from .halo import Exchange, RingExchange, halo_neighbours, start_exchange
 from .multihost import SolverGroup
 
 GHOST_W = MAX_SWEEPS + 1  # ghost columns a side: what MAX_SWEEPS steps and the residual reach
@@ -67,18 +73,22 @@ def _edge_exchange(ts, g: SolverGroup, width: int) -> Exchange:
     )
 
 
-def _side_by_side(pending: Exchange) -> torch.Tensor:
-    """K7's ghost layout from a posted :func:`_edge_exchange`: the left
-    neighbour's last columns, then the right neighbour's first."""
-    left, right = pending.wait()
+def operator_ghosts(ml, mu, s_inv, g: SolverGroup, width: int = GHOST_W) -> torch.Tensor:
+    """K7's operator ghosts ``gops (3, bs, bs, 2 w)`` for the rank's shard,
+    ``w = min(width, n)``: the left neighbour's last ``w`` columns of ML, MU
+    and S^-1, then the right neighbour's first ``w``; zeros at the ring
+    ends.  Collective: every rank of ``g`` calls it."""
+    left, right = _edge_exchange((ml, mu, s_inv), g, min(width, ml.shape[-1])).wait()
     return torch.cat([left, right], dim=-1)
 
 
-def operator_ghosts(ml, mu, s_inv, g: SolverGroup, width: int = GHOST_W) -> torch.Tensor:
-    """K7's operator ghosts ``gops (3, bs, bs, 2 w)`` for the rank's shard,
-    ``w = min(width, n)``: the ring neighbours' edge columns of ML, MU and
-    S^-1, zeros at the ring ends.  Collective: every rank of ``g`` calls it."""
-    return _side_by_side(_edge_exchange((ml, mu, s_inv), g, min(width, ml.shape[-1])))
+def edge_plan(ml, mu, s_inv, a_diag, gops, g: SolverGroup) -> EdgePlan:
+    """The rank's :class:`EdgePlan` of one sharded level, with the ring
+    exchange of its messages (``plan.ring``).  Built once per level; no
+    communication."""
+    plan = EdgePlan(ml, mu, s_inv, a_diag, gops, left=g.rank > 0, right=g.rank < g.world - 1)
+    plan.ring = RingExchange(plan.to_left, plan.to_right, plan.from_left, plan.from_right, g)
+    return plan
 
 
 def _halo_matvec(ad, al, au, x, g: SolverGroup):
@@ -86,28 +96,19 @@ def _halo_matvec(ad, al, au, x, g: SolverGroup):
     return bt_matvec(BlockTridiag(lower=al, diag=ad, upper=au), x, xm, xp)
 
 
-def _overlap_splice(launch, x, b, ghosts, res_int, s: int):
-    """Recompute the ``s`` shard-edge columns of the zero-ghost pass
-    ``res_int`` with the exchanged ghosts, in place: one K7 launch per edge,
-    writing only its columns (``cols``).  A strip's inner neighbours are the
-    shard's own columns, so no strip ghosts are built (the JAX package's
-    ``_strip_ghosts`` cuts a 640-column strip with its inner columns as
-    ghosts, and splices its result in)."""
-    n = x.shape[-1]
-    for cols in ((0, s), (n - s, n)):
-        launch(x, b, ghosts, res_int, cols)
-    return res_int
-
-
-def _kernel_schedule(launch, gops, x, b, g: SolverGroup, n_steps: int, overlap: bool):
+def _kernel_schedule(plan: EdgePlan, launch, edges, x, b, n_steps: int, overlap: bool):
     """The fused path shared by :func:`_local_multisweep` and
-    :func:`_local_cheb`: ``launch(x, b, ghosts, out, cols)`` runs the kernel."""
+    :func:`_local_cheb`: ``launch(ghosts)`` runs the full-shard kernel on x
+    and b, ``edges(out)`` the plan's edge pair on its output."""
     s = n_steps + 1  # columns a zero-ghost pass corrupts (one more than k sweeps reach)
-    pending = _edge_exchange((x, b), g, gops.shape[-1] // 2)
+    plan.pack(x, b)
+    works = plan.ring.post()
     if not overlap or x.shape[-1] < 2 * s:
-        return launch(x, b, (gops, _side_by_side(pending)), None, None)
-    res_int = launch(x, b, None, None, None)  # in flight with the exchange
-    return _overlap_splice(launch, x, b, (gops, _side_by_side(pending)), res_int, s)
+        plan.ring.wait(works)
+        return launch((plan.gops, plan.ghost_vectors()))
+    out = launch(None)  # in flight with the exchange
+    plan.ring.wait(works)  # every posted operation is done before the messages are written again
+    return edges(out)
 
 
 def _on_k7(x: torch.Tensor, n_steps: int) -> bool:
@@ -125,21 +126,34 @@ def _on_k7(x: torch.Tensor, n_steps: int) -> bool:
     return False
 
 
+def _bound_plan(plan, ml, mu, binv, ad, gops, group: SolverGroup) -> EdgePlan:
+    """The level's plan when it was built from these very operators; else one
+    made here (a direct call without a plan, or operators that were moved or
+    cast since: the checks and allocations then run per call)."""
+    if plan is not None and (gops is None or gops is plan.gops) and plan.bound_to(ml, mu, binv, ad, plan.gops):
+        return plan
+    ops = (ml.contiguous(), mu.contiguous(), binv.contiguous(), ad.contiguous())
+    if gops is None:
+        gops = operator_ghosts(*ops[:3], group)
+    return edge_plan(*ops, gops, group)
+
+
 def _local_multisweep(
-    ad, al, au, binv, ml, mu, x, b, *, group, n_sweeps, alpha, emit_residual, gops=None, overlap=True
+    ad, al, au, binv, ml, mu, x, b, *, group, n_sweeps, alpha, emit_residual, gops=None, plan=None,
+    overlap=True,
 ):
     if _on_k7(x, n_sweeps):
-        ops = (ml.contiguous(), mu.contiguous(), binv.contiguous())
-        if gops is None:
-            gops = operator_ghosts(*ops, group)
-        ops += (ad.contiguous(),) if emit_residual else ()
+        plan = _bound_plan(plan, ml, mu, binv, ad, gops, group)
+        ops, x, b = plan.ops, x.contiguous(), b.contiguous()
 
-        def launch(xx, bb, ghosts, out, cols):
+        def launch(ghosts):
             if emit_residual:
-                return multisweep_residual(*ops, xx, bb, n_sweeps, alpha, ghosts=ghosts, out=out, cols=cols)
-            return multisweep(*ops, xx, bb, n_sweeps, alpha, ghosts=ghosts, out=out, cols=cols)
+                return multisweep_residual(*ops, x, b, n_sweeps, alpha, ghosts=ghosts)
+            return multisweep(*ops[:3], x, b, n_sweeps, alpha, ghosts=ghosts)
 
-        return _kernel_schedule(launch, gops, x.contiguous(), b.contiguous(), group, n_sweeps, overlap)
+        return _kernel_schedule(
+            plan, launch, lambda out: plan.sweep_edges(x, b, out, n_sweeps, alpha), x, b, n_sweeps, overlap
+        )
     # halo-aware plain sweep (float64 / narrow shards on the CPU)
     for _ in range(n_sweeps):
         r = b - _halo_matvec(ad, al, au, x, group)
@@ -150,21 +164,22 @@ def _local_multisweep(
 
 
 def _local_cheb(
-    coef, ad, al, au, binv, ml, mu, x, b, *, group, degree, emit_residual, gops=None, overlap=True
+    coef, ad, al, au, binv, ml, mu, x, b, *, group, degree, emit_residual, gops=None, plan=None,
+    overlap=True,
 ):
-    coef = [(float(c_d), float(c_z)) for c_d, c_z in coef][:degree]
+    coef = tuple((float(c_d), float(c_z)) for c_d, c_z in coef)[:degree]
     if _on_k7(x, degree):
-        ops = (ml.contiguous(), mu.contiguous(), binv.contiguous())
-        if gops is None:
-            gops = operator_ghosts(*ops, group)
-        ops += (ad.contiguous(),) if emit_residual else ()
+        plan = _bound_plan(plan, ml, mu, binv, ad, gops, group)
+        ops, x, b = plan.ops, x.contiguous(), b.contiguous()
 
-        def launch(xx, bb, ghosts, out, cols):
+        def launch(ghosts):
             if emit_residual:
-                return chebyshev_multisweep_residual(*ops, xx, bb, coef, ghosts=ghosts, out=out, cols=cols)
-            return chebyshev_multisweep(*ops, xx, bb, coef, ghosts=ghosts, out=out, cols=cols)
+                return chebyshev_multisweep_residual(*ops, x, b, coef, ghosts=ghosts)
+            return chebyshev_multisweep(*ops[:3], x, b, coef, ghosts=ghosts)
 
-        return _kernel_schedule(launch, gops, x.contiguous(), b.contiguous(), group, degree, overlap)
+        return _kernel_schedule(
+            plan, launch, lambda out: plan.chebyshev_edges(x, b, out, coef), x, b, degree, overlap
+        )
     d = torch.zeros_like(x)
     for c_d, c_z in coef:
         z = torch.einsum("ijn,jn->in", binv, b - _halo_matvec(ad, al, au, x, group))
@@ -199,19 +214,21 @@ def sharded_multisweep(
     ml=None,
     mu=None,
     op_ghosts=None,
+    plan=None,
     overlap: bool = True,
 ):
     """``n_sweeps`` fused damped block-Jacobi sweeps on the rank's shard of an
     element-sharded operator (optionally also ``r = b - A x_new``); every
     argument is the rank's local shard.  ``ml``/``mu`` are the setup-time
-    M-form streams and ``op_ghosts`` their :func:`operator_ghosts`, formed
-    (and exchanged) here when not given.  ``overlap`` as in the module
-    docstring; both schedules give the same result up to float32 rounding of
-    the recomputed edge columns."""
+    M-form streams, ``op_ghosts`` their :func:`operator_ghosts` and ``plan``
+    the level's :func:`edge_plan` over these very tensors; what is not given
+    is formed (and the ghosts exchanged) here, per call.  ``overlap`` as in
+    the module docstring; both schedules give the same result up to float32
+    rounding of the recomputed edge columns."""
     ml, mu = _wrapper_mform(a, s_inv, ml, mu, x.dtype)
     return _local_multisweep(
         a.diag, a.lower, a.upper, s_inv, ml, mu, x, b, group=group, n_sweeps=n_sweeps,
-        alpha=alpha, emit_residual=emit_residual, gops=op_ghosts, overlap=overlap,
+        alpha=alpha, emit_residual=emit_residual, gops=op_ghosts, plan=plan, overlap=overlap,
     )
 
 
@@ -228,6 +245,7 @@ def sharded_chebyshev_multisweep(
     ml=None,
     mu=None,
     op_ghosts=None,
+    plan=None,
     overlap: bool = True,
 ):
     """Degree-``degree`` Chebyshev smoothing on the rank's shard (see
@@ -236,5 +254,5 @@ def sharded_chebyshev_multisweep(
     ml, mu = _wrapper_mform(a, s_inv, ml, mu, x.dtype)
     return _local_cheb(
         coef, a.diag, a.lower, a.upper, s_inv, ml, mu, x, b, group=group, degree=degree,
-        emit_residual=emit_residual, gops=op_ghosts, overlap=overlap,
+        emit_residual=emit_residual, gops=op_ghosts, plan=plan, overlap=overlap,
     )

@@ -46,6 +46,13 @@ class BlockJacobiSmoother(NamedTuple):
     # (kernel K7's operator ghosts), exchanged once when the level is sharded
     # (parallel.distributed.attach_operator_ghosts).  None elsewhere.
     ghosts: torch.Tensor | None = None
+    # With the ghosts: the level's parallel.sharded_kernels.edge_plan (an
+    # ops.kernels.block_kernels.EdgePlan bound to inv, ml, mu, the level's
+    # a.diag and the ghosts, owning the messages of the per-smoothing
+    # exchange).  Not a tensor: casting or moving the smoother leaves it bound
+    # to the old tensors, and the sharded smoother then builds one per call
+    # until attach_operator_ghosts makes a new one.
+    plan: object | None = None
 
 
 class SchwarzSmoother(NamedTuple):

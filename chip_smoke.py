@@ -32,31 +32,40 @@ Phases, one line of numbers each:
    independently in float64 from the materialized fine operator.
 
 8. K7, the ghosted multisweep (four forms: damped and Chebyshev, each with
-   and without the residual), in the form the sharded path launches it: the
-   two in-place 4-column edge strips (``out=``, ``cols=``) of every sharded
-   level of the one-rank slice solve, at that level's local shape, with
-   random non-zero ghosts of the path's width, into an output filled with a
-   sentinel; the edge columns are held to the plain version of the whole
-   shard and the rest must keep the sentinel; the strip launch is timed
-   against the plain sweeps of its window.  Then the whole-shard ghosted
-   launch (the schedule of ``overlap=False`` and of shards narrower than two
-   strips, which no path here runs) at (4, 4,194,304) and (2, 524,288), and
-   four virtual shards of a (4, 4,194,304) problem, each swept by K7 with
-   ghosts cut from its neighbours, stitched and held to K2 / K1 / K5 on the
-   whole problem;
+   and without the residual), and the edge pair that the sharded path
+   launches in its place, at the local shape of every sharded level of the
+   one-rank slice solve, with random non-zero ghosts of the path's width,
+   into outputs filled with a sentinel.  K7's two in-place 4-column edge
+   strips (``out=``, ``cols=``) are held to the plain version of the whole
+   shard.  The edge pair (one launch for both edges, through an
+   ``EdgePlan``, its vector ghosts read from the received messages) is held
+   to its plain version (1e-5 of ``max|out|``) and to the two strips (0
+   expected, limit 1e-6 of ``max|out|``, the difference printed); neither
+   may write a column outside the edges; a plan with no neighbour on a side
+   (a null message) must equal one with explicit zero ghosts there, exactly;
+   the packing kernel must equal its plain version exactly.  At the finest
+   level the edge-pair call is timed beside the two strip calls, the packing
+   and the launch floor (an empty kernel through the same ctypes route).
+   Then the whole-shard ghosted launch (the schedule of ``overlap=False``
+   and of shards narrower than two edges) at (4, 1,048,576), (4, 4,194,304)
+   and (2, 524,288), and four virtual shards of a (4, 4,194,304) problem,
+   each swept by K7 with ghosts cut from its neighbours, stitched and held
+   to K2 / K1 / K5 on the whole problem (K7's launches are counted here);
 9. the sweep bench of ``bench.py:bench_sweeps`` on the port: K4 (the
    bandwidth yardstick of the multisweep's operand mix) and K8 (one A-form
    sweep) at (4, 4,194,304), and every multisweep-family kernel's share of
    K4's bandwidth and of the 3.35 TB/s data-sheet peak;
 10. the element-sharded solve on a one-rank NCCL group: the 2,097,152-DoF
    slice sharded by ``shard_hierarchy`` and solved by ``multigrid_mixed``,
-   damped and Chebyshev (K7's overlapped schedule on every sharded level),
+   damped and Chebyshev (the overlapped schedule on every sharded level:
+   exactly one edge-pair launch per smoothing and no strip launch),
    and float64 ``multigrid`` on the sharded 16,384-DoF problem, each beside
    the unsharded solve in the same run (equal counts); ``sharded_multisweep``
    timed against K2 at the headline shape;
 11. two ranks on the one card over gloo (spawned processes, kernels built
    once here first): the same sharded damped ``multigrid_mixed`` of the
-   slice, held to the one-rank result.
+   slice, held to the one-rank result; here each rank has a neighbour, so
+   every smoothing also launches the packing kernel and exchanges messages.
 
 The kernel phase also holds K6 (the float-float stencil defect) to its plain
 version bit for bit, hi and lo.
@@ -84,6 +93,7 @@ import torch
 
 SOURCE = "agglomerationmultigrid1d_tpu_torch/csrc/block_kernels.cu"
 PALLAS = "agglomerationmultigrid1d_tpu/ops/pallas/block_kernels.py"
+SHARDED = "agglomerationmultigrid1d_tpu/parallel/sharded_kernels.py"  # _gather_ghosts :60, _strip_ghosts :81
 # (bs, n): the headline shape of 16,777,216 DoF, the main path's level shapes
 # from the finest down to the smallest smoothed level, and an awkward size
 SHAPES = [(4, 4194304), (4, 524288), (2, 524288), (2, 131072), (2, 128), (4, 1000)]
@@ -94,7 +104,9 @@ FLAGSHIP_N = 16384
 SEED = 0
 DAMPED = ("bt_matvec", "multisweep", "multisweep_residual")  # K3, K2, K1: the damped solves' kernels
 CHEB_INTERVAL = (0.3, 1.2)  # K5's and K7's coefficients in the kernel phases, k = 3
-K7_SHAPES = [(4, 4194304), (2, 524288)]  # the whole-shard form: the headline shard and the slice's bs=2 level
+# the whole-shard form: a shard of the four-shards phase (the path that launches
+# it), the headline shape and the slice's bs=2 level
+K7_SHAPES = [(4, 1048576), (4, 4194304), (2, 524288)]
 # the one-rank sharded slice's sharded levels (all but the coarsest), local
 # (bs, n): DG p=3, DG p=1, then 11 agglomerated levels, 4:1 first, then 2:1
 SLICE_SHARDED = [(4, 524288), (2, 524288)] + [(2, 131072 >> i) for i in range(11)]
@@ -106,6 +118,13 @@ K7_FORMS = {  # label: (ghosted wrapper, its launch counter, the unsharded kerne
     "K7c": ("chebyshev_multisweep", "chebyshev_multisweep_ghost", "K5"),
     "K7cr": ("chebyshev_multisweep_residual", "chebyshev_multisweep_residual_ghost", "K5r"),
 }
+# the edge pair's four forms, by the K7 form they take the place of on the
+# sharded path: label -> launch counter
+EDGE_FORMS = {
+    "K7": "edge_pair", "K7r": "edge_pair_residual",
+    "K7c": "chebyshev_edge_pair", "K7cr": "chebyshev_edge_pair_residual",
+}
+EDGE_TOL = 1e-6  # of max|out|: the edge pair against the two strips (the same arithmetic: 0 expected)
 PEAK_BPS = 3.35e12  # H100 SXM data sheet: HBM3 bytes/s
 PEAK_FLOPS = 67e12  # H100 SXM data sheet: float32 outside the tensor cores
 CHILD_TIMEOUT_S = 300  # each spawned rank of the two-rank phase
@@ -142,6 +161,21 @@ def time_ms(fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host microseconds one call takes to return (the enqueue, not the
+    device's work): ``reps`` calls on the host clock, the queue drained
+    before and after."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
 
 
 def kernel_inputs(bs: int, n: int, seed: int):
@@ -553,17 +587,25 @@ def phase_flagship(bk) -> None:
     print(" ".join(line), flush=True)
 
 
-def strip_bound(name, bs, s=STRIP) -> tuple:
-    """(bound_ms, bound_by) of one K7 strip launch: read the ``s`` output
-    columns and ``reach`` columns on either side of them once (ML, MU, S^-1,
-    x, b; A_D of the outputs with the residual), write the ``s`` columns;
-    the operations of the ``s`` output columns."""
+def strip_bound(name, bs, s=STRIP, sides=1) -> tuple:
+    """(bound_ms, bound_by) of one K7 strip launch (``sides=1``) or one
+    edge-pair launch (``sides=2``): per side, read the ``s`` output columns
+    and ``reach`` columns on either side of them once (ML, MU, S^-1, x, b;
+    A_D of the outputs with the residual), write the ``s`` columns; the
+    operations of the ``s`` output columns."""
     residual = name in ("K7r", "K7cr")
     reach = 3 + (1 if residual else 0)
-    nbytes = 4 * ((s + 2 * reach) * (3 * bs * bs + 2 * bs) + s * (bs * bs if residual else 0)
-                  + s * bs * (2 if residual else 1))
-    t_bytes, t_ops = nbytes / PEAK_BPS * 1e3, col_ops(name, bs) * s / PEAK_FLOPS * 1e3
+    nbytes = sides * 4 * ((s + 2 * reach) * (3 * bs * bs + 2 * bs) + s * (bs * bs if residual else 0)
+                          + s * bs * (2 if residual else 1))
+    t_bytes, t_ops = nbytes / PEAK_BPS * 1e3, sides * col_ops(name, bs) * s / PEAK_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pack_bound(bs, g=GHOST) -> tuple:
+    """(bound_ms, bound_by) of one packing launch with both neighbours: the
+    ``g`` edge columns of x and b a side read once, the two messages written
+    once; no arithmetic."""
+    return 4 * 2 * (2 * 2 * bs * g) / PEAK_BPS * 1e3, "bytes"
 
 
 def strip_plain(plain, ops, x, b, ghosts, side: int, s=STRIP):
@@ -606,6 +648,45 @@ def k7_forms(bk, coef):
     }
 
 
+def edge_forms(bk, coef):
+    """label -> (edge-pair launch ``(plan, x, b, out)``, its plain version
+    ``(ops, x, b, gops, from_left, from_right)`` returning the left and right
+    edge columns of x, then of r with the residual)."""
+    return {
+        "K7": (lambda p, x, b, out: p.sweep_edges(x, b, out),
+               lambda o, x, b, *gh: bk.multisweep_edges_plain(*o[:3], x, b, *gh)),
+        "K7r": (lambda p, x, b, out: p.sweep_edges(x, b, out),
+                lambda o, x, b, *gh: bk.multisweep_residual_edges_plain(*o, x, b, *gh)),
+        "K7c": (lambda p, x, b, out: p.chebyshev_edges(x, b, out, coef),
+                lambda o, x, b, *gh: bk.chebyshev_multisweep_edges_plain(*o[:3], x, b, coef, *gh)),
+        "K7cr": (lambda p, x, b, out: p.chebyshev_edges(x, b, out, coef),
+                 lambda o, x, b, *gh: bk.chebyshev_multisweep_residual_edges_plain(*o, x, b, coef, *gh)),
+    }
+
+
+def edge_plans(bk, ops, ghosts):
+    """The phase's plans over one shard: with both neighbours and the
+    ghosts ``(gops, gvec)`` as received messages; and per side ``(a plan
+    without that neighbour, a plan with explicit zero ghosts there)``."""
+    gops, gvec = ghosts
+    g = gops.shape[-1] // 2
+    halves = (slice(None, g), slice(g, None))
+
+    def plan(gops_, left=True, right=True, zero=None):
+        p = bk.EdgePlan(*ops, gops_, left=left, right=right)
+        for side, buf in enumerate((p.from_left, p.from_right)):
+            if buf is not None and side != zero:
+                buf.copy_(gvec[..., halves[side]])
+        return p
+
+    nulls = []
+    for side in (0, 1):
+        zeroed = gops.clone()
+        zeroed[..., halves[side]] = 0
+        nulls.append((plan(gops, left=side != 0, right=side != 1), plan(zeroed, zero=side)))
+    return plan(gops), nulls
+
+
 def k7_runs(bk, ops, x, b, ghosts, coef):
     """label -> (whole-shard K7 launch, plain version) on the same tensors."""
     return {name: ((lambda k=kern: k(ops, x, b, ghosts)), (lambda p=plain: p(ops, x, b, ghosts)))
@@ -613,19 +694,27 @@ def k7_runs(bk, ops, x, b, ghosts, coef):
 
 
 def phase_k7(bk) -> tuple:
-    """K7's four forms against their plain versions with random non-zero
-    ghosts: the path's form (two in-place edge strips, at every sharded
-    slice level's local shape; timed at the finest) and the whole-shard
-    form.  Returns (strip results, whole-shard results)."""
+    """K7's four forms and the edge pair's against their plain versions with
+    random non-zero ghosts, at every sharded slice level's local shape
+    (timed at the finest): the two in-place edge strips, then the edge pair
+    against its plain version, against the strips, with a null side, and
+    the packing kernel; then K7's whole-shard form.  Returns (strip results,
+    edge-pair results, packing results, whole-shard results)."""
     coef = bk.chebyshev_coefficients(*CHEB_INTERVAL, 3)
-    forms = k7_forms(bk, coef)
+    forms, eforms = k7_forms(bk, coef), edge_forms(bk, coef)
     strips = {name: {"max_abs_err": 0.0} for name in forms}
+    edges = {name: {"max_abs_err": 0.0, "max_vs_strips": 0.0} for name in forms}
+    pack = {"max_abs_err": 0.0}
     sentinel = 7.0
+    crops = (slice(None, STRIP), slice(-STRIP, None))
     for bs, n in SLICE_SHARDED:
         a, sinv, ml, mu, x, b = kernel_inputs(bs, n, SEED + 11 * bs + n)
         ops = (ml, mu, sinv, a.diag)
         ghosts = ghost_inputs(bs, GHOST, SEED + 13 * bs + n)
+        plan, null_plans = edge_plans(bk, ops, ghosts)
+        headline = (bs, n) == SLICE_SHARDED[0]
         line = [f"K7 edge strips bs={bs} n={n} ghosts={GHOST} cols=(0,{STRIP}),({n - STRIP},{n}):"]
+        eline = [f"edge pair bs={bs} n={n} ghosts={GHOST} (err vs plain / diff vs the two strips):"]
         for name, (kern, plain, residual) in forms.items():
             want = plain(ops, x, b, ghosts)
             want = want if residual else (want,)
@@ -650,7 +739,7 @@ def phase_k7(bk) -> tuple:
             check(err <= TOL * scale, f"{name} strips differ from plain at bs={bs} n={n}: {err} > {TOL} * {scale}")
             r = strips[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
-            if (bs, n) == SLICE_SHARDED[0]:
+            if headline:
                 ms = time_ms(lambda: kern(ops, x, b, ghosts, out=out if residual else out[0], cols=(0, STRIP)))
                 plain_ms = time_ms(lambda: strip_plain(plain, ops, x, b, ghosts, 0))
                 bound_ms, bound_by = strip_bound(name, bs)
@@ -659,29 +748,95 @@ def phase_k7(bk) -> tuple:
                             f"strip_plain_ms={plain_ms:.4f} bound_ms={bound_ms:.2e};")
             else:
                 line.append(f"{name} err={err:.3e};")
+
+            # the edge pair: one launch for both edges, ghosts from the plan's messages
+            pair, pair_plain = eforms[name]
+            fresh = lambda: tuple(torch.full_like(x, sentinel) for _ in want)  # noqa: E731
+            arg = lambda o: o if residual else o[0]  # noqa: E731
+            eout = fresh()
+            pair(plan, x, b, arg(eout))
+            torch.cuda.synchronize()
+            ref = pair_plain(ops, x, b, ghosts[0], plan.from_left, plan.from_right)
+            e_err = e_diff = 0.0
+            for i, (e_, o_) in enumerate(zip(eout, out)):
+                for side, crop in enumerate(crops):
+                    check(bool(torch.isfinite(e_[:, crop]).all()), f"{name} edge pair non-finite at {bs},{n}")
+                    e_err = max(e_err, float((e_[:, crop] - ref[2 * i + side]).abs().max()))
+                    e_diff = max(e_diff, float((e_[:, crop] - o_[:, crop]).abs().max()))
+                check(bool((e_[:, STRIP:-STRIP] == sentinel).all()), f"{name} edge pair wrote outside the edges at {bs},{n}")
+            check(e_err <= TOL * scale, f"{name} edge pair differs from plain at bs={bs} n={n}: {e_err} > {TOL} * {scale}")
+            check(e_diff <= EDGE_TOL * scale,
+                  f"{name} edge pair differs from the two strips at bs={bs} n={n}: {e_diff} > {EDGE_TOL} * {scale}")
+            for side, (null_plan, zero_plan) in enumerate(null_plans):  # a ring end is the zero boundary
+                outs = []
+                for p_ in (null_plan, zero_plan):
+                    outs.append(fresh())
+                    pair(p_, x, b, arg(outs[-1]))
+                torch.cuda.synchronize()
+                check(all(torch.equal(n_, z_) for n_, z_ in zip(*outs)),
+                      f"{name} edge pair: a null {'left' if side == 0 else 'right'} message differs from zero ghosts at {bs},{n}")
+            er = edges[name]
+            er["max_abs_err"] = max(er["max_abs_err"], e_err)
+            er["max_vs_strips"] = max(er["max_vs_strips"], e_diff)
+            if headline:
+                both = lambda: [kern(ops, x, b, ghosts, out=arg(out), cols=c) for c in ((0, STRIP), (n - STRIP, n))]  # noqa: E731
+                one = lambda: pair(plan, x, b, arg(eout))  # noqa: E731
+                ms, strips_ms = time_ms(one), time_ms(both)
+                plain_ms = time_ms(lambda: pair_plain(ops, x, b, ghosts[0], plan.from_left, plan.from_right))
+                bound_ms, bound_by = strip_bound(name, bs, sides=2)
+                er.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, two_strips_ms=strips_ms,
+                          host_us=host_us(one), two_strips_host_us=host_us(both))
+                eline.append(f"{name} {e_err:.3e} / {e_diff:.3e} pair_ms={ms:.4f} two_strips_ms={strips_ms:.4f} "
+                             f"pair_host_us={er['host_us']:.2f} two_strips_host_us={er['two_strips_host_us']:.2f} "
+                             f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.2e};")
+            else:
+                eline.append(f"{name} {e_err:.3e} / {e_diff:.3e};")
+
+        # the packing kernel, with both neighbours and with one
+        for p_ in (plan, null_plans[0][0], null_plans[1][0]):
+            p_.pack(x, b)
+            torch.cuda.synchronize()
+            wants = bk.pack_edges_plain(x, b, GHOST, p_.to_left is not None, p_.to_right is not None)
+            for got_, want_ in zip((p_.to_left, p_.to_right), wants):
+                check((got_ is None) == (want_ is None) and (got_ is None or torch.equal(got_, want_)),
+                      f"pack_edges differs from plain at bs={bs} n={n}")
+        eline.append("pack_edges exact; null sides exact;")
+        if headline:
+            floor_ms, floor_us = time_ms(bk.launch_floor), host_us(bk.launch_floor)
+            pack_ms, pack_us = time_ms(lambda: plan.pack(x, b)), host_us(lambda: plan.pack(x, b))
+            pack_plain_ms = time_ms(lambda: bk.pack_edges_plain(x, b, GHOST))
+            bound_ms, bound_by = pack_bound(bs)
+            pack.update(ms=pack_ms, plain_ms=pack_plain_ms, bound_ms=bound_ms, bound_by=bound_by, host_us=pack_us,
+                        floor_ms=floor_ms, floor_host_us=floor_us)
+            eline.append(f"pack_ms={pack_ms:.4f} pack_host_us={pack_us:.2f} pack_plain_ms={pack_plain_ms:.4f} "
+                         f"launch_floor_ms={floor_ms:.4f} launch_floor_host_us={floor_us:.2f};")
         print(" ".join(line), flush=True)
-        del a, sinv, ml, mu, x, b, ghosts, ops
+        print(" ".join(eline), flush=True)
+        del a, sinv, ml, mu, x, b, ghosts, ops, plan, null_plans
         torch.cuda.empty_cache()
 
     whole = {}
     for bs, n in K7_SHAPES:
         a, sinv, ml, mu, x, b = kernel_inputs(bs, n, SEED + 11 * bs + n)
         ghosts = ghost_inputs(bs, GHOST, SEED + 13 * bs + n)
-        line = [f"K7 whole-shard form (overlap=False / narrow shards; no path here runs it) bs={bs} n={n} "
+        line = [f"K7 whole-shard form (overlap=False / narrow shards; the four-shards phase launches it) bs={bs} n={n} "
                 f"ghosts={GHOST}:"]
         for name, (kern, plain) in k7_runs(bk, (ml, mu, sinv, a.diag), x, b, ghosts, coef).items():
             hold(name, kern, plain, bs, n, whole, line)
         print(" ".join(line), flush=True)
         del a, sinv, ml, mu, x, b, ghosts
         torch.cuda.empty_cache()
-    return strips, whole
+    return strips, edges, pack, whole
 
 
-def phase_four_shards(bk) -> None:
+def phase_four_shards(bk) -> dict:
     """Four virtual shards of one (4, 4,194,304) problem: K7 on each with the
     neighbours' STRIP edge columns as ghosts (zeros at the ends), stitched,
-    against K2 / K1 / K5 / K5 + residual on the whole problem."""
+    against K2 / K1 / K5 / K5 + residual on the whole problem.  The path that
+    launches K7 (the whole-shard ghosted form): returns its launch counts,
+    counted from zero."""
     bs, n, world = 4, 4194304, 4
+    bk.reset_launch_counts()
     coef = bk.chebyshev_coefficients(*CHEB_INTERVAL, 3)
     a, sinv, ml, mu, x, b = kernel_inputs(bs, n, SEED + 4)
     ops = (ml, mu, sinv, a.diag)
@@ -715,9 +870,12 @@ def phase_four_shards(bk) -> None:
         scale = max(float(w_.abs().max()) for w_ in want)
         check(err <= TOL * scale, f"four-shard {name} differs from {K7_FORMS[name][2]}: {err} > {TOL} * {scale}")
         line.append(f"{name} vs {K7_FORMS[name][2]} err={err:.3e} (rel {err / scale:.2e});")
-    print(" ".join(line), flush=True)
+    launches = {K7_FORMS[k][1]: bk.LAUNCHES[K7_FORMS[k][1]] for k in K7_FORMS}
+    print(" ".join(line), f"launches={launches}", flush=True)
+    check(all(v == world for v in launches.values()), f"the four-shards phase skipped a K7 form: {launches}")
     del a, sinv, ml, mu, x, b, whole, parts
     torch.cuda.empty_cache()
+    return launches
 
 
 def phase_sweep_bench(bk, kernels: dict, k7_whole: dict) -> dict:
@@ -763,9 +921,9 @@ def timed_solve(fn, bk) -> tuple:
 
 def phase_sharded(bk) -> dict:
     """The element-sharded solve on a one-rank NCCL group (the whole path,
-    K7's overlapped schedule included; a one-rank ring exchanges nothing, so
-    the ghosts are the zeros of the global boundary).  Returns the K7
-    launches of its paths and the damped one-rank solution."""
+    the overlapped schedule included; a one-rank ring exchanges nothing, so
+    both messages are null: the zeros of the global boundary).  Returns the
+    edge-pair launches of its paths and the damped one-rank solution."""
     from agglomerationmultigrid1d_tpu_torch.models import (
         chebyshev_hierarchy,
         make_low_precision_hierarchy,
@@ -774,6 +932,7 @@ def phase_sharded(bk) -> dict:
         poisson_dg_hierarchy,
     )
     from agglomerationmultigrid1d_tpu_torch.parallel import (
+        edge_plan,
         initialize,
         operator_ghosts,
         shard_hierarchy,
@@ -803,16 +962,20 @@ def phase_sharded(bk) -> dict:
                 )
                 x = unshard_vector(res.x, hs)
                 rel = rel_residual(prob, x)
-                k7 = {label: launches[K7_FORMS[label][1]] for label in K7_FORMS}
+                k7 = {label: launches[EDGE_FORMS[label]] for label in EDGE_FORMS}
                 print(f"sharded {tag} slice, one-rank NCCL group, sharded={flags}: outer={res.iterations} "
                       f"inner_cycles={res.inner_cycles} (unsharded: {ref.iterations} / {ref.inner_cycles}) "
                       f"rel_residual_f64={rel:.3e} solve_s={solve_s:.3f} unsharded_solve_s={ref_s:.3f} "
-                      f"K7_launches={k7} launches={launches}", flush=True)
+                      f"ratio={solve_s / ref_s:.2f} K7_launches={k7} (the edge pair) launches={launches}", flush=True)
                 check(rel < 1e-10, f"sharded {tag} relative residual {rel:.3e} >= 1e-10")
                 check((res.iterations, res.inner_cycles) == (ref.iterations, ref.inner_cycles),
                       f"sharded {tag} counts differ from the unsharded solve's")
                 used = ("K7c", "K7cr") if cheb else ("K7", "K7r")
-                check(all(k7[k] > 0 for k in used), f"the sharded {tag} solve skipped K7: {k7}")
+                smoothings = res.inner_cycles * len(SLICE_SHARDED)  # pre (with the residual) and post, each
+                check(all(k7[k] == smoothings for k in used),
+                      f"the sharded {tag} solve did not launch one edge pair per smoothing ({smoothings}): {k7}")
+                check(all(launches[K7_FORMS[k][1]] == 0 for k in K7_FORMS),
+                      f"the sharded {tag} solve launched a K7 strip: {launches}")
                 out.update({k: k7[k] for k in used})
                 if not cheb:
                     out.update(x_one_rank=x, outer_one_rank=res.iterations, norm_b=float(torch.linalg.vector_norm(b)))
@@ -830,7 +993,9 @@ def phase_sharded(bk) -> dict:
             bs, n = SHAPES[0]  # the sharded smoother against K2: no cliff (bench.py:247-261)
             a, sinv, ml, mu, x, bb = kernel_inputs(bs, n, SEED + 5)
             gops = operator_ghosts(ml, mu, sinv, grp)  # exchanged once, as shard_hierarchy does
-            sharded_ms = time_ms(lambda: sharded_multisweep(grp, a, sinv, x, bb, ml=ml, mu=mu, op_ghosts=gops))
+            plan = edge_plan(ml, mu, sinv, a.diag, gops, grp)  # and the level's plan, built once
+            sharded_ms = time_ms(
+                lambda: sharded_multisweep(grp, a, sinv, x, bb, ml=ml, mu=mu, op_ghosts=gops, plan=plan))
             plain_k2_ms = time_ms(lambda: bk.multisweep(ml, mu, sinv, x, bb))
             print(f"sharded_multisweep (overlapped, one rank) bs={bs} n={n}: ms={sharded_ms:.4f} "
                   f"K2 ms={plain_k2_ms:.4f} ratio={sharded_ms / plain_k2_ms:.2f}", flush=True)
@@ -878,10 +1043,12 @@ def _two_rank_child(rank: int, store_path: str, q) -> None:
         raise
 
 
-def phase_two_ranks(one_rank: dict) -> None:
+def phase_two_ranks(one_rank: dict) -> int:
     """Two ranks on the one card over gloo (NCCL refuses two ranks on one
     device): spawned processes, each with a time limit; the kernels were
-    built by this process first, so the children load the same library."""
+    built by this process first, so the children load the same library.
+    Returns rank 0's packing launches (the path on which a rank has a
+    neighbour to pack for)."""
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     with tempfile.TemporaryDirectory() as td:
@@ -907,14 +1074,21 @@ def phase_two_ranks(one_rank: dict) -> None:
     x1 = one_rank["x_one_rank"]
     diff = float((torch.from_numpy(r0["x"]).to(x1.device) - x1).abs().max())
     nb = one_rank["norm_b"]
-    k7 = {k: r0["launches"][K7_FORMS[k][1]] for k in ("K7", "K7r")}
+    k7 = {k: r0["launches"][EDGE_FORMS[k]] for k in ("K7", "K7r")}
+    packs = r0["launches"]["pack_edges"]
     print(f"two ranks on one card over gloo, sharded={r0['flags']}: outer={r0['outer']} inner_cycles={r0['inner']} "
           f"(one rank: {one_rank['outer_one_rank']}) rel_residual_f64={r0['rel']:.3e} solve_s={r0['solve_s']:.3f} "
-          f"max|x - x_one_rank|={diff:.3e} ({diff / nb:.2e} of ||b||) K7_launches={k7}", flush=True)
+          f"max|x - x_one_rank|={diff:.3e} ({diff / nb:.2e} of ||b||) K7_launches={k7} (the edge pair) "
+          f"pack_edges_launches={packs}", flush=True)
     check(r0["rel"] < 1e-10, f"two-rank relative residual {r0['rel']:.3e} >= 1e-10")
     check(abs(r0["outer"] - one_rank["outer_one_rank"]) <= 1, "two-rank outer steps differ by more than one")
     check(diff <= 1e-9 * nb, f"two-rank solution differs from the one-rank one by {diff:.3e}")
-    check(all(v > 0 for v in k7.values()), f"the two-rank solve skipped K7: {k7}")
+    smoothings = r0["inner"] * len(SLICE_SHARDED)
+    check(all(v == smoothings for v in k7.values()),
+          f"the two-rank solve did not launch one edge pair per smoothing ({smoothings}): {k7}")
+    check(packs == 2 * smoothings, f"the two-rank solve packed {packs} times in {2 * smoothings} smoothings")
+    check(all(r0["launches"][K7_FORMS[k][1]] == 0 for k in K7_FORMS), "the two-rank solve launched a K7 strip")
+    return packs
 
 
 def main() -> int:
@@ -938,9 +1112,12 @@ def main() -> int:
 
     kernels = phase_kernels(bk)
     kernels["K6"] = phase_k6(bk)
-    k7_strips, k7_whole = phase_k7(bk)
-    kernels.update(k7_strips)
-    phase_four_shards(bk)
+    k7_strips, k7_edges, pack, k7_whole = phase_k7(bk)
+    for k in K7_FORMS:  # K7's rows: the whole-shard form, which a path launches; its error also over the strips
+        kernels[k] = dict(k7_whole[k], max_abs_err=max(k7_whole[k]["max_abs_err"], k7_strips[k]["max_abs_err"]))
+        kernels["edge " + k] = k7_edges[k]
+    kernels["pack"] = pack
+    k7_launches = phase_four_shards(bk)
     bench_launches = phase_sweep_bench(bk, kernels, k7_whole)
     launches = phase_slice(bk)
     phase_reference(bk)
@@ -948,10 +1125,11 @@ def main() -> int:
     phase_flagship(bk)
     launches["ff_stencil_mid_defect"] = phase_north_star(bk)
     one_rank = phase_sharded(bk)
-    launches.update({K7_FORMS[k][1]: one_rank[k] for k in K7_FORMS})
+    launches.update({EDGE_FORMS[k]: one_rank[k] for k in EDGE_FORMS})
+    launches.update(k7_launches)
     launches.update(bench_launches)
     torch.cuda.empty_cache()
-    phase_two_ranks(one_rank)
+    launches["pack_edges"] = phase_two_ranks(one_rank)
 
     # kernel: (label, wrapper, launch counter, the TPU kernel it replaces)
     meta = {
@@ -961,14 +1139,20 @@ def main() -> int:
         "K5": ("K5", "chebyshev_multisweep", "chebyshev_multisweep", PALLAS + ":422"),
         "K5r": ("K5", "chebyshev_multisweep_residual", "chebyshev_multisweep_residual", PALLAS + ":422"),
         "K6": ("K6", "ff_stencil_mid_defect", "ff_stencil_mid_defect", PALLAS + ":621"),
-        # K7 as the sharded path launches it: one in-place edge strip
-        "K7": ("K7", "multisweep(ghosts=, cols=) edge strip", "multisweep_ghost", PALLAS + ":522"),
-        "K7r": ("K7", "multisweep_residual(ghosts=, cols=) edge strip", "multisweep_residual_ghost",
-                PALLAS + ":522"),
-        "K7c": ("K7", "chebyshev_multisweep(ghosts=, cols=) edge strip", "chebyshev_multisweep_ghost",
-                PALLAS + ":422"),
-        "K7cr": ("K7", "chebyshev_multisweep_residual(ghosts=, cols=) edge strip",
-                 "chebyshev_multisweep_residual_ghost", PALLAS + ":422"),
+        # K7, the whole-shard ghosted launch (its cols= strips are held in the K7 phase)
+        "K7": ("K7", "multisweep(ghosts=)", "multisweep_ghost", PALLAS + ":522"),
+        "K7r": ("K7", "multisweep_residual(ghosts=)", "multisweep_residual_ghost", PALLAS + ":522"),
+        "K7c": ("K7", "chebyshev_multisweep(ghosts=)", "chebyshev_multisweep_ghost", PALLAS + ":422"),
+        "K7cr": ("K7", "chebyshev_multisweep_residual(ghosts=)", "chebyshev_multisweep_residual_ghost",
+                 PALLAS + ":422"),
+        # the edge pair, as the sharded path launches it: both shard edges in one launch
+        "edge K7": ("K7", "EdgePlan.sweep_edges edge pair", "edge_pair", SHARDED + ":81"),
+        "edge K7r": ("K7", "EdgePlan.sweep_edges edge pair with the residual", "edge_pair_residual",
+                     SHARDED + ":81"),
+        "edge K7c": ("K7", "EdgePlan.chebyshev_edges edge pair", "chebyshev_edge_pair", SHARDED + ":81"),
+        "edge K7cr": ("K7", "EdgePlan.chebyshev_edges edge pair with the residual",
+                      "chebyshev_edge_pair_residual", SHARDED + ":81"),
+        "pack": ("K7", "EdgePlan.pack pack_edges", "pack_edges", SHARDED + ":60"),
         "K8": ("K8", "block_jacobi_sweep", "block_jacobi_sweep", PALLAS + ":103"),
         "K4": ("K4", "stream_kernel", "stream_kernel", "bench.py:159"),
     }

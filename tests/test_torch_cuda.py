@@ -1,6 +1,7 @@
 """The torch port's CUDA kernels (K1-K3, K5, K6 bit for bit, K7 with ghosts
-and in-place columns, K8, K4), its mixed solve, its true-precision solve and
-its sharded solve on a one-rank NCCL group, on a CUDA card.
+and in-place columns, the edge pair and its packing kernel, K8, K4), its
+mixed solve, its true-precision solve and its sharded solve on a one-rank
+NCCL group, on a CUDA card.
 
 Every test here needs the card (marker ``cuda``) and skips without one.  This
 file imports neither JAX nor the JAX package, so it also runs where JAX is
@@ -206,6 +207,114 @@ def test_cuda_k7_matches_plain(cuda, bs, n, g):
                                               "chebyshev_multisweep_ghost", "chebyshev_multisweep_residual_ghost"))
 
 
+def _edge_forms(ops, x, b, coef):
+    """Per form: (edge-pair launch ``(plan, out)``, its plain version
+    ``(gops, from_left, from_right)``, the K7 strip launch ``(ghosts, out,
+    cols)``, residual?)."""
+    ml, mu, sinv, d = ops
+    return [
+        (lambda p, out: p.sweep_edges(x, b, out),
+         lambda *gh: bk.multisweep_edges_plain(ml, mu, sinv, x, b, *gh),
+         lambda gh, out, cols: bk.multisweep(ml, mu, sinv, x, b, ghosts=gh, out=out, cols=cols), False),
+        (lambda p, out: p.sweep_edges(x, b, out),
+         lambda *gh: bk.multisweep_residual_edges_plain(ml, mu, sinv, d, x, b, *gh),
+         lambda gh, out, cols: bk.multisweep_residual(ml, mu, sinv, d, x, b, ghosts=gh, out=out, cols=cols), True),
+        (lambda p, out: p.chebyshev_edges(x, b, out, coef),
+         lambda *gh: bk.chebyshev_multisweep_edges_plain(ml, mu, sinv, x, b, coef, *gh),
+         lambda gh, out, cols: bk.chebyshev_multisweep(ml, mu, sinv, x, b, coef, ghosts=gh, out=out, cols=cols), False),
+        (lambda p, out: p.chebyshev_edges(x, b, out, coef),
+         lambda *gh: bk.chebyshev_multisweep_residual_edges_plain(ml, mu, sinv, d, x, b, coef, *gh),
+         lambda gh, out, cols: bk.chebyshev_multisweep_residual(ml, mu, sinv, d, x, b, coef, ghosts=gh, out=out, cols=cols),
+         True),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,n,g", [(2, 1000, 9), (4, 65536, 9), (3, 777, 4), (9, 64, 9), (4, 8, 8)])
+def test_cuda_edge_pair_matches_plain_and_strips(cuda, bs, n, g):
+    """The edge pair, four forms, random non-zero ghosts: its plain version
+    to 1e-5 of max|out|, K7's two in-place strips to 1e-6 (the same
+    arithmetic: 0 expected), nothing written outside the edges, a null side
+    exactly the zero ghosts; one launch per call."""
+    l, d, u, sinv, ml, mu, x, b = _inputs(bs * n + g + 1, bs, n, cuda)
+    _, _, _, gs, gml, gmu, gx, gb = _inputs(g + 1, bs, 2 * g, cuda)
+    gops, gvec = torch.stack([gml, gmu, gs]).contiguous(), torch.stack([gx, gb]).contiguous()
+    ops = (ml, mu, sinv, d)
+
+    def plan_with(gops_, left=True, right=True, zero=None):
+        p = bk.EdgePlan(*ops, gops_, left=left, right=right)
+        for side, (buf, half) in enumerate(((p.from_left, slice(None, g)), (p.from_right, slice(g, None)))):
+            if buf is not None and side != zero:
+                buf.copy_(gvec[..., half])
+        return p
+
+    plan = plan_with(gops)
+    bk.reset_launch_counts()
+    for pair, plain, strip, residual in _edge_forms(ops, x, b, bk.chebyshev_coefficients(0.3, 1.2, 3)):
+        fresh = lambda: tuple(torch.full_like(x, 7.0) for _ in range(2 if residual else 1))  # noqa: E731
+        arg = lambda o: o if residual else o[0]  # noqa: E731
+        got, old = fresh(), fresh()
+        pair(plan, arg(got))
+        for cols in ((0, 4), (n - 4, n)):
+            strip((gops, gvec), arg(old), cols)
+        want = plain(gops, plan.from_left, plan.from_right)
+        torch.cuda.synchronize()
+        scale = max(float(w.abs().max()) for w in want)
+        for i, (g_, o_) in enumerate(zip(got, old)):
+            for side, crop in enumerate((slice(None, 4), slice(-4, None))):
+                assert float((g_[:, crop] - want[2 * i + side]).abs().max()) <= 1e-5 * scale
+                assert float((g_[:, crop] - o_[:, crop]).abs().max()) <= 1e-6 * scale
+            assert bool((g_[:, 4:-4] == 7.0).all())
+        for side, half in enumerate((slice(None, g), slice(g, None))):
+            zeroed = gops.clone()
+            zeroed[..., half] = 0
+            with_null, with_zero = fresh(), fresh()
+            pair(plan_with(gops, left=side != 0, right=side != 1), arg(with_null))
+            pair(plan_with(zeroed, zero=side), arg(with_zero))
+            torch.cuda.synchronize()
+            assert all(torch.equal(n_, z_) for n_, z_ in zip(with_null, with_zero))
+    assert all(bk.LAUNCHES[k] == 5 for k in ("edge_pair", "edge_pair_residual", "chebyshev_edge_pair",
+                                              "chebyshev_edge_pair_residual"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,n,g", [(2, 1000, 9), (4, 65536, 9), (9, 64, 5), (1, 9, 9)])
+def test_cuda_pack_edges_is_exact(cuda, bs, n, g):
+    """The packing kernel equals its plain version exactly, with both
+    neighbours, one, and none (then nothing is launched)."""
+    l, d, u, sinv, ml, mu, x, b = _inputs(bs * n + 3, bs, n, cuda)
+    gops = torch.zeros(3, bs, bs, 2 * g, device=cuda)
+    bk.reset_launch_counts()
+    for left, right in ((True, True), (False, True), (True, False), (False, False)):
+        plan = bk.EdgePlan(ml, mu, sinv, d, gops, left=left, right=right)
+        plan.pack(x, b)
+        torch.cuda.synchronize()
+        for got, want in zip((plan.to_left, plan.to_right), bk.pack_edges_plain(x, b, g, left, right)):
+            assert (got is None and want is None) or torch.equal(got, want)
+    assert bk.LAUNCHES["pack_edges"] == 3
+
+
+@pytest.mark.cuda
+def test_cuda_edge_plan_raises_on_the_card(cuda):
+    """On a CUDA tensor the plan launches or raises: no plain path for a wrong
+    dtype, a CPU tensor or a shard narrower than two edges; the launch floor
+    (an empty kernel through the same route) launches."""
+    l, d, u, sinv, ml, mu, x, b = _inputs(5, 2, 64, cuda)
+    plan = bk.EdgePlan(ml, mu, sinv, d, torch.zeros(3, 2, 2, 18, device=cuda), left=False, right=False)
+    out = torch.empty_like(x)
+    with pytest.raises(TypeError):
+        plan.sweep_edges(x.double(), b, out)
+    with pytest.raises(ValueError, match="device"):
+        plan.sweep_edges(x.cpu(), b, out)
+    with pytest.raises(ValueError, match="shape"):
+        plan.sweep_edges(x, b[:, :32].contiguous(), out)
+    bk.reset_launch_counts()
+    assert plan.sweep_edges(x, b, out) is out
+    bk.launch_floor()
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["edge_pair"] == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bs,n", [(2, 1000), (4, 65536), (9, 640)])
 def test_cuda_k8_and_k4_match_plain(cuda, bs, n):
@@ -222,8 +331,9 @@ def test_cuda_k8_and_k4_match_plain(cuda, bs, n):
 
 @pytest.mark.cuda
 def test_cuda_sharded_solve_on_one_rank(cuda, tmp_path):
-    """The sharded mixed solve on a one-rank NCCL group: K7 launched, the
-    unsharded solve's counts and a 1e-10 residual."""
+    """The sharded mixed solve on a one-rank NCCL group: one edge-pair launch
+    per smoothing and no K7 strip, the unsharded solve's counts and a 1e-10
+    residual."""
     from agglomerationmultigrid1d_tpu_torch.parallel import (
         initialize,
         shard_hierarchy,
@@ -245,7 +355,10 @@ def test_cuda_sharded_solve_on_one_rank(cuda, tmp_path):
         x = unshard_vector(res.x, h)
     finally:
         shutdown()
-    assert bk.LAUNCHES["multisweep_ghost"] > 0 and bk.LAUNCHES["multisweep_residual_ghost"] > 0
+    n_sharded = sum(hl.layout.sharded)
+    assert bk.LAUNCHES["edge_pair"] == bk.LAUNCHES["edge_pair_residual"] == res.inner_cycles * n_sharded > 0
+    assert bk.LAUNCHES["multisweep_ghost"] == 0 and bk.LAUNCHES["multisweep_residual_ghost"] == 0
+    assert bk.LAUNCHES["pack_edges"] == 0  # a ring of one has no neighbour to pack for
     assert (res.iterations, res.inner_cycles) == (ref.iterations, ref.inner_cycles)
     rel = float(torch.linalg.vector_norm(bt_matvec(prob.hierarchy.levels[0].a, x) - b) / torch.linalg.vector_norm(b))
     assert rel < 1e-10

@@ -13,8 +13,13 @@ one spawned 4-rank gloo group per module (``torch_group.run_group``, a
 * ``multigrid_mixed`` / ``multigrid_progressive`` on sharded hierarchies
   (``tests/test_distributed.py:102-139``, JAX with ``shard=``): within one
   outer step of JAX's sharded solves, x within 1e-9 ||b||;
+* the same mixed solve with Chebyshev smoothing (one Chebyshev hierarchy
+  handed to both packages), on the sharded smoother's schedule of packing,
+  exchange, full-shard pass and one edge pair: the same bounds;
 * K7's operator ghosts, exchanged once when a float32 level is sharded:
-  exactly the neighbours' edge columns;
+  exactly the neighbours' edge columns, and with them the level's edge plan;
+* two smoothings in a row on one level through one edge plan, whose messages
+  are reused, against plans built anew: exactly equal;
 
 and in this process (no communication): ``shard_hierarchy``'s flags and local
 sizes against JAX's, what it refuses, the ``initialize`` checks, and the
@@ -31,6 +36,7 @@ import jax
 import jax.numpy as jnp
 import torch_group as tg
 from agglomerationmultigrid1d_tpu.models import problems as jproblems
+from agglomerationmultigrid1d_tpu.models.hierarchy import chebyshev_hierarchy as jchebyshev_hierarchy
 from agglomerationmultigrid1d_tpu.models import solvers as jsolvers
 from agglomerationmultigrid1d_tpu.parallel import fused_shard_spec as jfused_shard_spec
 from agglomerationmultigrid1d_tpu.parallel import make_solver_mesh
@@ -44,6 +50,7 @@ from agglomerationmultigrid1d_tpu_torch.models import (
     poisson_dg_hierarchy,
     poisson_full_hierarchy,
 )
+from agglomerationmultigrid1d_tpu_torch.ops.kernels import block_kernels as bk
 from agglomerationmultigrid1d_tpu_torch.ops.shifts import shift
 from agglomerationmultigrid1d_tpu_torch.models.solvers import make_low_precision_hierarchy
 from agglomerationmultigrid1d_tpu_torch.parallel import (
@@ -81,6 +88,36 @@ def _jax_sharded():
 
 
 HALO_X = np.arange(64, dtype=np.float64).reshape(2, 32)
+REUSE_CHEB = (0.2, 2.0)  # the Chebyshev interval of the plan-reuse job
+
+
+def _cheb_problem():
+    """The problem under JAX's ``chebyshev_hierarchy``, and that very
+    hierarchy (its lambdas) converted for the port."""
+    jprob = jproblems.poisson_dg_hierarchy(**DG)
+    jh = jchebyshev_hierarchy(jprob.hierarchy)
+    return jprob, jh, hierarchy_from_numpy(jax.tree_util.tree_map(np.asarray, jh), device="cpu")
+
+
+def _reuse_system(dtype=np.float32):
+    """A diagonally dominant block-tridiagonal system over 4 x 24 columns
+    and two different x."""
+    rng = np.random.default_rng(11)
+    bs, n = 2, WORLD * 24
+    l, u = 0.3 * rng.standard_normal((bs, bs, n)), 0.3 * rng.standard_normal((bs, bs, n))
+    l[:, :, 0] = 0
+    u[:, :, -1] = 0
+    d = rng.standard_normal((bs, bs, n)) + 6 * np.eye(bs)[:, :, None]
+    inv = np.linalg.inv(np.moveaxis(d, -1, 0)).transpose(1, 2, 0)
+    a = tuple(np.ascontiguousarray(m, dtype=dtype) for m in (l, d, u))
+    xs = [rng.standard_normal((bs, n)).astype(dtype) for _ in range(2)]
+    return a, np.ascontiguousarray(inv, dtype=dtype), xs, rng.standard_normal((bs, n)).astype(dtype)
+
+
+REUSE_CASES = {
+    "damped-residual": ("damped", dict(n_sweeps=3, alpha=2.0 / 3.0, emit_residual=True)),
+    "cheb": ("cheb", dict(coef=bk.chebyshev_coefficients(*REUSE_CHEB, 3), degree=3)),
+}
 
 
 @pytest.fixture(scope="module")
@@ -90,6 +127,9 @@ def group(tmp_path_factory):
     jobs.append(("multigrid", tg.job_multigrid, (h, b, MIN_BLOCKS)))
     jobs += [(s, tg.job_low_precision, (h, b, MIN_BLOCKS, s)) for s in ("mixed", "progressive")]
     jobs.append(("op_ghosts", tg.job_operator_ghosts, (h, MIN_BLOCKS)))
+    jobs.append(("mixed_cheb", tg.job_low_precision, (_cheb_problem()[2], b, MIN_BLOCKS, "mixed")))
+    a, inv, xs, rhs = _reuse_system()
+    jobs += [(f"reuse-{name}", tg.job_plan_reuse, (a, inv, xs, rhs, kind, kw)) for name, (kind, kw) in REUSE_CASES.items()]
     store = tmp_path_factory.mktemp("gloo") / "store"
     return tg.run_group(jobs, WORLD, str(store), timeout_s=180)
 
@@ -142,6 +182,50 @@ def test_sharded_low_precision_solves_match_jax(group, solver):
     assert got["res"][it - 1] < 1e-10 * nb
     assert abs(it - j_it) <= 1, (it, j_it)
     np.testing.assert_allclose(got["x"], np.asarray(jres.x), rtol=0, atol=1e-9 * nb)
+
+
+def test_sharded_chebyshev_solve_matches_jax(group):
+    """``multigrid_mixed`` with Chebyshev smoothing on sharded hierarchies:
+    the port's K5 / edge-pair schedule (plain versions) against JAX's sharded
+    solve of the same Chebyshev hierarchy (``shard=``, ``use_pallas=False``)
+    on its 4-device mesh: one outer step either way, x within 1e-9 ||b||, as
+    the damped solves above; and the port's own unsharded solve: equal
+    counts, x within 1e-9 ||b||."""
+    jprob, jh_whole, h = _cheb_problem()
+    mesh = make_solver_mesh(WORLD)
+    jh = jshard_hierarchy(jh_whole, mesh, min_blocks_per_device=MIN_BLOCKS)
+    jh32 = jshard_hierarchy(
+        jsolvers.make_low_precision_hierarchy(jh_whole), mesh, min_blocks_per_device=MIN_BLOCKS
+    )
+    jb = jshard_vector(jprob.b, mesh)
+    jres = jsolvers.multigrid_mixed(
+        jh, jh32, jnp.zeros_like(jb), jb, 60, 1e-10, use_pallas=False, shard=jfused_shard_spec(jh32, mesh)
+    )
+    got = tg.check(group["mixed_cheb"])[0]
+    b = torch.from_numpy(np.array(jprob.b))
+    nb = float(torch.linalg.vector_norm(b))
+    it, j_it = got["iterations"], int(jres.iterations)
+    assert got["res"][it - 1] < 1e-10 * nb
+    assert abs(it - j_it) <= 1, (it, j_it)
+    np.testing.assert_allclose(got["x"], np.asarray(jres.x), rtol=0, atol=1e-9 * nb)
+    ref = models.multigrid_mixed(h, make_low_precision_hierarchy(h), torch.zeros_like(b), b, 60, 1e-10)
+    assert (it, got["inner"]) == (ref.iterations, ref.inner_cycles)
+    np.testing.assert_allclose(got["x"], ref.x.numpy(), rtol=0, atol=1e-9 * nb)
+
+
+@pytest.mark.parametrize("name", list(REUSE_CASES))
+def test_edge_plan_reuse_equals_fresh_buffers(group, name):
+    """Two smoothings in a row on one level with different x: the plan's
+    messages are rewritten by the second while nothing of the first may
+    still read them.  Every rank's results equal those of plans (and so
+    buffers) made anew for each call, exactly; and the two calls differ, so
+    the second did not see the first's ghosts."""
+    for reused, fresh in tg.check(group[f"reuse-{name}"]):
+        for got, want in zip(reused, fresh):
+            for g_, w_ in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+                np.testing.assert_array_equal(g_, w_)
+        first, second = (r if isinstance(r, np.ndarray) else r[0] for r in reused)
+        assert not np.array_equal(first, second)
 
 
 def test_shard_hierarchy_flags_and_local_sizes():
@@ -208,7 +292,8 @@ def test_operator_ghosts_are_the_neighbours_edge_columns(group):
     h32 = make_low_precision_hierarchy(h)
     flags = shard_hierarchy(h, _fake_group(), min_blocks_per_device=MIN_BLOCKS).layout.sharded
     per_rank = tg.check(group["op_ghosts"])
-    for rank, (first, second) in enumerate(per_rank):
+    for rank, (first, second, bound) in enumerate(per_rank):
+        assert tuple(bound) == tuple(flags)  # an edge plan on every sharded level, bound to its tensors
         for k, (lv, sh) in enumerate(zip(h32.levels, flags)):
             if not sh:
                 assert first[k] is None and second[k] is None

@@ -6,6 +6,13 @@ plain versions, and the sharded smoothers over a 4-rank gloo group.
   (``_multisweep_impl(..., ghosts=)``, ``pallas_chebyshev_multisweep(...,
   ghosts=)``, interpret mode), all four forms, bs 2 and 4, to 1e-5 of
   ``max|out|`` (float32, the tolerance the CUDA kernels are held to);
+* the edge pair's plain versions (both shard edges from their own windows,
+  ghosts from the received messages), all four forms, bs 2 and 4: against
+  K7's whole-shard plain version cropped to the edges (1e-6 of ``max|out|``:
+  the same float32 operations on the same columns) and against the same
+  ghosted Pallas kernels (1e-5); a ring end (``None``) against zero ghosts,
+  exactly; the packing's plain version, exactly; ``EdgePlan`` on the CPU
+  (in place, nothing outside the edges) and what it refuses;
 * K8's against ``pallas_block_jacobi_sweep(interpret=True)``, K4's against
   its definition;
 * ``sharded_multisweep`` / ``sharded_chebyshev_multisweep`` with ``overlap``
@@ -200,6 +207,197 @@ def test_k7_cols_write_only_those_columns(rng):
         bk.multisweep(ml, mu, sinv, x, b, k, out=out[0])
     with pytest.raises(ValueError):
         bk.multisweep(ml, mu, sinv, x, b, k, cols=(0, 4))
+
+
+def _edge_case(rng, form, bs, n, g, k=3):
+    """Float32 operators, x, b, random ghosts of width ``g`` in K7's layout
+    and as the two received messages, and the four forms' plain functions:
+    ``(whole-shard ghosted plain, edge-pair plain, EdgePlan method)`` results
+    as tuples ``(x[, r])`` / ``(x_left, x_right[, r_left, r_right])``."""
+    l, d, u, sinv = (_t(m) for m in _ops(rng, bs, n))
+    ml, mu = block_mul(sinv, l), block_mul(sinv, u)
+    x, b = (_t(rng.standard_normal((bs, n)).astype(np.float32)) for _ in range(2))
+    gops = _t((0.2 * rng.standard_normal((3, bs, bs, 2 * g))).astype(np.float32))
+    gvec = _t(rng.standard_normal((2, bs, 2 * g)).astype(np.float32))
+    msgs = (gvec[..., :g].contiguous(), gvec[..., g:].contiguous())
+    residual = form.endswith("residual")
+    ops = (ml, mu, sinv) + ((d,) if residual else ())
+    coef = bk.chebyshev_coefficients(*CHEB, k)
+    if form.startswith("damped"):
+        whole = bk.multisweep_residual_plain if residual else bk.multisweep_plain
+        edge = bk.multisweep_residual_edges_plain if residual else bk.multisweep_edges_plain
+        whole_fn = lambda gh: whole(*ops, x, b, k, ghosts=gh)  # noqa: E731
+        edge_fn = lambda go, fl, fr: edge(*ops, x, b, go, fl, fr, k)  # noqa: E731
+        plan_fn = lambda p, out: p.sweep_edges(x, b, out, k)  # noqa: E731
+    else:
+        whole = bk.chebyshev_multisweep_residual_plain if residual else bk.chebyshev_multisweep_plain
+        edge = bk.chebyshev_multisweep_residual_edges_plain if residual else bk.chebyshev_multisweep_edges_plain
+        whole_fn = lambda gh: whole(*ops, x, b, coef, ghosts=gh)  # noqa: E731
+        edge_fn = lambda go, fl, fr: edge(*ops, x, b, coef, go, fl, fr)  # noqa: E731
+        plan_fn = lambda p, out: p.chebyshev_edges(x, b, out, coef)  # noqa: E731
+    return dict(ops=(ml, mu, sinv, d), x=x, b=b, gops=gops, gvec=gvec, msgs=msgs, residual=residual,
+                whole=whole_fn, edge=edge_fn, plan=plan_fn, s=k + 1)
+
+
+def _crop_edges(res, s):
+    """``(x[, r])`` of the whole shard -> ``(x_left, x_right[, r_left, r_right])``."""
+    res = res if isinstance(res, tuple) else (res,)
+    return tuple(c for t in res for c in (t[:, :s], t[:, -s:]))
+
+
+@pytest.mark.parametrize("bs", [2, 4])
+@pytest.mark.parametrize("form", FORMS)
+def test_edge_pair_plain_matches_whole_shard_plain(rng, form, bs):
+    """The two edges from their own ``s + 2 halo``-column windows equal the
+    whole shard's ghosted sweeps on those columns: the same float32
+    operations on the same columns, so 1e-6 of ``max|out|``."""
+    c = _edge_case(rng, form, bs, n=40, g=9)
+    want = _crop_edges(c["whole"]((c["gops"], c["gvec"])), c["s"])
+    got = c["edge"](c["gops"], *c["msgs"])
+    assert len(got) == len(want) == (4 if c["residual"] else 2)
+    scale = max(float(w.abs().max()) for w in want)
+    for g_, w_ in zip(got, want):
+        assert tuple(g_.shape) == (bs, c["s"])
+        torch.testing.assert_close(g_, w_, rtol=0, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("bs", [2, 4])
+@pytest.mark.parametrize("form", FORMS)
+def test_edge_pair_plain_matches_ghosted_pallas(rng, form, bs):
+    """Against the JAX package's ghosted Pallas kernels in interpret mode
+    (n = 384, three 128-column tiles, 128-column ghosts), cropped to the
+    edges: 1e-5 of ``max|out|``, as K7's plain version is held."""
+    n, halo = 384, 128
+    l, d, u, sinv = _ops(rng, bs, n)
+    ml, mu = _mform(sinv, l, u)
+    x, b = (rng.standard_normal((bs, n)).astype(np.float32) for _ in range(2))
+    residual = form.endswith("residual")
+    gops = (0.2 * rng.standard_normal((4 if residual else 3, bs, bs, 2 * halo))).astype(np.float32)
+    gvec = rng.standard_normal((2, bs, 2 * halo)).astype(np.float32)
+    a = JBlockTridiag(*map(jnp.asarray, (l, d, u)))
+    jargs = (a, jnp.asarray(sinv), jnp.asarray(x), jnp.asarray(b))
+    jkw = dict(ghosts=(jnp.asarray(gops), jnp.asarray(gvec)), ml=jnp.asarray(ml), mu=jnp.asarray(mu))
+    msgs = (_t(gvec[..., :halo]).contiguous(), _t(gvec[..., halo:]).contiguous())
+    targs = (_t(ml), _t(mu), _t(sinv)) + ((_t(d),) if residual else ()) + (_t(x), _t(b))
+    if form.startswith("damped"):
+        want = _multisweep_impl(*jargs, 3, 2.0 / 3.0, True, residual, **jkw)
+        edge = bk.multisweep_residual_edges_plain if residual else bk.multisweep_edges_plain
+        got = edge(*targs, _t(gops), *msgs, 3, 2.0 / 3.0)
+    else:
+        coef = jcoef(jnp.float32(CHEB[0]), jnp.float32(CHEB[1]), 3)
+        want = pallas_chebyshev_multisweep(*jargs, coef, 3, interpret=True, emit_residual=residual, **jkw)
+        edge = bk.chebyshev_multisweep_residual_edges_plain if residual else bk.chebyshev_multisweep_edges_plain
+        got = edge(*targs, bk.chebyshev_coefficients(*CHEB, 3), _t(gops), *msgs)
+    want = tuple(np.asarray(w) for w in want) if residual else (np.asarray(want),)
+    scale = max(np.abs(w).max() for w in want)
+    for g_, w_ in zip(got, (c for w in want for c in (w[:, :4], w[:, -4:]))):
+        np.testing.assert_allclose(g_.numpy(), w_, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_edge_pair_ring_end_none_equals_zero_ghosts(rng, form):
+    """A ring end (``None`` message) is the zero Dirichlet boundary: exactly
+    the result with zero vector and operator ghosts on that side, and on both
+    sides exactly the unghosted sweeps' edge columns."""
+    c = _edge_case(rng, form, 2, n=40, g=9)
+    g = 9
+    for side, half in enumerate((slice(None, g), slice(g, None))):
+        gops0 = c["gops"].clone()
+        gops0[..., half] = 0
+        zero = torch.zeros_like(c["msgs"][side])
+        with_none = c["edge"](c["gops"], *(None if i == side else m for i, m in enumerate(c["msgs"])))
+        with_zero = c["edge"](gops0, *(zero if i == side else m for i, m in enumerate(c["msgs"])))
+        for n_, z_ in zip(with_none, with_zero):
+            assert torch.equal(n_, z_)
+    for got, want in zip(c["edge"](c["gops"], None, None), _crop_edges(c["whole"](None), c["s"])):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("left,right", [(True, True), (False, True), (True, False), (False, False)])
+def test_pack_edges_plain_is_exact(rng, left, right):
+    bs, n, g = 3, 50, 9
+    x, b = (_t(rng.standard_normal((bs, n)).astype(np.float32)) for _ in range(2))
+    to_left, to_right = bk.pack_edges_plain(x, b, g, left, right)
+    assert (to_left is None) == (not left) and (to_right is None) == (not right)
+    if left:
+        assert tuple(to_left.shape) == (2, bs, g)
+        assert torch.equal(to_left[0], x[:, :g]) and torch.equal(to_left[1], b[:, :g])
+    if right:
+        assert torch.equal(to_right[0], x[:, -g:]) and torch.equal(to_right[1], b[:, -g:])
+    ops = [_t(m) for m in _ops(rng, bs, n)]
+    plan = bk.EdgePlan(*ops, torch.zeros(3, bs, bs, 2 * g), left=left, right=right)
+    bk.reset_launch_counts()
+    plan.pack(x, b)
+    for got, want in zip((plan.to_left, plan.to_right), (to_left, to_right)):
+        assert (got is None and want is None) or torch.equal(got, want)
+    assert (plan.from_left is None) == (not left) and (plan.from_right is None) == (not right)
+    assert all(v == 0 for v in bk.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_edge_plan_on_cpu_rewrites_only_the_edges(rng, form):
+    """``EdgePlan`` on CPU tensors runs the plain versions: the ``s`` columns
+    at either edge of the outputs equal the edge pair's plain result, every
+    other column is left as it was, in place, and nothing is launched."""
+    c = _edge_case(rng, form, 4, n=64, g=9)
+    plan = bk.EdgePlan(*c["ops"], c["gops"], left=True, right=True)
+    plan.from_left.copy_(c["msgs"][0])
+    plan.from_right.copy_(c["msgs"][1])
+    assert plan.bound_to(*c["ops"], c["gops"]) and not plan.bound_to(*c["ops"], c["gops"].clone())
+    want = c["edge"](c["gops"], *c["msgs"])
+    outs = tuple(torch.full_like(c["x"], 7.0) for _ in range(2 if c["residual"] else 1))
+    out = outs if c["residual"] else outs[0]
+    bk.reset_launch_counts()
+    assert c["plan"](plan, out) is out
+    s = c["s"]
+    for i, o_ in enumerate(outs):
+        assert torch.equal(o_[:, :s], want[2 * i]) and torch.equal(o_[:, -s:], want[2 * i + 1])
+        assert bool((o_[:, s:-s] == 7.0).all())
+    assert all(v == 0 for v in bk.LAUNCHES.values())
+    gvec = plan.ghost_vectors()  # K7's layout, for the whole-shard launch of a narrow shard
+    assert torch.equal(gvec, c["gvec"])
+
+
+def test_edge_plan_rejects_bad_inputs(rng):
+    """The plan checks its operators once, then x, b and the outputs per
+    call: dtype, shape, device, contiguity; the steps against its ghost
+    width and the shard against two edges."""
+    bs, n, g = 2, 32, 4
+    l, d, u, sinv = (_t(m) for m in _ops(rng, bs, n))
+    gops = torch.zeros(3, bs, bs, 2 * g)
+    x, b = (_t(rng.standard_normal((bs, n)).astype(np.float32)) for _ in range(2))
+    with pytest.raises(TypeError):
+        bk.EdgePlan(l, u, sinv, d.double(), gops, left=True, right=True)
+    with pytest.raises(ValueError):
+        bk.EdgePlan(l, u, sinv[..., :-1].contiguous(), d, gops, left=True, right=True)
+    with pytest.raises(ValueError, match="ghost operators"):
+        bk.EdgePlan(l, u, sinv, d, gops[..., :7].contiguous(), left=True, right=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        bk.EdgePlan(l, u.transpose(0, 1), sinv, d, gops, left=True, right=True)
+    plan = bk.EdgePlan(l, u, sinv, d, gops, left=True, right=False)
+    out = torch.empty_like(x)
+    with pytest.raises(TypeError):
+        plan.sweep_edges(x.double(), b, out)
+    with pytest.raises(TypeError):
+        plan.pack(x, b.double())
+    with pytest.raises(ValueError, match="shape"):
+        plan.sweep_edges(x[:, :-1].contiguous(), b, out)
+    with pytest.raises(ValueError, match="shape"):
+        plan.sweep_edges(x, b, (out, torch.empty(bs, n + 1)))
+    with pytest.raises(ValueError, match="device"):
+        plan.sweep_edges(x, b, torch.empty(bs, n, device="meta"))
+    with pytest.raises(ValueError, match="contiguous"):
+        plan.chebyshev_edges(x, b.t().contiguous().t(), out, bk.chebyshev_coefficients(*CHEB, 3))
+    with pytest.raises(ValueError, match="ghost width"):  # g = 4 < the 4 + 1 columns the residual needs
+        plan.sweep_edges(x, b, (out, torch.empty_like(x)), 4)
+    with pytest.raises(ValueError, match="n_sweeps"):
+        plan.sweep_edges(x, b, out, bk.MAX_SWEEPS + 1)
+    l5, d5, u5, sinv5 = (_t(m) for m in _ops(rng, bs, 5))
+    narrow = bk.EdgePlan(l5, u5, sinv5, d5, gops, left=True, right=True)
+    with pytest.raises(ValueError, match="narrower"):
+        narrow.sweep_edges(torch.zeros(bs, 5), torch.zeros(bs, 5), torch.zeros(bs, 5), 3)
+    with pytest.raises(ValueError, match="ghost columns"):
+        bk.EdgePlan(l5, u5, sinv5, d5, torch.zeros(3, bs, bs, 12), left=True, right=True)
 
 
 @pytest.mark.parametrize("bs", [2, 4])

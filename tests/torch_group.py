@@ -184,7 +184,8 @@ def job_v_cycle(g, h, b, x0, min_blocks, low=False):
 def job_operator_ghosts(g, h, min_blocks):
     """The float32 levels' K7 operator ghosts, from sharding the float32
     hierarchy and from casting the sharded float64 one (None where a level
-    has none)."""
+    has none); and, per level of the first, whether it carries an edge plan
+    bound to its present operators and ghosts."""
     from agglomerationmultigrid1d_tpu_torch.models import make_low_precision_hierarchy
     from agglomerationmultigrid1d_tpu_torch.parallel import shard_hierarchy
 
@@ -193,4 +194,42 @@ def job_operator_ghosts(g, h, min_blocks):
 
     first = shard_hierarchy(make_low_precision_hierarchy(h), g, min_blocks_per_device=min_blocks)
     second = make_low_precision_hierarchy(shard_hierarchy(h, g, min_blocks_per_device=min_blocks))
-    return ghosts(first), ghosts(second)
+    bound = [
+        lv.smoother.plan is not None
+        and lv.smoother.plan.bound_to(lv.smoother.ml, lv.smoother.mu, lv.smoother.inv, lv.a.diag, lv.smoother.ghosts)
+        for lv in first.levels
+    ]
+    return ghosts(first), ghosts(second), bound
+
+
+def job_plan_reuse(g, a, inv, xs, b, kind, kw):
+    """The sharded smoother on one level, once per ``x`` of ``xs`` in a row:
+    through ONE edge plan (its messages reused from call to call), and through
+    a plan built anew for every call.  Returns ``(reused, fresh)``, each a list
+    of per-call results."""
+    from agglomerationmultigrid1d_tpu_torch.ops.block_tridiag import block_mul
+    from agglomerationmultigrid1d_tpu_torch.parallel import (
+        edge_plan,
+        operator_ghosts,
+        sharded_chebyshev_multisweep,
+        sharded_multisweep,
+    )
+
+    r, w = g.rank, g.world
+    loc = _bt([cols(m, r, w) for m in a])
+    s_inv, bl = torch.from_numpy(cols(inv, r, w)), torch.from_numpy(cols(b, r, w))
+    ml, mu = block_mul(s_inv, loc.lower), block_mul(s_inv, loc.upper)
+    gops = operator_ghosts(ml, mu, s_inv, g)
+    kw = dict(kw, ml=ml, mu=mu, op_ghosts=gops)
+    coef = (kw.pop("coef"),) if kind == "cheb" else ()
+    fn = sharded_chebyshev_multisweep if kind == "cheb" else sharded_multisweep
+
+    def run(plan_for_call):
+        outs = []
+        for x in xs:
+            out = fn(g, loc, s_inv, torch.from_numpy(cols(x, r, w)), bl, *coef, plan=plan_for_call(), **kw)
+            outs.append(tuple(t.numpy().copy() for t in out) if isinstance(out, tuple) else out.numpy().copy())
+        return outs
+
+    one = edge_plan(ml, mu, s_inv, loc.diag, gops, g)
+    return run(lambda: one), run(lambda: edge_plan(ml, mu, s_inv, loc.diag, gops, g))

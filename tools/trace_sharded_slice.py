@@ -11,7 +11,14 @@ JSON line: the solve's seconds (host clock around a synchronized call,
 median of 7), then from one traced solve the device's kernel launches, busy
 milliseconds (the union of kernel, copy and memset intervals), the traced
 span and the idle share, the host's CUDA kernel-launch calls, the number of
-``aten::`` ops the host dispatched, and the most frequent of them.
+``aten::`` ops the host dispatched, and the most frequent of them; and from
+one more untraced solve ``host_split``: how the host's time inside the solve
+divides between smoothing, the matvecs' halo exchanges, the norms'
+all-reduces, the gathers below the last sharded level, and the rest.  The
+split is taken from here, with no span in the package: the solver module's
+references to those functions are wrapped in host-clock timers for that one
+solve (``[milliseconds, calls]`` per part; no synchronisation is added, so a
+part's time is what the host spends inside it, enqueueing or blocked).
 
 It imports the port from ``PYTHONPATH``, so it can trace two checkouts in
 one call (a checkout whose solvers still take ``shard=`` is given
@@ -66,6 +73,52 @@ def trace(fn, path: str) -> dict:
                 launch_calls=runtime, aten_ops=sum(ops.values()), top_ops=ops.most_common(12))
 
 
+# the solver module's names whose host time the split reads, by part
+SPLIT = {
+    "smoothing": ("sharded_multisweep", "sharded_chebyshev_multisweep", "multisweep", "multisweep_residual",
+                  "chebyshev_multisweep", "chebyshev_multisweep_residual"),
+    "matvec_exchange": ("edge_columns", "halo_neighbours"),
+    "norm_all_reduce": ("all_reduce_sum",),
+    "gather": ("all_gather_cols",),
+}
+
+
+def host_split(solvers, fn) -> dict:
+    """Run ``fn`` once with ``solvers``' references to the functions of
+    ``SPLIT`` wrapped in host-clock timers; none of them calls another
+    through that module, so the parts do not overlap."""
+    spent, calls, saved = collections.Counter(), collections.Counter(), {}
+
+    def timed(part, f):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return f(*args, **kw)
+            finally:
+                spent[part] += time.perf_counter() - t0
+                calls[part] += 1
+        return wrapper
+
+    for part, names in SPLIT.items():
+        for name in names:
+            if hasattr(solvers, name):
+                saved[name] = getattr(solvers, name)
+                setattr(solvers, name, timed(part, saved[name]))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, f in saved.items():
+            setattr(solvers, name, f)
+    out = {part: [1e3 * spent[part], calls[part]] for part in SPLIT}
+    out["other"] = [1e3 * (host - sum(spent.values())), 0]
+    return dict(host_ms=1e3 * host, wall_ms=1e3 * wall, host_split=out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("trace_sharded_slice: no CUDA device", file=sys.stderr)
@@ -75,6 +128,7 @@ def main() -> int:
         make_low_precision_hierarchy,
         multigrid_mixed,
         poisson_dg_hierarchy,
+        solvers,
     )
 
     tree = os.path.dirname(os.path.dirname(os.path.abspath(parallel.__file__)))
@@ -102,6 +156,7 @@ def main() -> int:
                 row = dict(tree=tree, solve=label, outer=res.iterations, inner=res.inner_cycles,
                            solve_s=statistics.median(times), solve_s_all=times)
                 row.update(trace(fn, os.path.join(td, f"{label}.json")))
+                row.update(host_split(solvers, fn))
                 print(json.dumps(row), flush=True)
         finally:
             parallel.shutdown()
