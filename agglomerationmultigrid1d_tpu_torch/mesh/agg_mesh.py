@@ -36,6 +36,10 @@ class AggMesh:
         return self.p + 1
 
     @property
+    def r_max(self) -> int:
+        return int(self.sizes.max())
+
+    @property
     def uniform_r(self) -> int | None:
         """Group size if uniform, else None."""
         s = int(self.sizes[0])
@@ -47,6 +51,31 @@ class AggMesh:
         return s if bool((self.sub_sizes == s).all()) else None
 
 
+def _normalize_partition(n: int, partition) -> np.ndarray:
+    """Partition -> ``(m,)`` group sizes.  Takes a sequence of group sizes or
+    the reference's explicit element-id lists (``agg::Vector{Vector{Int64}}``,
+    0-based here), which must be contiguous runs covering ``0 .. n - 1`` in
+    order."""
+    part = list(partition)
+    if part and hasattr(part[0], "__len__"):
+        sizes, expect = [], 0
+        for group in part:
+            ids = np.asarray(group)
+            if ids.size == 0 or not np.array_equal(ids, np.arange(expect, expect + ids.size)):
+                raise ValueError(
+                    "agglomerates must be contiguous, in-order runs of element ids "
+                    f"(group starting at {expect} got {ids.tolist()})"
+                )
+            sizes.append(ids.size)
+            expect += ids.size
+        sizes = np.asarray(sizes, dtype=np.int64)
+    else:
+        sizes = np.asarray(part, dtype=np.int64)
+    if sizes.min() < 1 or sizes.sum() != n:
+        raise ValueError(f"partition sizes {sizes.tolist()} must be >= 1 and sum to {n}")
+    return sizes
+
+
 def make_agg_mesh(
     p: int,
     mesh: Mesh1D,
@@ -56,8 +85,8 @@ def make_agg_mesh(
     sub_sizes: np.ndarray | None = None,
 ) -> AggMesh:
     """Agglomeration level from the base mesh: ``r_base`` consecutive base
-    elements per agglomerate, or an explicit contiguous ``partition`` of group
-    sizes.  ``sub_sizes`` records how many previous-level elements each
+    elements per agglomerate, or an explicit contiguous ``partition`` (group
+    sizes, or the reference's lists of element ids).  ``sub_sizes`` records how many previous-level elements each
     agglomerate merges (default: the base sizes, i.e. a first level)."""
     if p not in (0, 1):
         raise ValueError("agglomerated modal basis only implemented for p = 0 and p = 1")
@@ -65,11 +94,7 @@ def make_agg_mesh(
     if (r_base is None) == (partition is None):
         raise ValueError("give exactly one of r_base or partition")
     if partition is not None:
-        sizes = np.asarray(partition, dtype=np.int64)
-        if sizes.min() < 1 or sizes.sum() != n_base:
-            raise ValueError(
-                f"partition sizes {sizes.tolist()} must be >= 1 and sum to n_base={n_base}"
-            )
+        sizes = _normalize_partition(n_base, partition)
     else:
         if n_base % r_base:
             raise ValueError(
@@ -114,11 +139,7 @@ def coarsen_agg_mesh(fine: AggMesh, r_sub: int = 2, *, partition=None) -> AggMes
     """Next agglomeration level, merging ``r_sub`` consecutive fine
     agglomerates (or explicit ``partition`` group sizes, in fine agglomerates)."""
     if partition is not None:
-        sub = np.asarray(partition, dtype=np.int64)
-        if sub.min() < 1 or sub.sum() != fine.n_agg:
-            raise ValueError(
-                f"partition sizes {sub.tolist()} must be >= 1 and sum to {fine.n_agg}"
-            )
+        sub = _normalize_partition(fine.n_agg, partition)
     else:
         if fine.n_agg % r_sub:
             raise ValueError(

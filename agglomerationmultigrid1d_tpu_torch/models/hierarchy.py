@@ -12,8 +12,10 @@ Every DG / agglomerated level below the top Galerkin-projects G, D and C
 *separately* and recombines them with the level's own mass,
 ``A = C - D M^-1 G`` (not a triple product of A).  :func:`chebyshev_hierarchy`
 wraps every smoothed level's smoother in Chebyshev acceleration.
-Penta-diagonal (mixed-switch) levels and scattered and ragged agglomerates
-are not ported yet.
+Agglomerates may be ragged (element counts the coarsening factors do not
+divide): their transfers are ``RaggedBlockProlong`` or a ``SeamProlong`` with
+offsets.  Penta-diagonal (mixed-switch) levels and scattered agglomerates are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ..ops.block_tridiag import BlockTridiag, bd_mul_bt, block_mul, bt_mul_bt, b
 from ..ops.cg_operator import CgOperator, cg_to_dense
 from ..ops.coarse_solve import CoarseSolver, make_bt_coarse_solver, make_coarse_solver
 from ..ops.kernels.block_kernels import MAX_SWEEPS, chebyshev_coefficients
-from ..ops.transfer_ops import bp_galerkin, cgp_galerkin
+from ..ops.transfer_ops import cgp_galerkin, galerkin
 from ..smoothers.smoother import (
     BlockJacobiSmoother,
     ChebyshevSmoother,
@@ -81,7 +83,7 @@ class ShardLayout(NamedTuple):
 
 class Hierarchy(NamedTuple):
     levels: tuple  # of Level, fine -> coarse
-    transfers: tuple  # of BlockProlong / CgProlong / SeamProlong, len = n_levels - 1
+    transfers: tuple  # of BlockProlong / RaggedBlockProlong / CgProlong / SeamProlong, len = n_levels - 1
     coarse: CoarseSolver  # host-factorized coarsest-level solver (dense, or BTCoarseSolver)
     layout: ShardLayout | None = None  # None: every level whole on one device
 
@@ -140,9 +142,7 @@ def _agg_interpolation(mesh: AggMesh, fine_mesh):
 
 
 def _galerkin_level(l, prev: BlockLevel, mesh) -> BlockLevel:
-    return _block_level(
-        bp_galerkin(l, prev.g), bp_galerkin(l, prev.d), bp_galerkin(l, prev.c), mesh.mass_inv
-    )
+    return _block_level(galerkin(l, prev.g), galerkin(l, prev.d), galerkin(l, prev.c), mesh.mass_inv)
 
 
 def _unported_mesh(mesh) -> NotImplementedError:

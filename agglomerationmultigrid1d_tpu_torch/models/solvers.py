@@ -14,7 +14,8 @@ levels, float64 levels) smooths in plain torch: damped sweeps
 ``u += alpha S (rhs - A u)`` or the Chebyshev three-term recurrence.
 
 Beyond float64 (:func:`multigrid`) and mixed precision
-(:func:`multigrid_mixed`): progressive precision (:func:`v_cycle_ff`,
+(:func:`multigrid_mixed`, float64 iterate; :func:`_mixed_loop_ff`, the JAX
+package's float-float iterate on the stencil-built problems): progressive precision (:func:`v_cycle_ff`,
 :func:`multigrid_progressive`; float32 sweeps, float-float residuals and
 transfers) and TRUE precision (:func:`v_cycle_true`, :func:`multigrid_true`;
 value-accurate operators throughout, the north-star solver), whose
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from ..ops.block_tridiag import block_mul, bt_matvec
+from ..ops.shifts import shift
 from ..ops.cg_operator import cg_matvec
 from ..ops.coarse_solve import coarse_solve
 from ..ops.df64 import (
@@ -65,11 +67,14 @@ from ..parallel.sharded_kernels import sharded_chebyshev_multisweep, sharded_mul
 from ..ops.transfer_ops import (
     BlockProlong,
     CgProlong,
+    RaggedBlockProlong,
     SeamProlong,
     bp_prolong,
     bp_restrict,
     cgp_prolong,
     cgp_restrict,
+    rbp_prolong,
+    rbp_restrict,
     seam_prolong,
     seam_restrict,
 )
@@ -83,12 +88,31 @@ def _group(h: Hierarchy, k: int):
     return lay.group if lay is not None and lay.sharded[k] else None
 
 
+def _is_slim_bt(level) -> bool:
+    """A *slim* fine level (``build_xl_problem(..., slim_fine=True)``): its
+    operator keeps only the diagonal blocks; the off-diagonal action lives in
+    the smoother's M-form streams (``A = D (I + ML_shift + MU_shift)``, since
+    ``ML = D^-1 L``)."""
+    return isinstance(level, BlockLevel) and level.a.lower.numel() == 0 and level.a.diag.numel() > 0
+
+
+def _mform_matvec(level, x: torch.Tensor) -> torch.Tensor:
+    """``A x = D (x + ML x_- + MU x_+)`` from the M-form smoother streams:
+    exact up to one float32 rounding of the off-diagonal terms (ML and MU are
+    rounded products), which is enough where the solver reads a residual's
+    size (the inner solve's stall check); the trustworthy defect is the
+    float-float one."""
+    base = _base_smoother(level)
+    t = x + torch.einsum("ijn,jn->in", base.ml, shift(x, -1)) + torch.einsum("ijn,jn->in", base.mu, shift(x, +1))
+    return torch.einsum("ijn,jn->in", level.a.diag, t)
+
+
 def level_matvec(level, x: torch.Tensor, group=None) -> torch.Tensor:
     """``A x``; with ``group``, ``x`` is the rank's shard of a sharded level."""
     if isinstance(level, CgLevel):
         return cg_matvec(level.a, x)
     if group is None:
-        return bt_matvec(level.a, x)
+        return _mform_matvec(level, x) if _is_slim_bt(level) else bt_matvec(level.a, x)
     return bt_matvec(level.a, x, *halo_neighbours(x, group))
 
 
@@ -97,6 +121,8 @@ def transfer_prolong(l, xc: torch.Tensor) -> torch.Tensor:
         return cgp_prolong(l, xc)
     if isinstance(l, BlockProlong):
         return bp_prolong(l, xc)
+    if isinstance(l, RaggedBlockProlong):
+        return rbp_prolong(l, xc)
     if isinstance(l, SeamProlong):
         return seam_prolong(l, xc)
     raise TypeError(type(l))
@@ -107,6 +133,8 @@ def transfer_restrict(l, rf: torch.Tensor) -> torch.Tensor:
         return cgp_restrict(l, rf)
     if isinstance(l, BlockProlong):
         return bp_restrict(l, rf)
+    if isinstance(l, RaggedBlockProlong):
+        return rbp_restrict(l, rf)
     if isinstance(l, SeamProlong):
         return seam_restrict(l, rf)
     raise TypeError(type(l))
@@ -277,10 +305,11 @@ def _smooth_n_residual(level, u, rhs, n_sweeps, alpha, group=None):
 
 
 def _level_matvec_opt(level, x, group=None):
-    """``A x`` through K3 on float32 block levels.  On a shard, K3 sees zeros
-    beyond its two edge columns; the neighbours' columns are then added to
-    those two columns (``A_L x_{-1}`` on the first, ``A_U x_{+1}`` on the last)."""
-    if isinstance(level, BlockLevel) and x.dtype == torch.float32:
+    """``A x`` through K3 on float32 block levels (not on a slim level, whose
+    off-diagonals are empty).  On a shard, K3 sees zeros beyond its two edge
+    columns; the neighbours' columns are then added to those two columns
+    (``A_L x_{-1}`` on the first, ``A_U x_{+1}`` on the last)."""
+    if isinstance(level, BlockLevel) and x.dtype == torch.float32 and not _is_slim_bt(level):
         y = fused_bt_matvec(level.a, x.contiguous())
         if group is not None:
             left, right = edge_columns(x, group)
@@ -438,40 +467,33 @@ def _mixed_inner_solve(h_low, r, inner_tol, max_cycles, *, n_pre, n_post, alpha)
     return best_e, i, best_i
 
 
-def _mixed_loop(h, h_low, x, b, norm_b, *, maxiter, tol, inner_tol, max_inner, kw):
-    """Guarded iterative refinement, with x and the defect ``b - A x`` in
-    float64 (counterpart of the JAX package's ``_mixed_loop_ff``, whose
-    float-float pairs stand in for the float64 a TPU lacks): the fine level's
-    own matvec in native float64, ``cg_matvec`` on a CG level where JAX uses
-    ``ff_cg_defect``.
+def _guarded_refinement(rel_defect, propose, x, *, maxiter, tol, max_inner):
+    """The guard of the mixed-precision refinement loops (:func:`_mixed_loop`
+    in float64, :func:`_mixed_loop_ff` in float-float): each proposed
+    correction is judged by the trustworthy defect, ``rel_defect(x) ->
+    (r, rel)``.  A step that does not improve on the best iterate is
+    rejected, and the next proposal starts again from the best iterate with a
+    correction halved per rejection in a row and a single inner cycle; three
+    rejections in a row end the iteration.  The inner cycle limit adapts:
+    after an improving step it is the cycle count at which that inner solve
+    found its best, plus one on every 4th step (a re-probe).
 
-    Each proposed correction is judged by the float64 defect: a step that
-    does not improve on the best iterate is rejected, and the next proposal
-    starts again from the best iterate with a correction halved per rejection
-    in a row and a single inner cycle; three rejections in a row end the
-    iteration.  The inner cycle limit adapts: after an improving step it is
-    the cycle count at which that inner solve found its best, plus one on
-    every 4th step (a re-probe).
+    ``propose(x_best, r_best, cap, scale) -> (x_new, n_cycles, i_best)``
+    solves the correction equation in low precision with at most ``cap``
+    cycles and adds ``scale`` times the correction.  ``rel`` and ``tol`` may
+    be float32 scalars; the comparisons then run in float32, as on the card
+    in the JAX package.
 
     Returns ``(x, outer, cycles, rel_history)`` with the best relative defect
-    after each outer step.
-    """
-    fine, g0 = h.levels[0], _group(h, 0)
-    low_dtype = h_low.levels[0].a[0].dtype  # the first tensor of the fine operator
+    after each outer step (NaN beyond ``outer``)."""
     rel_h = np.full((maxiter,), np.nan)
-
-    def rel_defect(x):
-        r = b - level_matvec(fine, x, g0)
-        return r, float(_norm(r, g0)) / norm_b
-
     x_cur = x_best = x
-    r_best = torch.zeros_like(x)
+    r_best = None
     rel_best = float("inf")
     i = cycles = streak = 0
     limit = max_inner
-    done = False
-    while i < maxiter and not done:
-        # evaluate the previous proposal against the float64 defect
+    while i < maxiter:
+        # evaluate the previous proposal against the trustworthy defect
         r, rel = rel_defect(x_cur)
         improved = rel < rel_best
         if improved:
@@ -480,16 +502,15 @@ def _mixed_loop(h, h_low, x, b, norm_b, *, maxiter, tol, inner_tol, max_inner, k
         streak = 0 if improved else streak + 1
         if i > 0:
             rel_h[i - 1] = rel_best
-        done = rel_best < tol or streak >= 3 or cycles >= maxiter
-        if done:
+        if rel_best < tol or streak >= 3 or cycles >= maxiter:
             break
 
         # next proposal, from the best iterate
         probe = 1 if (i % 4 == 0 and improved) else 0
         cap = min((limit if improved else 1) + probe, max_inner)
-        e, n_cyc, i_best = _mixed_inner_solve(h_low, r_best.to(low_dtype), inner_tol, cap, **kw)
         scale = 0.5**streak if streak > 0 else 1.0
-        x_cur = x_best + scale * e.to(x_best.dtype)
+        del r
+        x_cur, n_cyc, i_best = propose(x_best, r_best, cap, scale)
         cycles += n_cyc
         limit = max(limit, 1) if not improved else max(1, i_best)
         i += 1
@@ -500,6 +521,68 @@ def _mixed_loop(h, h_low, x, b, norm_b, *, maxiter, tol, inner_tol, max_inner, k
     if i > 0:
         rel_h[i - 1] = min(rel_last, rel_best)
     return x_out, i, cycles, rel_h
+
+
+def _mixed_loop(h, h_low, x, b, norm_b, *, maxiter, tol, inner_tol, max_inner, kw):
+    """Guarded iterative refinement (:func:`_guarded_refinement`) with x and
+    the defect ``b - A x`` in float64: the fine level's own matvec in native
+    float64, ``cg_matvec`` on a CG level.  The counterpart of the JAX
+    package's ``_mixed_loop_ff``, whose float-float pairs stand in for the
+    float64 a TPU lacks (the port has that loop too: :func:`_mixed_loop_ff`).
+
+    Returns ``(x, outer, cycles, rel_history)``."""
+    fine, g0 = h.levels[0], _group(h, 0)
+    low_dtype = h_low.levels[0].a[0].dtype  # the first tensor of the fine operator
+
+    def rel_defect(x):
+        r = b - level_matvec(fine, x, g0)
+        return r, float(_norm(r, g0)) / norm_b
+
+    def propose(x_best, r_best, cap, scale):
+        e, n_cyc, i_best = _mixed_inner_solve(h_low, r_best.to(low_dtype), inner_tol, cap, **kw)
+        return x_best + scale * e.to(x_best.dtype), n_cyc, i_best
+
+    return _guarded_refinement(rel_defect, propose, x, maxiter=maxiter, tol=tol, max_inner=max_inner)
+
+
+def _mixed_loop_ff(
+    h_low, a_ff, x_ff: FF, b_ff: FF, inv_norm_b, *, maxiter, tol, inner_tol, max_inner,
+    n_pre=3, n_post=3, alpha=2.0 / 3.0,
+):
+    """The JAX package's guarded float-float refinement: the iterate is a
+    float-float pair and every defect is the float-float one of ``a_ff``
+    (``ops.df64.ff_defect``: a ``BlockTridiagFF``, a ``BTFFStencil`` through
+    K6 on the card, or a ``CgBandFF``), judged by :func:`_guarded_refinement`;
+    the correction equation is solved in float32 on ``h_low`` from the hi
+    part of the best defect.  The relative defect is the float32 norm of the
+    hi part times ``inv_norm_b`` (a float32 ``1 / ||b||``), as in the JAX
+    package, so the stopping decisions follow its counts.
+
+    Inputs come from ``stencil_setup.build_xl_problem``::
+
+        h_low, a_ff, b_ff, norm_b = build_xl_problem(spec, n, device="cuda")
+        x_ff, outer, cycles, hist = _mixed_loop_ff(
+            h_low, a_ff, FF(zeros, zeros), b_ff, np.float32(1 / norm_b),
+            maxiter=60, tol=1e-10, inner_tol=3e-5, max_inner=20)
+
+    Returns ``(x_ff, outer, cycles, rel_history)``, the history float32."""
+    kw = dict(n_pre=n_pre, n_post=n_post, alpha=alpha)
+    inv = float(np.float32(inv_norm_b))
+
+    def rel_defect(x):
+        # only the hi part feeds the float32 inner solve: keep no lo tail
+        r = ff_defect(a_ff, x, b_ff).hi
+        return r, np.float32(float(_norm(_flatten_level_vec(r) * inv)))
+
+    def propose(x_best, r_best, cap, scale):
+        e, n_cyc, i_best = _mixed_inner_solve(h_low, r_best, inner_tol, cap, **kw)
+        e = e * scale  # a power of two: exact
+        return ff_add(x_best, FF(e, torch.zeros_like(e))), n_cyc, i_best
+
+    x, outer, cycles, rel_h = _guarded_refinement(
+        rel_defect, propose, x_ff, maxiter=maxiter, tol=np.float32(tol), max_inner=max_inner
+    )
+    return x, outer, cycles, rel_h.astype(np.float32)
 
 
 def multigrid_mixed(
@@ -864,8 +947,12 @@ def multigrid_true(
     reference's observability contract (``solvers.jl:116-139``):
     ``iterations`` counts V-cycles and ``res_history[:iterations]`` is the
     relative residual times ``norm_b`` after each, from the float64 outer
-    defect (NaN beyond).  Inputs come from
-    ``stencil_setup.build_xl_problem(..., slim_fine=True, ff_levels=True)``::
+    defect (NaN beyond; the float-float defect's hi part in float32 where
+    the fine operator is no stencil).  Inputs come from
+    ``stencil_setup.build_xl_problem(..., ff_levels=True)``, DG-topped
+    (``slim_fine=True``: a stencil fine operator through K6 on the card) or
+    CG-topped (``CgBandFF`` levels, Jacobi or Schwarz smoothing of the
+    defect's hi part, no lo tails on the CG and seam transfers)::
 
         h_low, ffops, b_ff, norm_b = build_xl_problem(spec, n, slim_fine=True,
                                                       ff_levels=True, device="cuda")

@@ -1,27 +1,31 @@
 """Stencil-inflated hierarchy setup: O(1)-per-level host work at any size.
 
-On a uniform mesh every operator of a DG-topped chain is *translation
+On a uniform mesh every operator of these hierarchies is *translation
 invariant away from the domain boundary*: the volume terms depend only on
 the (constant) jacobian, the flux and penalty couplings only on c_dir and the
 element width, and each Galerkin projection of a constant-interior operator
-through a constant-interior transfer is again constant-interior.
+through a constant-interior transfer is again constant-interior.  On CG
+levels the node-axis arrays (bands, Jacobi diagonals, Schwarz
+multiplicities, the seam's lumped mass) are periodic with the level's order
+p instead.
 
 So the hierarchy is built ONCE on the host, in float64, at a small *stencil
 size* ``n0 = n / z`` (the same element width ``h = L / n``, c_dir and
 coarsening plan, so every block value equals the full-size build's away from
 the boundary); per-level stencils are extracted (``bw`` boundary columns each
-side and one interior column) and **inflated** to full size on the target
-device as broadcasts and concatenations.  The only O(n) work, the right-hand
-side, is computed on the target device in float64 (:func:`_uniform_dg_b`).
+side and one interior column, or one period of p nodes) and **inflated** to
+full size on the target device as broadcasts and concatenations.  The only
+O(n) work, the right-hand side, is computed on the target device in float64
+(:func:`_uniform_dg_b`, :func:`_uniform_cg_b`).
 
 Level sizes scale uniformly by ``z``, so the real coarsest level has
 ``z * n0_coarsest`` blocks and is solved by block cyclic reduction
 (``ops.coarse_solve``).  Chebyshev bounds come from the stencil-size
 hierarchy (50 power steps, safety 1.1), as in the JAX package.
 
-The counterpart of ``agglomerationmultigrid1d_tpu/models/stencil_setup.py``
-for DG-topped chains; CG-topped chains raise ``NotImplementedError``
-(ROADMAP queue 1, item 13).
+The counterpart of ``agglomerationmultigrid1d_tpu/models/stencil_setup.py``,
+for DG-topped and CG-topped chains.  Ragged agglomerates and penta-diagonal
+(mixed-switch) levels are position dependent and refused.
 """
 
 from __future__ import annotations
@@ -34,8 +38,14 @@ import torch
 
 from ..mesh.topology import BoundaryCondition, Mesh1D
 from ..ops.block_tridiag import BlockTridiag
-from ..ops.transfer_ops import BlockProlong
-from ..smoothers.smoother import BlockJacobiSmoother, ChebyshevSmoother
+from ..ops.cg_operator import CgOperator
+from ..ops.transfer_ops import BlockProlong, CgProlong, RaggedBlockProlong, SeamProlong
+from ..smoothers.smoother import (
+    BlockJacobiSmoother,
+    ChebyshevSmoother,
+    JacobiSmoother,
+    SchwarzSmoother,
+)
 from ..utils.config import HierarchySpec
 from ..utils.precision import hierarchy_astype, tree_to
 from .hierarchy import BlockLevel, CgLevel, Hierarchy
@@ -47,17 +57,10 @@ from .hierarchy import BlockLevel, CgLevel, Hierarchy
 _BW = 4
 
 
-def _cg_unported() -> NotImplementedError:
-    return NotImplementedError(
-        "stencil inflation of CG-topped chains (CG levels, Schwarz smoothers, "
-        "CG and seam transfers) is not ported yet (ROADMAP queue 1, item 13)"
-    )
-
-
 class _Stencil(NamedTuple):
-    left: np.ndarray  # (..., bw)
-    mid: np.ndarray  # (..., 1)
-    right: np.ndarray  # (..., bw)
+    left: np.ndarray  # (..., bw), or (..., bw * p + 1) on node axes
+    mid: np.ndarray  # (..., 1), or (..., p): one period
+    right: np.ndarray  # (..., bw), or (..., bw * p)
 
 
 def _check_constant(arr: np.ndarray, mid: np.ndarray, what: str, rtol) -> None:
@@ -82,9 +85,13 @@ def _check_constant(arr: np.ndarray, mid: np.ndarray, what: str, rtol) -> None:
         )
 
 
+def _numpy(arr) -> np.ndarray:
+    return arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+
+
 def _extract_el(arr, bw: int, what: str, rtol="auto") -> _Stencil:
     """Element-axis stencil: ``arr[..., k]`` constant for bw <= k < n - bw."""
-    a = arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+    a = _numpy(arr)
     n = a.shape[-1]
     if n < 2 * bw + 2:
         raise ValueError(f"{what}: need >= {2 * bw + 2} columns, got {n}")
@@ -93,10 +100,34 @@ def _extract_el(arr, bw: int, what: str, rtol="auto") -> _Stencil:
     return _Stencil(a[..., :bw].copy(), mid.copy(), a[..., n - bw :].copy())
 
 
+def _extract_nodes(arr, p: int, bw: int, what: str, rtol="auto") -> _Stencil:
+    """Node-axis stencil (length ``p * n_el + 1``): periodic with period p
+    away from the first and last bw elements."""
+    a = _numpy(arr)
+    n_el = (a.shape[-1] - 1) // p
+    if a.shape[-1] != p * n_el + 1:
+        raise ValueError(f"{what}: length {a.shape[-1]} is not p*n_el+1 for p={p}")
+    if n_el < 2 * bw + 2:
+        raise ValueError(f"{what}: need >= {2 * bw + 2} elements, got {n_el}")
+    mid = a[..., bw * p + 1 : (bw + 1) * p + 1]
+    interior = a[..., bw * p + 1 : (n_el - bw) * p + 1]
+    k = interior.shape[-1] // p
+    tiled = np.broadcast_to(mid[..., None, :], mid.shape[:-1] + (k, p)).reshape(mid.shape[:-1] + (k * p,))
+    _check_constant(interior, tiled, what, rtol)
+    return _Stencil(a[..., : bw * p + 1].copy(), mid.copy(), a[..., a.shape[-1] - bw * p :].copy())
+
+
 def _inflate_el(st: _Stencil, n_big: int, device) -> torch.Tensor:
     left, mid, right = (torch.from_numpy(p).to(device) for p in st)
     reps = n_big - left.shape[-1] - right.shape[-1]
     return torch.cat([left, mid.expand(*mid.shape[:-1], reps), right], dim=-1)
+
+
+def _inflate_nodes(st: _Stencil, n_el_big: int, p: int, bw: int, device) -> torch.Tensor:
+    left, mid, right = (torch.from_numpy(a).to(device) for a in st)
+    reps = n_el_big - 2 * bw
+    tiled = mid[..., None, :].expand(*mid.shape[:-1], reps, p).reshape(*mid.shape[:-1], reps * p)
+    return torch.cat([left, tiled, right], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -105,22 +136,32 @@ def _inflate_el(st: _Stencil, n_big: int, device) -> torch.Tensor:
 
 
 class _Plan:
-    """Collects element-axis stencils while walking the small hierarchy;
-    :meth:`inflate` makes the full-size tensors, in collection order, which
-    the rebuild closures index."""
+    """Collects stencils while walking the small hierarchy; :meth:`inflate`
+    makes the full-size tensors, in collection order, which the rebuild
+    closures index."""
 
     def __init__(self, z: int, bw: int):
         self.z = z
         self.bw = bw
-        self.stencils: list = []  # (_Stencil, n_big)
+        self.stencils: list = []  # (_Stencil, spec): ("el", n_big) | ("node", n_el_big, p)
 
     def el(self, arr, what: str, rtol="auto") -> int:
         """Register an element-axis leaf; returns its slot index."""
-        self.stencils.append((_extract_el(arr, self.bw, what, rtol), arr.shape[-1] * self.z))
+        self.stencils.append((_extract_el(arr, self.bw, what, rtol), ("el", arr.shape[-1] * self.z)))
+        return len(self.stencils) - 1
+
+    def node(self, arr, p: int, what: str, rtol="auto") -> int:
+        """Register a node-axis leaf of period ``p``; returns its slot index."""
+        n_el_big = (arr.shape[-1] - 1) // p * self.z
+        self.stencils.append((_extract_nodes(arr, p, self.bw, what, rtol), ("node", n_el_big, p)))
         return len(self.stencils) - 1
 
     def inflate(self, device) -> tuple:
-        return tuple(_inflate_el(st, n_big, device) for st, n_big in self.stencils)
+        return tuple(
+            _inflate_el(st, spec[1], device) if spec[0] == "el"
+            else _inflate_nodes(st, spec[1], spec[2], self.bw, device)
+            for st, spec in self.stencils
+        )
 
 
 def _is_empty(t) -> bool:
@@ -148,8 +189,12 @@ def _plan_smoother(plan: _Plan, s, level, what: str, device):
         return lambda out: ChebyshevSmoother(
             base=base_fn(out), lam_lo=lam_lo, lam_hi=lam_hi, coef=coef
         )
-    if isinstance(level, CgLevel):
-        raise _cg_unported()
+    if isinstance(s, JacobiSmoother):
+        if isinstance(level, CgLevel):
+            i = plan.node(s.inv_diag, level.a.p, what + ".inv_diag")
+        else:
+            i = plan.el(s.inv_diag, what + ".inv_diag")
+        return lambda out: JacobiSmoother(inv_diag=out[i])
     if isinstance(s, BlockJacobiSmoother):
         i = plan.el(s.inv, what + ".inv")
         j = None if s.ml is None else plan.el(s.ml, what + ".ml")
@@ -157,13 +202,26 @@ def _plan_smoother(plan: _Plan, s, level, what: str, device):
         return lambda out: BlockJacobiSmoother(
             inv=out[i], ml=None if j is None else out[j], mu=None if k is None else out[k]
         )
+    if isinstance(s, SchwarzSmoother):
+        # the multiplicity is node-axis with the windows' own p
+        i = plan.el(s.inv_windows, what + ".inv_windows")
+        j = None if s.mult_inv is None else plan.node(s.mult_inv, s.p, what + ".mult_inv")
+        return lambda out: SchwarzSmoother(inv_windows=out[i], mult_inv=None if j is None else out[j])
     raise TypeError(f"stencil inflation: unsupported smoother {type(s)}")
 
 
 def _plan_level(plan: _Plan, lv, k: int, device):
     what = f"level[{k}]"
     if isinstance(lv, CgLevel):
-        raise _cg_unported()
+        i = plan.el(lv.a.windows, what + ".windows")
+        j = plan.node(lv.a.band, lv.a.p, what + ".band")
+        s_fn = _plan_smoother(plan, lv.smoother, lv, what + ".smoother", device)
+        return lambda out: CgLevel(a=CgOperator(windows=out[i], band=out[j]), smoother=s_fn(out))
+    if not isinstance(lv.a, BlockTridiag):
+        raise TypeError(
+            "stencil inflation supports block-tridiagonal levels only (mixed-switch "
+            "pentadiagonal operators are not translation invariant at the flipped vertices)"
+        )
     if not all(_is_empty(t) for t in (lv.g.diag, lv.d.diag, lv.c.diag)):
         raise ValueError(
             "strip the hierarchy before inflation (strip_hierarchy): the "
@@ -175,11 +233,27 @@ def _plan_level(plan: _Plan, lv, k: int, device):
     return lambda out: BlockLevel(a=a_fn(out), g=g, d=d, c=c, mass_inv=m, smoother=s_fn(out))
 
 
-def _plan_transfer(plan: _Plan, t, k: int):
-    if not isinstance(t, BlockProlong):
-        raise _cg_unported()
-    i = plan.el(t.blocks, f"transfer[{k}].blocks")
-    return lambda out: BlockProlong(blocks=out[i])
+def _plan_transfer(plan: _Plan, t, k: int, device):
+    what = f"transfer[{k}]"
+    if isinstance(t, CgProlong):
+        t = tree_to(t, device)
+        return lambda out: t
+    if isinstance(t, BlockProlong):
+        i = plan.el(t.blocks, what + ".blocks")
+        return lambda out: BlockProlong(blocks=out[i])
+    if isinstance(t, SeamProlong):
+        if t.offsets is not None:
+            raise ValueError("stencil inflation requires uniform seam partitions")
+        # the lumped mass is node-axis with the CG level's p, not the coarse level's
+        i = plan.el(t.n_win, what + ".n_win")
+        j = plan.node(t.inv_lump, t.w_cg - 1, what + ".inv_lump")
+        return lambda out: SeamProlong(n_win=out[i], inv_lump=out[j])
+    if isinstance(t, RaggedBlockProlong):
+        raise ValueError(
+            "stencil inflation requires uniform partitions (RaggedBlockProlong "
+            "transfers are position dependent); use the host build path"
+        )
+    raise TypeError(type(t))
 
 
 def _inflate_bt_host(a: BlockTridiag, z: int, bw: int, what: str) -> BlockTridiag:
@@ -216,16 +290,21 @@ def inflate_hierarchy(
     device = torch.device(device)
     plan = _Plan(z, bw)
     level_fns = [_plan_level(plan, lv, k, device) for k, lv in enumerate(h_small.levels)]
-    transfer_fns = [_plan_transfer(plan, t, k) for k, t in enumerate(h_small.transfers)]
+    transfer_fns = [_plan_transfer(plan, t, k, device) for k, t in enumerate(h_small.transfers)]
     out = plan.inflate(device)
     levels = tuple(fn(out) for fn in level_fns)
     transfers = tuple(fn(out) for fn in transfer_fns)
 
     coarse_lv = h_small_f64.levels[-1]
-    if not isinstance(coarse_lv, BlockLevel):
-        raise _cg_unported()
+    if not (isinstance(coarse_lv, BlockLevel) and isinstance(coarse_lv.a, BlockTridiag)):
+        raise TypeError(
+            "stencil inflation needs a block-tridiagonal coarsest level (add "
+            "agglomeration levels; a CG coarsest level would inflate past the "
+            "dense-solve cap)"
+        )
     coarse = _coarse_factor(coarse_lv.a, z, bw, "coarse.a", "cpu")
-    coarse = tree_to(hierarchy_astype(coarse, levels[0].a.diag.dtype), device)
+    dtype = levels[0].a.band.dtype if isinstance(levels[0], CgLevel) else levels[0].a.diag.dtype
+    coarse = tree_to(hierarchy_astype(coarse, dtype), device)
     return Hierarchy(levels=levels, transfers=transfers, coarse=coarse)
 
 
@@ -302,14 +381,20 @@ def build_xl_problem(
     timings: dict | None = None,
 ):
     """Build the float32 solve-path hierarchy, the float-float fine operator
-    and the rhs of a uniform-mesh DG-topped problem at ANY size, with O(n0)
-    host work.
+    and the rhs of a uniform-mesh problem at ANY size, with O(n0) host work.
+    The chain may be DG-topped or CG-topped (CG levels with Jacobi or Schwarz
+    smoothing, a CG -> DG or CG -> agglomerated seam); its coarsest level
+    must be block-tridiagonal.
 
     Returns ``(h_low, a_ff, b_ff, norm_b)``, as the JAX package's
     ``build_xl_problem``:
 
-    * ``slim_fine=True`` drops the fine level's off-diagonals (the M-form
-      smoother streams carry their action) and returns ``a_ff`` as a
+    * ``a_ff`` is a :class:`~..ops.df64.BlockTridiagFF` on a DG fine level,
+      a :class:`~..ops.df64.CgBandFF` on a CG one: the fine operator of
+      ``solvers._mixed_loop_ff``;
+    * ``slim_fine=True`` (DG-topped chains only) drops the fine level's
+      off-diagonals (the M-form smoother streams carry their action) and
+      returns ``a_ff`` as a
       :class:`~..ops.df64.BTFFStencil`, whose defect contracts with the
       stencil blocks (kernel K6 on the card);
     * ``ff_levels=True`` returns an :class:`FFOps` in the ``a_ff`` slot: the
@@ -324,8 +409,6 @@ def build_xl_problem(
     from .hierarchy import chebyshev_hierarchy, prepare_fast_smoothers, strip_hierarchy
     from .problems import build_problem, default_model_problem
 
-    if spec.cg_orders:
-        raise _cg_unported()
     device = torch.device(device)
     if z is None:
         z = default_stencil_factor(spec, n, bw)
@@ -356,7 +439,7 @@ def build_xl_problem(
         # margin for its residual size dependence (< 4% between n0 and n)
         h_low0 = chebyshev_hierarchy(h_low0, power_iters=50, safety=1.1)
     if slim_fine:
-        if dtype != torch.float32:
+        if not isinstance(h_low0.levels[0], BlockLevel) or dtype != torch.float32:
             raise ValueError("slim_fine requires a float32 DG-topped chain")
         lv0 = h_low0.levels[0]
         e = torch.zeros((0, 0, 0), dtype=dtype)
@@ -379,7 +462,10 @@ def build_xl_problem(
     t0 = _tick(timings, "inflate", t0, device)
 
     # 3) the O(n) rhs, in float64 on the device, split to float-float
-    b = _uniform_dg_b(prob0, n, h, xin, func, bw, device)
+    if spec.cg_orders:
+        b = _uniform_cg_b(prob0, n, h, xin, func, bc, device)
+    else:
+        b = _uniform_dg_b(prob0, n, h, xin, func, bw, device)
     norm_b = float(torch.linalg.vector_norm(b))
     b_ff = ff_split(b)
     del b
@@ -388,22 +474,33 @@ def build_xl_problem(
 
 
 def _ff_split_fine(fine64):
-    from ..ops.df64 import bt_split
+    from ..ops.df64 import bt_split, cg_band_split
 
+    if isinstance(fine64, CgLevel):
+        return cg_band_split(fine64.a.band)
     return bt_split(fine64.a)
 
 
 def _share_fine_hi(h_low: Hierarchy, a_ff_small) -> Hierarchy:
     """Point the float32 hierarchy's fine operator at the float-float split's
     hi part (the same values; sharing halves the fine level's residency)."""
-    lv0 = h_low.levels[0]._replace(a=a_ff_small.hi)
+    from ..ops.df64 import CgBandFF
+
+    lv0 = h_low.levels[0]
+    if isinstance(a_ff_small, CgBandFF):
+        lv0 = lv0._replace(a=CgOperator(windows=lv0.a.windows, band=a_ff_small.hi))
+    else:
+        lv0 = lv0._replace(a=a_ff_small.hi)
     return h_low._replace(levels=(lv0,) + h_low.levels[1:])
 
 
 def _stencil_ff_fine(a_ff_small, n: int, bw: int, device):
     """The float-float fine operator as pure stencils (slim mode): no
     ``(bs, bs, n)`` stream is materialized."""
-    from ..ops.df64 import BTFFStencil
+    from ..ops.df64 import BlockTridiagFF, BTFFStencil
+
+    if not isinstance(a_ff_small, BlockTridiagFF):
+        raise ValueError("slim_fine requires a block-tridiagonal fine operator")
 
     def parts(bt: BlockTridiag, rtol):
         sts = {k: _extract_el(getattr(bt, k), bw, f"a_ff.{k}", rtol) for k in ("lower", "diag", "upper")}
@@ -424,35 +521,49 @@ def _inflate_ff_tail(h64: Hierarchy, h_low: Hierarchy, z: int, bw: int, device) 
     """Per-level float-float operators for levels 1..end: hi shares the
     inflated float32 hierarchy's tensors (the float32 cast equals the split's
     hi exactly), lo inflates from the stencil-size float64 split."""
-    from ..ops.df64 import BlockTridiagFF, bt_split
+    from ..ops.df64 import BlockTridiagFF, CgBandFF, bt_split, cg_band_split
 
     plan = _Plan(z, bw)
     builders = []
     for k in range(1, len(h64.levels)):
-        lo_fn = _plan_bt(plan, bt_split(h64.levels[k].a).lo, f"a_ffs[{k}].lo", device, rtol=None)
-        builders.append(lambda out, a=h_low.levels[k].a, lo_fn=lo_fn: BlockTridiagFF(hi=a, lo=lo_fn(out)))
+        lv64, a = h64.levels[k], h_low.levels[k].a
+        if isinstance(lv64, CgLevel):
+            i = plan.node(cg_band_split(lv64.a.band).lo, lv64.a.p, f"a_ffs[{k}].lo", rtol=None)
+            builders.append(lambda out, a=a, i=i: CgBandFF(hi=a.band, lo=out[i]))
+        else:
+            lo_fn = _plan_bt(plan, bt_split(lv64.a).lo, f"a_ffs[{k}].lo", device, rtol=None)
+            builders.append(lambda out, a=a, lo_fn=lo_fn: BlockTridiagFF(hi=a, lo=lo_fn(out)))
     out = plan.inflate(device)
     return tuple(fn(out) for fn in builders)
 
 
 def _inflate_transfer_los(h64: Hierarchy, z: int, bw: int, device) -> tuple:
-    """Per-transfer lo tails ``round32(blocks64 - round32(blocks64))``."""
+    """Per-transfer lo tails ``round32(blocks64 - round32(blocks64))`` of the
+    block transfers; None for CG and seam transfers (the true cycle applies
+    them at float32 value accuracy)."""
     plan = _Plan(z, bw)
     idxs = []
     for k, t64 in enumerate(h64.transfers):
+        if not isinstance(t64, BlockProlong):
+            idxs.append(None)
+            continue
         b64 = t64.blocks.to(torch.float64)
         lo = (b64 - b64.to(torch.float32).to(torch.float64)).to(torch.float32)
         idxs.append(plan.el(lo, f"t_lo[{k}]", rtol=None))
     out = plan.inflate(device)
-    return tuple(BlockProlong(blocks=out[i]) for i in idxs)
+    return tuple(None if i is None else BlockProlong(blocks=out[i]) for i in idxs)
 
 
-def _inflate_ff_fine(a_ff_small, fine_low: BlockLevel, z: int, bw: int, device):
+def _inflate_ff_fine(a_ff_small, fine_low, z: int, bw: int, device):
     """The inflated float-float fine operator; hi re-uses the low hierarchy's
     inflated fine operator (the same values)."""
-    from ..ops.df64 import BlockTridiagFF
+    from ..ops.df64 import BlockTridiagFF, CgBandFF
 
     plan = _Plan(z, bw)
+    if isinstance(a_ff_small, CgBandFF):
+        # node-axis, with p from the band's bandwidth
+        i = plan.node(a_ff_small.lo, a_ff_small.hi.shape[0] // 2, "a_ff.lo", rtol=None)
+        return CgBandFF(hi=fine_low.a.band, lo=plan.inflate(device)[i])
     lo_fn = _plan_bt(plan, a_ff_small.lo, "a_ff.lo", device, rtol=None)
     return BlockTridiagFF(hi=fine_low.a, lo=lo_fn(plan.inflate(device)))
 
@@ -480,3 +591,43 @@ def _uniform_dg_b(prob0, n: int, h: float, xin: float, func, bw: int, device) ->
     load[:, :k] += delta[:, :k].to(device)
     load[:, -k:] += delta[:, -k:].to(device)
     return load
+
+
+def _uniform_cg_b(prob0, n: int, h: float, xin: float, func, bc: BoundaryCondition, device) -> torch.Tensor:
+    """Full-size CG rhs in float64 on ``device``: the volume load at full
+    size scattered to the nodes (each node takes at most two contributions,
+    so ``index_add_`` is exact in any order), the Neumann terms, and the
+    Dirichlet lift re-applied from the stencil problem's raw boundary windows
+    (``f[dir] = g`` overwrites, so the lift is re-run, not patched)."""
+    from ..assembly.cg_assembly import _raw_stiffness_windows
+    from ..ops.cg_operator import cg_element_nodes
+
+    cg0 = prob0.meshes[0]
+    ref = cg0.ref
+    p, w = cg0.p, cg0.p + 1
+    n_nodes = n * p + 1
+    f64 = dict(dtype=torch.float64, device=device)
+    basis_pos = torch.tensor(np.ascontiguousarray(ref.basis_at_quad[:, ref.pos_to_slot]), **f64)  # (n_q, w)
+    centers = xin + (torch.arange(n, **f64) + 0.5) * h
+    xq = centers[:, None] + (h / 2.0) * torch.tensor(ref.quad_nodes, **f64)[None, :]  # (n, n_q)
+    del centers
+    fe = (h / 2.0) * torch.einsum("l,la,kl->ak", torch.tensor(ref.quad_weights, **f64), basis_pos, func(xq))
+    del xq
+    f = torch.zeros((n_nodes,), **f64)
+    f.index_add_(0, cg_element_nodes(p, n, device).reshape(-1), fe.reshape(-1))
+    del fe
+
+    if bc.neu_left:
+        f[0] -= bc.left[1]
+    if bc.neu_right:
+        f[-1] += bc.right[1]
+    raw0 = _raw_stiffness_windows(cg0).to(device)
+    if bc.dir_left:
+        g = bc.left[1]
+        f[:w] -= raw0[:, 0, 0] * g
+        f[0] = g
+    if bc.dir_right:
+        g = bc.right[1]
+        f[n_nodes - w :] -= raw0[:, w - 1, -1] * g
+        f[-1] = g
+    return f

@@ -4,16 +4,20 @@ Galerkin triple products.
 * :class:`BlockProlong` — block-aligned transfers: DG -> DG p-coarsening
   (r = 1), DG -> agglomerated (r = 4) and agg -> agg (r = 2).  Fine block
   ``r*c + j`` receives coarse block ``c`` through ``blocks[j][:, :, c]``.
+* :class:`RaggedBlockProlong` — the same with variable group sizes (element
+  counts that the coarsening factors do not divide).
 * :class:`CgProlong` — CG -> CG p-coarsening: one constant matrix ``E``
   (coarse nodal basis at fine nodes, grid order) applied per element.
 * :class:`SeamProlong` — the CG -> DG/agg seam (lumped-mass L2 projection):
-  ``L = diag(lump)^-1 N`` with ``N`` kept in per-base-element windows.
+  ``L = diag(lump)^-1 N`` with ``N`` kept in per-base-element windows
+  (``offsets`` set for ragged agglomerates).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .block_tridiag import BlockTridiag, block_mul
@@ -92,6 +96,121 @@ def bp_galerkin(l: BlockProlong, x: BlockTridiag) -> BlockTridiag:
 
 
 # ---------------------------------------------------------------------------
+# RaggedBlockProlong: variable-size agglomerates
+# ---------------------------------------------------------------------------
+
+
+class RaggedBlockProlong(NamedTuple):
+    """Block-aligned prolongation with *variable* group sizes: coarse block
+    ``c`` owns the contiguous fine blocks ``offsets[c] .. offsets[c] +
+    sizes[c] - 1`` through ``blocks[j, :, :, c]``; the slots ``j >=
+    sizes[c]`` hold zero blocks.  ``owner`` / ``slot`` give each fine block's
+    coarse block and slot, so the prolongation is a gather (one contribution
+    per fine column, deterministic on any device).  Build it with
+    :func:`ragged_prolong`."""
+
+    blocks: torch.Tensor  # (r_max, bs_f, bs_c, n_c); slots j >= sizes[c] are zero
+    sizes: torch.Tensor  # (n_c,) int32
+    offsets: torch.Tensor  # (n_c,) int32, running sum of sizes, offsets[0] = 0
+    owner: torch.Tensor  # (n_fine,) int64 coarse block of each fine block
+    slot: torch.Tensor  # (n_fine,) int64 its slot j within the group
+    n_fine: int
+
+    @property
+    def r_max(self) -> int:
+        return self.blocks.shape[0]
+
+    @property
+    def bs_fine(self) -> int:
+        return self.blocks.shape[1]
+
+    @property
+    def bs_coarse(self) -> int:
+        return self.blocks.shape[2]
+
+    @property
+    def n_coarse(self) -> int:
+        return self.blocks.shape[3]
+
+
+def ragged_sizes_to_arrays(sizes) -> tuple:
+    """``(sizes_i32, offsets_i32, n_fine)`` from any int sequence."""
+    s = torch.tensor(np.asarray(sizes, dtype=np.int32))
+    off = torch.cat([torch.zeros(1, dtype=torch.int32), torch.cumsum(s, 0, dtype=torch.int32)[:-1]])
+    return s, off, int(s.sum())
+
+
+def ragged_prolong(blocks: torch.Tensor, sizes) -> RaggedBlockProlong:
+    """A :class:`RaggedBlockProlong` from its zero-padded blocks and group sizes."""
+    s, off, n_fine = ragged_sizes_to_arrays(sizes)
+    owner = torch.repeat_interleave(torch.arange(s.shape[0]), s.long())
+    slot = torch.arange(n_fine) - off.long()[owner]
+    dev = blocks.device
+    return RaggedBlockProlong(
+        blocks=blocks, sizes=s.to(dev), offsets=off.to(dev), owner=owner.to(dev), slot=slot.to(dev),
+        n_fine=n_fine,
+    )
+
+
+def _rbp_fine_idx(l: RaggedBlockProlong) -> torch.Tensor:
+    """``(r_max, n_c)`` fine block of slot ``(j, c)``, clamped into range (the
+    padded slots carry zero blocks, so clamping is harmless)."""
+    j = torch.arange(l.r_max, device=l.offsets.device)[:, None]
+    return torch.clamp(l.offsets.long()[None, :] + j, max=l.n_fine - 1)
+
+
+def rbp_prolong(l: RaggedBlockProlong, xc: torch.Tensor) -> torch.Tensor:
+    """``(bs_c, n_c) -> (bs_f, n_fine)``: fine column ``f`` is
+    ``blocks[slot[f], :, :, owner[f]] @ xc[:, owner[f]]``, gathered."""
+    contrib = torch.einsum("jibc,bc->jic", l.blocks, xc)  # (r_max, bs_f, n_c)
+    return contrib[l.slot, :, l.owner].T.contiguous()
+
+
+def rbp_restrict(l: RaggedBlockProlong, rf: torch.Tensor) -> torch.Tensor:
+    """``L^T rf``: ``(bs_f, n_fine) -> (bs_c, n_c)``."""
+    rg = rf[:, _rbp_fine_idx(l)]  # (bs_f, r_max, n_c)
+    return torch.einsum("jibc,ijc->bc", l.blocks, rg)
+
+
+def _rbp_edge_blocks(l: RaggedBlockProlong) -> tuple:
+    """``(first, last)``: the first and the last nonzero block of every group,
+    each ``(bs_f, bs_c, n_c)``."""
+    c = torch.arange(l.n_coarse, device=l.blocks.device)
+    last = l.blocks[l.sizes.long() - 1, :, :, c]  # (n_c, bs_f, bs_c)
+    return l.blocks[0], last.permute(1, 2, 0)
+
+
+def rbp_galerkin(l: RaggedBlockProlong, x: BlockTridiag) -> BlockTridiag:
+    """``L^T X L`` with ragged groups; the coarse result stays
+    block-tridiagonal because groups are contiguous and X couples only +-1
+    fine neighbours."""
+    idx = _rbp_fine_idx(l)  # (r_max, n_c)
+    dg, lg, ug = x.diag[:, :, idx], x.lower[:, :, idx], x.upper[:, :, idx]  # (bs, bs, r_max, n_c)
+    b = l.blocks
+
+    # within a group: sum_j B_j^T D_j B_j + B_j^T L_j B_{j-1} + B_{j-1}^T U_{j-1} B_j
+    diag = torch.einsum("jfbc,fgjc,jgdc->bdc", b, dg, b)
+    if l.r_max > 1:
+        diag = diag + torch.einsum("jfbc,fgjc,jgdc->bdc", b[1:], lg[:, :, 1:], b[:-1])
+        diag = diag + torch.einsum("jfbc,fgjc,jgdc->bdc", b[:-1], ug[:, :, :-1], b[1:])
+
+    # across groups: through the first block of group c and the last of c +- 1
+    first, last = _rbp_edge_blocks(l)
+    off = l.offsets.long()
+    l_first = x.lower[:, :, torch.clamp(off, max=l.n_fine - 1)]
+    u_last = x.upper[:, :, torch.clamp(off + l.sizes.long() - 1, max=l.n_fine - 1)]
+    lower = torch.einsum("fbc,fgc,gdc->bdc", first, l_first, shift(last, -1))
+    upper = torch.einsum("fbc,fgc,gdc->bdc", last, u_last, shift(first, +1))
+    # einsum may hand back permuted views; the kernels take contiguous operators
+    return BlockTridiag(lower=lower.contiguous(), diag=diag.contiguous(), upper=upper.contiguous())
+
+
+def galerkin(l, x: BlockTridiag) -> BlockTridiag:
+    """``L^T X L`` for a uniform or a ragged block transfer."""
+    return rbp_galerkin(l, x) if isinstance(l, RaggedBlockProlong) else bp_galerkin(l, x)
+
+
+# ---------------------------------------------------------------------------
 # CgProlong
 # ---------------------------------------------------------------------------
 
@@ -146,6 +265,9 @@ def cgp_galerkin(l: CgProlong, a: CgOperator) -> CgOperator:
 class SeamProlong(NamedTuple):
     n_win: torch.Tensor  # (w_cg, bs, r, n_c): cross-mass windows, base el e = c*r + j
     inv_lump: torch.Tensor  # (n_cg_nodes,) inverse lumped CG mass
+    # ragged agglomerates: base el e = offsets[c] + j, with zero windows past
+    # the group's size (their clamped indices then add nothing)
+    offsets: torch.Tensor | None = None  # (n_c,) int32
 
     @property
     def w_cg(self) -> int:
@@ -165,12 +287,18 @@ class SeamProlong(NamedTuple):
 
 
 def _seam_indices(l: SeamProlong) -> torch.Tensor:
-    """CG node of window row ``a`` of base element ``c*r + j``: ``(w_cg, r, n_c)``."""
+    """CG node of window row ``a`` of base element ``c*r + j`` (uniform) or
+    ``offsets[c] + j`` (ragged, clamped): ``(w_cg, r, n_c)``."""
     dev = l.n_win.device
+    p_cg = l.w_cg - 1
     a = torch.arange(l.w_cg, device=dev)[:, None, None]
     j = torch.arange(l.r, device=dev)[None, :, None]
-    c = torch.arange(l.n_coarse, device=dev)[None, None, :]
-    return (c * l.r + j) * (l.w_cg - 1) + a
+    if l.offsets is None:
+        el = torch.arange(l.n_coarse, device=dev)[None, None, :] * l.r + j
+    else:
+        n_el = (l.inv_lump.shape[0] - 1) // p_cg
+        el = torch.clamp(l.offsets.long()[None, None, :] + j, max=n_el - 1)
+    return el * p_cg + a
 
 
 def seam_prolong(l: SeamProlong, xc: torch.Tensor) -> torch.Tensor:

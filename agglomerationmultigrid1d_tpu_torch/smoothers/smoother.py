@@ -105,6 +105,13 @@ def apply_smoother(s: Smoother, r: torch.Tensor, alpha: float = 1.0) -> torch.Te
     raise TypeError(f"unknown smoother {type(s)}")
 
 
+def _inv_windows_2x2(w: torch.Tensor) -> torch.Tensor:
+    """Cofactor inverse of ``(2, 2, n)`` blocks, on the same layout (any device)."""
+    a, b, c, d = w[0, 0], w[0, 1], w[1, 0], w[1, 1]
+    idet = 1.0 / (a * d - b * c)
+    return torch.stack([torch.stack([d, -b]), torch.stack([-c, a])]) * idet
+
+
 def _invert_windows(windows: torch.Tensor) -> torch.Tensor:
     """(w, w, n) -> per-slice inverse, same layout: closed form for w <= 2,
     ``torch.linalg.inv`` on the ``(n, w, w)`` view otherwise (setup only)."""
@@ -112,9 +119,7 @@ def _invert_windows(windows: torch.Tensor) -> torch.Tensor:
     if bs == 1:
         return 1.0 / windows
     if bs == 2:
-        a, b, c, d = windows[0, 0], windows[0, 1], windows[1, 0], windows[1, 1]
-        idet = 1.0 / (a * d - b * c)
-        return torch.stack([torch.stack([d, -b]), torch.stack([-c, a])]) * idet
+        return _inv_windows_2x2(windows)
     return torch.movedim(torch.linalg.inv(torch.movedim(windows, -1, 0)), 0, -1).contiguous()
 
 

@@ -1,9 +1,11 @@
 """Inter-level prolongation constructors.
 
 ``<coarse>_<fine>_interpolation`` builds the prolongation L mapping the coarse
-space into the fine space; restriction is L^T, applied by the solver.  Only
-uniform groupings are ported (every level of a power-of-two chain); a ragged
-partition raises.  Built on the host in float64.
+space into the fine space; restriction is L^T, applied by the solver.
+Uniform groupings give the reshape-based :class:`BlockProlong`, ragged ones
+(element counts the coarsening factors do not divide) a
+:class:`RaggedBlockProlong` or a :class:`SeamProlong` with ``offsets``.
+Built on the host in float64.
 """
 
 from __future__ import annotations
@@ -15,11 +17,13 @@ from ..mesh.agg_mesh import AggMesh
 from ..mesh.cg_mesh import CgMesh
 from ..mesh.dg_mesh import DgMesh
 from ..numerics import evaluate_nodal_basis, gauss_quad, modal_basis_vals_batched
-from ..ops.transfer_ops import BlockProlong, CgProlong, SeamProlong, block_prolong_constant
-
-_RAGGED = (
-    "ragged agglomerates need RaggedBlockProlong, which the torch port does not "
-    "have yet (ROADMAP queue 1, item 14)"
+from ..ops.transfer_ops import (
+    BlockProlong,
+    CgProlong,
+    RaggedBlockProlong,
+    SeamProlong,
+    block_prolong_constant,
+    ragged_prolong,
 )
 
 
@@ -44,22 +48,25 @@ def dg_cg_interpolation(low: DgMesh, high: CgMesh) -> SeamProlong:
 def aggdg_cg_interpolation(agg: AggMesh, base: CgMesh) -> SeamProlong:
     """Lumped-mass-scaled L2 projection of the agglomerate modal basis into the
     base CG space, integrated base element by base element (``interp_flag =
-    1`` of the reference)."""
-    r = agg.uniform_r
-    if r is None:
-        raise NotImplementedError(_RAGGED)
-    m = agg.n_agg
+    1`` of the reference).  Each agglomerate's base elements are gathered
+    into ``r_max`` padded slots; a padding slot has a zero jacobian, hence a
+    zero window, so its clamped scatter index adds nothing."""
     ref = base.ref
-    centers = base.mesh.centers.reshape(m, r)
-    jacs = base.mesh.jacobians.reshape(m, r)
+    n_el = base.n_elements
+    j_idx = np.minimum(agg.offsets[:, None] + np.arange(agg.r_max)[None, :], n_el - 1)
+    valid = np.arange(agg.r_max)[None, :] < agg.sizes[:, None]
+    centers = base.mesh.centers[j_idx]
+    jacs = np.where(valid, base.mesh.jacobians[j_idx], 0.0)
     xq = centers[:, :, None] + jacs[:, :, None] * ref.quad_nodes[None, None, :]
     cg_b = ref.basis_at_quad[:, ref.pos_to_slot]  # (n_q, w_cg) position order
-    agg_b = modal_basis_vals_batched(agg.p, agg.boxes, xq)  # (m, r, n_q, bs)
+    agg_b = modal_basis_vals_batched(agg.p, agg.boxes, xq)  # (m, r_max, n_q, bs)
     n_win = np.einsum("cs,l,la,cslm->csam", jacs, ref.quad_weights, cg_b, agg_b)
-    # (m, r, w_cg, bs) -> (w_cg, bs, r, m)
+    offsets = None if agg.uniform_r is not None else torch.from_numpy(agg.offsets.astype(np.int32))
+    # (m, r_max, w_cg, bs) -> (w_cg, bs, r_max, m)
     return SeamProlong(
         n_win=torch.from_numpy(np.ascontiguousarray(n_win.transpose(2, 3, 1, 0))),
         inv_lump=1.0 / base.lumped_mass,
+        offsets=offsets,
     )
 
 
@@ -85,11 +92,14 @@ def _aggdg_dg_blocks_uniform(p: int, r: int, centers, jacs, nodes_x, boxes) -> t
     return torch.stack([phi0, phi1], dim=2).permute(1, 0, 2, 3)  # (r, w, 2, m)
 
 
-def aggdg_dg_interpolation(agg: AggMesh, base: DgMesh) -> BlockProlong:
+def aggdg_dg_interpolation(agg: AggMesh, base: DgMesh):
     """Modal -> nodal evaluation of the agglomerate basis at base-element nodes."""
     r = agg.uniform_r
     if r is None:
-        raise NotImplementedError(_RAGGED)
+        parent = np.repeat(np.arange(agg.n_agg), agg.sizes)  # (n_base,)
+        xn = base.mesh.centers[:, None] + base.mesh.jacobians[:, None] * base.ref.nodes_x[None, :]
+        per_el = modal_basis_vals_batched(agg.p, agg.boxes[parent], xn)  # (n_base, w, bs)
+        return _pack_ragged_blocks(per_el, agg.sizes, agg.offsets)
     t = torch.from_numpy
     return BlockProlong(
         _aggdg_dg_blocks_uniform(
@@ -121,15 +131,40 @@ def _aggdg_aggdg_blocks_uniform(p: int, r: int, cb, fb) -> torch.Tensor:
     return torch.stack([row0, row1], dim=1)  # (r, 2, 2, mc)
 
 
-def aggdg_aggdg_interpolation(coarse: AggMesh, fine: AggMesh) -> BlockProlong:
-    """L2 projection between two agglomerated levels of the same order."""
+def aggdg_aggdg_interpolation(coarse: AggMesh, fine: AggMesh):
+    """L2 projection between two agglomerated levels of the same order:
+    a :class:`BlockProlong` for uniform groupings, else a
+    :class:`RaggedBlockProlong` of the same closed form per fine agglomerate."""
     if coarse.p != fine.p:
         raise ValueError("the two agglomerated meshes must have the same p")
     r, rf = coarse.sub_uniform_r, fine.uniform_r
-    if r is None or rf is None:
-        raise NotImplementedError(_RAGGED)
-    return BlockProlong(
-        _aggdg_aggdg_blocks_uniform(
-            coarse.p, r, torch.from_numpy(coarse.boxes), torch.from_numpy(fine.boxes)
+    if r is not None and rf is not None:
+        return BlockProlong(
+            _aggdg_aggdg_blocks_uniform(
+                coarse.p, r, torch.from_numpy(coarse.boxes), torch.from_numpy(fine.boxes)
+            )
         )
-    )
+    # the coarse modal basis restricted to a fine interval: 1 -> 1,
+    # xi_c -> 2 (cf - cc) / hc + (hf / hc) xi_f, exactly the L2 projection
+    cb = coarse.boxes[np.repeat(np.arange(coarse.n_agg), coarse.sub_sizes)]
+    fb = fine.boxes
+    hc, hf = cb[:, 1] - cb[:, 0], fb[:, 1] - fb[:, 0]
+    cf, cc = 0.5 * (fb[:, 0] + fb[:, 1]), 0.5 * (cb[:, 0] + cb[:, 1])
+    bs = coarse.block_size
+    l_f = np.zeros((fine.n_agg, bs, bs))
+    l_f[:, 0, 0] = 1.0
+    if coarse.p == 1:
+        l_f[:, 0, 1] = 2.0 * (cf - cc) / hc
+        l_f[:, 1, 1] = hf / hc
+    return _pack_ragged_blocks(l_f, coarse.sub_sizes, coarse.sub_offsets)
+
+
+def _pack_ragged_blocks(per_fine: np.ndarray, sizes, offsets) -> RaggedBlockProlong:
+    """``(n_f, bs_f, bs_c)`` per-fine-block matrices -> a RaggedBlockProlong,
+    zero past each group's size."""
+    r_max = int(np.max(sizes))
+    n_f = per_fine.shape[0]
+    idx = np.minimum(offsets[:, None] + np.arange(r_max)[None, :], n_f - 1)
+    valid = np.arange(r_max)[None, :] < np.asarray(sizes)[:, None]
+    blocks = np.where(valid[:, :, None, None], per_fine[idx], 0.0)  # (m, r_max, bs_f, bs_c)
+    return ragged_prolong(torch.from_numpy(np.ascontiguousarray(np.moveaxis(blocks, (0, 1), (-1, 0)))), sizes)

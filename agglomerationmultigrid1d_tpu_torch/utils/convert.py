@@ -4,8 +4,8 @@
 for example the JAX package's ``Hierarchy`` after
 ``jax.tree_util.tree_map(np.asarray, h)`` — by field name alone, so this
 module never imports the other package.  :func:`xl_problem_from_numpy` does
-the same for the four outputs of the JAX package's
-``build_xl_problem(..., slim_fine=True, ff_levels=True)``.  The tests use
+the same for the four outputs of the JAX package's ``build_xl_problem``
+(DG- or CG-topped, with or without ``slim_fine`` and ``ff_levels``).  The tests use
 them to feed identical inputs to both packages.
 """
 
@@ -18,8 +18,8 @@ from ..models.hierarchy import BlockLevel, CgLevel, Hierarchy, _chebyshev_table
 from ..ops.block_tridiag import BlockTridiag
 from ..ops.cg_operator import CgOperator
 from ..ops.coarse_solve import BTCoarseSolver, CoarseSolver
-from ..ops.df64 import FF, BlockTridiagFF, BTFFStencil
-from ..ops.transfer_ops import BlockProlong, CgProlong, SeamProlong
+from ..ops.df64 import FF, BlockTridiagFF, BTFFStencil, CgBandFF
+from ..ops.transfer_ops import BlockProlong, CgProlong, SeamProlong, ragged_prolong
 from ..smoothers.smoother import (
     BlockJacobiSmoother,
     ChebyshevSmoother,
@@ -34,7 +34,8 @@ def hierarchy_from_numpy(h, device="cuda", dtype: torch.dtype | None = None) -> 
     with ``a`` as ``windows/band`` — each with a ``smoother`` (block-Jacobi
     ``inv/ml/mu``, Jacobi ``inv_diag``, Schwarz ``inv_windows/mult_inv``, or a
     Chebyshev ``base/lam_lo/lam_hi`` over one of them); ``transfers`` (block
-    ``blocks``, CG ``e``, seam ``n_win/inv_lump``); and ``coarse``
+    ``blocks``, ragged block ``blocks/sizes``, CG ``e``, seam
+    ``n_win/inv_lump/offsets``); and ``coarse``
     (``a_dense``, ``a_inv``).  ``dtype`` None keeps each array's own
     precision; a float32 Chebyshev level gets its recurrence table."""
 
@@ -68,21 +69,27 @@ def hierarchy_from_numpy(h, device="cuda", dtype: torch.dtype | None = None) -> 
                        smoother=smoother(lv.smoother))
 
     def transfer(tr):
-        if getattr(tr, "sizes", None) is not None or getattr(tr, "offsets", None) is not None:
-            raise NotImplementedError(
-                "ragged transfers are not ported yet (ROADMAP queue 1, item 14)"
-            )
-        if hasattr(tr, "e"):
-            return CgProlong(e=t(tr.e))
-        if hasattr(tr, "n_win"):
-            return SeamProlong(n_win=t(tr.n_win), inv_lump=t(tr.inv_lump))
-        return BlockProlong(t(tr.blocks))
+        return _transfer(tr, device, dtype)
 
     return Hierarchy(
         levels=tuple(level(lv) for lv in h.levels),
         transfers=tuple(transfer(tr) for tr in h.transfers),
         coarse=coarse_from_numpy(h.coarse, device, dtype),
     )
+
+
+def _transfer(tr, device, dtype=None):
+    """A CG (``e``), seam (``n_win``, ``inv_lump``, ``offsets``), ragged
+    block (``blocks``, ``sizes``) or block (``blocks``) transfer."""
+    if hasattr(tr, "e"):
+        return CgProlong(e=_tensor(tr.e, device, dtype))
+    if hasattr(tr, "n_win"):
+        offsets = None if tr.offsets is None else _tensor(tr.offsets, device)
+        return SeamProlong(n_win=_tensor(tr.n_win, device, dtype), inv_lump=_tensor(tr.inv_lump, device, dtype),
+                           offsets=offsets)
+    if getattr(tr, "sizes", None) is not None:
+        return ragged_prolong(_tensor(tr.blocks, device, dtype), np.asarray(tr.sizes))
+    return BlockProlong(_tensor(tr.blocks, device, dtype))
 
 
 def _tensor(x, device, dtype=None) -> torch.Tensor:
@@ -107,27 +114,36 @@ def coarse_from_numpy(c, device="cuda", dtype: torch.dtype | None = None):
 
 
 def _ff_operator(a, device):
-    """A float-float stencil (``hi_left ... lo_right``, ``n``) or BlockTridiag pair (``hi``, ``lo``)."""
+    """A float-float stencil (``hi_left ... lo_right``, ``n``), BlockTridiag
+    pair (``hi``, ``lo`` with ``lower/diag/upper``) or CG band pair (``hi``,
+    ``lo`` arrays)."""
     if hasattr(a, "hi_mid"):
         parts = {k: _bt(getattr(a, k), device)
                  for k in ("hi_left", "hi_mid", "hi_right", "lo_left", "lo_mid", "lo_right")}
         return BTFFStencil(**parts, n=int(a.n))
-    return BlockTridiagFF(hi=_bt(a.hi, device), lo=_bt(a.lo, device))
+    if hasattr(a.hi, "diag"):
+        return BlockTridiagFF(hi=_bt(a.hi, device), lo=_bt(a.lo, device))
+    return CgBandFF(hi=_tensor(a.hi, device), lo=_tensor(a.lo, device))
 
 
-def xl_problem_from_numpy(h_low, ffops, b_ff, norm_b: float, device="cuda"):
-    """The outputs of ``build_xl_problem(..., slim_fine=True, ff_levels=True)``
-    with NumPy leaves -> this package's ``(h_low, FFOps, b_ff, norm_b)``:
-    the float32 hierarchy, the float-float operators (a stencil
-    ``hi_left ... lo_right, n`` fine operator, ``hi / lo`` BlockTridiag pairs
-    below it), the transfers' lo tails, the float64 coarse factorization, and
-    the rhs as an (hi, lo) pair."""
+def xl_problem_from_numpy(h_low, a_ff, b_ff, norm_b: float, device="cuda"):
+    """The four outputs of the JAX package's ``build_xl_problem`` with NumPy
+    leaves -> this package's ``(h_low, a_ff, b_ff, norm_b)``: the float32
+    hierarchy (DG- or CG-topped); in the ``a_ff`` slot either one
+    float-float fine operator (the inputs of ``solvers._mixed_loop_ff``) or,
+    from ``ff_levels=True``, the ``FFOps`` bundle (per-level operators, the
+    transfers' lo tails, None where a transfer has none, the float64 coarse
+    factorization; the inputs of ``solvers.multigrid_true``); the rhs as an
+    (hi, lo) pair."""
     from ..models.stencil_setup import FFOps
 
-    ops = FFOps(
-        a_ffs=tuple(_ff_operator(a, device) for a in ffops.a_ffs),
-        t_los=tuple(None if t is None else BlockProlong(_tensor(t.blocks, device)) for t in ffops.t_los),
-        coarse64=coarse_from_numpy(ffops.coarse64, device),
-    )
+    if hasattr(a_ff, "a_ffs"):
+        a_ff = FFOps(
+            a_ffs=tuple(_ff_operator(a, device) for a in a_ff.a_ffs),
+            t_los=tuple(None if t is None else _transfer(t, device) for t in a_ff.t_los),
+            coarse64=coarse_from_numpy(a_ff.coarse64, device),
+        )
+    else:
+        a_ff = _ff_operator(a_ff, device)
     b = FF(_tensor(b_ff.hi, device), _tensor(b_ff.lo, device))
-    return hierarchy_from_numpy(h_low, device), ops, b, float(norm_b)
+    return hierarchy_from_numpy(h_low, device), a_ff, b, float(norm_b)

@@ -65,7 +65,28 @@ Phases, one line of numbers each:
 11. two ranks on the one card over gloo (spawned processes, kernels built
    once here first): the same sharded damped ``multigrid_mixed`` of the
    slice, held to the one-rank result; here each rank has a neighbour, so
-   every smoothing also launches the packing kernel and exchanges messages.
+   every smoothing also launches the packing kernel and exchanges messages;
+12. the CG-topped flagship built by stencil inflation on the card in
+   ``bench.py:369-394``'s form (``build_xl_problem``, CG p = 8, 4, 2, 1,
+   agglomerated levels down to 512 blocks, c_dir = 1000 n) and solved by the
+   guarded float-float refinement ``_mixed_loop_ff`` to 1e-10, damped and
+   Chebyshev: at 131,073 DoF held within 2 of the port's own V-cycles on
+   the JAX package's inputs on the CPU (16 / 12), with JAX's 12 / 11 on the
+   TPU (BENCH_r05.json) printed beside; at 16,777,217 DoF (15 levels) the
+   same two solves, then the
+   ``ff_levels=True`` build solved by ``multigrid_true`` to 1e-8; every
+   residual recomputed in float64 on the card from the float-float band;
+13. the ragged DG slice: 500,000 elements (2,000,000 DoF), whose
+   agglomerated levels below 15,625 blocks are ragged
+   (``RaggedBlockProlong``), solved by ``multigrid_mixed`` damped and
+   Chebyshev to 1e-10 through K1-K3 and K5;
+14. the device coarse chain: a DG p=1 chain at 2,097,152 DoF built on the
+   host and cast (strip, float32, ``chebyshev_hierarchy``,
+   ``prepare_fast_smoothers``) beside ``build_dg_hierarchy_device`` on the
+   same meshes and fine operators: every leaf (operators, block inverses,
+   M-form streams, the coarse solver's operator and inverse) to 2e-5 of its
+   max, the Chebyshev bounds and coefficient table to 1e-3 relative, equal
+   ``multigrid_mixed`` counts, both setups timed.
 
 The kernel phase also holds K6 (the float-float stencil defect) to its plain
 version bit for bit, hi and lo.
@@ -79,6 +100,7 @@ without a CUDA device the script exits with code 2 and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import multiprocessing as mp
 import os
 import queue
@@ -89,6 +111,7 @@ import tempfile
 import time
 import traceback
 
+import numpy as np
 import torch
 
 SOURCE = "agglomerationmultigrid1d_tpu_torch/csrc/block_kernels.cu"
@@ -101,6 +124,16 @@ TOL = 1e-5  # of max|out|: float32 kernels with FMA against unfused plain torch
 SLICE = dict(n=524288, max_p=3, n_dg=2, n_agg=12)
 SMALL = dict(n=4096, max_p=3, n_dg=2, n_agg=5)
 FLAGSHIP_N = 16384
+FLAGSHIP_XL_N = 2097152  # the stencil-built flagship at 16,777,217 DoF
+# the JAX package's V-cycles for this solve at 131,073 DoF: (BENCH_r05.json on the TPU, its CPU path with
+# use_pallas=False); the count follows the float32 rounding of the inner cycle at c_dir = 1000 n
+FLAGSHIP_XL_JAX = {"damped": (12, 16), "chebyshev": (11, 14)}
+# the port's V-cycles for it on the JAX package's inputs on the CPU (tests/test_torch_flagship_xl.py): the
+# card's solve is held to these within 2
+FLAGSHIP_XL_PORT_CPU = {"damped": 16, "chebyshev": 12}
+RAGGED_SLICE = dict(n=500000, max_p=3, n_dg=2, n_agg=12)  # 2,000,000 DoF, ragged below 15,625 agglomerates
+POW2_SLICE_COUNTS = {"damped": "22 outer / 28 inner", "chebyshev": "14 outer / 18 inner"}
+DEVICE_CHAIN_N = 1048576  # DG p=1: 2,097,152 DoF
 SEED = 0
 DAMPED = ("bt_matvec", "multisweep", "multisweep_residual")  # K3, K2, K1: the damped solves' kernels
 CHEB_INTERVAL = (0.3, 1.2)  # K5's and K7's coefficients in the kernel phases, k = 3
@@ -585,6 +618,252 @@ def phase_flagship(bk) -> None:
             "multisweep", "multisweep_residual")
         check(all(launches[k] > 0 for k in used), f"flagship mixed{tag} skipped a kernel: {launches}")
     print(" ".join(line), flush=True)
+
+
+def flagship_xl_spec(n: int):
+    """``bench.py:bench_flagship_solve``'s spec: CG p = 8, 4, 2, 1, then
+    agglomerated levels down to a 512-block coarsest level, c_dir = 1000 n."""
+    from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
+
+    return HierarchySpec(cg_orders=(8, 4, 2, 1), n_agg_levels=int(math.log2(n // 4 // 512)) + 1, p_agg=1,
+                         c_dir=1000.0 * n)
+
+
+def cg_rel_residual_f64(h, a_ff, b_ff, x) -> float:
+    """``||b - A x|| / ||b||`` recomputed in float64 on the card from the
+    float-float fine band (``hi + lo`` is the float64 operator) and the
+    float64 rhs, independently of the solver's own defect."""
+    from agglomerationmultigrid1d_tpu_torch.ops.cg_operator import CgOperator, cg_matvec
+    from agglomerationmultigrid1d_tpu_torch.ops.df64 import ff_join
+
+    band = a_ff.hi.double() + a_ff.lo.double()
+    b64 = ff_join(b_ff)
+    r = b64 - cg_matvec(CgOperator(windows=h.levels[0].a.windows, band=band), x)
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b64))
+
+
+def phase_flagship_xl(bk, n: int, true_solve: bool) -> dict:
+    """The CG-topped flagship built by stencil inflation on the card and
+    solved by the guarded float-float refinement ``_mixed_loop_ff``, damped
+    and Chebyshev, as ``bench.py:369-394``; with ``true_solve`` also built
+    with ``ff_levels=True`` and solved by ``multigrid_true`` to 1e-8.  Each
+    solve: setup timings, seconds, counts, the relative residual recomputed
+    in float64, peak memory and the launches of its run (counts set to 0
+    just before).  Returns {tag: (outer, cycles)}."""
+    from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem, default_stencil_factor, multigrid_true
+    from agglomerationmultigrid1d_tpu_torch.models.solvers import _mixed_loop_ff
+    from agglomerationmultigrid1d_tpu_torch.ops.df64 import FF
+
+    spec = flagship_xl_spec(n)
+    z = default_stencil_factor(spec, n)
+    out = {}
+    for cheb in (False, True):
+        tag = "chebyshev" if cheb else "damped"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        t0 = time.perf_counter()
+        h, a_ff, b_ff, norm_b = build_xl_problem(spec, n, chebyshev=cheb, device="cuda", timings=timings)
+        setup_s = time.perf_counter() - t0
+        check(h.n_levels == 4 + spec.n_agg_levels and tuple(b_ff.hi.shape) == (8 * n + 1,), "flagship XL shape")
+        zero = torch.zeros_like(b_ff.hi)
+        bk.reset_launch_counts()
+        t0 = time.perf_counter()
+        x_ff, outer, cycles, hist = _mixed_loop_ff(h, a_ff, FF(zero, zero), b_ff, np.float32(1.0 / norm_b),
+                                                   maxiter=60, tol=1e-10, inner_tol=3e-5, max_inner=20)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launches = {k: v for k, v in bk.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        x = x_ff.hi.double() + x_ff.lo.double()
+        rel = cg_rel_residual_f64(h, a_ff, b_ff, x)
+        print(f"flagship XL {8 * n + 1} DoF ({h.n_levels} levels, z={z}, n0={n // z}) {tag} _mixed_loop_ff: "
+              f"setup_s={setup_s:.3f} (host stencil {timings['host_stencil']:.3f}, inflation {timings['inflate']:.3f}, "
+              f"device rhs {timings['rhs']:.3f}) solve_s={solve_s:.3f} outer={outer} v_cycles={cycles} "
+              f"(at 131,073 DoF: JAX {FLAGSHIP_XL_JAX[tag][0]} on the TPU, BENCH_r05.json, {FLAGSHIP_XL_JAX[tag][1]} "
+              f"on the CPU; the port {FLAGSHIP_XL_PORT_CPU[tag]} on the CPU) rel_history_end={float(hist[outer - 1]):.3e} "
+              f"rel_residual_f64={rel:.3e} peak_mem_bytes={peak} launches={launches}", flush=True)
+        check(bool(torch.isfinite(x).all()), f"flagship XL {tag} x")
+        used = ("chebyshev_multisweep", "chebyshev_multisweep_residual") if cheb else ("multisweep", "multisweep_residual")
+        check(all(launches.get(k, 0) > 0 for k in used), f"flagship XL {tag} skipped a kernel: {launches}")
+        if n <= FLAGSHIP_N:
+            check(rel < 1e-10, f"flagship XL {tag} relative residual {rel:.3e} >= 1e-10")
+            tpu, want = FLAGSHIP_XL_JAX[tag][0], FLAGSHIP_XL_PORT_CPU[tag]
+            print(f"flagship XL {tag}: {cycles} V-cycles, {'within' if abs(cycles - tpu) <= 1 else 'NOT within'} 1 of "
+                  f"the TPU's {tpu}", flush=True)
+            check(abs(cycles - want) <= 2, f"flagship XL {tag}: {cycles} V-cycles, the port on the CPU {want}")
+        elif rel >= 1e-10:
+            print(f"flagship XL {tag}: the guarded refinement stopped at {rel:.3e} (above 1e-10) after {outer} "
+                  f"outer steps; multigrid_true takes over from here in the JAX package", flush=True)
+        out[tag] = (outer, cycles)
+        del h, a_ff, b_ff, x_ff, x
+    if true_solve:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        t0 = time.perf_counter()
+        h, ffops, b_ff, norm_b = build_xl_problem(spec, n, chebyshev=False, ff_levels=True, device="cuda",
+                                                  timings=timings)
+        setup_s = time.perf_counter() - t0
+        bk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = multigrid_true(h, ffops, b_ff, norm_b, 40, 1e-8)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launches = {k: v for k, v in bk.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        rel = cg_rel_residual_f64(h, ffops.a_ffs[0], b_ff, res.x)
+        hist = (res.res_history[: res.iterations] / norm_b).tolist()
+        print(f"flagship XL {8 * n + 1} DoF multigrid_true: setup_s={setup_s:.3f} (host stencil "
+              f"{timings['host_stencil']:.3f}, inflation {timings['inflate']:.3f}, device rhs {timings['rhs']:.3f}) "
+              f"solve_s={solve_s:.3f} cycles={res.iterations} rel_residual_f64={rel:.3e} peak_mem_bytes={peak} "
+              f"launches={launches} (CG levels and float-float defects in plain torch) "
+              f"res_history={[f'{v:.3e}' for v in hist]}", flush=True)
+        check(bool(torch.isfinite(res.x).all()), "flagship XL multigrid_true x")
+        check(rel < 1e-8, f"flagship XL multigrid_true relative residual {rel:.3e} >= 1e-8")
+        out["true"] = (res.iterations, res.iterations)
+        del h, ffops, b_ff, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ragged(bk) -> dict:
+    """The 2,000,000-DoF ragged DG slice (500,000 elements: 125,000
+    agglomerates, then groups of about 2 once the count is odd) solved by
+    ``multigrid_mixed`` damped and Chebyshev to 1e-10; K1 / K2 / K3 (and K5)
+    launched.  Returns the launches of the two solves."""
+    from agglomerationmultigrid1d_tpu_torch.models import (
+        chebyshev_hierarchy,
+        make_low_precision_hierarchy,
+        multigrid_mixed,
+        poisson_dg_hierarchy,
+    )
+    from agglomerationmultigrid1d_tpu_torch.ops.transfer_ops import RaggedBlockProlong
+
+    t0 = time.perf_counter()
+    prob = poisson_dg_hierarchy(**RAGGED_SLICE, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b = prob.b
+    kinds = [type(t).__name__ for t in prob.hierarchy.transfers]
+    check(b.numel() == 2000000 and "RaggedBlockProlong" in kinds, f"ragged slice shape: {kinds}")
+    n_ragged = sum(isinstance(t, RaggedBlockProlong) for t in prob.hierarchy.transfers)
+    out = {}
+    for cheb in (False, True):
+        tag = "chebyshev" if cheb else "damped"
+        h = chebyshev_hierarchy(prob.hierarchy) if cheb else prob.hierarchy
+        h32 = make_low_precision_hierarchy(h)
+        torch.cuda.reset_peak_memory_stats()
+        res, solve_s, launches = timed_solve(lambda: multigrid_mixed(h, h32, torch.zeros_like(b), b, 80, 1e-10), bk)
+        peak = torch.cuda.max_memory_allocated()
+        rel = rel_residual(prob, res.x)
+        launches = {k: v for k, v in launches.items() if v}
+        print(f"ragged slice {b.numel()} DoF, {h.n_levels} levels ({n_ragged} ragged transfers, coarsest "
+              f"{h.levels[-1].a.n_blocks} blocks) {tag}: setup_s={setup_s:.3f} solve_s={solve_s:.3f} "
+              f"outer={res.iterations} inner_cycles={res.inner_cycles} (the power-of-two slice: "
+              f"{POW2_SLICE_COUNTS[tag]}) rel_residual_f64={rel:.3e} peak_mem_bytes={peak} launches={launches}",
+              flush=True)
+        check(rel < 1e-10, f"ragged slice {tag} relative residual {rel:.3e} >= 1e-10")
+        used = ("bt_matvec", "chebyshev_multisweep", "chebyshev_multisweep_residual") if cheb else DAMPED
+        check(all(launches.get(k, 0) > 0 for k in used), f"ragged slice {tag} skipped a kernel: {launches}")
+        out[tag] = launches
+        del h, h32, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_device_chain(bk) -> dict:
+    """The DG p=1 chain at 2,097,152 DoF (``bench.py:336``'s agglomeration
+    rule): the host path (``build_problem``, then strip, cast,
+    ``prepare_fast_smoothers``, ``chebyshev_hierarchy``) beside
+    ``build_dg_hierarchy_device`` on the same meshes and fine operators;
+    every leaf (operators, block inverses, M-form streams, the coarse
+    solver's) to 2e-5 of its max, the Chebyshev bounds and table to 1e-3
+    relative, and ``multigrid_mixed`` with equal counts on both."""
+    from agglomerationmultigrid1d_tpu_torch.models import (
+        build_dg_hierarchy_device,
+        build_problem,
+        chebyshev_hierarchy,
+        multigrid_mixed,
+        prepare_fast_smoothers,
+        strip_hierarchy,
+    )
+    from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
+    from agglomerationmultigrid1d_tpu_torch.utils.precision import hierarchy_astype, tree_to
+
+    n = DEVICE_CHAIN_N
+    spec = HierarchySpec(cg_orders=(), dg_orders=(1,), n_agg_levels=int(math.log2(n // 4)) - 5, p_agg=1,
+                         c_dir=1000.0 * n)
+    t0 = time.perf_counter()
+    fine_only = build_problem(HierarchySpec(cg_orders=(), dg_orders=(1,), c_dir=1000.0 * n), n, device="cpu")
+    fine_s = time.perf_counter() - t0
+    del fine_only
+    t0 = time.perf_counter()
+    prob = build_problem(spec, n, device="cpu")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h_host = prepare_fast_smoothers(chebyshev_hierarchy(
+        tree_to(hierarchy_astype(strip_hierarchy(prob.hierarchy), torch.float32), "cuda")))
+    torch.cuda.synchronize()
+    host_post_s = time.perf_counter() - t0
+    lv0 = prob.hierarchy.levels[0]
+    build_dg_hierarchy_device(prob.meshes, lv0.a, lv0.g, lv0.d, lv0.c, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_dev = build_dg_hierarchy_device(prob.meshes, lv0.a, lv0.g, lv0.d, lv0.c, device="cuda")
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    diffs = []  # (difference of a leaf over its max, level, leaf, column of the largest difference)
+    for k, (lh, ld) in enumerate(zip(h_host.levels, h_dev.levels)):
+        pairs = [(f"a.{f}", getattr(ld.a, f), getattr(lh.a, f)) for f in ("lower", "diag", "upper")]
+        if k < len(h_host.levels) - 1:
+            pairs += [(f, getattr(ld.smoother.base, f), getattr(lh.smoother.base, f)) for f in ("inv", "ml", "mu")]
+        for name, got, want in pairs:
+            scale = float(want.abs().max()) or 1.0
+            d = (got - want).abs().amax(dim=(0, 1))
+            diffs.append((float(d.max()) / scale, k, name, int(d.argmax()), got.shape[-1]))
+    diffs.sort(reverse=True)
+    worst = diffs[0][0]
+    bounds = []  # (relative difference, level, leaf) of the Chebyshev interval and its coefficient table
+    for k, (lh, ld) in enumerate(zip(h_host.levels[:-1], h_dev.levels[:-1])):
+        sh, sd = lh.smoother, ld.smoother
+        bounds += [(abs(float(getattr(sd, f)) / float(getattr(sh, f)) - 1.0), k, f) for f in ("lam_lo", "lam_hi")]
+        ch, cd = np.asarray(sh.coef), np.asarray(sd.coef)
+        bounds.append((float(np.abs(cd - ch).max() / np.abs(ch).max()), k, "coef"))
+    bounds.sort(reverse=True)
+    coarse = [(float((getattr(h_dev.coarse, f) - getattr(h_host.coarse, f)).abs().max())
+               / float(getattr(h_host.coarse, f).abs().max()), f) for f in h_host.coarse._fields]
+    print(f"device chain vs host cast, largest leaf differences (of the leaf's max; level, leaf, column of n): "
+          f"{[f'{d:.2e} L{k} {nm} col {c}/{n_}' for d, k, nm, c, n_ in diffs[:6]]}; Chebyshev bounds and table "
+          f"(relative; level, leaf): {[f'{d:.2e} L{k} {nm}' for d, k, nm in bounds[:4]]}; coarse solver "
+          f"{type(h_dev.coarse).__name__} (of the leaf's max): {[f'{d:.2e} {nm}' for d, nm in coarse]}", flush=True)
+    check(worst <= 2e-5, f"device chain differs from the host cast: {worst:.3e} of a leaf's max")
+    check(bounds[0][0] <= 1e-3, f"device chain's Chebyshev bounds differ from the host's: {bounds[0]}")
+    check(type(h_dev.coarse) is type(h_host.coarse) and max(coarse)[0] <= 2e-5,
+          f"device chain's coarse solver differs from the host cast's: {coarse}")
+    h64 = tree_to(chebyshev_hierarchy(prob.hierarchy), "cuda")
+    b = prob.b.to("cuda")
+    counts = {}
+    for tag, h32 in (("host", h_host), ("device", h_dev)):
+        res, solve_s, launches = timed_solve(lambda: multigrid_mixed(h64, h32, torch.zeros_like(b), b, 80, 1e-10), bk)
+        rel = float(res.res_history[res.iterations - 1]) / float(torch.linalg.vector_norm(b))
+        counts[tag] = (res.iterations, res.inner_cycles)
+        print(f"device chain {b.numel()} DoF, {h64.n_levels} levels, {tag} hierarchy: solve_s={solve_s:.3f} "
+              f"outer={res.iterations} inner_cycles={res.inner_cycles} rel_residual={rel:.3e} "
+              f"launches={ {k: v for k, v in launches.items() if v} }", flush=True)
+        check(rel < 1e-10, f"device-chain {tag} solve relative residual {rel:.3e}")
+        check(all(launches[k] > 0 for k in ("chebyshev_multisweep", "chebyshev_multisweep_residual", "bt_matvec")),
+              f"device-chain {tag} solve skipped a kernel: {launches}")
+    print(f"device chain setup: fine level only (host) {fine_s:.3f} s; build_problem (host float64 chain) "
+          f"{build_s:.3f} s; strip + cast + move + chebyshev_hierarchy + prepare_fast_smoothers on the card "
+          f"{host_post_s:.3f} s; build_dg_hierarchy_device {dev_s:.3f} s (second call; the card's "
+          f"device-chain over host-chain setup: {dev_s / (build_s - fine_s + host_post_s):.3f}); "
+          f"max leaf difference {worst:.3e} of the leaf's max, bounds {bounds[0][0]:.3e}, coarse {max(coarse)[0]:.3e}; counts host {counts['host']} device "
+          f"{counts['device']}", flush=True)
+    check(counts["host"] == counts["device"], f"device-chain counts differ from the host chain's: {counts}")
+    del prob, h_host, h_dev, h64
+    torch.cuda.empty_cache()
+    return counts
 
 
 def strip_bound(name, bs, s=STRIP, sides=1) -> tuple:
@@ -1123,6 +1402,10 @@ def main() -> int:
     phase_reference(bk)
     launches.update(phase_chebyshev(bk))
     phase_flagship(bk)
+    phase_flagship_xl(bk, FLAGSHIP_N, true_solve=False)
+    phase_flagship_xl(bk, FLAGSHIP_XL_N, true_solve=True)
+    phase_ragged(bk)
+    phase_device_chain(bk)
     launches["ff_stencil_mid_defect"] = phase_north_star(bk)
     one_rank = phase_sharded(bk)
     launches.update({EDGE_FORMS[k]: one_rank[k] for k in EDGE_FORMS})

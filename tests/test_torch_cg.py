@@ -258,10 +258,19 @@ def test_flagship_shape():
 
 
 def test_unported_cg_configurations_raise():
+    """The two CG-topped configurations that were refused before ragged
+    agglomerates were ported now build, equal to the JAX package's."""
     # a ragged seam: 18 base elements, about 4 per agglomerate
-    mesh = create_uniform_mesh(18, 0.0, 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tint.aggdg_cg_interpolation(make_agg_mesh(1, mesh, partition=[4, 4, 4, 3, 3]), make_cg_mesh(mesh, 2))
+    mesh, jm = create_uniform_mesh(18, 0.0, 1.0), jmesh(18, 0.0, 1.0)
+    part = [4, 4, 4, 3, 3]
+    got = tint.aggdg_cg_interpolation(make_agg_mesh(1, mesh, partition=part), make_cg_mesh(mesh, 2))
+    want = jint.aggdg_cg_interpolation(jagg_mesh.make_agg_mesh(1, jm, partition=part), jcg_mesh.make_cg_mesh(jm, 2))
+    for f in ("n_win", "inv_lump", "offsets"):
+        _close(getattr(got, f).double(), np.asarray(getattr(want, f), np.float64), f)
     # a ragged agglomerated level below a uniform seam (20 -> 5 -> 3 + 2 agglomerates)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        poisson_full_hierarchy(n=20, device="cpu")
+    h = poisson_full_hierarchy(n=20, device="cpu").hierarchy
+    jh = jproblems.poisson_full_hierarchy(n=20).hierarchy
+    assert type(h.transfers[-1]).__name__ == "RaggedBlockProlong"
+    for k, (lv, jlv) in enumerate(zip(h.levels, jh.levels)):
+        for got_t, want_t in zip(lv.a, jlv.a):
+            _close(got_t, want_t, f"level {k}")

@@ -1,7 +1,8 @@
 """The torch port's CUDA kernels (K1-K3, K5, K6 bit for bit, K7 with ghosts
 and in-place columns, the edge pair and its packing kernel, K8, K4), its
 mixed solve, its true-precision solve and its sharded solve on a one-rank
-NCCL group, on a CUDA card.
+NCCL group, the CG-topped stencil build and the ragged transfers against the
+CPU's, on a CUDA card.
 
 Every test here needs the card (marker ``cuda``) and skips without one.  This
 file imports neither JAX nor the JAX package, so it also runs where JAX is
@@ -385,3 +386,70 @@ def test_cuda_narrow_shards_take_k7_or_raise(cuda):
         want = bk.multisweep_plain(ml, mu, sinv, x, b)
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
         assert bk.LAUNCHES["multisweep_ghost"] == 1 and bk.LAUNCHES["multisweep"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smoother", ["jac", "hybridSchwarz"])
+def test_cuda_cg_topped_xl_build_equals_cpu_build(cuda, smoother):
+    """The CG-topped stencil build on the card equals the one on the CPU:
+    every float32 leaf to 3e-7 of its max (the same host stencil, inflated
+    by broadcasts), the float64 rhs to 1e-12, ``norm_b`` to 1e-12."""
+    from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem
+    from agglomerationmultigrid1d_tpu_torch.ops.df64 import ff_join
+    from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
+    from agglomerationmultigrid1d_tpu_torch.utils.precision import tree_map
+
+    n = 2048
+    spec = HierarchySpec(cg_orders=(8, 4, 2, 1), n_agg_levels=3, p_agg=1, c_dir=1000.0 * n, cg_smoother=smoother)
+    outs = [build_xl_problem(spec, n, ff_levels=True, device=dev) for dev in (cuda, "cpu")]
+    leaves = [[], []]
+    for out, acc in zip(outs, leaves):
+        tree_map(acc.append, (out[0].levels, out[0].transfers, out[1].a_ffs, out[1].t_los))
+    assert len(leaves[0]) == len(leaves[1]) > 40
+    for got, want in zip(*leaves):
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        if want.numel():
+            scale = float(want.abs().max())
+            assert float((got.cpu() - want).abs().max()) <= 3e-7 * scale
+    b_gpu, b_cpu = ff_join(outs[0][2]).cpu(), ff_join(outs[1][2])
+    assert float((b_gpu - b_cpu).abs().max()) <= 1e-12 * float(b_cpu.abs().max())
+    assert abs(outs[0][3] - outs[1][3]) <= 1e-12 * outs[1][3]
+
+
+@pytest.mark.cuda
+def test_cuda_ragged_transfers_equal_cpu(cuda):
+    """A ragged hierarchy's transfers on the card: prolongation (a gather
+    through the owner table), restriction and the Galerkin product equal
+    the CPU's in float64 (to 1e-14 of the largest entry), and the ragged
+    float32 solve launches K1 / K2 / K3."""
+    from agglomerationmultigrid1d_tpu_torch.ops.transfer_ops import (
+        RaggedBlockProlong,
+        rbp_galerkin,
+        rbp_prolong,
+        rbp_restrict,
+    )
+    from agglomerationmultigrid1d_tpu_torch.utils.precision import tree_to
+
+    prob = poisson_dg_hierarchy(n=1000, max_p=3, n_dg=2, n_agg=5, device="cpu")
+    rng = np.random.default_rng(0)
+    n_ragged = 0
+    for k, t in enumerate(prob.hierarchy.transfers):
+        if not isinstance(t, RaggedBlockProlong):
+            continue
+        n_ragged += 1
+        tg = tree_to(t, cuda)
+        xc = torch.from_numpy(rng.standard_normal((t.bs_coarse, t.n_coarse)))
+        rf = torch.from_numpy(rng.standard_normal((t.bs_fine, t.n_fine)))
+        for got, want in ((rbp_prolong(tg, xc.to(cuda)), rbp_prolong(t, xc)),
+                          (rbp_restrict(tg, rf.to(cuda)), rbp_restrict(t, rf))):
+            assert float((got.cpu() - want).abs().max()) <= 1e-14 * float(want.abs().max())
+        fine_a = prob.hierarchy.levels[k].a
+        for got, want in zip(rbp_galerkin(tg, tree_to(fine_a, cuda)), rbp_galerkin(t, fine_a)):
+            assert float((got.cpu() - want).abs().max()) <= 1e-14 * float(want.abs().max())
+    assert n_ragged >= 2
+    h = tree_to(prob.hierarchy, cuda)
+    b = prob.b.to(cuda)
+    bk.reset_launch_counts()
+    res = multigrid_mixed(h, make_low_precision_hierarchy(h), torch.zeros_like(b), b, 80, 1e-10)
+    assert float(res.res_history[res.iterations - 1]) < 1e-10 * float(torch.linalg.vector_norm(b))
+    assert all(bk.LAUNCHES[k] > 0 for k in ("multisweep", "multisweep_residual", "bt_matvec"))

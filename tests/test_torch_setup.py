@@ -101,10 +101,17 @@ def test_device_argument_places_everything():
 
 
 def test_unported_configurations_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # a ragged CG -> agg seam
-        build_problem(HierarchySpec(cg_orders=(2, 1), n_agg_levels=1), 18, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # ragged agglomerates
-        poisson_dg_hierarchy(n=20, max_p=1, n_dg=1, n_agg=2, device="cpu")
+    """Ragged agglomerates are ported now (the ragged CG -> agg seam and
+    ragged agglomerated levels build, their operators against the JAX
+    package's in ``tests/test_torch_ragged.py``); the mixed switch stays
+    refused."""
+    from agglomerationmultigrid1d_tpu_torch.ops.transfer_ops import RaggedBlockProlong, SeamProlong
+
+    seam = build_problem(HierarchySpec(cg_orders=(2, 1), n_agg_levels=1), 18, device="cpu")  # a ragged CG -> agg seam
+    assert isinstance(seam.hierarchy.transfers[-1], SeamProlong) and seam.hierarchy.transfers[-1].offsets is not None
+    ragged = poisson_dg_hierarchy(n=20, max_p=1, n_dg=1, n_agg=2, device="cpu")  # 20 -> 5 -> 2 agglomerates
+    assert isinstance(ragged.hierarchy.transfers[-1], RaggedBlockProlong)
+    assert [lv.a.n_blocks for lv in ragged.hierarchy.levels] == [20, 5, 2]
     mesh = create_uniform_mesh(8, 0.0, 1.0)
     dg = make_dg_mesh(mesh, 1, switch=np.array([False, False, False, True, True, True, True]))
     bc = BoundaryCondition(("neu", 0.0), ("dir", 1.0))

@@ -162,8 +162,13 @@ def test_setup_timings_and_unported_chains():
     timings = {}
     build_xl_problem(HierarchySpec(**SPEC), 1024, slim_fine=True, ff_levels=True, timings=timings, device="cpu")
     assert set(timings) == {"host_stencil", "inflate", "rhs"} and all(v >= 0 for v in timings.values())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        build_xl_problem(HierarchySpec(cg_orders=(2, 1), n_agg_levels=3, c_dir=1000.0 * 2048), 2048, device="cpu")
+    # CG-topped chains are ported now (held to the JAX package in tests/test_torch_stencil_cg.py)
+    h, a_ff, b, nb = build_xl_problem(HierarchySpec(cg_orders=(2, 1), n_agg_levels=3, c_dir=1000.0 * 2048), 2048,
+                                      device="cpu")
+    assert [type(lv).__name__ for lv in h.levels] == ["CgLevel"] * 2 + ["BlockLevel"] * 3
+    assert type(a_ff).__name__ == "CgBandFF" and tuple(b.hi.shape) == (2 * 2048 + 1,) and nb > 0
+    with pytest.raises(ValueError, match="DG-topped"):  # slim_fine stays DG-only, as in the JAX package
+        build_xl_problem(HierarchySpec(cg_orders=(2, 1), n_agg_levels=3), 2048, slim_fine=True, device="cpu")
 
 
 @pytest.mark.parametrize(
