@@ -6,7 +6,8 @@ The flux scheme is the DG level's, but the vertex terms are rank-1 outer
 products of the agglomerates' boundary modal-basis values.  On the lite mesh
 everything is closed form: the modal basis {1, 2(x - xc)/h} has boundary
 values (1, -1) on the left and (1, 1) on the right, derivatives (0, 2/h), and
-integrates to (h, 0).  Default switch only; assembled on the host in float64.
+integrates to (h, 0).  An explicit switch mirrors the couplings at its
+flipped vertices, as on the DG level.  Assembled on the host in float64.
 """
 
 from __future__ import annotations
@@ -47,16 +48,26 @@ def agg_flux_operators(
     g_diag = vol.copy()
     d_diag = vol.copy()
     g_lower = np.zeros((bs, bs, m))
+    g_upper = np.zeros((bs, bs, m))
+    d_lower = np.zeros((bs, bs, m))
     d_upper = np.zeros((bs, bs, m))
     c_diag = np.zeros((bs, bs, m))
 
     # interior vertex between agglomerates c (left) and c+1 (right): u-hat is
-    # the left agglomerate's right trace, q-hat the right one's left trace
+    # the left agglomerate's right trace, q-hat the right one's left trace;
+    # at a flipped vertex of an explicit switch the couplings are mirrored
     if m > 1:
-        g_lower[:, :, 1:] += np.einsum("ci,cj->ijc", bl[1:], br[:-1])
-        g_diag[:, :, :-1] -= np.einsum("ci,cj->ijc", br[:-1], br[:-1])
-        d_diag[:, :, 1:] += np.einsum("ci,cj->ijc", bl[1:], bl[1:])
-        d_upper[:, :, :-1] -= np.einsum("ci,cj->ijc", br[:-1], bl[1:])
+        sw = np.ones(m - 1) if agg.u_hat_left is None else np.asarray(agg.u_hat_left, dtype=np.float64)
+        fl = 1.0 - sw
+        g_lower[:, :, 1:] += sw * np.einsum("ci,cj->ijc", bl[1:], br[:-1])
+        g_diag[:, :, :-1] -= sw * np.einsum("ci,cj->ijc", br[:-1], br[:-1])
+        d_diag[:, :, 1:] += sw * np.einsum("ci,cj->ijc", bl[1:], bl[1:])
+        d_upper[:, :, :-1] -= sw * np.einsum("ci,cj->ijc", br[:-1], bl[1:])
+        if agg.u_hat_left is not None:
+            g_diag[:, :, 1:] += fl * np.einsum("ci,cj->ijc", bl[1:], bl[1:])
+            g_upper[:, :, :-1] -= fl * np.einsum("ci,cj->ijc", br[:-1], bl[1:])
+            d_diag[:, :, :-1] -= fl * np.einsum("ci,cj->ijc", br[:-1], br[:-1])
+            d_lower[:, :, 1:] += fl * np.einsum("ci,cj->ijc", bl[1:], br[:-1])
 
     bl0 = np.outer(bl[0], bl[0])
     brn = np.outer(br[-1], br[-1])
@@ -73,7 +84,7 @@ def agg_flux_operators(
 
     t = torch.from_numpy
     zero = torch.zeros((bs, bs, m), dtype=torch.float64)
-    g = BlockTridiag(lower=t(g_lower), diag=t(g_diag), upper=zero)
-    d = BlockTridiag(lower=zero, diag=t(d_diag), upper=t(d_upper))
+    g = BlockTridiag(lower=t(g_lower), diag=t(g_diag), upper=t(g_upper))
+    d = BlockTridiag(lower=t(d_lower), diag=t(d_diag), upper=t(d_upper))
     c = BlockTridiag(lower=zero, diag=t(c_diag), upper=zero)
     return g, d, c

@@ -5,7 +5,10 @@ The LDG-with-penalty scheme builds three block-tridiagonal operators — G
 Schur stiffness ``A = C - D M^-1 G``.  In 1D with the default upwinding (u-hat
 from the left element, q-hat from the right) every interior vertex touches
 four scalar entries and every domain end one, so assembly is pure slicing on
-the ``(bs, bs, n)`` diagonals.  Assembled on the host in float64.
+the ``(bs, bs, n)`` diagonals.  An explicit per-vertex switch mirrors the
+couplings at its flipped vertices (G then has an upper and D a lower
+diagonal; a mixed switch makes A block-pentadiagonal).  Assembled on the host
+in float64.
 """
 
 from __future__ import annotations
@@ -28,12 +31,7 @@ def _volume_ref(dg: DgMesh) -> np.ndarray:
 def dg_flux_operators(
     dg: DgMesh, bc: BoundaryCondition, c_dir: float
 ) -> tuple[BlockTridiag, BlockTridiag, BlockTridiag]:
-    """(G, D, C) block-tridiagonal operators (default switch only)."""
-    if dg.u_hat_left is not None:
-        raise NotImplementedError(
-            "explicit (mixed) switches make A block-pentadiagonal, which the "
-            "torch port does not have yet (ROADMAP queue 1, item 14)"
-        )
+    """(G, D, C) block-tridiagonal operators."""
     p = dg.p
     bs = p + 1
     n = dg.n_elements
@@ -41,6 +39,8 @@ def dg_flux_operators(
 
     g_lower = np.zeros((bs, bs, n))
     g_diag = np.zeros((bs, bs, n))
+    g_upper = np.zeros((bs, bs, n))
+    d_lower = np.zeros((bs, bs, n))
     d_diag = np.zeros((bs, bs, n))
     d_upper = np.zeros((bs, bs, n))
     c_diag = np.zeros((bs, bs, n))
@@ -51,11 +51,26 @@ def dg_flux_operators(
         d_diag += k_vol[:, :, None]
 
     # interior vertices: left-element row -1, right-element row +1
-    if n > 1:
+    if n > 1 and dg.u_hat_left is None:
         g_lower[0, s1, 1:] += 1.0
         g_diag[s1, s1, :-1] += -1.0
         d_diag[0, 0, 1:] += 1.0
         d_upper[s1, 0, :-1] += -1.0
+    elif n > 1:
+        # at a flipped vertex u-hat comes from the RIGHT element's
+        # left-endpoint trace and q-hat from the LEFT element's right-endpoint
+        # trace: the mirrored couplings (the JAX package's consistent
+        # alternating flux, not the reference's literal flipped trace)
+        sw = np.asarray(dg.u_hat_left, dtype=np.float64)
+        fl = 1.0 - sw
+        g_lower[0, s1, 1:] += sw
+        g_diag[s1, s1, :-1] += -sw
+        g_diag[0, 0, 1:] += fl
+        g_upper[s1, 0, :-1] += -fl
+        d_diag[0, 0, 1:] += sw
+        d_upper[s1, 0, :-1] += -sw
+        d_diag[s1, s1, :-1] += -fl
+        d_lower[0, s1, 1:] += fl
 
     # domain boundary vertices
     if bc.dir_left:
@@ -71,8 +86,9 @@ def dg_flux_operators(
 
     t = torch.from_numpy
     zero = torch.zeros((bs, bs, n), dtype=torch.float64, device="cpu")
-    g = BlockTridiag(lower=t(g_lower), diag=t(g_diag), upper=zero)
-    d = BlockTridiag(lower=zero, diag=t(d_diag), upper=t(d_upper))
+    default = dg.u_hat_left is None
+    g = BlockTridiag(lower=t(g_lower), diag=t(g_diag), upper=zero if default else t(g_upper))
+    d = BlockTridiag(lower=zero if default else t(d_lower), diag=t(d_diag), upper=t(d_upper))
     c = BlockTridiag(lower=zero, diag=t(c_diag), upper=zero)
     return g, d, c
 

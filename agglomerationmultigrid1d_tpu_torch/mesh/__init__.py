@@ -1,7 +1,8 @@
 from .agg_mesh import AggMesh, coarsen_agg_mesh, make_agg_mesh
 from .cg_mesh import CgMesh, make_cg_mesh
 from .dg_mesh import DgMesh, make_dg_mesh, normalize_switch
-from .topology import BoundaryCondition, Mesh1D, create_uniform_mesh
+from .scattered_agg import ScatteredAggMesh, coarsen_scattered_agg_mesh, make_scattered_agg_mesh
+from .topology import BoundaryCondition, Mesh1D, create_graded_mesh, create_uniform_mesh
 
 __all__ = [
     "AggMesh",
@@ -12,7 +13,11 @@ __all__ = [
     "DgMesh",
     "make_dg_mesh",
     "normalize_switch",
+    "ScatteredAggMesh",
+    "coarsen_scattered_agg_mesh",
+    "make_scattered_agg_mesh",
     "BoundaryCondition",
     "Mesh1D",
+    "create_graded_mesh",
     "create_uniform_mesh",
 ]

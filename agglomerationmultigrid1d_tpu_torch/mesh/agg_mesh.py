@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops.block_diag import BlockDiag
+from .dg_mesh import normalize_switch
 from .topology import Mesh1D
 
 
@@ -30,6 +31,10 @@ class AggMesh:
     boxes: np.ndarray  # (m, 2) bounding boxes [x_left, x_right]
     mass: BlockDiag
     mass_inv: BlockDiag
+    # per-interior-vertex switch (m - 1,), as on DgMesh: True = u-hat from the
+    # LEFT agglomerate; None = all-default.  Read only where the level
+    # assembles its own flux operators (a CG -> agg seam).
+    u_hat_left: np.ndarray | None = None
 
     @property
     def block_size(self) -> int:
@@ -83,11 +88,16 @@ def make_agg_mesh(
     *,
     partition=None,
     sub_sizes: np.ndarray | None = None,
+    switch: np.ndarray | None = None,
+    allow_trapped: bool = False,
 ) -> AggMesh:
     """Agglomeration level from the base mesh: ``r_base`` consecutive base
     elements per agglomerate, or an explicit contiguous ``partition`` (group
     sizes, or the reference's lists of element ids).  ``sub_sizes`` records how many previous-level elements each
-    agglomerate merges (default: the base sizes, i.e. a first level)."""
+    agglomerate merges (default: the base sizes, i.e. a first level).
+    ``switch`` (optional, ``(m - 1,)`` bool over the interior agglomerate
+    vertices) is the explicit per-vertex switch of :func:`.dg_mesh.make_dg_mesh`,
+    validated the same way."""
     if p not in (0, 1):
         raise ValueError("agglomerated modal basis only implemented for p = 0 and p = 1")
     n_base = mesh.n_elements
@@ -132,6 +142,7 @@ def make_agg_mesh(
         boxes=boxes,
         mass=BlockDiag(torch.from_numpy(np.moveaxis(mass_nij, 0, -1).copy())),
         mass_inv=BlockDiag(torch.from_numpy(np.moveaxis(inv_nij, 0, -1).copy())),
+        u_hat_left=normalize_switch(switch, m, allow_trapped),
     )
 
 

@@ -26,7 +26,8 @@ class DgMesh:
     mass: BlockDiag  # (p+1, p+1, n): J_k * reference mass per element
     mass_inv: BlockDiag
     # per-interior-vertex switch (n_el - 1,): True = u-hat from the LEFT
-    # element; None = all-default.  Only the default is ported.
+    # element, q-hat from the right (the default rule); False flips the
+    # sides at that vertex.  None = all-default.
     u_hat_left: np.ndarray | None = None
 
     @property
@@ -62,7 +63,13 @@ def make_dg_mesh(
     mesh: Mesh1D, p: int, switch: np.ndarray | None = None, allow_trapped: bool = False
 ) -> DgMesh:
     """Every mass block is ``J_k * M_ref``, so its inverse is ``M_ref^-1 / J_k``:
-    one tiny host inverse and an elementwise scale."""
+    one tiny host inverse and an elementwise scale.  ``switch`` (optional,
+    ``(n - 1,)`` bool): per interior vertex, False flips the u-hat / q-hat
+    sides (the reference's explicit-switch constructor); a mixed switch makes
+    the Schur stiffness block-pentadiagonal
+    (``schur_stiffness(..., mixed_switch=True)``).  A (True, False) pair
+    u-traps the element between them (a singular operator) and is rejected
+    unless ``allow_trapped``."""
     ref = make_reference_element(p)
     jac = torch.from_numpy(mesh.jacobians)
     mass = BlockDiag(torch.from_numpy(ref.mass)[:, :, None] * jac[None, None, :])

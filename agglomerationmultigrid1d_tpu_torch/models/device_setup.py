@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..mesh.dg_mesh import DgMesh
+from ..mesh.scattered_agg import ScatteredAggMesh
 from ..ops.block_diag import BlockDiag, bd_matvec
 from ..ops.block_tridiag import BlockTridiag, block_mul, bt_matvec
 from ..ops.transfer_ops import BlockProlong, bp_galerkin
@@ -127,6 +128,8 @@ def build_dg_hierarchy_device(
     # host float64: the transfer blocks, then the float32 casts
     transfers = []
     for fine_mesh, mesh in zip(meshes[:-1], meshes[1:]):
+        if isinstance(mesh, ScatteredAggMesh):
+            raise ValueError("the device hierarchy build requires uniform partitions")
         if isinstance(mesh, DgMesh):
             l = dg_dg_interpolation(mesh, fine_mesh)
         elif isinstance(fine_mesh, DgMesh):

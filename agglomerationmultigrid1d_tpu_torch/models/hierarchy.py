@@ -14,8 +14,11 @@ Every DG / agglomerated level below the top Galerkin-projects G, D and C
 wraps every smoothed level's smoother in Chebyshev acceleration.
 Agglomerates may be ragged (element counts the coarsening factors do not
 divide): their transfers are ``RaggedBlockProlong`` or a ``SeamProlong`` with
-offsets.  Penta-diagonal (mixed-switch) levels and scattered agglomerates are
-not ported yet.
+offsets.  Below a DG or agglomerated level with a *mixed* switch every block
+level's ``a`` is block-pentadiagonal (``BlockPenta``); a scattered
+(non-contiguous) agglomerated level holds block-COO operators
+(``BlockCOO``) and a ``ScatteredProlong``.  Only block-tridiagonal levels
+reach the fused kernels.
 """
 
 from __future__ import annotations
@@ -27,14 +30,18 @@ import torch
 
 from ..assembly.agg_assembly import agg_flux_operators
 from ..assembly.dg_assembly import dg_flux_operators
+from ..assembly.scattered_assembly import scattered_schur
 from ..mesh.agg_mesh import AggMesh
 from ..mesh.cg_mesh import CgMesh
 from ..mesh.dg_mesh import DgMesh
+from ..mesh.scattered_agg import ScatteredAggMesh
 from ..mesh.topology import BoundaryCondition
+from ..ops.block_coo import BlockCOO, bcoo_to_dense
 from ..ops.block_diag import BlockDiag
+from ..ops.block_penta import BlockPenta, bp5_sub, bp5_to_dense, bt_as_penta, bt_mul_bt_full
 from ..ops.block_tridiag import BlockTridiag, bd_mul_bt, block_mul, bt_mul_bt, bt_sub, bt_to_dense
 from ..ops.cg_operator import CgOperator, cg_to_dense
-from ..ops.coarse_solve import CoarseSolver, make_bt_coarse_solver, make_coarse_solver
+from ..ops.coarse_solve import CoarseSolver, make_bt_coarse_solver, make_coarse_solver, make_penta_coarse_solver
 from ..ops.kernels.block_kernels import MAX_SWEEPS, chebyshev_coefficients
 from ..ops.transfer_ops import cgp_galerkin, galerkin
 from ..smoothers.smoother import (
@@ -53,6 +60,11 @@ from ..transfer.interpolation import (
     dg_cg_interpolation,
     dg_dg_interpolation,
 )
+from ..transfer.scattered_transfer import (
+    scattered_dg_interpolation,
+    scattered_galerkin,
+    scattered_scattered_interpolation,
+)
 
 
 class CgLevel(NamedTuple):
@@ -61,10 +73,10 @@ class CgLevel(NamedTuple):
 
 
 class BlockLevel(NamedTuple):
-    a: BlockTridiag
-    g: BlockTridiag
-    d: BlockTridiag
-    c: BlockTridiag
+    a: BlockTridiag | BlockPenta | BlockCOO
+    g: BlockTridiag | BlockCOO
+    d: BlockTridiag | BlockCOO
+    c: BlockTridiag | BlockCOO
     mass_inv: torch.Tensor  # (bs, bs, n) of the level's own mass
     smoother: Smoother
 
@@ -83,13 +95,22 @@ class ShardLayout(NamedTuple):
 
 class Hierarchy(NamedTuple):
     levels: tuple  # of Level, fine -> coarse
-    transfers: tuple  # of BlockProlong / RaggedBlockProlong / CgProlong / SeamProlong, len = n_levels - 1
-    coarse: CoarseSolver  # host-factorized coarsest-level solver (dense, or BTCoarseSolver)
+    transfers: tuple  # of BlockProlong / RaggedBlockProlong / CgProlong / SeamProlong / ScatteredProlong
+    coarse: CoarseSolver  # host-factorized coarsest-level solver (dense, BTCoarseSolver, PaddedBTCoarseSolver)
     layout: ShardLayout | None = None  # None: every level whole on one device
 
     @property
     def n_levels(self) -> int:
         return len(self.levels)
+
+
+def operator_data(a) -> torch.Tensor:
+    """A floating tensor of a level operator (its dtype and device are the
+    operator's): the band of a CG operator, the blocks of a block-COO one,
+    else the diagonal blocks."""
+    if isinstance(a, CgOperator):
+        return a.band
+    return a.blocks if isinstance(a, BlockCOO) else a.diag
 
 
 def schur_stiffness(
@@ -99,18 +120,18 @@ def schur_stiffness(
     mass_inv: BlockDiag,
     *,
     mixed_switch: bool = False,
-) -> BlockTridiag:
-    """``A = C - D (M^-1 G)``, block-tridiagonal."""
+) -> BlockTridiag | BlockPenta:
+    """``A = C - D (M^-1 G)``: block-tridiagonal, or with ``mixed_switch``
+    (operators of a level with a mixed switch) the exact block-pentadiagonal
+    product, whose distance-2 blocks ``bt_mul_bt`` would drop."""
+    m_g = bd_mul_bt(mass_inv, g)
     if mixed_switch:
-        raise NotImplementedError(
-            "a mixed switch makes A block-pentadiagonal, which the torch port does "
-            "not have yet (ROADMAP queue 1, item 14)"
-        )
-    return bt_sub(c, bt_mul_bt(d, bd_mul_bt(mass_inv, g)))
+        return bp5_sub(bt_as_penta(c), bt_mul_bt_full(d, m_g))
+    return bt_sub(c, bt_mul_bt(d, m_g))
 
 
-def _block_level(g, d, c, mass_inv: BlockDiag) -> BlockLevel:
-    a = schur_stiffness(g, d, c, mass_inv)
+def _block_level(g, d, c, mass_inv: BlockDiag, penta: bool = False) -> BlockLevel:
+    a = schur_stiffness(g, d, c, mass_inv, mixed_switch=penta)
     return BlockLevel(
         a=a, g=g, d=d, c=c, mass_inv=mass_inv.blocks, smoother=dg_smoother(a, "blockJac")
     )
@@ -129,6 +150,18 @@ def _coarse_lu(level: Level) -> CoarseSolver:
                 "(e.g. agglomeration levels for large element counts)"
             )
         return make_coarse_solver(cg_to_dense(level.a))
+    if isinstance(level.a, BlockPenta):
+        if level.a.n_dof > DENSE_COARSE_MAX:
+            return make_penta_coarse_solver(level.a)  # pair-merged cyclic reduction
+        return make_coarse_solver(bp5_to_dense(level.a))
+    if isinstance(level.a, BlockCOO):
+        if level.a.n_dof > MAX_COARSE_DOF:
+            raise ValueError(
+                f"coarsest scattered level has {level.a.n_dof} DoF "
+                f"(> {MAX_COARSE_DOF}); its general sparsity has no banded "
+                "elimination — add more (scattered) coarsening levels"
+            )
+        return make_coarse_solver(bcoo_to_dense(level.a))
     if level.a.n_dof > DENSE_COARSE_MAX:
         # block cyclic reduction: O(n bs^2) memory, no size cliff
         return make_bt_coarse_solver(level.a)
@@ -141,16 +174,25 @@ def _agg_interpolation(mesh: AggMesh, fine_mesh):
     return aggdg_aggdg_interpolation(mesh, fine_mesh)
 
 
-def _galerkin_level(l, prev: BlockLevel, mesh) -> BlockLevel:
-    return _block_level(galerkin(l, prev.g), galerkin(l, prev.d), galerkin(l, prev.c), mesh.mass_inv)
+def _galerkin_level(l, prev: BlockLevel, mesh, penta: bool) -> BlockLevel:
+    return _block_level(galerkin(l, prev.g), galerkin(l, prev.d), galerkin(l, prev.c), mesh.mass_inv,
+                        penta=penta)
 
 
-def _unported_mesh(mesh) -> NotImplementedError:
-    return NotImplementedError(
-        f"{type(mesh).__name__} levels (scattered agglomerates, block-COO operators) "
-        "are not ported yet (ROADMAP queue 1, item 14); the torch port takes CG, DG "
-        "and contiguous agglomerated meshes"
-    )
+def _scattered_level(mesh: ScatteredAggMesh, fine_mesh, prev: BlockLevel) -> tuple:
+    """``(level, transfer)`` of a scattered agglomerated level below a DG,
+    agglomerated or scattered one: block-COO Galerkin products of G, D and C,
+    recombined with the level's own mass."""
+    if isinstance(fine_mesh, DgMesh):
+        l = scattered_dg_interpolation(mesh, fine_mesh)
+    elif isinstance(fine_mesh, (ScatteredAggMesh, AggMesh)):
+        l = scattered_scattered_interpolation(mesh, fine_mesh)
+    else:
+        raise TypeError("a scattered agglomeration level must follow a DG or agglomerated level")
+    g, d, c = (scattered_galerkin(l, x) for x in (prev.g, prev.d, prev.c))
+    a = scattered_schur(g, d, c, mesh.mass_inv)
+    level = BlockLevel(a=a, g=g, d=d, c=c, mass_inv=mesh.mass_inv.blocks, smoother=dg_smoother(a, "blockJac"))
+    return level, l
 
 
 def build_hierarchy(
@@ -164,12 +206,17 @@ def build_hierarchy(
     """CG-topped hierarchy from a fine -> coarse list of CgMesh / DgMesh /
     AggMesh, in that order (CG+ [DG*] [Agg*]).  The first DG or agglomerated
     level below the CG chain assembles its own flux operators (the seam);
-    every level below it is a Galerkin product."""
+    every level below it is a Galerkin product.  A seam mesh with a mixed
+    switch makes every block level from there on block-pentadiagonal."""
     if not isinstance(meshes[0], CgMesh):
         raise ValueError("at least one CG mesh required at the top")
 
     levels: list = [CgLevel(a=a_fine, smoother=cg_smoother(a_fine, cg_smoother_kind))]
     transfers: list = []
+    # once a mixed-switch level enters the chain, every block level below it
+    # recombines into the exact pentadiagonal Schur stiffness (the Galerkin
+    # projections of G, D, C keep the flipped-vertex couplings)
+    mixed = False
     for i in range(1, len(meshes)):
         fine_mesh, mesh = meshes[i - 1], meshes[i]
         prev = levels[-1]
@@ -188,17 +235,18 @@ def build_hierarchy(
                 else:
                     l = aggdg_cg_interpolation(mesh, fine_mesh)
                     g, d, c = agg_flux_operators(mesh, bc, c_dir)
-                levels.append(_block_level(g, d, c, mesh.mass_inv))
+                mixed = mesh.u_hat_left is not None
+                levels.append(_block_level(g, d, c, mesh.mass_inv, penta=mixed))
             elif isinstance(mesh, DgMesh):
                 if not isinstance(fine_mesh, DgMesh):
                     raise ValueError("DG level below an agglomerated level")
                 l = dg_dg_interpolation(mesh, fine_mesh)
-                levels.append(_galerkin_level(l, prev, mesh))
+                levels.append(_galerkin_level(l, prev, mesh, mixed))
             else:
                 l = _agg_interpolation(mesh, fine_mesh)
-                levels.append(_galerkin_level(l, prev, mesh))
+                levels.append(_galerkin_level(l, prev, mesh, mixed))
         else:
-            raise _unported_mesh(mesh)
+            raise TypeError(f"unknown mesh type {type(mesh)}")
         transfers.append(l)
 
     return Hierarchy(
@@ -208,19 +256,29 @@ def build_hierarchy(
 
 def build_dg_hierarchy(
     meshes: list,
-    a: BlockTridiag,
+    a: BlockTridiag | BlockPenta,
     g: BlockTridiag,
     d: BlockTridiag,
     c: BlockTridiag,
 ) -> Hierarchy:
     """DG-topped hierarchy (``mesh_heirarchy.jl:140-181``): finest operators
-    given, then one level per mesh of ``meshes[1:]`` (DG, then agglomerated)."""
+    given, then one level per mesh of ``meshes[1:]``: DG, then contiguous
+    agglomerated, then scattered agglomerated levels.
+
+    A finest mesh with a *mixed* switch must come with a block-pentadiagonal
+    ``a`` (``schur_stiffness(..., mixed_switch=True)``), and every level
+    below is pentadiagonal too; a tridiagonal ``a`` would drop its
+    distance-2 blocks and is rejected.
+    """
     if not isinstance(meshes[0], DgMesh):
         raise ValueError("at least one DG mesh required at the top")
-    if not isinstance(a, BlockTridiag) or meshes[0].u_hat_left is not None:
-        raise NotImplementedError(
-            "block-pentadiagonal (mixed-switch) operators are not ported yet "
-            "(ROADMAP queue 1, item 14)"
+    penta = isinstance(a, BlockPenta)
+    if meshes[0].u_hat_left is not None and not penta:
+        raise ValueError(
+            "the finest mesh has a mixed switch, which makes A = C - D M^-1 G "
+            "block-PENTAdiagonal; the given block-tridiagonal `a` drops its "
+            "distance-2 blocks — build it with "
+            "schur_stiffness(g, d, c, mass_inv, mixed_switch=True)"
         )
     levels = [
         BlockLevel(
@@ -231,6 +289,18 @@ def build_dg_hierarchy(
     transfers = []
     for i in range(1, len(meshes)):
         fine_mesh, mesh = meshes[i - 1], meshes[i]
+        prev = levels[-1]
+        if isinstance(mesh, ScatteredAggMesh):
+            level, l = _scattered_level(mesh, fine_mesh, prev)
+            levels.append(level)
+            transfers.append(l)
+            continue
+        if isinstance(prev.g, BlockCOO):
+            raise TypeError(
+                "a contiguous level cannot follow a scattered level (its "
+                "operators are general block-COO); keep the remaining levels "
+                "scattered (coarsen_scattered_agg_mesh)"
+            )
         if isinstance(mesh, DgMesh):
             if not isinstance(fine_mesh, DgMesh):
                 raise ValueError("DG level below an agglomerated level")
@@ -238,8 +308,8 @@ def build_dg_hierarchy(
         elif isinstance(mesh, AggMesh):
             l = _agg_interpolation(mesh, fine_mesh)
         else:
-            raise _unported_mesh(mesh)
-        levels.append(_galerkin_level(l, levels[-1], mesh))
+            raise TypeError("DG-topped hierarchies take DG/Agg/Scattered meshes only")
+        levels.append(_galerkin_level(l, prev, mesh, penta))
         transfers.append(l)
 
     return Hierarchy(
@@ -256,7 +326,8 @@ def strip_hierarchy(h: Hierarchy) -> Hierarchy:
     def strip(lv):
         if not isinstance(lv, BlockLevel):
             return lv
-        e = torch.zeros((0, 0, 0), dtype=lv.a.diag.dtype, device=lv.a.diag.device)
+        like = operator_data(lv.a)
+        e = torch.zeros((0, 0, 0), dtype=like.dtype, device=like.device)
         empty = BlockTridiag(e, e, e)
         return lv._replace(g=empty, d=empty, c=empty, mass_inv=e)
 
@@ -276,10 +347,13 @@ def prepare_fast_smoothers(h: Hierarchy) -> Hierarchy:
     block-Jacobi smoother, also under a Chebyshev wrap, and a Chebyshev
     smoother's recurrence table (``make_low_precision_hierarchy`` calls this
     after the cast); on a sharded hierarchy also K7's operator ghosts
-    (``parallel.distributed.attach_operator_ghosts``, a collective)."""
+    (``parallel.distributed.attach_operator_ghosts``, a collective).  Only
+    block-tridiagonal levels get the streams: no kernel takes a
+    pentadiagonal or block-COO level."""
 
     def fix_base(lv, s):
-        if not isinstance(lv, BlockLevel) or not isinstance(s, BlockJacobiSmoother) or s.ml is not None:
+        if (not isinstance(lv, BlockLevel) or not isinstance(lv.a, BlockTridiag)
+                or not isinstance(s, BlockJacobiSmoother) or s.ml is not None):
             return s
         return s._replace(ml=block_mul(s.inv, lv.a.lower), mu=block_mul(s.inv, lv.a.upper))
 
@@ -292,7 +366,7 @@ def prepare_fast_smoothers(h: Hierarchy) -> Hierarchy:
             if s.coef is None:
                 s = s._replace(coef=_chebyshev_table(s))
             return lv._replace(smoother=s)
-        if isinstance(lv, BlockLevel) and lv.a.diag.dtype == torch.float32:
+        if isinstance(lv, BlockLevel) and operator_data(lv.a).dtype == torch.float32:
             return lv._replace(smoother=fix_base(lv, s))
         return lv
 
@@ -328,10 +402,11 @@ def chebyshev_hierarchy(
         if k == len(h.levels) - 1:
             new_levels.append(level)  # the coarsest level never smooths
             continue
+        like = operator_data(level.a)
         if isinstance(level, CgLevel):
-            shape, like = (level.a.n_nodes,), level.a.band
+            shape = (level.a.n_nodes,)
         else:
-            shape, like = (level.a.block_size, level.a.n_blocks), level.a.diag
+            shape = (level.a.block_size, level.a.n_blocks)
         i = torch.arange(math.prod(shape), dtype=like.dtype, device=like.device)
         x0 = torch.cos(1.7 * i).reshape(shape) + 0.5
         lam = _power_lam(level, x0, power_iters)

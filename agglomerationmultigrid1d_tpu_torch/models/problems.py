@@ -5,6 +5,12 @@ one-call constructors:
 * :func:`poisson_dg_cg_hierarchy`   — ``tests/dg_cg_heirarchy_test.jl``
 * :func:`poisson_dg_hierarchy`      — ``tests/dg_heirarchy_test.jl``
 * :func:`poisson_full_hierarchy`    — ``tests/full_heirarchy_test.jl`` (the flagship)
+* :func:`poisson_scattered_hierarchy` — DG-topped, with scattered
+  (non-contiguous) agglomerates from explicit element-id lists
+  (:func:`interleaved_pair_groups`: a partition of them that converges as a
+  deep chain)
+* :func:`poisson_switch_hierarchy`  — DG-topped with a mixed upwind switch:
+  every level block-pentadiagonal
 
 Model problem: -u'' = cos(x) on [0, 1], u = cos (Neumann left, Dirichlet right).
 Setup runs on the host in float64 (vectorised NumPy / torch); the finished
@@ -213,3 +219,94 @@ def poisson_full_hierarchy(
         c_dir=1000.0 * n if c_dir is None else c_dir,
     )
     return build_problem(spec, n, func, bc, device=device)
+
+
+def poisson_scattered_hierarchy(
+    n: int = 64,
+    p_dg: int = 1,
+    groups_per_level: list | None = None,
+    p_agg: int = 1,
+    c_dir: float | None = None,
+    func: Callable | None = None,
+    bc: BoundaryCondition | None = None,
+    device="cuda",
+) -> Problem:
+    """DG-topped hierarchy whose coarsening levels are SCATTERED
+    (non-contiguous) agglomerations from explicit element-id lists, the
+    reference's ``AgglomeratedDgMesh1(mP, agg::Vector{Vector{Int64}}, ...)``
+    workflow as one call.
+
+    ``groups_per_level[0]`` partitions the base elements; each later entry
+    partitions the previous level's AGGLOMERATES (the recursive
+    ``AgglomeratedDgMeshN``).  An entry is a list of id lists or a 2-d
+    integer array, one row per agglomerate.  Default: one level of locally
+    interleaved agglomerates (two 4-element runs per 16-element block)."""
+    from ..mesh.scattered_agg import coarsen_scattered_agg_mesh, make_scattered_agg_mesh
+
+    func_, u_ex, ux_ex = default_model_problem()
+    func = func or func_
+    bc = bc or _default_bc(u_ex, ux_ex)
+    c_dir = 1000.0 * n if c_dir is None else c_dir
+
+    if groups_per_level is None:
+        if n % 16:
+            raise ValueError("the default scattered partition needs 16 | n")
+        o = 16 * np.arange(n // 16)[:, None]
+        first = o + np.array([0, 1, 2, 3, 8, 9, 10, 11])
+        second = o + np.array([4, 5, 6, 7, 12, 13, 14, 15])
+        groups_per_level = [np.stack([first, second], axis=1).reshape(-1, 8)]
+
+    mesh = create_uniform_mesh(n, 0.0, 1.0)
+    dg = make_dg_mesh(mesh, p_dg)
+    sa = make_scattered_agg_mesh(p_agg, mesh, groups_per_level[0])
+    meshes: list = [dg, sa]
+    for groups in groups_per_level[1:]:
+        sa = coarsen_scattered_agg_mesh(sa, groups)
+        meshes.append(sa)
+
+    g, d, c = dg_flux_operators(dg, bc, c_dir)
+    a = schur_stiffness(g, d, c, dg.mass_inv)
+    f, r = dg_flux_rhs(dg, func, bc, c_dir)
+    b = f - bt_matvec(d, bd_matvec(dg.mass_inv, r))
+    h = build_dg_hierarchy(meshes, a, g, d, c)
+    return Problem(hierarchy=tree_to(h, device), b=b.to(device), meshes=meshes, bc=bc)
+
+
+def interleaved_pair_groups(n: int, coarsest: int) -> list:
+    """Scattered partitions for :func:`poisson_scattered_hierarchy`:
+    interleaved pairs ({4b, 4b+2} and {4b+1, 4b+3}) of the ``n`` base
+    elements, then agglomerates {2c, 2c+1} of the level above, down to
+    ``coarsest`` agglomerates; 2-d arrays, one row per agglomerate."""
+    o = 4 * np.arange(n // 4)[:, None]
+    groups, m = [np.stack([o + np.array([0, 2]), o + np.array([1, 3])], axis=1).reshape(-1, 2)], n // 2
+    while m > coarsest:
+        groups.append(np.arange(m).reshape(-1, 2))
+        m //= 2
+    return groups
+
+
+def poisson_switch_hierarchy(
+    n: int = 64,
+    n_coarsen: int = 1,
+    c_dir: float | None = None,
+    device="cuda",
+) -> Problem:
+    """DG-topped hierarchy with a mixed upwind switch, False on the first
+    n/2 interior vertices and True on the rest (the reference's
+    ``tests/test_penta.py`` pattern): DG p = 3, DG p = 1 with the same
+    switch, agglomerates of 2, then ``n_coarsen`` 2:1 levels; every level
+    block-pentadiagonal, Neumann left / Dirichlet right."""
+    func, u_ex, ux_ex = default_model_problem()
+    bc = _default_bc(u_ex, ux_ex)
+    c_dir = 1000.0 * n if c_dir is None else c_dir
+    s = np.array([False] * (n // 2) + [True] * (n - 1 - n // 2))
+    mesh = create_uniform_mesh(n, 0.0, 1.0)
+    meshes: list = [make_dg_mesh(mesh, 3, switch=s), make_dg_mesh(mesh, 1, switch=s), make_agg_mesh(1, mesh, 2)]
+    for _ in range(n_coarsen):
+        meshes.append(coarsen_agg_mesh(meshes[-1], 2))
+    dg = meshes[0]
+    g, d, c = dg_flux_operators(dg, bc, c_dir)
+    h = build_dg_hierarchy(meshes, schur_stiffness(g, d, c, dg.mass_inv, mixed_switch=True), g, d, c)
+    f, r = dg_flux_rhs(dg, func, bc, c_dir)
+    b = f - bt_matvec(d, bd_matvec(dg.mass_inv, r))
+    return Problem(hierarchy=tree_to(h, device), b=b.to(device), meshes=meshes, bc=bc)

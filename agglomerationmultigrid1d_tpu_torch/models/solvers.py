@@ -4,14 +4,16 @@ The drivers are host loops over eager tensor operations, with the reference's
 observability contract ``(x, iterations, res_history, err_history)``.  Level
 vectors are ``(n_nodes,)`` on CG levels and ``(bs, n)`` on block levels.
 
-Kernel dispatch is by the level and the tensors: on a float32 block level
-whose smoother is block-Jacobi, smoothing, the restrict-side residual and the
-inner residual check go through the wrappers of
-:mod:`..ops.kernels.block_kernels` (the CUDA kernels for CUDA tensors, their
-plain M-form versions for CPU tensors): K1 / K2 for damped sweeps, K5 when the
-block-Jacobi smoother sits under a Chebyshev wrap.  Every other level (CG
-levels, float64 levels) smooths in plain torch: damped sweeps
-``u += alpha S (rhs - A u)`` or the Chebyshev three-term recurrence.
+Kernel dispatch is by the level and the tensors: on a float32
+block-tridiagonal level whose smoother is block-Jacobi, smoothing, the
+restrict-side residual and the inner residual check go through the wrappers
+of :mod:`..ops.kernels.block_kernels` (the CUDA kernels for CUDA tensors,
+their plain M-form versions for CPU tensors): K1 / K2 for damped sweeps, K5
+when the block-Jacobi smoother sits under a Chebyshev wrap.  Every other
+level (CG levels, float64 levels, and, as in the JAX package,
+block-pentadiagonal mixed-switch and block-COO scattered levels) smooths in
+plain torch: damped sweeps ``u += alpha S (rhs - A u)`` or the Chebyshev
+three-term recurrence.
 
 Beyond float64 (:func:`multigrid`) and mixed precision
 (:func:`multigrid_mixed`, float64 iterate; :func:`_mixed_loop_ff`, the JAX
@@ -38,13 +40,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.block_tridiag import block_mul, bt_matvec
+from ..ops.block_coo import BlockCOO, bcoo_matvec
+from ..ops.block_penta import BlockPenta, bp5_matvec
+from ..ops.block_tridiag import BlockTridiag, block_mul, bt_matvec
 from ..ops.shifts import shift
 from ..ops.cg_operator import cg_matvec
 from ..ops.coarse_solve import coarse_solve
 from ..ops.df64 import (
     FF,
     BTFFStencil,
+    bp5_split,
     bt_split,
     cg_band_split,
     f64_bt_defect_stencil,
@@ -79,7 +84,8 @@ from ..ops.transfer_ops import (
     seam_restrict,
 )
 from ..smoothers.smoother import BlockJacobiSmoother, ChebyshevSmoother, apply_smoother
-from .hierarchy import BlockLevel, CgLevel, Hierarchy
+from ..transfer.scattered_transfer import ScatteredProlong, sp_prolong, sp_restrict
+from .hierarchy import BlockLevel, CgLevel, Hierarchy, operator_data
 
 
 def _group(h: Hierarchy, k: int):
@@ -93,7 +99,12 @@ def _is_slim_bt(level) -> bool:
     operator keeps only the diagonal blocks; the off-diagonal action lives in
     the smoother's M-form streams (``A = D (I + ML_shift + MU_shift)``, since
     ``ML = D^-1 L``)."""
-    return isinstance(level, BlockLevel) and level.a.lower.numel() == 0 and level.a.diag.numel() > 0
+    return (
+        isinstance(level, BlockLevel)
+        and isinstance(level.a, BlockTridiag)
+        and level.a.lower.numel() == 0
+        and level.a.diag.numel() > 0
+    )
 
 
 def _mform_matvec(level, x: torch.Tensor) -> torch.Tensor:
@@ -111,6 +122,10 @@ def level_matvec(level, x: torch.Tensor, group=None) -> torch.Tensor:
     """``A x``; with ``group``, ``x`` is the rank's shard of a sharded level."""
     if isinstance(level, CgLevel):
         return cg_matvec(level.a, x)
+    if isinstance(level.a, BlockPenta):
+        return bp5_matvec(level.a, x)
+    if isinstance(level.a, BlockCOO):
+        return bcoo_matvec(level.a, x)
     if group is None:
         return _mform_matvec(level, x) if _is_slim_bt(level) else bt_matvec(level.a, x)
     return bt_matvec(level.a, x, *halo_neighbours(x, group))
@@ -125,6 +140,8 @@ def transfer_prolong(l, xc: torch.Tensor) -> torch.Tensor:
         return rbp_prolong(l, xc)
     if isinstance(l, SeamProlong):
         return seam_prolong(l, xc)
+    if isinstance(l, ScatteredProlong):
+        return sp_prolong(l, xc)
     raise TypeError(type(l))
 
 
@@ -137,6 +154,8 @@ def transfer_restrict(l, rf: torch.Tensor) -> torch.Tensor:
         return rbp_restrict(l, rf)
     if isinstance(l, SeamProlong):
         return seam_restrict(l, rf)
+    if isinstance(l, ScatteredProlong):
+        return sp_restrict(l, rf)
     raise TypeError(type(l))
 
 
@@ -194,10 +213,13 @@ def _base_smoother(level):
 
 def _on_kernels(level, u: torch.Tensor) -> bool:
     """Whether the level smooths through the fused block kernels: float32
-    data on a block level with a block-Jacobi (base) smoother."""
+    data on a block-tridiagonal level with a block-Jacobi (base) smoother.
+    The kernels' M-form streams hold the tridiagonal couplings only, so a
+    pentadiagonal or block-COO level smooths in plain torch."""
     return (
         u.dtype == torch.float32
         and isinstance(level, BlockLevel)
+        and isinstance(level.a, BlockTridiag)
         and isinstance(_base_smoother(level), BlockJacobiSmoother)
     )
 
@@ -305,11 +327,12 @@ def _smooth_n_residual(level, u, rhs, n_sweeps, alpha, group=None):
 
 
 def _level_matvec_opt(level, x, group=None):
-    """``A x`` through K3 on float32 block levels (not on a slim level, whose
-    off-diagonals are empty).  On a shard, K3 sees zeros beyond its two edge
-    columns; the neighbours' columns are then added to those two columns
+    """``A x`` through K3 on float32 block-tridiagonal levels (not on a slim
+    level, whose off-diagonals are empty).  On a shard, K3 sees zeros beyond
+    its two edge columns; the neighbours' columns are then added to those two columns
     (``A_L x_{-1}`` on the first, ``A_U x_{+1}`` on the last)."""
-    if isinstance(level, BlockLevel) and x.dtype == torch.float32 and not _is_slim_bt(level):
+    if (isinstance(level, BlockLevel) and isinstance(level.a, BlockTridiag) and x.dtype == torch.float32
+            and not _is_slim_bt(level)):
         y = fused_bt_matvec(level.a, x.contiguous())
         if group is not None:
             left, right = edge_columns(x, group)
@@ -532,7 +555,7 @@ def _mixed_loop(h, h_low, x, b, norm_b, *, maxiter, tol, inner_tol, max_inner, k
 
     Returns ``(x, outer, cycles, rel_history)``."""
     fine, g0 = h.levels[0], _group(h, 0)
-    low_dtype = h_low.levels[0].a[0].dtype  # the first tensor of the fine operator
+    low_dtype = operator_data(h_low.levels[0].a).dtype
 
     def rel_defect(x):
         r = b - level_matvec(fine, x, g0)
@@ -653,9 +676,17 @@ def multigrid_mixed(
 
 
 def _ff_split_level(lv):
-    """Level operator -> float-float representation (CG band or tridiagonal)."""
+    """Level operator -> float-float representation (CG band, tridiagonal or
+    pentadiagonal).  A block-COO level has none, as in the JAX package."""
     if isinstance(lv, CgLevel):
         return cg_band_split(lv.a.band)
+    if isinstance(lv.a, BlockPenta):
+        return bp5_split(lv.a)
+    if isinstance(lv.a, BlockCOO):
+        raise TypeError(
+            "a block-COO (scattered) level has no float-float operator: the "
+            "progressive-precision cycles take tridiagonal and pentadiagonal levels"
+        )
     return bt_split(lv.a)
 
 
@@ -768,7 +799,7 @@ def _progressive_loop(
     it = 0
     while it < maxiter:
         r_ff, rel = _ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b, g0)
-        rel = np.float32(rel)
+        rel = np.float32(float(rel))  # a 0-d tensor on the level's device
         if it > 0:
             res_h[it - 1] = rel
         if rel < tol32:
@@ -777,7 +808,7 @@ def _progressive_loop(
         x_ff = ff_add(x_ff, e_ff)
         it += 1
     if it > 0:  # the defect of the final iterate
-        res_h[it - 1] = np.float32(_ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b, g0)[1])
+        res_h[it - 1] = np.float32(float(_ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b, g0)[1]))
     return x_ff, it, res_h
 
 

@@ -11,6 +11,9 @@ the level's device:
   dense matrix is formed and there is no size cliff.  One refinement step
   against the stored operator restores direct-solve accuracy for the
   penalty-dominated (c_dir = 1000 n) agglomerated coarse operators.
+* :class:`PaddedBTCoarseSolver` — the same for a block-pentadiagonal
+  (mixed-switch) coarsest operator with an odd block count, pair-merged into
+  a tridiagonal one of block size ``2 bs`` (``make_penta_coarse_solver``).
 """
 
 from __future__ import annotations
@@ -190,8 +193,36 @@ def _bt_solve(s: BTCoarseSolver, b: torch.Tensor) -> torch.Tensor:
     return x.T.reshape(-1)
 
 
+class PaddedBTCoarseSolver(NamedTuple):
+    """A :class:`BTCoarseSolver` of a pair-merged pentadiagonal operator whose
+    block count was odd: the flat rhs gets one zero fine block appended
+    before the merged solve and the solution is cropped back (the padding
+    row is the identity, so the padded unknowns are exactly zero)."""
+
+    inner: BTCoarseSolver
+    n_dof: int  # real (unpadded) DoF count
+
+    @property
+    def n(self) -> int:
+        return self.n_dof
+
+
+def make_penta_coarse_solver(a) -> PaddedBTCoarseSolver | BTCoarseSolver:
+    """Cyclic-reduction factorization of a :class:`~.block_penta.BlockPenta`
+    coarsest operator through pair-merging to block size ``2 bs``."""
+    from .block_penta import bp5_pair_merge
+
+    inner = make_bt_coarse_solver(bp5_pair_merge(a))
+    if a.n_blocks % 2 == 0:
+        return inner
+    return PaddedBTCoarseSolver(inner=inner, n_dof=a.n_dof)
+
+
 def coarse_solve(f, b: torch.Tensor) -> torch.Tensor:
     """Direct solve, dispatched on the factorization type (flat vector in/out)."""
+    if isinstance(f, PaddedBTCoarseSolver):
+        pad = f.inner.a.n_dof - f.n_dof
+        return _bt_solve(f.inner, torch.nn.functional.pad(b, (0, pad)))[: f.n_dof]
     if isinstance(f, BTCoarseSolver):
         return _bt_solve(f, b)
     return _dense_solve(f, b)

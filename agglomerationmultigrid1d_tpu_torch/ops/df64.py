@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from .block_penta import BlockPenta
 from .block_tridiag import BlockTridiag
 from .shifts import shift
 
@@ -63,6 +64,19 @@ def ff_join(x: FF) -> torch.Tensor:
 def bt_split(a: BlockTridiag) -> BlockTridiagFF:
     parts = [ff_split(d) for d in a]
     return BlockTridiagFF(BlockTridiag(*(p.hi for p in parts)), BlockTridiag(*(p.lo for p in parts)))
+
+
+class BlockPentaFF(NamedTuple):
+    """A block-pentadiagonal operator (mixed-switch levels, see
+    ``ops.block_penta``) with float-float entries."""
+
+    hi: BlockPenta  # float32
+    lo: BlockPenta  # float32
+
+
+def bp5_split(a: BlockPenta) -> BlockPentaFF:
+    parts = [ff_split(d) for d in a]
+    return BlockPentaFF(BlockPenta(*(p.hi for p in parts)), BlockPenta(*(p.lo for p in parts)))
 
 
 def _two_sum(a, b):
@@ -146,6 +160,16 @@ def ff_bt_defect(a: BlockTridiagFF, x: FF, b: FF, xm: FF | None = None, xp: FF |
     acc = _contract_ff(a, lambda t: t.diag, x, b, -1.0)
     acc = _contract_ff(a, lambda t: t.lower, _shifted(x, -1) if xm is None else xm, acc, -1.0)
     return _contract_ff(a, lambda t: t.upper, _shifted(x, +1) if xp is None else xp, acc, -1.0)
+
+
+def ff_bp5_defect(a: BlockPentaFF, x: FF, b: FF) -> FF:
+    """Pentadiagonal ``r = b - A x`` in float-float: :func:`ff_bt_defect`'s
+    three contractions, then the distance-2 ones (lower2, upper2)."""
+    acc = _contract_ff(a, lambda t: t.diag, x, b, -1.0)
+    for d, sel in ((-1, lambda t: t.lower), (+1, lambda t: t.upper),
+                   (-2, lambda t: t.lower2), (+2, lambda t: t.upper2)):
+        acc = _contract_ff(a, sel, _shifted(x, d), acc, -1.0)
+    return acc
 
 
 def _bt_broadcast(t: BlockTridiag, n: int) -> BlockTridiag:
@@ -304,6 +328,8 @@ def ff_defect(a, x: FF, b: FF) -> FF:
         return ff_bt_defect(a, x, b)
     if isinstance(a, BTFFStencil):
         return ff_bt_defect_stencil(a, x, b)
+    if isinstance(a, BlockPentaFF):
+        return ff_bp5_defect(a, x, b)
     if isinstance(a, CgBandFF):
         return ff_cg_defect(a, x, b)
     raise TypeError(type(a))

@@ -26,7 +26,9 @@ Typical use, one process per rank::
 
 CG levels (the JAX package's ``_pad_cg_level`` / ``_pad_cg_smoother``) and
 CG or seam transfers on sharded levels are not ported yet (ROADMAP queue 1,
-item 15): :func:`shard_hierarchy` raises ``NotImplementedError`` for them.
+item 15), nor are sharded block-pentadiagonal (mixed-switch) or block-COO
+(scattered) levels, which the JAX package's partitioner shards:
+:func:`shard_hierarchy` raises ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..models.hierarchy import BlockLevel, CgLevel, Hierarchy, ShardLayout
+from ..ops.block_tridiag import BlockTridiag
 from ..ops.transfer_ops import BlockProlong
 from ..smoothers.smoother import BlockJacobiSmoother, ChebyshevSmoother
 from ..utils.precision import tree_map, tree_to
@@ -82,9 +85,17 @@ def shard_hierarchy(h: Hierarchy, group: SolverGroup, *, min_blocks_per_device: 
 
     sharded = [shardable(lv) for lv in h.levels]
     sharded[-1] = False  # the coarsest level always replicates (dense direct solve)
-    for lv, sh in zip(h.levels, sharded):
+    for k, (lv, sh) in enumerate(zip(h.levels, sharded)):
         if sh and isinstance(lv, CgLevel):
             raise _unported("a CG level")
+        if sh and not isinstance(lv.a, BlockTridiag):
+            # sliced by columns, its distance-2 or scattered couplings would be
+            # cut and the level smoothed as if it were tridiagonal
+            raise NotImplementedError(
+                f"level {k} holds a {type(lv.a).__name__} operator; sharding it is not ported "
+                "(ROADMAP queue 1, item 15 (d): the JAX package's partitioner shards it, the port "
+                "shards block-tridiagonal levels only); raise min_blocks_per_device so it stays whole"
+            )
     levels = [
         _slice_cols(lv, lv.a.n_blocks, group) if sh else tree_to(lv, group.device)
         for lv, sh in zip(h.levels, sharded)

@@ -19,7 +19,7 @@ from typing import NamedTuple, Union
 import torch
 
 from ..ops.block_diag import BlockDiag, bd_matvec
-from ..ops.block_tridiag import BlockTridiag, block_mul, bt_diag_blocks, bt_diagonal
+from ..ops.block_tridiag import BlockTridiag, block_mul, bt_diag_blocks
 from ..ops.cg_operator import (
     CgOperator,
     cg_element_nodes,
@@ -138,17 +138,21 @@ def cg_smoother(a: CgOperator, kind: str = "jac") -> Smoother:
     raise ValueError(f"unknown CG smoother kind {kind!r}")
 
 
-def dg_smoother(a: BlockTridiag, kind: str = "blockJac") -> Smoother:
+def dg_smoother(a, kind: str = "blockJac") -> Smoother:
     """Smoother of a DG / agglomerated level: ``"jac"`` (pointwise) or
-    ``"blockJac"`` (inverted diagonal blocks, plus the M-form streams on a
-    float32 level)."""
+    ``"blockJac"`` (inverted diagonal blocks).  ``a`` is block-tridiagonal,
+    block-pentadiagonal or block-COO; a float32 block-tridiagonal level also
+    gets the M-form streams (no kernel takes the other two)."""
+    from ..ops.block_coo import BlockCOO, bcoo_diag_blocks
+
+    d = bcoo_diag_blocks(a) if isinstance(a, BlockCOO) else bt_diag_blocks(a).blocks
     if kind == "jac":
-        return JacobiSmoother(inv_diag=1.0 / bt_diagonal(a))
+        return JacobiSmoother(inv_diag=1.0 / torch.stack([d[i, i] for i in range(d.shape[0])]))
     if kind != "blockJac":
         raise ValueError(f"unknown DG smoother kind {kind!r}")
-    inv = _invert_windows(bt_diag_blocks(a).blocks)
+    inv = _invert_windows(d)
     ml = mu = None
-    if a.diag.dtype == torch.float32:
+    if isinstance(a, BlockTridiag) and a.diag.dtype == torch.float32:
         ml = block_mul(inv, a.lower)
         mu = block_mul(inv, a.upper)
     return BlockJacobiSmoother(inv=inv, ml=ml, mu=mu)

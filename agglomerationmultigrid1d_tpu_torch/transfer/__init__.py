@@ -6,6 +6,14 @@ from .interpolation import (
     dg_cg_interpolation,
     dg_dg_interpolation,
 )
+from .scattered_transfer import (
+    ScatteredProlong,
+    scattered_dg_interpolation,
+    scattered_galerkin,
+    scattered_scattered_interpolation,
+    sp_prolong,
+    sp_restrict,
+)
 
 __all__ = [
     "aggdg_aggdg_interpolation",
@@ -14,4 +22,10 @@ __all__ = [
     "cg_cg_interpolation",
     "dg_cg_interpolation",
     "dg_dg_interpolation",
+    "ScatteredProlong",
+    "scattered_dg_interpolation",
+    "scattered_galerkin",
+    "scattered_scattered_interpolation",
+    "sp_prolong",
+    "sp_restrict",
 ]

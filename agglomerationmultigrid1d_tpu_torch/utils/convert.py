@@ -15,11 +15,14 @@ import numpy as np
 import torch
 
 from ..models.hierarchy import BlockLevel, CgLevel, Hierarchy, _chebyshev_table
+from ..ops.block_coo import bcoo_make
+from ..ops.block_penta import BlockPenta
 from ..ops.block_tridiag import BlockTridiag
 from ..ops.cg_operator import CgOperator
-from ..ops.coarse_solve import BTCoarseSolver, CoarseSolver
-from ..ops.df64 import FF, BlockTridiagFF, BTFFStencil, CgBandFF
+from ..ops.coarse_solve import BTCoarseSolver, CoarseSolver, PaddedBTCoarseSolver
+from ..ops.df64 import FF, BlockPentaFF, BlockTridiagFF, BTFFStencil, CgBandFF
 from ..ops.transfer_ops import BlockProlong, CgProlong, SeamProlong, ragged_prolong
+from ..transfer.scattered_transfer import scattered_prolong
 from ..smoothers.smoother import (
     BlockJacobiSmoother,
     ChebyshevSmoother,
@@ -30,20 +33,23 @@ from ..smoothers.smoother import (
 
 def hierarchy_from_numpy(h, device="cuda", dtype: torch.dtype | None = None) -> Hierarchy:
     """Duck-typed conversion.  Reads ``levels`` — block levels with ``a``,
-    ``g``, ``d``, ``c`` as ``lower/diag/upper`` and ``mass_inv``, CG levels
-    with ``a`` as ``windows/band`` — each with a ``smoother`` (block-Jacobi
-    ``inv/ml/mu``, Jacobi ``inv_diag``, Schwarz ``inv_windows/mult_inv``, or a
-    Chebyshev ``base/lam_lo/lam_hi`` over one of them); ``transfers`` (block
+    ``g``, ``d``, ``c`` as ``lower/diag/upper`` (``a`` pentadiagonal with
+    ``lower2/upper2`` too) or block-COO ``rows/cols/blocks/n_rows/n_cols``,
+    and ``mass_inv``, CG levels with ``a`` as ``windows/band`` — each with a
+    ``smoother`` (block-Jacobi ``inv/ml/mu``, Jacobi ``inv_diag``, Schwarz
+    ``inv_windows/mult_inv``, or a Chebyshev ``base/lam_lo/lam_hi`` over one
+    of them); ``transfers`` (block
     ``blocks``, ragged block ``blocks/sizes``, CG ``e``, seam
-    ``n_win/inv_lump/offsets``); and ``coarse``
-    (``a_dense``, ``a_inv``).  ``dtype`` None keeps each array's own
-    precision; a float32 Chebyshev level gets its recurrence table."""
+    ``n_win/inv_lump/offsets``, scattered ``cols/blocks/n_coarse``); and
+    ``coarse`` (see :func:`coarse_from_numpy`).  ``dtype`` None keeps each
+    array's own precision (index arrays stay integer); a float32 Chebyshev
+    level gets its recurrence table."""
 
     def t(x):
         return None if x is None else _tensor(x, device, dtype)
 
-    def bt(op) -> BlockTridiag:
-        return _bt(op, device, dtype)
+    def op(a):
+        return _op(a, device, dtype)
 
     def smoother(s):
         if hasattr(s, "base"):
@@ -62,7 +68,7 @@ def hierarchy_from_numpy(h, device="cuda", dtype: torch.dtype | None = None) -> 
     def level(lv):
         if hasattr(lv, "g"):
             return BlockLevel(
-                a=bt(lv.a), g=bt(lv.g), d=bt(lv.d), c=bt(lv.c), mass_inv=t(lv.mass_inv),
+                a=op(lv.a), g=op(lv.g), d=op(lv.d), c=op(lv.c), mass_inv=t(lv.mass_inv),
                 smoother=smoother(lv.smoother),
             )
         return CgLevel(a=CgOperator(windows=t(lv.a.windows), band=t(lv.a.band)),
@@ -89,6 +95,8 @@ def _transfer(tr, device, dtype=None):
                            offsets=offsets)
     if getattr(tr, "sizes", None) is not None:
         return ragged_prolong(_tensor(tr.blocks, device, dtype), np.asarray(tr.sizes))
+    if hasattr(tr, "cols"):
+        return scattered_prolong(np.asarray(tr.cols), _tensor(tr.blocks, device, dtype), int(tr.n_coarse), device)
     return BlockProlong(_tensor(tr.blocks, device, dtype))
 
 
@@ -101,9 +109,22 @@ def _bt(op, device, dtype=None) -> BlockTridiag:
     return BlockTridiag(*(_tensor(getattr(op, k), device, dtype) for k in ("lower", "diag", "upper")))
 
 
+def _op(op, device, dtype=None):
+    """A block-tridiagonal, block-pentadiagonal or block-COO operator."""
+    if hasattr(op, "lower2"):
+        return BlockPenta(*(_tensor(getattr(op, k), device, dtype) for k in BlockPenta._fields))
+    if hasattr(op, "rows"):
+        return bcoo_make(np.asarray(op.rows), np.asarray(op.cols), _tensor(op.blocks, device, dtype),
+                         int(op.n_rows), int(op.n_cols), device)
+    return _bt(op, device, dtype)
+
+
 def coarse_from_numpy(c, device="cuda", dtype: torch.dtype | None = None):
-    """A dense (``a_dense``, ``a_inv``) or cyclic-reduction (``f``, ``g``,
-    ``dinv_odd``, ``l_odd``, ``u_odd``, ``root_inv``, ``a``) coarse solver."""
+    """A dense (``a_dense``, ``a_inv``), cyclic-reduction (``f``, ``g``,
+    ``dinv_odd``, ``l_odd``, ``u_odd``, ``root_inv``, ``a``) or padded
+    cyclic-reduction (``inner``, ``n_dof``) coarse solver."""
+    if hasattr(c, "inner"):
+        return PaddedBTCoarseSolver(inner=coarse_from_numpy(c.inner, device, dtype), n_dof=int(c.n_dof))
     if hasattr(c, "root_inv"):
         ts = lambda xs: tuple(_tensor(x, device, dtype) for x in xs)  # noqa: E731
         return BTCoarseSolver(
@@ -115,12 +136,14 @@ def coarse_from_numpy(c, device="cuda", dtype: torch.dtype | None = None):
 
 def _ff_operator(a, device):
     """A float-float stencil (``hi_left ... lo_right``, ``n``), BlockTridiag
-    pair (``hi``, ``lo`` with ``lower/diag/upper``) or CG band pair (``hi``,
-    ``lo`` arrays)."""
+    pair (``hi``, ``lo`` with ``lower/diag/upper``), BlockPenta pair (with
+    ``lower2/upper2`` too) or CG band pair (``hi``, ``lo`` arrays)."""
     if hasattr(a, "hi_mid"):
         parts = {k: _bt(getattr(a, k), device)
                  for k in ("hi_left", "hi_mid", "hi_right", "lo_left", "lo_mid", "lo_right")}
         return BTFFStencil(**parts, n=int(a.n))
+    if hasattr(a.hi, "lower2"):
+        return BlockPentaFF(hi=_op(a.hi, device), lo=_op(a.lo, device))
     if hasattr(a.hi, "diag"):
         return BlockTridiagFF(hi=_bt(a.hi, device), lo=_bt(a.lo, device))
     return CgBandFF(hi=_tensor(a.hi, device), lo=_tensor(a.lo, device))

@@ -1,8 +1,12 @@
 """Precision and placement of operator containers.
 
-The containers (``BlockTridiag``, ``BlockProlong``, ``BlockLevel``,
-``Hierarchy``, ...) are NamedTuples of tensors; :func:`tree_map` rebuilds one
-with a function applied to every tensor leaf.
+The containers (``BlockTridiag``, ``BlockPenta``, ``BlockCOO``,
+``BlockProlong``, ``ScatteredProlong``, ``BlockLevel``, ``Hierarchy``, ...)
+are NamedTuples of tensors and host ints; :func:`tree_map` rebuilds one with
+a function applied to every tensor leaf and passes the ints (block counts,
+``PaddedBTCoarseSolver.n_dof``) through.  :func:`hierarchy_astype` casts the
+floating leaves only, so integer index tensors (a ``BlockCOO``'s rows and
+columns, a ``ScatteredProlong``'s owners) keep their type.
 """
 
 from __future__ import annotations

@@ -86,7 +86,18 @@ Phases, one line of numbers each:
    same meshes and fine operators: every leaf (operators, block inverses,
    M-form streams, the coarse solver's operator and inverse) to 2e-5 of its
    max, the Chebyshev bounds and coefficient table to 1e-3 relative, equal
-   ``multigrid_mixed`` counts, both setups timed.
+   ``multigrid_mixed`` counts, both setups timed;
+15. the scattered slice: ``poisson_scattered_hierarchy`` at 1,048,576 DG
+   p = 1 elements with ``interleaved_pair_groups`` (10 block-COO levels),
+   float64 ``multigrid`` and ``multigrid_mixed`` damped and Chebyshev to
+   1e-10, the kernels at the fine level only, one launch per V-cycle;
+16. the mixed-switch slice: ``poisson_switch_hierarchy`` at 524,288 DG p = 3
+   elements (every level block-pentadiagonal), ``multigrid``,
+   ``multigrid_mixed`` and ``multigrid_progressive`` to 1e-10 with no kernel
+   launched; then the odd 500,000-element chain (a padded coarse solve) held
+   on its residuals, with its distance to the banded direct solve and to an
+   extended-precision refined solution printed beside the operator's
+   condition estimate.
 
 The kernel phase also holds K6 (the float-float stencil defect) to its plain
 version bit for bit, hi and lo.
@@ -99,6 +110,7 @@ without a CUDA device the script exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import multiprocessing as mp
@@ -118,8 +130,11 @@ SOURCE = "agglomerationmultigrid1d_tpu_torch/csrc/block_kernels.cu"
 PALLAS = "agglomerationmultigrid1d_tpu/ops/pallas/block_kernels.py"
 SHARDED = "agglomerationmultigrid1d_tpu/parallel/sharded_kernels.py"  # _gather_ghosts :60, _strip_ghosts :81
 # (bs, n): the headline shape of 16,777,216 DoF, the main path's level shapes
-# from the finest down to the smallest smoothed level, and an awkward size
-SHAPES = [(4, 4194304), (4, 524288), (2, 524288), (2, 131072), (2, 128), (4, 1000)]
+# from the finest down to the smallest smoothed level, an awkward size, then
+# the fine levels of the scattered slice and the device chain (DG p = 1 at
+# 1,048,576 elements) and of the ragged slice (DG p = 3 and p = 1 at 500,000)
+SHAPES = [(4, 4194304), (4, 524288), (2, 524288), (2, 131072), (2, 128), (4, 1000),
+          (2, 1048576), (4, 500000), (2, 500000)]
 TOL = 1e-5  # of max|out|: float32 kernels with FMA against unfused plain torch
 SLICE = dict(n=524288, max_p=3, n_dg=2, n_agg=12)
 SMALL = dict(n=4096, max_p=3, n_dg=2, n_agg=5)
@@ -134,6 +149,19 @@ FLAGSHIP_XL_PORT_CPU = {"damped": 16, "chebyshev": 12}
 RAGGED_SLICE = dict(n=500000, max_p=3, n_dg=2, n_agg=12)  # 2,000,000 DoF, ragged below 15,625 agglomerates
 POW2_SLICE_COUNTS = {"damped": "22 outer / 28 inner", "chebyshev": "14 outer / 18 inner"}
 DEVICE_CHAIN_N = 1048576  # DG p=1: 2,097,152 DoF
+SCATTERED_N = 1048576  # DG p=1 elements: 2,097,152 DoF; 10 scattered levels down to 1,024 agglomerates
+SCATTERED_COARSEST = 1024
+SWITCH_N = 524288  # DG p=3 elements: 2,097,152 DoF; DG p=1, agg r=2, 6 x 2:1 down to 4,096 agglomerates
+SWITCH_COARSEN = 6
+SWITCH_ODD = (500000, 4)  # the same chain down to 15,625 agglomerates: a padded pentadiagonal coarse solve
+# the port's counts on the same inputs on the CPU (tools/scattered_switch_counts.py --device cpu, full size): the card's
+# solves are held to these within 2; JAX's CPU counts (its --package jax, use_pallas=False) are printed beside
+SCATTERED_PORT_CPU = {"multigrid": 16, "damped": (14, 19), "chebyshev": (10, 13)}
+SCATTERED_JAX_CPU = "at 65,536 elements: multigrid 16, damped 11 / 20, Chebyshev 9 / 15"
+SWITCH_PORT_CPU = {"multigrid": 11, "mixed": (11, 14), "progressive": 11, "odd multigrid": 11}
+SWITCH_JAX_CPU = "at 65,536 elements: multigrid 11, mixed 10 / 14, progressive 11"
+KERNEL_COUNTERS = ("bt_matvec", "multisweep", "multisweep_residual", "chebyshev_multisweep",
+                   "chebyshev_multisweep_residual")  # K3, K2, K1, K5, K5r
 SEED = 0
 DAMPED = ("bt_matvec", "multisweep", "multisweep_residual")  # K3, K2, K1: the damped solves' kernels
 CHEB_INTERVAL = (0.3, 1.2)  # K5's and K7's coefficients in the kernel phases, k = 3
@@ -440,10 +468,14 @@ def phase_north_star(bk) -> int:
 
 def rel_residual(prob, x) -> float:
     """||b - A x|| / ||b|| in float64 on the card, on the float64 fine operator."""
+    return level_rel_residual(prob.hierarchy, prob.b, x)
+
+
+def level_rel_residual(h, b, x) -> float:
+    """||b - A x|| / ||b|| in float64 on ``h``'s fine operator."""
     from agglomerationmultigrid1d_tpu_torch.models.solvers import level_matvec
 
-    b = prob.b
-    r = b - level_matvec(prob.hierarchy.levels[0], x.to(torch.float64))
+    r = b - level_matvec(h.levels[0], x.to(torch.float64))
     return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
 
 
@@ -864,6 +896,219 @@ def phase_device_chain(bk) -> dict:
     del prob, h_host, h_dev, h64
     torch.cuda.empty_cache()
     return counts
+
+
+def switch_problem(n: int, n_coarsen: int) -> tuple:
+    """``poisson_switch_hierarchy`` built on the host and moved to the card:
+    (hierarchy, b, {"host": s, "to_device": s})."""
+    from agglomerationmultigrid1d_tpu_torch.models import poisson_switch_hierarchy
+    from agglomerationmultigrid1d_tpu_torch.utils.precision import tree_to
+
+    t0 = time.perf_counter()
+    prob = poisson_switch_hierarchy(n, n_coarsen, device="cpu")
+    t1 = time.perf_counter()
+    h, b = tree_to(prob.hierarchy, "cuda"), prob.b.to("cuda")
+    torch.cuda.synchronize()
+    return h, b, {"host": t1 - t0, "to_device": time.perf_counter() - t1}
+
+
+def phase_scattered(bk) -> dict:
+    """The scattered slice: ``poisson_scattered_hierarchy`` at 1,048,576 DG
+    p = 1 elements (2,097,152 DoF), interleaved pairs and then nine pairwise
+    merges (10 block-COO levels, 524,288 -> 1,024 agglomerates, a dense
+    coarse solve at 2,048 DoF); float64 ``multigrid``, then
+    ``multigrid_mixed`` damped and after ``chebyshev_hierarchy``, each to
+    1e-10 recomputed in float64.  The fused kernels run at the fine DG
+    level only: K1 = K2 = K3 (K5 = K5r = K3) = the inner cycles, one launch
+    of each per V-cycle, none at a block-COO level.  Returns the launches of
+    the two mixed solves."""
+    from agglomerationmultigrid1d_tpu_torch.models import (
+        chebyshev_hierarchy,
+        interleaved_pair_groups,
+        make_low_precision_hierarchy,
+        multigrid,
+        multigrid_mixed,
+        poisson_scattered_hierarchy,
+    )
+    from agglomerationmultigrid1d_tpu_torch.ops import BlockCOO
+    from agglomerationmultigrid1d_tpu_torch.utils.precision import tree_to
+
+    n = SCATTERED_N
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prob = poisson_scattered_hierarchy(n=n, p_dg=1, groups_per_level=interleaved_pair_groups(n, SCATTERED_COARSEST),
+                                       device="cpu")
+    t1 = time.perf_counter()
+    prob = dataclasses.replace(prob, hierarchy=tree_to(prob.hierarchy, "cuda"), b=prob.b.to("cuda"))
+    torch.cuda.synchronize()
+    timings = {"host": t1 - t0, "to_device": time.perf_counter() - t1}
+    h, b = prob.hierarchy, prob.b
+    kinds = [type(lv.a).__name__ for lv in h.levels]
+    check(b.numel() == 2 * n and kinds == ["BlockTridiag"] + ["BlockCOO"] * 10 and h.coarse.n == 2048,
+          f"scattered slice shape: {kinds}, coarse {h.coarse.n}")
+    nnz = [lv.a.nnz for lv in h.levels[1:]]
+    print(f"scattered slice {b.numel()} DoF, {h.n_levels} levels (block-COO nnz {nnz}): setup host_s="
+          f"{timings['host']:.3f} to_card_s={timings['to_device']:.3f} peak_mem_bytes="
+          f"{torch.cuda.max_memory_allocated()}", flush=True)
+    out = {}
+    res, solve_s, launches = timed_solve(lambda: multigrid(h, torch.zeros_like(b), b, 100, 1e-10,
+                                                           compute_error=False), bk)
+    rel = rel_residual(prob, res.x)
+    print(f"scattered slice multigrid f64: solve_s={solve_s:.3f} iterations={res.iterations} (port on the CPU "
+          f"{SCATTERED_PORT_CPU['multigrid']}; JAX on the CPU {SCATTERED_JAX_CPU}) rel_residual_f64={rel:.3e} "
+          f"launches={ {k: v for k, v in launches.items() if v} }", flush=True)
+    check(rel < 1e-10, f"scattered slice f64 relative residual {rel:.3e}")
+    check(not any(launches.values()), f"a float64 solve launched a kernel: {launches}")
+    check(abs(res.iterations - SCATTERED_PORT_CPU["multigrid"]) <= 2,
+          f"scattered f64 count {res.iterations}, the port on the CPU {SCATTERED_PORT_CPU['multigrid']}")
+    for cheb in (False, True):
+        tag = "chebyshev" if cheb else "damped"
+        t0 = time.perf_counter()
+        hc = chebyshev_hierarchy(h) if cheb else h
+        h32 = make_low_precision_hierarchy(hc)
+        torch.cuda.synchronize()
+        cast_s = time.perf_counter() - t0
+        check(all(isinstance(lv.a, BlockCOO) and lv.a.rows.dtype == torch.int64 for lv in h32.levels[1:]),
+              "the float32 scattered levels")
+        torch.cuda.reset_peak_memory_stats()
+        res, solve_s, launches = timed_solve(lambda: multigrid_mixed(hc, h32, torch.zeros_like(b), b, 80, 1e-10), bk)
+        peak = torch.cuda.max_memory_allocated()
+        rel = rel_residual(prob, res.x)
+        launches = {k: v for k, v in launches.items() if v}
+        want = SCATTERED_PORT_CPU[tag]
+        print(f"scattered slice multigrid_mixed {tag}: setup (cast{' + chebyshev_hierarchy' if cheb else ''}) "
+              f"{cast_s:.3f} s solve_s={solve_s:.3f} outer={res.iterations} inner_cycles={res.inner_cycles} "
+              f"(port on the CPU {want[0]} / {want[1]}; JAX on the CPU {SCATTERED_JAX_CPU}) rel_residual_f64={rel:.3e} "
+              f"peak_mem_bytes={peak} launches={launches}", flush=True)
+        check(tuple(res.x.shape) == (2, n) and bool(torch.isfinite(res.x).all()), f"scattered {tag} x")
+        check(rel < 1e-10, f"scattered slice {tag} relative residual {rel:.3e} >= 1e-10")
+        used = ("bt_matvec",) + (("chebyshev_multisweep", "chebyshev_multisweep_residual") if cheb
+                                 else ("multisweep", "multisweep_residual"))
+        check(set(launches) == set(used) and all(launches[k] == res.inner_cycles for k in used),
+              f"scattered {tag}: kernels must launch once per V-cycle, at the fine level only: {launches}, "
+              f"{res.inner_cycles} V-cycles")
+        check(abs(res.iterations - want[0]) <= 2 and abs(res.inner_cycles - want[1]) <= 2,
+              f"scattered {tag} counts {res.iterations} / {res.inner_cycles}, the port on the CPU {want}")
+        out[tag] = launches
+        del hc, h32, res
+    del prob, h, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mixed_switch(bk) -> None:
+    """The mixed-switch slice: DG p = 3 at 524,288 elements (2,097,152 DoF)
+    with a mixed switch, every level block-pentadiagonal, the coarsest
+    (4,096 agglomerates) solved by pair-merged cyclic reduction; float64
+    ``multigrid``, ``multigrid_mixed`` and ``multigrid_progressive`` to 1e-10
+    recomputed in float64, with no kernel launched (a launch would mean a
+    pentadiagonal level reached a tridiagonal kernel).  Then the odd chain
+    at 500,000 elements down to 15,625 agglomerates (a
+    ``PaddedBTCoarseSolver`` at 31,250 DoF): float64 ``multigrid`` to 1e-10
+    and to 1e-14, held on its float64 residual.  Beside it, for
+    information: the gap to the banded direct solve of the fine operator
+    (held to 1e-3 of max|x| only, and whether it is within 1e-8 is printed),
+    the operator's 1-norm condition estimate, and both solutions' distance
+    to the banded solution refined with extended-precision residuals
+    (``fine_refined_solve``), the witness of which one is accurate."""
+    from agglomerationmultigrid1d_tpu_torch.models import (
+        make_low_precision_hierarchy,
+        multigrid,
+        multigrid_mixed,
+        multigrid_progressive,
+    )
+    from agglomerationmultigrid1d_tpu_torch.ops import BlockPenta, BTCoarseSolver, PaddedBTCoarseSolver
+    from agglomerationmultigrid1d_tpu_torch.ops.banded_solve import fine_direct_solve, fine_refined_solve
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    h, b, timings = switch_problem(SWITCH_N, SWITCH_COARSEN)
+    check(b.numel() == 4 * SWITCH_N and h.n_levels == 3 + SWITCH_COARSEN
+          and all(isinstance(lv.a, BlockPenta) for lv in h.levels)
+          and h.levels[-1].a.n_blocks == 4096 and isinstance(h.coarse, BTCoarseSolver), "mixed-switch slice shape")
+    print(f"mixed-switch slice {b.numel()} DoF, {h.n_levels} block-pentadiagonal levels, coarsest "
+          f"{h.levels[-1].a.n_blocks} blocks ({type(h.coarse).__name__}, pair-merged): setup host_s="
+          f"{timings['host']:.3f} to_card_s={timings['to_device']:.3f}", flush=True)
+    t0 = time.perf_counter()
+    h32 = make_low_precision_hierarchy(h)
+    torch.cuda.synchronize()
+    cast_s = time.perf_counter() - t0
+    solves = {
+        "multigrid": lambda: multigrid(h, torch.zeros_like(b), b, 100, 1e-10, compute_error=False),
+        "mixed": lambda: multigrid_mixed(h, h32, torch.zeros_like(b), b, 80, 1e-10),
+        "progressive": lambda: multigrid_progressive(h, h32, torch.zeros_like(b), b, 80, 1e-10),
+    }
+    for tag, fn in solves.items():
+        torch.cuda.reset_peak_memory_stats()
+        res, solve_s, launches = timed_solve(fn, bk)
+        peak = torch.cuda.max_memory_allocated()
+        rel = level_rel_residual(h, b, res.x)
+        want = SWITCH_PORT_CPU[tag]
+        counts = res.iterations if tag != "mixed" else (res.iterations, res.inner_cycles)
+        print(f"mixed-switch slice {tag}: solve_s={solve_s:.3f} counts={counts} (port on the CPU {want}; JAX on "
+              f"the CPU {SWITCH_JAX_CPU}) rel_residual_f64={rel:.3e} peak_mem_bytes={peak}"
+              f"{' (cast ' + format(cast_s, '.3f') + ' s)' if tag == 'mixed' else ''} "
+              f"launches={ {k: v for k, v in launches.items() if v} }", flush=True)
+        check(tuple(res.x.shape) == (4, SWITCH_N) and bool(torch.isfinite(res.x).all()), f"mixed-switch {tag} x")
+        check(rel < 1e-10, f"mixed-switch {tag} relative residual {rel:.3e} >= 1e-10")
+        check(not any(launches.values()), f"a pentadiagonal level reached a kernel ({tag}): {launches}")
+        got = counts if tag == "mixed" else (counts,)
+        exp = want if tag == "mixed" else (want,)
+        check(all(abs(g - e) <= 2 for g, e in zip(got, exp)), f"mixed-switch {tag} counts {counts}, the CPU's {want}")
+        del res
+    del h, h32, b
+    torch.cuda.empty_cache()
+
+    n, k = SWITCH_ODD
+    h, b, timings = switch_problem(n, k)
+    check(h.levels[-1].a.n_blocks == 15625 and isinstance(h.coarse, PaddedBTCoarseSolver) and h.coarse.n == 31250,
+          f"odd mixed-switch chain: coarsest {h.levels[-1].a.n_blocks} blocks, {type(h.coarse).__name__}")
+    res, solve_s, launches = timed_solve(lambda: multigrid(h, torch.zeros_like(b), b, 100, 1e-10,
+                                                           compute_error=False), bk)
+    t0 = time.perf_counter()
+    fine_host = h.levels[0]._replace(a=BlockPenta(*(t.cpu() for t in h.levels[0].a)))
+    b_flat = b.cpu().T.reshape(-1).numpy()
+    x_direct = torch.from_numpy(fine_direct_solve(fine_host, b_flat)).reshape(n, 4).T
+    direct_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cond, x_ref, last = fine_refined_solve(fine_host, b_flat)
+    refine_s = time.perf_counter() - t0
+    x_direct = x_direct.to("cuda")
+    deep = multigrid(h, torch.zeros_like(b), b, 100, 1e-14, compute_error=False)
+
+    def gap(x):
+        return float((x - x_direct).abs().max() / x_direct.abs().max())
+
+    def gap_ref(x):  # in extended precision on the host
+        x = x.cpu().T.reshape(-1).numpy().astype(np.longdouble)
+        return float(np.abs(x - x_ref).max() / np.abs(x_ref).max())
+
+    rel, rel_direct, rel_deep = (level_rel_residual(h, b, x) for x in (res.x, x_direct, deep.x))
+    print(f"odd mixed-switch chain {b.numel()} DoF, {h.n_levels} levels, coarsest {h.levels[-1].a.n_blocks} blocks "
+          f"({type(h.coarse).__name__}, {h.coarse.n} DoF): setup host_s={timings['host']:.3f} multigrid f64 "
+          f"solve_s={solve_s:.3f} iterations={res.iterations} (port on the CPU {SWITCH_PORT_CPU['odd multigrid']}) "
+          f"rel_residual_f64={rel:.3e} launches={ {k: v for k, v in launches.items() if v} }; banded direct solve "
+          f"(host, {direct_s:.3f} s) rel_residual_f64={rel_direct:.3e}; max|x - x_banded| / max|x_banded| = "
+          f"{gap(res.x):.3e} at tol 1e-10, {gap(deep.x):.3e} at tol 1e-14 ({deep.iterations} iterations, "
+          f"rel_residual_f64={rel_deep:.3e}); within 1e-8: {'yes' if gap(res.x) < 1e-8 else 'no'}", flush=True)
+    print(f"odd mixed-switch chain witness: 1-norm condition estimate {cond:.3e} (times float64 eps "
+          f"{cond * np.finfo(np.float64).eps:.3e}); banded solution refined with extended-precision residuals "
+          f"({refine_s:.3f} s on the host; last correction {last:.3e} of max|x|): max|x - x_refined| / max|x_refined| = {gap_ref(x_direct):.3e} banded, "
+          f"{gap_ref(res.x):.3e} multigrid at tol 1e-10, {gap_ref(deep.x):.3e} at tol 1e-14", flush=True)
+    check(rel < 1e-10 and rel_deep < 1e-13, f"odd mixed-switch relative residuals {rel:.3e}, {rel_deep:.3e}")
+    check(rel_direct < 1e-12, f"the banded direct solve's relative residual {rel_direct:.3e}")
+    # for information only (the residuals above are the check): two float64
+    # solutions of this c_dir = 1000 n operator with residuals near 1e-15
+    # differ by up to its condition number times eps; the witness line says
+    # which one is the accurate one
+    check(max(gap(res.x), gap(deep.x)) < 1e-3,
+          f"odd mixed-switch x against the banded direct solve: {gap(res.x):.3e} (tol 1e-14: {gap(deep.x):.3e})")
+    check(not any(launches.values()), f"the odd pentadiagonal chain reached a kernel: {launches}")
+    check(abs(res.iterations - SWITCH_PORT_CPU["odd multigrid"]) <= 2,
+          f"odd mixed-switch count {res.iterations}, the CPU's {SWITCH_PORT_CPU['odd multigrid']}")
+    del h, b, res
+    torch.cuda.empty_cache()
 
 
 def strip_bound(name, bs, s=STRIP, sides=1) -> tuple:
@@ -1406,6 +1651,8 @@ def main() -> int:
     phase_flagship_xl(bk, FLAGSHIP_XL_N, true_solve=True)
     phase_ragged(bk)
     phase_device_chain(bk)
+    phase_scattered(bk)
+    phase_mixed_switch(bk)
     launches["ff_stencil_mid_defect"] = phase_north_star(bk)
     one_rank = phase_sharded(bk)
     launches.update({EDGE_FORMS[k]: one_rank[k] for k in EDGE_FORMS})

@@ -1,8 +1,8 @@
 """The torch port's CUDA kernels (K1-K3, K5, K6 bit for bit, K7 with ghosts
 and in-place columns, the edge pair and its packing kernel, K8, K4), its
 mixed solve, its true-precision solve and its sharded solve on a one-rank
-NCCL group, the CG-topped stencil build and the ragged transfers against the
-CPU's, on a CUDA card.
+NCCL group, the CG-topped stencil build, the ragged transfers and the
+pentadiagonal and scattered chains against the CPU's, on a CUDA card.
 
 Every test here needs the card (marker ``cuda``) and skips without one.  This
 file imports neither JAX nor the JAX package, so it also runs where JAX is
@@ -453,3 +453,49 @@ def test_cuda_ragged_transfers_equal_cpu(cuda):
     res = multigrid_mixed(h, make_low_precision_hierarchy(h), torch.zeros_like(b), b, 80, 1e-10)
     assert float(res.res_history[res.iterations - 1]) < 1e-10 * float(torch.linalg.vector_norm(b))
     assert all(bk.LAUNCHES[k] > 0 for k in ("multisweep", "multisweep_residual", "bt_matvec"))
+
+
+@pytest.mark.cuda
+def test_cuda_penta_and_scattered_chains(cuda):
+    """The mixed-switch chain on the card: float64 ``multigrid`` and
+    ``multigrid_progressive`` (whose float32 stopping test reads a 0-d
+    tensor on the card) with the CPU's counts and no kernel launched; the
+    scattered chain: ``multigrid_mixed`` with one K1 / K2 / K3 launch per
+    V-cycle (the fine level only), its block-COO matvec equal to the CPU's."""
+    from agglomerationmultigrid1d_tpu_torch.models import (
+        interleaved_pair_groups,
+        level_matvec,
+        multigrid_progressive,
+        poisson_scattered_hierarchy,
+        poisson_switch_hierarchy,
+    )
+    from agglomerationmultigrid1d_tpu_torch.utils.precision import tree_to
+
+    counts = {}
+    for dev in ("cpu", cuda):
+        prob = poisson_switch_hierarchy(1024, 2, device=dev)
+        h, b = prob.hierarchy, prob.b
+        h32 = make_low_precision_hierarchy(h)
+        bk.reset_launch_counts()
+        r1 = multigrid(h, torch.zeros_like(b), b, 80, 1e-10, compute_error=False)
+        r2 = multigrid_progressive(h, h32, torch.zeros_like(b), b, 80, 1e-10)
+        assert not any(bk.LAUNCHES.values())
+        nb = float(torch.linalg.vector_norm(b))
+        assert float(r2.res_history[r2.iterations - 1]) < 1e-10 * nb
+        counts[str(dev)] = (r1.iterations, r2.iterations)
+    assert counts["cpu"] == counts[str(cuda)], counts
+
+    prob = poisson_scattered_hierarchy(n=8192, p_dg=1, groups_per_level=interleaved_pair_groups(8192, 1024),
+                                       device="cpu")
+    h = tree_to(prob.hierarchy, cuda)
+    b = prob.b.to(cuda)
+    x = torch.randn(prob.b.shape, dtype=torch.float64)
+    for k in (1, 2):
+        got = level_matvec(h.levels[k], x[:, : h.levels[k].a.n_cols].to(cuda)).cpu()
+        want = level_matvec(prob.hierarchy.levels[k], x[:, : h.levels[k].a.n_cols])
+        assert float((got - want).abs().max()) <= 1e-13 * float(want.abs().max())
+    bk.reset_launch_counts()
+    res = multigrid_mixed(h, make_low_precision_hierarchy(h), torch.zeros_like(b), b, 80, 1e-10)
+    assert float(res.res_history[res.iterations - 1]) < 1e-10 * float(torch.linalg.vector_norm(b))
+    for k in ("multisweep", "multisweep_residual", "bt_matvec"):
+        assert bk.LAUNCHES[k] == res.inner_cycles, (k, dict(bk.LAUNCHES), res.inner_cycles)

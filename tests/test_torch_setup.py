@@ -103,9 +103,16 @@ def test_device_argument_places_everything():
 def test_unported_configurations_raise():
     """Ragged agglomerates are ported now (the ragged CG -> agg seam and
     ragged agglomerated levels build, their operators against the JAX
-    package's in ``tests/test_torch_ragged.py``); the mixed switch stays
+    package's in ``tests/test_torch_ragged.py``), and so is the mixed switch
+    (a block-pentadiagonal Schur stiffness, against the JAX package's in
+    ``tests/test_torch_penta.py``); sharding a pentadiagonal level stays
     refused."""
+    from agglomerationmultigrid1d_tpu_torch.mesh import make_agg_mesh
+    from agglomerationmultigrid1d_tpu_torch.models import build_dg_hierarchy
+    from agglomerationmultigrid1d_tpu_torch.ops import BlockPenta
     from agglomerationmultigrid1d_tpu_torch.ops.transfer_ops import RaggedBlockProlong, SeamProlong
+    from agglomerationmultigrid1d_tpu_torch.parallel import shard_hierarchy
+    from agglomerationmultigrid1d_tpu_torch.parallel.multihost import SolverGroup
 
     seam = build_problem(HierarchySpec(cg_orders=(2, 1), n_agg_levels=1), 18, device="cpu")  # a ragged CG -> agg seam
     assert isinstance(seam.hierarchy.transfers[-1], SeamProlong) and seam.hierarchy.transfers[-1].offsets is not None
@@ -115,11 +122,14 @@ def test_unported_configurations_raise():
     mesh = create_uniform_mesh(8, 0.0, 1.0)
     dg = make_dg_mesh(mesh, 1, switch=np.array([False, False, False, True, True, True, True]))
     bc = BoundaryCondition(("neu", 0.0), ("dir", 1.0))
+    g, d, c = dg_flux_operators(dg, bc, 1.0)
+    assert float(g.upper.abs().max()) > 0 and float(d.lower.abs().max()) > 0  # the flipped vertices' couplings
+    a = schur_stiffness(g, d, c, dg.mass_inv, mixed_switch=True)
+    assert isinstance(a, BlockPenta)  # stored pentadiagonal; a non-trapping switch's distance-2 blocks are 0
+    h = build_dg_hierarchy([dg, make_agg_mesh(1, mesh, 2)], a, g, d, c)  # the fine level shards, the coarsest not
+    group = SolverGroup(group=None, rank=0, world=2, device=torch.device("cpu"), backend="gloo")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dg_flux_operators(dg, bc, 1.0)
-    g, d, c = dg_flux_operators(make_dg_mesh(mesh, 1), bc, 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        schur_stiffness(g, d, c, dg.mass_inv, mixed_switch=True)
+        shard_hierarchy(h, group, min_blocks_per_device=2)
 
 
 @pytest.mark.parametrize("name", ["dg3-agg3", "dg4-mixed"])
