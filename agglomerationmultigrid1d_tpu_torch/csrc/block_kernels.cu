@@ -19,9 +19,10 @@
 //
 // Host entry points have a plain C interface (loaded with ctypes) and return
 // cudaGetLastError() after the launch; -1 means an unsupported block size,
-// -2 more sweeps than kMaxSweeps, -3 a shard or ghost width the edge pair does
-// not take.  K6 (ff_stencil_defect_kernel) takes float-float pairs: two
-// (bs, n) arrays per vector.  K7 is the multisweep kernel with ghost columns
+// -2 more sweeps than kMaxSweeps, -3 a shard or ghost width the edge pair (or
+// a shard's columns K6s) does not take.  K6 (ff_stencil_defect_kernel) takes
+// float-float pairs: two (bs, n) arrays per vector; K6s is its launch on one
+// shard, with the neighbours' edge columns as ghosts.  K7 is the multisweep kernel with ghost columns
 // (a shard's neighbours), K8 one A-form sweep, K4 the bandwidth yardstick that
 // reads the multisweep's operands.  The sharded path's per-smoothing pair:
 // pack_edges_kernel copies a shard's edge columns of x and b into the two
@@ -455,6 +456,16 @@ __global__ void empty_kernel() {}
 // for bit: a boundary column's window defect reads the same neighbours, with
 // the same zero outside [0, n), as this kernel does.
 //
+// K6s, the same kernel on one shard of an element-sharded vector: the
+// shard's columns are global columns [col0, col0 + n) of n_total, so a
+// column's stencil is chosen from its global index, and its neighbours past
+// the shard's two ends are the ghost columns gl / gr, each (2, bs): the hi
+// then the lo parts of the neighbouring rank's edge column of x (a null
+// pointer is a ring end, read as zero).  The whole-array launch is the case
+// col0 = 0, n_total = n, no ghosts; a shard's columns take exactly the
+// arithmetic of the same columns of the whole array, so four stitched shards
+// equal the whole launch bit for bit.
+//
 // Cost per block column: 24 bs bytes (x and b pairs in, r pair out: 2.4 GB
 // per launch at the 1e8-DoF north star, bs = 2) and about 35 float32
 // operations per block entry, 105 bs^2 per column, none of which may fuse:
@@ -510,12 +521,15 @@ __global__ void __launch_bounds__(kThreads)
     ff_stencil_defect_kernel(const float* __restrict__ blocks, int bw,
                              const float* __restrict__ x_hi, const float* __restrict__ x_lo,
                              const float* __restrict__ b_hi, const float* __restrict__ b_lo,
-                             float* __restrict__ r_hi, float* __restrict__ r_lo, long long n) {
+                             float* __restrict__ r_hi, float* __restrict__ r_lo, long long n,
+                             long long col0, long long n_total, const float* __restrict__ gl,
+                             const float* __restrict__ gr) {
   const long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (k >= n) return;
   const int width = 2 * bw + 1;
-  // the stencil column of block column k: a boundary column's own, else the mid
-  const int c = k < bw ? (int)k : (k >= n - bw ? (int)(k - (n - bw)) + bw + 1 : bw);
+  // the stencil column of global block column kg: a boundary column's own, else the mid
+  const long long kg = col0 + k;
+  const int c = kg < bw ? (int)kg : (kg >= n_total - bw ? (int)(kg - (n_total - bw)) + bw + 1 : bw);
 
   float acc_hi[BS], acc_lo[BS];
 #pragma unroll
@@ -526,12 +540,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int d = 0; d < 3; ++d) {  // diag on x_k, lower on x_{k-1}, upper on x_{k+1}
     const long long kk = d == 0 ? k : (d == 1 ? k - 1 : k + 1);
+    // past the shard's ends: the neighbour's edge column, or zero at a ring end
+    const float* ghost = kk < 0 ? gl : (kk >= n ? gr : nullptr);
     const bool in = kk >= 0 && kk < n;
     float v_hi[BS], v_lo[BS], vh[BS], vl[BS];
 #pragma unroll
     for (int j = 0; j < BS; ++j) {
-      v_hi[j] = in ? x_hi[j * n + kk] : 0.f;
-      v_lo[j] = in ? x_lo[j * n + kk] : 0.f;
+      v_hi[j] = in ? x_hi[j * n + kk] : (ghost != nullptr ? ghost[j] : 0.f);
+      v_lo[j] = in ? x_lo[j * n + kk] : (ghost != nullptr ? ghost[BS + j] : 0.f);
       eft::split(v_hi[j], vh[j], vl[j]);
     }
 #pragma unroll
@@ -555,10 +571,11 @@ __global__ void __launch_bounds__(kThreads)
 template <int BS>
 void launch_ff_stencil(const float* blocks, int bw, const float* x_hi, const float* x_lo,
                        const float* b_hi, const float* b_lo, float* r_hi, float* r_lo,
-                       long long n, cudaStream_t stream) {
+                       long long n, long long col0, long long n_total, const float* gl,
+                       const float* gr, cudaStream_t stream) {
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
   ff_stencil_defect_kernel<BS><<<grid, kThreads, 0, stream>>>(blocks, bw, x_hi, x_lo, b_hi, b_lo,
-                                                              r_hi, r_lo, n);
+                                                              r_hi, r_lo, n, col0, n_total, gl, gr);
 }
 
 template <int BS>
@@ -828,14 +845,19 @@ int aggmg_empty(void* stream) {
   return (int)cudaGetLastError();
 }
 
-// K6.  blocks is the packed stencil (2, 3, bs, bs, 2 bw + 1); n >= 2 bw + 2
-// when bw > 0 (checked by the wrapper).
+// K6 and K6s.  blocks is the packed stencil (2, 3, bs, bs, 2 bw + 1); the n
+// columns are global columns [col0, col0 + n) of n_total, with n_total >=
+// 2 bw + 2 when bw > 0 (checked by the wrapper); gl / gr are the (2, bs)
+// ghost columns past the two ends, null for zeros.
 int aggmg_ff_stencil_defect(int bs, const void* blocks, int bw, const void* x_hi,
                             const void* x_lo, const void* b_hi, const void* b_lo, void* r_hi,
-                            void* r_lo, long long n, void* stream) {
+                            void* r_lo, long long n, long long col0, long long n_total,
+                            const void* gl, const void* gr, void* stream) {
+  if (col0 < 0 || col0 + n > n_total) return -3;
 #define AGGMG_CALL(BS)                                                                          \
   launch_ff_stencil<BS>((const float*)blocks, bw, (const float*)x_hi, (const float*)x_lo,      \
                         (const float*)b_hi, (const float*)b_lo, (float*)r_hi, (float*)r_lo, n, \
+                        col0, n_total, (const float*)gl, (const float*)gr,                     \
                         (cudaStream_t)stream)
   AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
 #undef AGGMG_CALL

@@ -23,14 +23,18 @@ transfers) and TRUE precision (:func:`v_cycle_true`, :func:`multigrid_true`;
 value-accurate operators throughout, the north-star solver), whose
 fine-level float-float defects on a stencil operator go through kernel K6.
 
-Sharded hierarchies (``parallel.distributed.shard_hierarchy``) run through the
-same functions: on a level that ``h.layout`` holds sharded, every matvec takes
-its two halo columns from the neighbour ranks, norms all-reduce, transfers
-stay local (the last sharded level restricts locally, then gathers), and the
-coarsest level is solved whole on every rank.  A sharded float32 block level
-smooths through ``parallel.sharded_kernels`` (K7's schedule), a sharded
-float64 level with plain A-form sweeps on halo matvecs.  ``multigrid_true``
-stays unsharded, as in the JAX package.
+Sharded hierarchies (``parallel.distributed.shard_hierarchy`` and
+``parallel.multihost.build_sharded_xl_problem``) run through the same
+functions: on a level that ``h.layout`` holds sharded, every matvec takes its
+halo columns from the neighbour ranks (one a side on a block level, ``p``
+nodes on a CG level), norms all-reduce, transfers stay local (a CG level's
+exchange the vertex two ranks share, ``parallel.cg_levels``; the last sharded
+level restricts locally, then gathers), and the coarsest level is solved
+whole on every rank.  A sharded float32 block level smooths through
+``parallel.sharded_kernels`` (K7's schedule), a sharded float64 or CG level
+with plain sweeps on halo matvecs; a sharded stencil fine operator's
+float-float defect is kernel K6s.  ``multigrid_true`` stays unsharded, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ from ..ops.df64 import (
     ff_join,
     ff_split,
 )
-from ..ops.df64 import BlockTridiagFF, ff_bt_defect
+from ..ops.df64 import BlockTridiagFF, CgBandFF, ff_bt_defect, ff_bt_defect_stencil, ff_cg_defect
 from ..ops.kernels.block_kernels import (
     chebyshev_multisweep,
     chebyshev_multisweep_residual,
@@ -66,8 +70,18 @@ from ..ops.kernels.block_kernels import (
     multisweep,
     multisweep_residual,
 )
+from ..ops.cg_operator import CgOperator
+from ..parallel.cg_levels import (
+    apply_smoother_sharded,
+    cg_matvec_sharded,
+    cgp_prolong_sharded,
+    cgp_restrict_sharded,
+    seam_prolong_sharded,
+    seam_restrict_sharded,
+)
+from ..parallel.distributed import level_widths
 from ..parallel.halo import edge_columns, halo_neighbours
-from ..parallel.multihost import all_gather_cols, all_reduce_sum, local_range
+from ..parallel.multihost import all_gather_cols, all_reduce_sum, local_range, node_range, node_widths
 from ..parallel.sharded_kernels import sharded_chebyshev_multisweep, sharded_multisweep
 from ..ops.transfer_ops import (
     BlockProlong,
@@ -107,27 +121,33 @@ def _is_slim_bt(level) -> bool:
     )
 
 
-def _mform_matvec(level, x: torch.Tensor) -> torch.Tensor:
+def _mform_matvec(level, x: torch.Tensor, xm=None, xp=None) -> torch.Tensor:
     """``A x = D (x + ML x_- + MU x_+)`` from the M-form smoother streams:
     exact up to one float32 rounding of the off-diagonal terms (ML and MU are
     rounded products), which is enough where the solver reads a residual's
     size (the inner solve's stall check); the trustworthy defect is the
-    float-float one."""
+    float-float one.  ``xm`` / ``xp`` are ``x_{k-1}`` / ``x_{k+1}`` where the
+    caller has them (a shard's, with the neighbours' edge columns); by
+    default the zero-padded shifts."""
     base = _base_smoother(level)
-    t = x + torch.einsum("ijn,jn->in", base.ml, shift(x, -1)) + torch.einsum("ijn,jn->in", base.mu, shift(x, +1))
+    xm = shift(x, -1) if xm is None else xm
+    xp = shift(x, +1) if xp is None else xp
+    t = x + torch.einsum("ijn,jn->in", base.ml, xm) + torch.einsum("ijn,jn->in", base.mu, xp)
     return torch.einsum("ijn,jn->in", level.a.diag, t)
 
 
 def level_matvec(level, x: torch.Tensor, group=None) -> torch.Tensor:
     """``A x``; with ``group``, ``x`` is the rank's shard of a sharded level."""
     if isinstance(level, CgLevel):
-        return cg_matvec(level.a, x)
+        return cg_matvec(level.a, x) if group is None else cg_matvec_sharded(level.a, x, group)
     if isinstance(level.a, BlockPenta):
         return bp5_matvec(level.a, x)
     if isinstance(level.a, BlockCOO):
         return bcoo_matvec(level.a, x)
     if group is None:
         return _mform_matvec(level, x) if _is_slim_bt(level) else bt_matvec(level.a, x)
+    if _is_slim_bt(level):
+        return _mform_matvec(level, x, *halo_neighbours(x, group))
     return bt_matvec(level.a, x, *halo_neighbours(x, group))
 
 
@@ -186,24 +206,60 @@ def _local_transfer(t: BlockProlong, group) -> BlockProlong:
     return BlockProlong(t.blocks[..., lo:hi])
 
 
+def _cg_widths(level, g) -> list | None:
+    """Every rank's node count on a whole CG level once sharded
+    (``multihost.node_widths``); None on a block level (equal shards)."""
+    return node_widths(level.a.n_el, level.a.p, g) if isinstance(level, CgLevel) else None
+
+
+def _own_part(level, x: torch.Tensor, g) -> torch.Tensor:
+    """The rank's part of a whole level's vector: its nodes of a CG level, its columns of a block level."""
+    if isinstance(level, CgLevel):
+        lo, hi = node_range(level.a.n_el, level.a.p, g)
+    else:
+        lo, hi = local_range(x.shape[-1], g)
+    return x[..., lo:hi]
+
+
 def _restrict(h: Hierarchy, k: int, r: torch.Tensor) -> torch.Tensor:
     """Restrict level ``k``'s residual to level ``k + 1``.  Below the last
     sharded level the rank's agglomerates are whole (``shard_hierarchy``
-    checks it), so the restriction is local, then gathered."""
-    t, g = h.transfers[k], _group(h, k)
-    if g is not None and _group(h, k + 1) is None:
-        return all_gather_cols(transfer_restrict(_local_transfer(t, g), r), g)
-    return transfer_restrict(t, r)
+    checks it), so the restriction is local, then gathered.  The CG and seam
+    transfers of a sharded CG level exchange the vertex two ranks share
+    (``parallel.cg_levels``)."""
+    t, g, gc = h.transfers[k], _group(h, k), _group(h, k + 1)
+    if g is None:
+        return transfer_restrict(t, r)
+    if isinstance(t, BlockProlong):
+        if gc is None:
+            return all_gather_cols(transfer_restrict(_local_transfer(t, g), r), g)
+        return transfer_restrict(t, r)
+    rc = cgp_restrict_sharded(t, r, g) if isinstance(t, CgProlong) else seam_restrict_sharded(t, r, g)
+    return rc if gc is not None else all_gather_cols(rc, g, _cg_widths(h.levels[k + 1], g))
 
 
 def _prolong(h: Hierarchy, k: int, uc: torch.Tensor) -> torch.Tensor:
     """Prolong level ``k + 1``'s correction to level ``k``; from a whole
     coarse level onto a sharded one, the rank's part only."""
     t, g = h.transfers[k], _group(h, k)
-    if g is not None and _group(h, k + 1) is None:
-        lo, hi = local_range(t.n_coarse, g)
-        return transfer_prolong(_local_transfer(t, g), uc[..., lo:hi])
+    if g is None:
+        return transfer_prolong(t, uc)
+    if _group(h, k + 1) is None:
+        if isinstance(t, BlockProlong):
+            lo, hi = local_range(t.n_coarse, g)
+            return transfer_prolong(_local_transfer(t, g), uc[..., lo:hi])
+        uc = _own_part(h.levels[k + 1], uc, g)
+    if isinstance(t, CgProlong):
+        return cgp_prolong_sharded(t, uc, g)
+    if isinstance(t, SeamProlong):
+        return seam_prolong_sharded(t, uc, g)
     return transfer_prolong(t, uc)
+
+
+def _smoother_apply(s, r: torch.Tensor, alpha: float = 1.0, group=None) -> torch.Tensor:
+    """``alpha S r``; with ``group``, on the rank's shard (a Schwarz
+    smoother's windows exchange the shared vertex)."""
+    return apply_smoother(s, r, alpha) if group is None else apply_smoother_sharded(s, r, alpha, group)
 
 
 def _base_smoother(level):
@@ -269,11 +325,11 @@ def _smooth_cheb(level, u, rhs, degree, emit_residual=False, group=None):
     sigma = theta / delta
     rho = 1.0 / sigma
 
-    z = apply_smoother(s.base, rhs - _level_matvec_opt(level, u, group))
+    z = _smoother_apply(s.base, rhs - _level_matvec_opt(level, u, group), group=group)
     d = z / theta
     u = u + d
     for _ in range(1, degree):
-        z = apply_smoother(s.base, rhs - _level_matvec_opt(level, u, group))
+        z = _smoother_apply(s.base, rhs - _level_matvec_opt(level, u, group), group=group)
         rho_new = 1.0 / (2.0 * sigma - rho)
         d = (rho_new * rho) * d + (2.0 * rho_new / delta) * z
         u = u + d
@@ -302,7 +358,7 @@ def _smooth_n(level, u, rhs, n_sweeps, alpha, group=None):
             n_sweeps=n_sweeps, alpha=alpha,
         )
     for _ in range(n_sweeps):
-        u = u + apply_smoother(level.smoother, rhs - level_matvec(level, u, group), alpha=alpha)
+        u = u + _smoother_apply(level.smoother, rhs - level_matvec(level, u, group), alpha, group)
     return u
 
 
@@ -402,12 +458,17 @@ def _dense_fine_solve(h: Hierarchy, b: torch.Tensor) -> torch.Tensor:
     fine, g = h.levels[0], _group(h, 0)
     b_all = b
     if g is not None:
-        fine = fine._replace(a=type(fine.a)(*(all_gather_cols(t, g) for t in fine.a)))
-        b_all = all_gather_cols(b, g)
+        if isinstance(fine, CgLevel):
+            widths = level_widths(fine, g)
+            fine = fine._replace(a=CgOperator(windows=all_gather_cols(fine.a.windows, g),
+                                              band=all_gather_cols(fine.a.band, g, widths)))
+            b_all = all_gather_cols(b, g, widths)
+        else:
+            fine = fine._replace(a=type(fine.a)(*(all_gather_cols(t, g) for t in fine.a)))
+            b_all = all_gather_cols(b, g)
     sol = torch.from_numpy(fine_direct_solve(fine, _flatten_level_vec(b_all).detach().cpu().numpy()))
     if g is not None:
-        lo, hi = local_range(b_all.shape[-1], g)
-        sol = sol[lo * b.shape[0] : hi * b.shape[0]]
+        sol = _flatten_level_vec(_own_part(fine, _unflatten_level_vec(sol, b_all), g))
     return sol.to(device=b.device, dtype=b.dtype)
 
 
@@ -592,10 +653,12 @@ def _mixed_loop_ff(
     kw = dict(n_pre=n_pre, n_post=n_post, alpha=alpha)
     inv = float(np.float32(inv_norm_b))
 
+    g0 = _group(h_low, 0)
+
     def rel_defect(x):
         # only the hi part feeds the float32 inner solve: keep no lo tail
-        r = ff_defect(a_ff, x, b_ff).hi
-        return r, np.float32(float(_norm(_flatten_level_vec(r) * inv)))
+        r = _ff_defect(a_ff, x, b_ff, g0).hi
+        return r, np.float32(float(_norm(_flatten_level_vec(r) * inv, g0)))
 
     def propose(x_best, r_best, cap, scale):
         e, n_cyc, i_best = _mixed_inner_solve(h_low, r_best, inner_tol, cap, **kw)
@@ -728,12 +791,26 @@ def _coarse_ff(h_low: Hierarchy, a_ff_c, r: FF, coarse64) -> FF:
 
 
 def _ff_defect(a_ff, x: FF, b: FF, group=None) -> FF:
-    """``ff_defect``; on a shard, with the neighbours' hi and lo edge columns."""
+    """``ff_defect``; on a shard, with the neighbours' hi and lo edge columns
+    (one exchange for both parts): one column a side of a block operator
+    (a stencil one through K6s, at the shard's global columns), ``p`` nodes
+    a side of a CG band."""
     if group is None:
         return ff_defect(a_ff, x, b)
+    pair = torch.stack([x.hi, x.lo])
+    if isinstance(a_ff, CgBandFF):
+        left, right = edge_columns(pair, group, width=a_ff.hi.shape[0] // 2)
+        return ff_cg_defect(a_ff, x, b, (FF(left[0], left[1]), FF(right[0], right[1])))
+    if isinstance(a_ff, BTFFStencil):
+        left, right = edge_columns(pair, group)
+        lo, _ = local_range(a_ff.n, group)
+        return ff_bt_defect_stencil(a_ff, x, b, lo, *(
+            None if none else t[..., 0].contiguous()
+            for t, none in ((left, group.rank == 0), (right, group.rank == group.world - 1))
+        ))
     if not isinstance(a_ff, BlockTridiagFF):
-        raise NotImplementedError(f"a sharded float-float defect of {type(a_ff).__name__}")
-    xm, xp = halo_neighbours(torch.stack([x.hi, x.lo]), group)  # one exchange for both parts
+        raise TypeError(f"a sharded float-float defect of {type(a_ff).__name__}")
+    xm, xp = halo_neighbours(pair, group)
     return ff_bt_defect(a_ff, x, b, FF(xm[0], xm[1]), FF(xp[0], xp[1]))
 
 
@@ -993,7 +1070,10 @@ def multigrid_true(
     build has no ``t_los`` or ``coarse64``).
     """
     if h_low.layout is not None:
-        raise ValueError("multigrid_true takes an unsharded hierarchy")
+        raise ValueError(
+            "multigrid_true takes an unsharded hierarchy (a sharded TRUE-precision solve is a feature "
+            "the JAX package lacks: ROADMAP queue 1, item 15, open question)"
+        )
     if x0_ff is None:
         zero = torch.zeros_like(b_ff.hi)
         x0_ff = FF(zero, zero)

@@ -117,17 +117,42 @@ def _extract_nodes(arr, p: int, bw: int, what: str, rtol="auto") -> _Stencil:
     return _Stencil(a[..., : bw * p + 1].copy(), mid.copy(), a[..., a.shape[-1] - bw * p :].copy())
 
 
-def _inflate_el(st: _Stencil, n_big: int, device) -> torch.Tensor:
-    left, mid, right = (torch.from_numpy(p).to(device) for p in st)
-    reps = n_big - left.shape[-1] - right.shape[-1]
-    return torch.cat([left, mid.expand(*mid.shape[:-1], reps), right], dim=-1)
+def _inflate_el(st: _Stencil, n_big: int, device, lo: int = 0, hi: int | None = None) -> torch.Tensor:
+    """Columns ``[lo, hi)`` (default all) of ``[left | mid * (n_big - 2 bw) |
+    right]``, formed on ``device`` without the others."""
+    return _inflate_range(st, n_big, lambda m0, m1, mid: mid.expand(*mid.shape[:-1], m1 - m0), device, lo, hi)
 
 
-def _inflate_nodes(st: _Stencil, n_el_big: int, p: int, bw: int, device) -> torch.Tensor:
+def _inflate_nodes(st: _Stencil, n_el_big: int, p: int, bw: int, device, lo: int = 0,
+                   hi: int | None = None) -> torch.Tensor:
+    """Nodes ``[lo, hi)`` (default all) of the node-axis inflation: the
+    ``bw p + 1`` left nodes, the period-``p`` interior, the ``bw p`` right
+    nodes."""
+
+    def tile(m0, m1, mid):
+        phase = (m0 - (bw * p + 1)) % p  # where [m0, m1) starts in a period
+        reps = -(-(phase + m1 - m0) // p)
+        tiled = mid[..., None, :].expand(*mid.shape[:-1], reps, p).reshape(*mid.shape[:-1], reps * p)
+        return tiled[..., phase : phase + m1 - m0]
+
+    return _inflate_range(st, n_el_big * p + 1, tile, device, lo, hi)
+
+
+def _inflate_range(st: _Stencil, n_big: int, interior, device, lo: int, hi: int | None) -> torch.Tensor:
+    """``[lo, hi)`` of ``[left | interior | right]`` along the last axis;
+    ``interior(m0, m1, mid)`` forms the interior's columns ``[m0, m1)``."""
+    hi = n_big if hi is None else hi
     left, mid, right = (torch.from_numpy(a).to(device) for a in st)
-    reps = n_el_big - 2 * bw
-    tiled = mid[..., None, :].expand(*mid.shape[:-1], reps, p).reshape(*mid.shape[:-1], reps * p)
-    return torch.cat([left, tiled, right], dim=-1)
+    bwl, mid_end = left.shape[-1], n_big - right.shape[-1]
+    parts = []
+    if lo < bwl:
+        parts.append(left[..., lo : min(hi, bwl)])
+    m0, m1 = max(lo, bwl), min(hi, mid_end)
+    if m1 > m0:
+        parts.append(interior(m0, m1, mid))
+    if hi > mid_end:
+        parts.append(right[..., max(lo, mid_end) - mid_end : hi - mid_end])
+    return torch.cat(parts, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -138,29 +163,47 @@ def _inflate_nodes(st: _Stencil, n_el_big: int, p: int, bw: int, device) -> torc
 class _Plan:
     """Collects stencils while walking the small hierarchy; :meth:`inflate`
     makes the full-size tensors, in collection order, which the rebuild
-    closures index."""
+    closures index.
 
-    def __init__(self, z: int, bw: int):
+    With a ``group`` (``parallel.multihost.SolverGroup``) a leaf registered
+    while :attr:`sharded` is set inflates to the rank's part only: its
+    columns of an element axis (``multihost.local_range``), its nodes of a
+    node axis (``multihost.node_range``); the caller sets :attr:`sharded`
+    per level (``parallel.multihost.build_sharded_xl_problem``)."""
+
+    def __init__(self, z: int, bw: int, group=None):
         self.z = z
         self.bw = bw
-        self.stencils: list = []  # (_Stencil, spec): ("el", n_big) | ("node", n_el_big, p)
+        self.group = group
+        self.sharded = False
+        self.stencils: list = []  # (_Stencil, spec, (lo, hi)): ("el", n_big) | ("node", n_el_big, p)
+
+    def _range(self, n: int, p: int | None = None) -> tuple:
+        from ..parallel.multihost import local_range, node_range
+
+        if not self.sharded:
+            return 0, (n if p is None else n * p + 1)
+        return local_range(n, self.group) if p is None else node_range(n, p, self.group)
 
     def el(self, arr, what: str, rtol="auto") -> int:
         """Register an element-axis leaf; returns its slot index."""
-        self.stencils.append((_extract_el(arr, self.bw, what, rtol), ("el", arr.shape[-1] * self.z)))
+        n_big = arr.shape[-1] * self.z
+        self.stencils.append((_extract_el(arr, self.bw, what, rtol), ("el", n_big), self._range(n_big)))
         return len(self.stencils) - 1
 
     def node(self, arr, p: int, what: str, rtol="auto") -> int:
         """Register a node-axis leaf of period ``p``; returns its slot index."""
         n_el_big = (arr.shape[-1] - 1) // p * self.z
-        self.stencils.append((_extract_nodes(arr, p, self.bw, what, rtol), ("node", n_el_big, p)))
+        self.stencils.append(
+            (_extract_nodes(arr, p, self.bw, what, rtol), ("node", n_el_big, p), self._range(n_el_big, p))
+        )
         return len(self.stencils) - 1
 
     def inflate(self, device) -> tuple:
         return tuple(
-            _inflate_el(st, spec[1], device) if spec[0] == "el"
-            else _inflate_nodes(st, spec[1], spec[2], self.bw, device)
-            for st, spec in self.stencils
+            _inflate_el(st, spec[1], device, *rng) if spec[0] == "el"
+            else _inflate_nodes(st, spec[1], spec[2], self.bw, device, *rng)
+            for st, spec, rng in self.stencils
         )
 
 
@@ -276,7 +319,7 @@ def _coarse_factor(a_small: BlockTridiag, z: int, bw: int, what: str, device):
 
 
 def inflate_hierarchy(
-    h_small: Hierarchy, h_small_f64: Hierarchy, z: int, *, bw: int = _BW, device="cuda"
+    h_small: Hierarchy, h_small_f64: Hierarchy, z: int, *, bw: int = _BW, device="cuda", shard=None
 ) -> Hierarchy:
     """Inflate a stencil-size hierarchy to ``z``-times-larger level sizes.
 
@@ -286,11 +329,23 @@ def inflate_hierarchy(
     coarse factorization (pass ``h_small`` itself for an all-float64
     inflation).  The coarsest level must be block-tridiagonal: its full-size
     operator is factorized on the host (cyclic reduction above
-    ``hierarchy.DENSE_COARSE_MAX`` DoF), then cast to ``h_small``'s dtype."""
+    ``hierarchy.DENSE_COARSE_MAX`` DoF), then cast to ``h_small``'s dtype.
+
+    ``shard = (group, flags)`` inflates only the rank's part of every level
+    ``k`` with ``flags[k]`` (``parallel.multihost.build_sharded_xl_problem``),
+    as ``parallel.distributed.shard_hierarchy`` would cut the whole level:
+    a block transfer by its coarse level's flag, a seam by its CG level's;
+    the result has no layout yet."""
     device = torch.device(device)
-    plan = _Plan(z, bw)
-    level_fns = [_plan_level(plan, lv, k, device) for k, lv in enumerate(h_small.levels)]
-    transfer_fns = [_plan_transfer(plan, t, k, device) for k, t in enumerate(h_small.transfers)]
+    group, flags = shard if shard is not None else (None, (False,) * h_small.n_levels)
+    plan = _Plan(z, bw, group)
+    level_fns, transfer_fns = [], []
+    for k, lv in enumerate(h_small.levels):
+        plan.sharded = flags[k]
+        level_fns.append(_plan_level(plan, lv, k, device))
+    for k, t in enumerate(h_small.transfers):
+        plan.sharded = flags[k] if isinstance(t, SeamProlong) else flags[k + 1]
+        transfer_fns.append(_plan_transfer(plan, t, k, device))
     out = plan.inflate(device)
     levels = tuple(fn(out) for fn in level_fns)
     transfers = tuple(fn(out) for fn in transfer_fns)
@@ -406,45 +461,12 @@ def build_xl_problem(
     factorizations on ``device``) and ``"rhs"`` (the float64 rhs on
     ``device``, its norm and its float-float split)."""
     from ..ops.df64 import ff_split
-    from .hierarchy import chebyshev_hierarchy, prepare_fast_smoothers, strip_hierarchy
-    from .problems import build_problem, default_model_problem
 
     device = torch.device(device)
-    if z is None:
-        z = default_stencil_factor(spec, n, bw)
-    if z < 2 or n % z:
-        raise ValueError(f"stencil factor z={z} must be >= 2 and divide n={n}")
-    n0 = n // z
-    xin, xout = domain
-    h = (xout - xin) / n
-
-    func_, u_ex, ux_ex = default_model_problem()
-    func = func or func_
-    if bc is None:
-        bc = BoundaryCondition(("neu", ux_ex(xin)), ("dir", u_ex(xout)))
-
-    # 1) host float64 stencil problem at n0 elements of the REAL width h (its
-    #    rhs is discarded, apart from the boundary patches)
     t0 = time.perf_counter()
-    prob0 = build_problem(spec, n0, func, bc, mesh=_stencil_mesh(n0, h), device="cpu")
-    h64 = strip_hierarchy(prob0.hierarchy)
-    a_ff_small = _ff_split_fine(h64.levels[0])
-    h_low0 = hierarchy_astype(h64, dtype)
-    if dtype == torch.float32:
-        # the float32 fine operator IS the float-float split's hi part
-        h_low0 = _share_fine_hi(h_low0, a_ff_small)
-        h_low0 = prepare_fast_smoothers(h_low0)
-    if chebyshev:
-        # lambda_max from the stencil-size spectrum, converged, with a safety
-        # margin for its residual size dependence (< 4% between n0 and n)
-        h_low0 = chebyshev_hierarchy(h_low0, power_iters=50, safety=1.1)
-    if slim_fine:
-        if not isinstance(h_low0.levels[0], BlockLevel) or dtype != torch.float32:
-            raise ValueError("slim_fine requires a float32 DG-topped chain")
-        lv0 = h_low0.levels[0]
-        e = torch.zeros((0, 0, 0), dtype=dtype)
-        lv0 = lv0._replace(a=BlockTridiag(lower=e, diag=lv0.a.diag, upper=e))
-        h_low0 = h_low0._replace(levels=(lv0,) + h_low0.levels[1:])
+    st = _stencil_problem(spec, n, func, bc, z=z, bw=bw, dtype=dtype, chebyshev=chebyshev,
+                          slim_fine=slim_fine, domain=domain)
+    prob0, h64, a_ff_small, h_low0, z, h, xin, func, bc = st
     t0 = _tick(timings, "host_stencil", t0, device)
 
     # 2) inflate the solve hierarchy and the float-float operators on the device
@@ -471,6 +493,61 @@ def build_xl_problem(
     del b
     _tick(timings, "rhs", t0, device)
     return h_low, a_ff, b_ff, norm_b
+
+
+class _StencilProblem(NamedTuple):
+    prob0: object  # the float64 problem at n0 = n / z elements of the full problem's width
+    h64: Hierarchy  # its stripped hierarchy
+    a_ff_small: object  # its fine operator split to float-float
+    h_low0: Hierarchy  # the solve-path hierarchy at n0: cast, M-form streams, Chebyshev bounds, slim
+    z: int
+    h: float  # the element width
+    xin: float
+    func: Callable
+    bc: BoundaryCondition
+
+
+def _stencil_problem(spec, n, func, bc, *, z, bw, dtype, chebyshev, slim_fine, domain) -> _StencilProblem:
+    """Step 1 of the stencil build, on the host: the float64 stencil problem
+    at ``n0 = n / z`` elements of the REAL width ``h`` (its rhs is discarded,
+    apart from the boundary patches) and the solve-path hierarchy made from
+    it.  Every rank of a sharded build runs it (cheaper than sending it)."""
+    from .hierarchy import chebyshev_hierarchy, prepare_fast_smoothers, strip_hierarchy
+    from .problems import build_problem, default_model_problem
+
+    if z is None:
+        z = default_stencil_factor(spec, n, bw)
+    if z < 2 or n % z:
+        raise ValueError(f"stencil factor z={z} must be >= 2 and divide n={n}")
+    n0 = n // z
+    xin, xout = domain
+    h = (xout - xin) / n
+
+    func_, u_ex, ux_ex = default_model_problem()
+    func = func or func_
+    if bc is None:
+        bc = BoundaryCondition(("neu", ux_ex(xin)), ("dir", u_ex(xout)))
+
+    prob0 = build_problem(spec, n0, func, bc, mesh=_stencil_mesh(n0, h), device="cpu")
+    h64 = strip_hierarchy(prob0.hierarchy)
+    a_ff_small = _ff_split_fine(h64.levels[0])
+    h_low0 = hierarchy_astype(h64, dtype)
+    if dtype == torch.float32:
+        # the float32 fine operator IS the float-float split's hi part
+        h_low0 = _share_fine_hi(h_low0, a_ff_small)
+        h_low0 = prepare_fast_smoothers(h_low0)
+    if chebyshev:
+        # lambda_max from the stencil-size spectrum, converged, with a safety
+        # margin for its residual size dependence (< 4% between n0 and n)
+        h_low0 = chebyshev_hierarchy(h_low0, power_iters=50, safety=1.1)
+    if slim_fine:
+        if not isinstance(h_low0.levels[0], BlockLevel) or dtype != torch.float32:
+            raise ValueError("slim_fine requires a float32 DG-topped chain")
+        lv0 = h_low0.levels[0]
+        e = torch.zeros((0, 0, 0), dtype=dtype)
+        lv0 = lv0._replace(a=BlockTridiag(lower=e, diag=lv0.a.diag, upper=e))
+        h_low0 = h_low0._replace(levels=(lv0,) + h_low0.levels[1:])
+    return _StencilProblem(prob0, h64, a_ff_small, h_low0, z, h, xin, func, bc)
 
 
 def _ff_split_fine(fine64):
@@ -517,15 +594,19 @@ def _stencil_ff_fine(a_ff_small, n: int, bw: int, device):
     )
 
 
-def _inflate_ff_tail(h64: Hierarchy, h_low: Hierarchy, z: int, bw: int, device) -> tuple:
+def _inflate_ff_tail(h64: Hierarchy, h_low: Hierarchy, z: int, bw: int, device, shard=None) -> tuple:
     """Per-level float-float operators for levels 1..end: hi shares the
     inflated float32 hierarchy's tensors (the float32 cast equals the split's
-    hi exactly), lo inflates from the stencil-size float64 split."""
+    hi exactly), lo inflates from the stencil-size float64 split (with
+    ``shard``, as :func:`inflate_hierarchy`'s: the rank's part of a sharded
+    level)."""
     from ..ops.df64 import BlockTridiagFF, CgBandFF, bt_split, cg_band_split
 
-    plan = _Plan(z, bw)
+    group, flags = shard if shard is not None else (None, (False,) * len(h64.levels))
+    plan = _Plan(z, bw, group)
     builders = []
     for k in range(1, len(h64.levels)):
+        plan.sharded = flags[k]
         lv64, a = h64.levels[k], h_low.levels[k].a
         if isinstance(lv64, CgLevel):
             i = plan.node(cg_band_split(lv64.a.band).lo, lv64.a.p, f"a_ffs[{k}].lo", rtol=None)
@@ -554,12 +635,14 @@ def _inflate_transfer_los(h64: Hierarchy, z: int, bw: int, device) -> tuple:
     return tuple(None if i is None else BlockProlong(blocks=out[i]) for i in idxs)
 
 
-def _inflate_ff_fine(a_ff_small, fine_low, z: int, bw: int, device):
+def _inflate_ff_fine(a_ff_small, fine_low, z: int, bw: int, device, group=None, sharded: bool = False):
     """The inflated float-float fine operator; hi re-uses the low hierarchy's
-    inflated fine operator (the same values)."""
+    inflated fine operator (the same values); with ``sharded``, the rank's
+    part of it."""
     from ..ops.df64 import BlockTridiagFF, CgBandFF
 
-    plan = _Plan(z, bw)
+    plan = _Plan(z, bw, group)
+    plan.sharded = sharded
     if isinstance(a_ff_small, CgBandFF):
         # node-axis, with p from the band's bandwidth
         i = plan.node(a_ff_small.lo, a_ff_small.hi.shape[0] // 2, "a_ff.lo", rtol=None)
@@ -568,37 +651,46 @@ def _inflate_ff_fine(a_ff_small, fine_low, z: int, bw: int, device):
     return BlockTridiagFF(hi=fine_low.a, lo=lo_fn(plan.inflate(device)))
 
 
-def _uniform_dg_b(prob0, n: int, h: float, xin: float, func, bw: int, device) -> torch.Tensor:
-    """Full-size DG rhs ``b = f - D M^-1 r`` in float64 on ``device``: the
-    volume load is the only position-dependent part; every boundary
-    contribution is an additive, f-independent patch on the outermost
-    elements, taken from the stencil problem (``dg_flux_rhs`` and the
-    ``- D M^-1 r`` lift only add)."""
+def _uniform_dg_b(prob0, n: int, h: float, xin: float, func, bw: int, device, lo: int = 0,
+                  hi: int | None = None) -> torch.Tensor:
+    """Full-size DG rhs ``b = f - D M^-1 r`` in float64 on ``device``, its
+    columns ``[lo, hi)`` (default all, a shard's otherwise): the volume load
+    is the only position-dependent part; every boundary contribution is an
+    additive, f-independent patch on the outermost elements, taken from the
+    stencil problem (``dg_flux_rhs`` and the ``- D M^-1 r`` lift only add)."""
     from ..assembly.dg_assembly import dg_load, dg_load_vector
 
+    hi = n if hi is None else hi
     dg0 = prob0.meshes[0]
     ref = dg0.ref
     f64 = dict(dtype=torch.float64, device=device)
-    jac = torch.full((n,), h / 2.0, **f64)
-    centers = xin + (torch.arange(n, **f64) + 0.5) * h
+    jac = torch.full((hi - lo,), h / 2.0, **f64)
+    centers = xin + (torch.arange(lo, hi, **f64) + 0.5) * h
     load = dg_load(
         jac, centers, torch.tensor(ref.quad_nodes, **f64),
         torch.tensor(ref.quad_weights[:, None] * ref.basis_at_quad, **f64), func,
     )
     del jac, centers
     delta = prob0.b.cpu() - dg_load_vector(dg0, func)
-    k = min(bw, delta.shape[1] // 2)
-    load[:, :k] += delta[:, :k].to(device)
-    load[:, -k:] += delta[:, -k:].to(device)
+    n0 = delta.shape[1]
+    k = min(bw, n0 // 2)
+    # global column c of either patch is delta's column c (left) or c - n + n0 (right)
+    for g0, g1, d0 in ((0, k, 0), (n - k, n, n0 - n)):
+        c0, c1 = max(g0, lo), min(g1, hi)
+        if c1 > c0:
+            load[:, c0 - lo : c1 - lo] += delta[:, c0 + d0 : c1 + d0].to(device)
     return load
 
 
-def _uniform_cg_b(prob0, n: int, h: float, xin: float, func, bc: BoundaryCondition, device) -> torch.Tensor:
-    """Full-size CG rhs in float64 on ``device``: the volume load at full
-    size scattered to the nodes (each node takes at most two contributions,
-    so ``index_add_`` is exact in any order), the Neumann terms, and the
-    Dirichlet lift re-applied from the stencil problem's raw boundary windows
-    (``f[dir] = g`` overwrites, so the lift is re-run, not patched)."""
+def _uniform_cg_b(prob0, n: int, h: float, xin: float, func, bc: BoundaryCondition, device, lo: int = 0,
+                  hi: int | None = None) -> torch.Tensor:
+    """Full-size CG rhs in float64 on ``device``, its nodes ``[lo, hi)``
+    (default all, a shard's otherwise): the volume load of the elements
+    that touch them scattered to the nodes (each node takes at most two
+    contributions, so ``index_add_`` is exact in any order), the Neumann
+    terms, and the Dirichlet lift re-applied from the stencil problem's raw
+    boundary windows (``f[dir] = g`` overwrites, so the lift is re-run, not
+    patched)."""
     from ..assembly.cg_assembly import _raw_stiffness_windows
     from ..ops.cg_operator import cg_element_nodes
 
@@ -606,28 +698,38 @@ def _uniform_cg_b(prob0, n: int, h: float, xin: float, func, bc: BoundaryConditi
     ref = cg0.ref
     p, w = cg0.p, cg0.p + 1
     n_nodes = n * p + 1
+    hi = n_nodes if hi is None else hi
     f64 = dict(dtype=torch.float64, device=device)
     basis_pos = torch.tensor(np.ascontiguousarray(ref.basis_at_quad[:, ref.pos_to_slot]), **f64)  # (n_q, w)
-    centers = xin + (torch.arange(n, **f64) + 0.5) * h
-    xq = centers[:, None] + (h / 2.0) * torch.tensor(ref.quad_nodes, **f64)[None, :]  # (n, n_q)
+    k0, k1 = max(0, -(-(lo - p) // p)), min(n, -(-hi // p))  # the elements whose nodes meet [lo, hi)
+    centers = xin + (torch.arange(k0, k1, **f64) + 0.5) * h
+    xq = centers[:, None] + (h / 2.0) * torch.tensor(ref.quad_nodes, **f64)[None, :]  # (m, n_q)
     del centers
     fe = (h / 2.0) * torch.einsum("l,la,kl->ak", torch.tensor(ref.quad_weights, **f64), basis_pos, func(xq))
     del xq
-    f = torch.zeros((n_nodes,), **f64)
-    f.index_add_(0, cg_element_nodes(p, n, device).reshape(-1), fe.reshape(-1))
+    f = torch.zeros((hi - lo,), **f64)
+    idx = cg_element_nodes(p, k1 - k0, device) + (k0 * p - lo)
+    keep = (idx >= 0) & (idx < hi - lo)
+    f.index_add_(0, idx[keep], fe[keep])
     del fe
 
-    if bc.neu_left:
-        f[0] -= bc.left[1]
-    if bc.neu_right:
-        f[-1] += bc.right[1]
+    def at(node: int):
+        return node - lo if lo <= node < hi else None
+
+    first, last = at(0), at(n_nodes - 1)
+    if bc.neu_left and first is not None:
+        f[first] -= bc.left[1]
+    if bc.neu_right and last is not None:
+        f[last] += bc.right[1]
     raw0 = _raw_stiffness_windows(cg0).to(device)
-    if bc.dir_left:
-        g = bc.left[1]
-        f[:w] -= raw0[:, 0, 0] * g
-        f[0] = g
-    if bc.dir_right:
-        g = bc.right[1]
-        f[n_nodes - w :] -= raw0[:, w - 1, -1] * g
-        f[-1] = g
+    for on, g, col, j0 in ((bc.dir_left, bc.left[1], raw0[:, 0, 0], 0),
+                           (bc.dir_right, bc.right[1], raw0[:, w - 1, -1], n_nodes - w)):
+        if not on:
+            continue
+        c0, c1 = max(j0, lo), min(j0 + w, hi)
+        if c1 > c0:
+            f[c0 - lo : c1 - lo] -= col[c0 - j0 : c1 - j0] * g
+        node = at(0 if j0 == 0 else n_nodes - 1)
+        if node is not None:
+            f[node] = g
     return f

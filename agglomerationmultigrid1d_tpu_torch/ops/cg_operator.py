@@ -65,13 +65,21 @@ def cg_from_windows(windows: torch.Tensor) -> CgOperator:
     return CgOperator(windows=windows, band=assemble_band(windows))
 
 
-def cg_matvec(a: CgOperator, x: torch.Tensor) -> torch.Tensor:
-    """``y[i] = sum_off band[off + p, i] * x[i + off]`` for x of shape ``(n_nodes,)``."""
+def cg_matvec(a: CgOperator, x: torch.Tensor, halo: tuple | None = None) -> torch.Tensor:
+    """``y[i] = sum_off band[off + p, i] * x[i + off]`` for x of shape
+    ``(n_nodes,)``.  ``halo``, on a shard: ``(left, right)``, the ``p`` nodes
+    before the shard's first and after its last (the neighbours'); zeros by
+    default."""
     p = a.p
+    if halo is None:
+        shifted = lambda off: shift(x, off)  # noqa: E731
+    else:
+        ext, n = torch.cat([halo[0], x, halo[1]]), x.shape[0]
+        shifted = lambda off: ext[p + off : p + off + n]  # noqa: E731
     y = a.band[p] * x
     for off in range(1, p + 1):
-        y = y + a.band[off + p] * shift(x, off)
-        y = y + a.band[-off + p] * shift(x, -off)
+        y = y + a.band[off + p] * shifted(off)
+        y = y + a.band[-off + p] * shifted(-off)
     return y
 
 

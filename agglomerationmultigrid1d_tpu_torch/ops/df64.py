@@ -229,16 +229,24 @@ class BTFFStencil:
         return self.hi_left.diag.shape[-1]
 
 
-def ff_bt_defect_stencil(a: BTFFStencil, x: FF, b: FF) -> FF:
+def ff_bt_defect_stencil(a: BTFFStencil, x: FF, b: FF, col0: int | None = None,
+                         ghost_left=None, ghost_right=None) -> FF:
     """``r = b - A x`` where A lives as stencils (see :class:`BTFFStencil`):
     the interior pass with the broadcast mid blocks, with the first/last
     ``bw`` columns computed from the exact boundary blocks — both in one
     launch of kernel K6 for CUDA tensors, the plain torch chain (interior pass,
-    then the two boundary windows spliced in) for CPU tensors."""
-    from .kernels.block_kernels import ff_stencil_mid_defect
+    then the boundary columns spliced in) for CPU tensors.
+
+    With ``col0``, ``x`` and ``b`` are one shard: the global columns
+    ``[col0, col0 + n)`` of ``a.n``, and ``ghost_left`` / ``ghost_right``
+    (``(2, bs)``, hi then lo) are the neighbours' edge columns of x, None at
+    a ring end (kernel K6s)."""
+    from .kernels.block_kernels import ff_stencil_mid_defect, ff_stencil_shard_defect
 
     x_hi, x_lo, b_hi, b_lo = (t.contiguous() for t in (x.hi, x.lo, b.hi, b.lo))
-    return FF(*ff_stencil_mid_defect(a.blocks, x_hi, x_lo, b_hi, b_lo))
+    if col0 is None:
+        return FF(*ff_stencil_mid_defect(a.blocks, x_hi, x_lo, b_hi, b_lo))
+    return FF(*ff_stencil_shard_defect(a.blocks, x_hi, x_lo, b_hi, b_lo, col0, a.n, ghost_left, ghost_right))
 
 
 def f64_bt_defect_stencil(a: BTFFStencil, x_ff: FF, b_ff: FF) -> FF:
@@ -311,13 +319,21 @@ def cg_band_split(band: torch.Tensor) -> CgBandFF:
     return CgBandFF(p.hi, p.lo)
 
 
-def ff_cg_defect(a: CgBandFF, x: FF, b: FF) -> FF:
+def ff_cg_defect(a: CgBandFF, x: FF, b: FF, halo: tuple | None = None) -> FF:
     """``r = b - A x`` for a scalar-banded CG operator in float-float: the
-    2p+1 shifted products of ``ops.cg_operator.cg_matvec``."""
+    2p+1 shifted products of ``ops.cg_operator.cg_matvec``.  ``halo``, on a
+    shard: ``(left, right)``, the ``p`` nodes before the shard and after it
+    as float-float pairs (the neighbours'), zeros by default."""
     p = a.hi.shape[0] // 2
+    if halo is None:
+        shifted = lambda off: _shifted(x, off)  # noqa: E731
+    else:
+        (left, right), n = halo, x.hi.shape[-1]
+        ext = FF(torch.cat([left.hi, x.hi, right.hi], dim=-1), torch.cat([left.lo, x.lo, right.lo], dim=-1))
+        shifted = lambda off: FF(ext.hi[p + off : p + off + n], ext.lo[p + off : p + off + n])  # noqa: E731
     acc = b
     for off in range(-p, p + 1):
-        t = ff_mul(FF(a.hi[off + p], a.lo[off + p]), _shifted(x, off))
+        t = ff_mul(FF(a.hi[off + p], a.lo[off + p]), shifted(off))
         acc = ff_add(acc, ff_neg(t))
     return acc
 

@@ -9,7 +9,9 @@
   ``x += d``, with ``d = 0`` at the start), without or with the residual;
 * K6 :func:`ff_stencil_mid_defect` — the float-float defect ``r = b - A x``
   of a stencil operator (``ops.df64.BTFFStencil``), error-free arithmetic,
-  bit for bit equal to :func:`ff_stencil_mid_defect_plain`;
+  bit for bit equal to :func:`ff_stencil_mid_defect_plain`; K6s
+  :func:`ff_stencil_shard_defect` — the same on one shard of a sharded
+  vector, with its global column offset and its neighbours' edge columns;
 * K7 — K1, K2 and K5 (four forms) with ``ghosts=(gops, gvec)``: one shard of
   an element-sharded operator, with its neighbours' columns as ghosts
   (``parallel.sharded_kernels``); the result is the sweeps over
@@ -40,8 +42,8 @@ order of operations.  There is no fallback from a CUDA tensor to the plain
 version: a build or launch failure raises.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain runs do not count), so
-a run can show that it went through the kernels; K7's four forms count
-under the ``*_ghost`` names, the edge pair's under the ``*edge_pair*`` names
+a run can show that it went through the kernels; K6s counts under
+``ff_stencil_shard_defect``, K7's four forms under the ``*_ghost`` names, the edge pair's under the ``*edge_pair*`` names
 and its packing under ``pack_edges``.
 
 K5's coefficient table (:func:`chebyshev_coefficients`) is passed to the
@@ -77,6 +79,7 @@ LAUNCHES = {
     "chebyshev_multisweep": 0,
     "chebyshev_multisweep_residual": 0,
     "ff_stencil_mid_defect": 0,
+    "ff_stencil_shard_defect": 0,
     "multisweep_ghost": 0,
     "multisweep_residual_ghost": 0,
     "chebyshev_multisweep_ghost": 0,
@@ -324,37 +327,62 @@ def _stencil_op(blocks: torch.Tensor, cols):
     return BlockTridiagFF(bt(0), bt(1))
 
 
-def ff_stencil_mid_defect_plain(blocks, x_hi, x_lo, b_hi, b_lo):
+def _stencil_boundary(bw: int, col0: int, n: int, n_total: int) -> tuple:
+    """The shard's columns among the first and last ``bw`` global ones:
+    ``(local, stencil)``, the local column indices and their columns of the
+    packed stencil (``k`` for global column ``k < bw``, ``bw + 1 + j`` for
+    the ``j``-th of the last ``bw``)."""
+    local, stencil = [], []
+    for g0, g1, shift_ in ((col0, min(bw, col0 + n), 0),
+                           (max(n_total - bw, col0), min(n_total, col0 + n), 2 * bw + 1 - n_total)):
+        local += [kg - col0 for kg in range(g0, g1)]
+        stencil += [kg + shift_ for kg in range(g0, g1)]
+    return local, stencil
+
+
+def ff_stencil_mid_defect_plain(blocks, x_hi, x_lo, b_hi, b_lo, col0: int = 0, n_total: int | None = None,
+                                ghost_left=None, ghost_right=None):
     """``r = b - A x`` in float-float for the packed stencil ``blocks``
     (``(2, 3, bs, bs, 2 bw + 1)``, see ``ops.df64.stencil_blocks``): the
     interior pass with the mid blocks broadcast over every column (the Pallas
-    kernel's computation), then, for ``bw > 0``, the first and last ``bw``
-    columns recomputed on windows of width ``bw + 2`` with their exact blocks
-    and spliced in (the JAX package's ``ff_bt_defect_stencil``).  Returns
-    ``(r_hi, r_lo)``."""
+    kernel's computation), then, for ``bw > 0``, the columns among the first
+    and last ``bw`` recomputed with their exact blocks and spliced in (the
+    JAX package's ``ff_bt_defect_stencil``).  Returns ``(r_hi, r_lo)``.
+
+    On a shard (K6s) the columns are global columns ``[col0, col0 + n)`` of
+    ``n_total``, and ``x_{-1}`` / ``x_{+1}`` past the shard's ends are the
+    neighbours' edge columns ``ghost_left`` / ``ghost_right`` (``(2, bs)``:
+    hi, then lo), zero where None (a ring end).  Every column runs the same
+    operations in the same order as in the whole array."""
     from ..df64 import FF, ff_bt_defect
 
     bw = (blocks.shape[-1] - 1) // 2
-    n = x_hi.shape[-1]
-    r = ff_bt_defect(_stencil_op(blocks, slice(bw, bw + 1)), FF(x_hi, x_lo), FF(b_hi, b_lo))
-    if bw == 0:
+    bs, n = x_hi.shape
+    n_total = n if n_total is None else n_total
+
+    def ghost(gc):
+        if gc is None:
+            z = x_hi.new_zeros((bs, 1))
+            return z, z
+        return gc[0][:, None], gc[1][:, None]
+
+    (gl_hi, gl_lo), (gr_hi, gr_lo) = ghost(ghost_left), ghost(ghost_right)
+    x = FF(x_hi, x_lo)
+    xm = FF(torch.cat([gl_hi, x_hi[:, :-1]], dim=1), torch.cat([gl_lo, x_lo[:, :-1]], dim=1))
+    xp = FF(torch.cat([x_hi[:, 1:], gr_hi], dim=1), torch.cat([x_lo[:, 1:], gr_lo], dim=1))
+    r = ff_bt_defect(_stencil_op(blocks, slice(bw, bw + 1)), x, FF(b_hi, b_lo), xm, xp)
+    local, stencil = _stencil_boundary(bw, col0, n, n_total)
+    if not local:
         return r.hi, r.lo
-    w = bw + 2
-    left = slice(None, w)
-    r_l = ff_bt_defect(
-        _stencil_op(blocks, list(range(bw)) + [bw] * 2),
-        FF(x_hi[:, left], x_lo[:, left]), FF(b_hi[:, left], b_lo[:, left]),
-    )
-    right = slice(n - w, None)
-    r_r = ff_bt_defect(
-        _stencil_op(blocks, [bw] * 2 + list(range(bw + 1, 2 * bw + 1))),
-        FF(x_hi[:, right], x_lo[:, right]), FF(b_hi[:, right], b_lo[:, right]),
-    )
+    idx = torch.tensor(local, device=x_hi.device)
 
-    def splice(full, l, rr):
-        return torch.cat([l[:, :bw], full[:, bw : n - bw], rr[:, -bw:]], dim=1)
+    def at(v: FF) -> FF:
+        return FF(v.hi[:, idx], v.lo[:, idx])
 
-    return splice(r.hi, r_l.hi, r_r.hi), splice(r.lo, r_l.lo, r_r.lo)
+    rb = ff_bt_defect(_stencil_op(blocks, stencil), at(x), FF(b_hi[:, idx], b_lo[:, idx]), at(xm), at(xp))
+    r_hi, r_lo = r.hi.clone(), r.lo.clone()
+    r_hi[:, idx], r_lo[:, idx] = rb.hi, rb.lo
+    return r_hi, r_lo
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +437,7 @@ def _lib():
             lib.aggmg_multisweep.restype = i
             lib.aggmg_chebyshev.argtypes = [i, p, p, p, p, p, p, p, p, i, p, p, ll, ll, ll, i, p, p]
             lib.aggmg_chebyshev.restype = i
-            lib.aggmg_ff_stencil_defect.argtypes = [i, p, i, p, p, p, p, p, p, ll, p]
+            lib.aggmg_ff_stencil_defect.argtypes = [i, p, i, p, p, p, p, p, p, ll, ll, ll, p, p, p]
             lib.aggmg_ff_stencil_defect.restype = i
             lib.aggmg_block_jacobi_sweep.argtypes = [i, p, p, p, p, p, p, p, ll, f, p]
             lib.aggmg_block_jacobi_sweep.restype = i
@@ -863,11 +891,7 @@ def stream_kernel(ml, mu, s_inv, x, b):
     return out
 
 
-def ff_stencil_mid_defect(blocks, x_hi, x_lo, b_hi, b_lo):
-    """K6: the float-float stencil defect ``r = b - A x`` of
-    :func:`ff_stencil_mid_defect_plain` (interior pass and boundary columns)
-    in one launch; returns ``(r_hi, r_lo)``.  The kernel equals the plain
-    version bit for bit."""
+def _ff_stencil(name, blocks, x_hi, x_lo, b_hi, b_lo, col0, n_total, ghost_left, ghost_right):
     if x_hi.dim() != 2:
         raise ValueError(f"vector of shape {tuple(x_hi.shape)}, expected (bs, n)")
     bs, n = x_hi.shape
@@ -876,22 +900,50 @@ def ff_stencil_mid_defect(blocks, x_hi, x_lo, b_hi, b_lo):
             f"packed stencil of shape {tuple(blocks.shape)}, expected (2, 3, {bs}, {bs}, 2 bw + 1)"
         )
     dev = x_hi.device
-    _check_tensors((blocks, x_hi, x_lo, b_hi, b_lo), bs, dev)
+    ghosts = [t for t in (ghost_left, ghost_right) if t is not None]
+    _check_tensors((blocks, x_hi, x_lo, b_hi, b_lo, *ghosts), bs, dev)
     for v in (x_lo, b_hi, b_lo):
         if v.shape != x_hi.shape:
             raise ValueError(f"vector of shape {tuple(v.shape)}, expected {tuple(x_hi.shape)}")
+    for t in ghosts:
+        if tuple(t.shape) != (2, bs):
+            raise ValueError(f"ghost column of shape {tuple(t.shape)}, expected (2, {bs}): hi, then lo")
     bw = (blocks.shape[-1] - 1) // 2
-    if bw > 0 and n < 2 * bw + 2:
-        raise ValueError(f"{n} columns do not hold the {bw}-column boundary windows")
+    if bw > 0 and n_total < 2 * bw + 2:
+        raise ValueError(f"{n_total} columns do not hold the {bw}-column boundary windows")
+    if col0 < 0 or col0 + n > n_total:
+        raise ValueError(f"columns [{col0}, {col0 + n}) are not within the {n_total} of the array")
     if dev.type == "cpu":
-        return ff_stencil_mid_defect_plain(blocks, x_hi, x_lo, b_hi, b_lo)
+        return ff_stencil_mid_defect_plain(blocks, x_hi, x_lo, b_hi, b_lo, col0, n_total, ghost_left, ghost_right)
     r_hi, r_lo = torch.empty_like(x_hi), torch.empty_like(x_lo)
     if n == 0:
         return r_hi, r_lo
     rc = _launch(
         dev, _lib().aggmg_ff_stencil_defect, bs, blocks.data_ptr(), bw, x_hi.data_ptr(), x_lo.data_ptr(),
-        b_hi.data_ptr(), b_lo.data_ptr(), r_hi.data_ptr(), r_lo.data_ptr(), n,
+        b_hi.data_ptr(), b_lo.data_ptr(), r_hi.data_ptr(), r_lo.data_ptr(), n, col0, n_total,
+        None if ghost_left is None else ghost_left.data_ptr(),
+        None if ghost_right is None else ghost_right.data_ptr(),
     )
-    _raise_on(rc, "ff_stencil_mid_defect")
-    LAUNCHES["ff_stencil_mid_defect"] += 1
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return r_hi, r_lo
+
+
+def ff_stencil_mid_defect(blocks, x_hi, x_lo, b_hi, b_lo):
+    """K6: the float-float stencil defect ``r = b - A x`` of
+    :func:`ff_stencil_mid_defect_plain` (interior pass and boundary columns)
+    in one launch; returns ``(r_hi, r_lo)``.  The kernel equals the plain
+    version bit for bit."""
+    return _ff_stencil("ff_stencil_mid_defect", blocks, x_hi, x_lo, b_hi, b_lo, 0, x_hi.shape[-1], None, None)
+
+
+def ff_stencil_shard_defect(blocks, x_hi, x_lo, b_hi, b_lo, col0: int, n_total: int,
+                            ghost_left=None, ghost_right=None):
+    """K6s: K6 on one shard of an element-sharded vector, the columns
+    ``[col0, col0 + n)`` of ``n_total``, with the neighbours' edge columns of
+    x as ``ghost_left`` / ``ghost_right`` (``(2, bs)`` float32, hi then lo;
+    None at a ring end reads zero); one launch, counted under its own name.
+    Equal bit for bit to the plain version and to the same columns of K6 on
+    the whole array."""
+    return _ff_stencil("ff_stencil_shard_defect", blocks, x_hi, x_lo, b_hi, b_lo, col0, n_total,
+                       ghost_left, ghost_right)

@@ -240,6 +240,15 @@ def cgp_prolong(l: CgProlong, xc: torch.Tensor) -> torch.Tensor:
 def cgp_restrict(l: CgProlong, rf: torch.Tensor) -> torch.Tensor:
     """``L^T rf``: each fine row of L lies in exactly one element window once
     row 0 is masked (the right endpoint row of window k carries vertex k+1)."""
+    rc = cgp_restrict_windows(l, rf)
+    rc[0] += rf[0]
+    return rc
+
+
+def cgp_restrict_windows(l: CgProlong, rf: torch.Tensor) -> torch.Tensor:
+    """:func:`cgp_restrict` without its first fine node's term: the element
+    windows' part, from and to the ``n_el p + 1`` nodes of the elements (on
+    a shard, its own nodes and the vertex it shares with the next rank)."""
     p_f, p_c = l.p_fine, l.p_coarse
     n_el = (rf.shape[0] - 1) // p_f
     rf_win = rf[cg_element_nodes(p_f, n_el, rf.device)]
@@ -247,7 +256,6 @@ def cgp_restrict(l: CgProlong, rf: torch.Tensor) -> torch.Tensor:
     rc_win = l.e.T @ rf_win  # (w_c, n_el)
     rc = torch.zeros((n_el * p_c + 1,), dtype=rf.dtype, device=rf.device)
     rc.index_add_(0, cg_element_nodes(p_c, n_el, rf.device).reshape(-1), rc_win.reshape(-1))
-    rc[0] += rf[0]
     return rc
 
 
@@ -303,13 +311,24 @@ def _seam_indices(l: SeamProlong) -> torch.Tensor:
 
 def seam_prolong(l: SeamProlong, xc: torch.Tensor) -> torch.Tensor:
     """``(bs, n_c) -> (n_cg_nodes,)``: ``diag(lump)^-1 N xc``."""
+    return l.inv_lump * seam_scatter(l, xc, l.inv_lump.shape[0])
+
+
+def seam_scatter(l: SeamProlong, xc: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """``N xc`` on ``n_nodes`` CG nodes (on a shard: the nodes of its
+    elements, its own and the vertex it shares with the next rank)."""
     contrib = torch.einsum("amjc,mc->ajc", l.n_win, xc)  # (w_cg, r, n_c)
-    out = torch.zeros_like(l.inv_lump)
+    out = torch.zeros((n_nodes,), dtype=contrib.dtype, device=contrib.device)
     out.index_add_(0, _seam_indices(l).reshape(-1), contrib.reshape(-1))
-    return l.inv_lump * out
+    return out
 
 
 def seam_restrict(l: SeamProlong, rf: torch.Tensor) -> torch.Tensor:
     """``L^T rf = N^T diag(lump)^-1 rf``: ``(n_cg_nodes,) -> (bs, n_c)``."""
-    z_win = (l.inv_lump * rf)[_seam_indices(l)]  # (w_cg, r, n_c)
-    return torch.einsum("amjc,ajc->mc", l.n_win, z_win)
+    return seam_gather(l, l.inv_lump * rf)
+
+
+def seam_gather(l: SeamProlong, z: torch.Tensor) -> torch.Tensor:
+    """``N^T z`` from the CG nodes ``z`` of the base elements (on a shard,
+    with the vertex it shares with the next rank)."""
+    return torch.einsum("amjc,ajc->mc", l.n_win, z[_seam_indices(l)])

@@ -1,9 +1,20 @@
 """Element-axis domain decomposition over ``torch.distributed``: the group
-handle and collectives (``multihost``), the neighbour exchange (``halo``),
-sharded hierarchies (``distributed``) and the fused smoothers on a shard
+handle, the collectives and the rank-local stencil build (``multihost``), the
+neighbour exchange (``halo``), sharded hierarchies (``distributed``), CG levels
+on a shard (``cg_levels``) and the fused smoothers on a shard
 (``sharded_kernels``, kernel K7 and the edge pair).  Importing it starts no process group."""
 
-from .multihost import SolverGroup, all_gather_cols, all_reduce_sum, initialize, local_range, shutdown
+from .multihost import (
+    SolverGroup,
+    all_gather_cols,
+    all_reduce_sum,
+    build_sharded_xl_problem,
+    initialize,
+    local_range,
+    node_range,
+    node_widths,
+    shutdown,
+)
 from .halo import halo_shift
 from .distributed import (
     attach_operator_ghosts,
@@ -19,6 +30,9 @@ __all__ = [
     "SolverGroup",
     "all_gather_cols",
     "all_reduce_sum",
+    "build_sharded_xl_problem",
+    "node_range",
+    "node_widths",
     "initialize",
     "local_range",
     "shutdown",

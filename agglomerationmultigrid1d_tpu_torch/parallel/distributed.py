@@ -1,4 +1,4 @@
-"""Element-axis domain decomposition of DG-topped hierarchies over
+"""Element-axis domain decomposition of multigrid hierarchies over
 ``torch.distributed``.
 
 The counterpart of the JAX package's ``parallel/distributed.py``.  There, the
@@ -17,18 +17,33 @@ ghosts they read exchanged once and the level's edge plan built once, here
 Typical use, one process per rank::
 
     g = initialize(rank, world, store_path=path)        # NCCL on the card
-    prob = poisson_dg_hierarchy(n=..., device=g.device)
+    prob = poisson_dg_hierarchy(n=..., device=g.device)  # or poisson_full_hierarchy
     h = shard_hierarchy(prob.hierarchy, g)
     h32 = make_low_precision_hierarchy(h)
-    b = shard_vector(prob.b, g)
+    b = shard_vector(prob.b, g, h)
     res = multigrid_mixed(h, h32, torch.zeros_like(b), b)
     x = unshard_vector(res.x, h)                        # the whole solution, on every rank
 
-CG levels (the JAX package's ``_pad_cg_level`` / ``_pad_cg_smoother``) and
-CG or seam transfers on sharded levels are not ported yet (ROADMAP queue 1,
-item 15), nor are sharded block-pentadiagonal (mixed-switch) or block-COO
-(scattered) levels, which the JAX package's partitioner shards:
-:func:`shard_hierarchy` raises ``NotImplementedError`` for them.
+**CG levels.**  Every exchange is explicit here, so the layout of a CG level
+is chosen to keep them few: each rank owns the nodes of its own elements,
+``[r m, (r + 1) m)`` with ``m = n_el p / W``, and the last rank also the
+level's last node (``multihost.node_range``; the node shards are unequal by
+that one node).  The vertex shared by two ranks belongs to the right one; the
+left one reads it, and adds its part of a scatter into it, through
+:mod:`.cg_levels`.  p-coarsening keeps ``n_el`` on every CG level, so a CG
+transfer is local up to that vertex, and a seam onto agglomerates that divide
+the world (the rule of the block levels) is too.  The JAX package instead
+pads each CG level's node axis to a device multiple with an identity band
+tail (``_pad_cg_level``) and lets its partitioner move what crosses devices;
+the unpadded layout here needs no pad, crop or identity tail, and
+:func:`unshard_vector` returns the same ``n_el p + 1`` nodes as the JAX
+package's does.
+
+Refused on a sharded level (``NotImplementedError``, ROADMAP queue 1, item
+15 (d)), where the JAX package's partitioner shards: block-pentadiagonal
+(mixed-switch) and block-COO (scattered) operators, and ragged seams; and
+(``ValueError``) agglomerates that straddle two ranks and a level that
+could be sharded below one that cannot.
 """
 
 from __future__ import annotations
@@ -37,87 +52,120 @@ import torch
 
 from ..models.hierarchy import BlockLevel, CgLevel, Hierarchy, ShardLayout
 from ..ops.block_tridiag import BlockTridiag
-from ..ops.transfer_ops import BlockProlong
+from ..ops.transfer_ops import BlockProlong, CgProlong, SeamProlong
 from ..smoothers.smoother import BlockJacobiSmoother, ChebyshevSmoother
 from ..utils.precision import tree_map, tree_to
-from .multihost import SolverGroup, all_gather_cols, local_range
+from .multihost import SolverGroup, all_gather_cols, local_range, node_range, node_widths
 from .sharded_kernels import edge_plan, operator_ghosts
 
 
-def _unported(what: str) -> NotImplementedError:
+def _refused(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} on a sharded level is not ported yet (ROADMAP queue 1, item 15: CG-level "
-        "sharding); shard DG-topped hierarchies, or raise min_blocks_per_device so it stays whole"
+        f"{what}; sharding it is not ported (ROADMAP queue 1, item 15 (d): the JAX package's partitioner "
+        "shards it); raise min_blocks_per_device so it stays whole"
     )
 
 
-def _slice_cols(tree, n: int, g: SolverGroup):
+def _slice_cols(tree, n: int, g: SolverGroup, n_nodes: tuple | None = None):
     """The rank's columns of every tensor of ``tree`` whose last axis is the
-    level's ``n`` elements, as tensors of their own on ``g.device``; other
-    tensors (0-d bounds, stripped operators) whole."""
+    level's ``n`` elements (and, with ``n_nodes = (n_el, p)``, its nodes of
+    every tensor whose last axis is the ``n_el p + 1`` CG nodes), as tensors
+    of their own on ``g.device``; other tensors (0-d bounds, stripped
+    operators) whole."""
     lo, hi = local_range(n, g)
+    n_lo, n_hi = node_range(*n_nodes, g) if n_nodes is not None else (0, 0)
 
     def cut(t):
         if t.dim() > 0 and t.shape[-1] == n:
             t = t[..., lo:hi]
+        elif n_nodes is not None and t.dim() > 0 and t.shape[-1] == n_nodes[0] * n_nodes[1] + 1:
+            t = t[..., n_lo:n_hi]
         return t.to(g.device).contiguous()
 
     return tree_map(cut, tree)
+
+
+def level_size(lv) -> int:
+    """A level's element (block) count: what is sharded."""
+    return lv.a.n_el if isinstance(lv, CgLevel) else lv.a.n_blocks
+
+
+def check_transfer(k: int, tr, n_f: int, n_c: int, sh_f: bool, sh_c: bool, world: int) -> None:
+    """Refuse what the ranks cannot hold of transfer ``k`` (level ``k + 1``,
+    ``n_c`` elements, onto level ``k``, ``n_f``): a sharded level below a
+    whole one, a transfer of a kind not ported on a shard, agglomerates that
+    straddle two ranks."""
+    if not sh_f:
+        if sh_c:
+            raise ValueError(f"level {k + 1} is sharded below the whole level {k}")
+        return
+    if isinstance(tr, CgProlong):
+        return
+    if isinstance(tr, SeamProlong) and tr.offsets is not None:
+        raise _refused(f"transfer {k} is a ragged seam (SeamProlong.offsets: agglomerates of unequal size)")
+    if not isinstance(tr, (SeamProlong, BlockProlong)):
+        raise _refused(f"transfer {k} is a {type(tr).__name__}")
+    if n_f != tr.r * n_c or n_c % world:
+        raise ValueError(
+            f"level {k} ({n_f} blocks) over level {k + 1} ({n_c}): its agglomerates of "
+            f"{tr.r} would straddle the {world} ranks (the coarse count must divide the world size; "
+            "ROADMAP queue 1, item 15 (d))"
+        )
+
+
+def _shard_transfer(k: int, tr, fine, coarse, sh_f: bool, sh_c: bool, g: SolverGroup):
+    """Transfer ``k`` (level ``k + 1`` onto level ``k``) on the ranks.  A
+    block transfer keeps all its coarse columns unless the coarse level is
+    sharded (``models.solvers`` slices it on use); a seam under a sharded CG
+    level holds the rank's coarse columns and its nodes' lumped mass; a CG
+    transfer is one constant matrix."""
+    n_c = level_size(coarse)
+    check_transfer(k, tr, level_size(fine), n_c, sh_f, sh_c, g.world)
+    if not sh_f or isinstance(tr, CgProlong):
+        return tree_to(tr, g.device)
+    if isinstance(tr, SeamProlong):
+        return _slice_cols(tr, n_c, g, n_nodes=(fine.a.n_el, fine.a.p))
+    return _slice_cols(tr, n_c, g) if sh_c else tree_to(tr, g.device)
 
 
 def shard_hierarchy(h: Hierarchy, group: SolverGroup, *, min_blocks_per_device: int = 8) -> Hierarchy:
     """Distribute a hierarchy: fine levels element-sharded, small levels whole.
 
     JAX's policy: a level is sharded when it gives every rank at least
-    ``min_blocks_per_device`` blocks and its element count divides the world
-    size; a transfer is sharded iff its coarse side is; the coarsest level
-    and its factorization are replicated.  Each rank keeps only its own
-    columns of the sharded levels (``[r n / W, (r + 1) n / W)``), and the
-    float32 ones K7's operator ghosts (:func:`attach_operator_ghosts`).
-    Raises where an agglomerate would straddle two ranks.  Collective."""
+    ``min_blocks_per_device`` elements and its element count divides the
+    world size; a transfer is sharded iff its coarse side is; the coarsest
+    level and its factorization are replicated.  Each rank keeps only its own
+    columns of the sharded levels (``[r n / W, (r + 1) n / W)``; on a CG
+    level its nodes, see the module docstring), and the float32 block
+    levels K7's operator ghosts (:func:`attach_operator_ghosts`).  Raises
+    where an agglomerate would straddle two ranks.  Collective."""
     if h.layout is not None:
         raise ValueError("the hierarchy is already sharded")
     w = group.world
 
     def shardable(lv):
-        n = lv.a.n_el if isinstance(lv, CgLevel) else lv.a.n_blocks
+        n = level_size(lv)
         return n >= w * min_blocks_per_device and n % w == 0
 
     sharded = [shardable(lv) for lv in h.levels]
     sharded[-1] = False  # the coarsest level always replicates (dense direct solve)
+    levels = []
     for k, (lv, sh) in enumerate(zip(h.levels, sharded)):
-        if sh and isinstance(lv, CgLevel):
-            raise _unported("a CG level")
-        if sh and not isinstance(lv.a, BlockTridiag):
+        if not sh:
+            levels.append(tree_to(lv, group.device))
+        elif isinstance(lv, CgLevel):
+            levels.append(_slice_cols(lv, lv.a.n_el, group, n_nodes=(lv.a.n_el, lv.a.p)))
+        elif not isinstance(lv.a, BlockTridiag):
             # sliced by columns, its distance-2 or scattered couplings would be
             # cut and the level smoothed as if it were tridiagonal
-            raise NotImplementedError(
-                f"level {k} holds a {type(lv.a).__name__} operator; sharding it is not ported "
-                "(ROADMAP queue 1, item 15 (d): the JAX package's partitioner shards it, the port "
-                "shards block-tridiagonal levels only); raise min_blocks_per_device so it stays whole"
-            )
-    levels = [
-        _slice_cols(lv, lv.a.n_blocks, group) if sh else tree_to(lv, group.device)
-        for lv, sh in zip(h.levels, sharded)
+            raise _refused(f"level {k} holds a {type(lv.a).__name__} operator (the port shards "
+                           "block-tridiagonal and CG levels only)")
+        else:
+            levels.append(_slice_cols(lv, lv.a.n_blocks, group))
+    transfers = [
+        _shard_transfer(k, tr, h.levels[k], h.levels[k + 1], sharded[k], sharded[k + 1], group)
+        for k, tr in enumerate(h.transfers)
     ]
-
-    transfers = []
-    for k, tr in enumerate(h.transfers):  # transfer k: level k + 1 (coarse) -> level k (fine)
-        if not sharded[k]:
-            if sharded[k + 1]:
-                raise ValueError(f"level {k + 1} is sharded below the whole level {k}")
-            transfers.append(tree_to(tr, group.device))
-            continue
-        if not isinstance(tr, BlockProlong):
-            raise _unported(type(tr).__name__)
-        n_f, n_c = h.levels[k].a.n_blocks, tr.n_coarse
-        if n_f != tr.r * n_c or n_c % w:
-            raise ValueError(
-                f"level {k} ({n_f} blocks) over level {k + 1} ({n_c}): its agglomerates of "
-                f"{tr.r} would straddle the {w} ranks (the coarse count must divide the world size)"
-            )
-        transfers.append(_slice_cols(tr, n_c, group) if sharded[k + 1] else tree_to(tr, group.device))
-
     return attach_operator_ghosts(Hierarchy(
         levels=tuple(levels),
         transfers=tuple(transfers),
@@ -126,17 +174,36 @@ def shard_hierarchy(h: Hierarchy, group: SolverGroup, *, min_blocks_per_device: 
     ))
 
 
-def shard_vector(x: torch.Tensor, group: SolverGroup) -> torch.Tensor:
-    """The rank's columns of a fine-level block vector ``(bs, n)``."""
-    lo, hi = local_range(x.shape[-1], group)
+def level_widths(lv, g: SolverGroup) -> list | None:
+    """Every rank's width of a sharded level's vectors where they differ (a
+    CG level's node shards, ``multihost.node_widths``); None on a block
+    level, whose shards are equal.  ``lv`` is the rank's shard."""
+    if not isinstance(lv, CgLevel):
+        return None
+    return node_widths(lv.a.n_el * g.world, lv.a.p, g)
+
+
+def shard_vector(x: torch.Tensor, group: SolverGroup, h: Hierarchy | None = None) -> torch.Tensor:
+    """The rank's part of a fine-level vector: its columns of a block vector
+    ``(bs, n)``; of a CG node vector ``(n_el p + 1,)`` its nodes, which needs
+    the hierarchy ``h`` (whole or sharded: its fine level's order)."""
+    if x.dim() == 1:
+        if h is None or not isinstance(h.levels[0], CgLevel):
+            raise ValueError("a CG node vector is sharded by its level's nodes: pass the hierarchy h")
+        p = h.levels[0].a.p
+        lo, hi = node_range((x.shape[0] - 1) // p, p, group)
+    else:
+        lo, hi = local_range(x.shape[-1], group)
     return x[..., lo:hi].to(group.device).contiguous()
 
 
 def unshard_vector(x: torch.Tensor, h: Hierarchy) -> torch.Tensor:
-    """The whole fine-level vector from the ranks' shards (on every rank)."""
+    """The whole fine-level vector from the ranks' shards (on every rank):
+    ``(bs, n)`` on a block level, the ``n_el p + 1`` nodes on a CG level."""
     if h.layout is None or not h.layout.sharded[0]:
         return x
-    return all_gather_cols(x, h.layout.group)
+    g = h.layout.group
+    return all_gather_cols(x, g, level_widths(h.levels[0], g))
 
 
 def attach_operator_ghosts(h: Hierarchy) -> Hierarchy:

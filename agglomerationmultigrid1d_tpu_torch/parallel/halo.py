@@ -177,3 +177,51 @@ def halo_shift(x: torch.Tensor, d: int, g: SolverGroup) -> torch.Tensor:
         return torch.cat([local[..., :-1], right], dim=-1)
     left, _ = start_exchange(None, x[..., -1:], g).wait()
     return torch.cat([left, local[..., 1:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# The shared vertex of a sharded CG level (parallel.distributed's node layout:
+# the vertex that rank r's last element shares with rank r + 1 is owned by
+# r + 1, as its first node; the last rank owns the level's last node)
+# ---------------------------------------------------------------------------
+
+
+def with_right_vertex(x: torch.Tensor, g: SolverGroup) -> torch.Tensor:
+    """The rank's own nodes and, after them, the vertex its last element
+    shares with the next rank (that rank's first node): the nodes of the
+    rank's elements.  The last rank's own nodes are already all of them."""
+    if g.world == 1:
+        return x
+    _, right = start_exchange(x[..., :1], None, g).wait()
+    return x if g.rank == g.world - 1 else torch.cat([x, right], dim=-1)
+
+
+def fold_right_vertex(y: torch.Tensor, g: SolverGroup) -> torch.Tensor:
+    """The inverse of :func:`with_right_vertex` for a scatter-add: ``y`` on
+    the nodes of the rank's elements, whose value at the shared vertex is
+    sent to its owner and added there, after the owner's own contribution
+    (the order of the whole level's ``index_add_``, whose element windows
+    add in element order at each node position: the right element's first
+    node before the left element's last)."""
+    if g.world == 1:
+        return y
+    left, _ = start_exchange(None, y[..., -1:], g).wait()
+    if g.rank < g.world - 1:
+        y = y[..., :-1]
+    if g.rank > 0:
+        y = torch.cat([y[..., :1] + left, y[..., 1:]], dim=-1)
+    return y
+
+
+def take_left_vertex(y: torch.Tensor, g: SolverGroup) -> torch.Tensor:
+    """Like :func:`fold_right_vertex` for a gather: the shared vertex takes
+    the value the left element gives it (as the whole level's
+    prolongation does), not the owner's own."""
+    if g.world == 1:
+        return y
+    left, _ = start_exchange(None, y[..., -1:], g).wait()
+    if g.rank < g.world - 1:
+        y = y[..., :-1]
+    if g.rank > 0:
+        y = torch.cat([left, y[..., 1:]], dim=-1)
+    return y

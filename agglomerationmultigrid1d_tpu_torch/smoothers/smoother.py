@@ -96,13 +96,23 @@ def apply_smoother(s: Smoother, r: torch.Tensor, alpha: float = 1.0) -> torch.Te
     if isinstance(s, BlockJacobiSmoother):
         return alpha * bd_matvec(BlockDiag(s.inv), r)
     if isinstance(s, SchwarzSmoother):
-        idx = cg_element_nodes(s.p, s.n_el, r.device)
-        y_win = torch.einsum("abn,bn->an", s.inv_windows, r[idx])
-        y = torch.zeros_like(r).index_add_(0, idx.reshape(-1), y_win.reshape(-1))
+        y = schwarz_windows(s, r)
         if s.mult_inv is not None:
             y = y * s.mult_inv
         return alpha * y
     raise TypeError(f"unknown smoother {type(s)}")
+
+
+def schwarz_windows(s: SchwarzSmoother, r: torch.Tensor) -> torch.Tensor:
+    """The overlapping window solves of a Schwarz smoother, scatter-added:
+    ``r`` holds the ``n_el p + 1`` nodes of ``s``'s elements (on a shard, its
+    own nodes and the vertex it shares with the next rank), and so does the
+    result."""
+    idx = cg_element_nodes(s.p, s.n_el, r.device)
+    y_win = torch.einsum("abn,bn->an", s.inv_windows, r[idx])
+    return torch.zeros((s.n_el * s.p + 1,), dtype=r.dtype, device=r.device).index_add_(
+        0, idx.reshape(-1), y_win.reshape(-1)
+    )
 
 
 def _inv_windows_2x2(w: torch.Tensor) -> torch.Tensor:

@@ -99,6 +99,29 @@ Phases, one line of numbers each:
    extended-precision refined solution printed beside the operator's
    condition estimate.
 
+17. K6s, K6 on one shard, at the north star's fine shape: as one rank
+   against K6, as two ranks and as four virtual shards (each shard against
+   its plain version, the stitched shards against K6), all bit for bit;
+   timed beside K6;
+18. the north star built rank by rank (``build_sharded_xl_problem``,
+   ``slim_fine=True``) on a one-rank NCCL group: every leaf equal to
+   ``build_xl_problem``'s bit for bit, setup seconds and peak memory, three
+   outer steps of ``_mixed_loop_ff`` held to the unsharded build's (equal
+   counts, history within 1e-5 relative), one K6s launch per float-float
+   defect, one edge pair per smoothing of a sharded level;
+19. the CG-topped flagship built rank by rank on a one-rank NCCL group: at
+   131,073 DoF damped and Chebyshev to 1e-10 with the unsharded phase's
+   counts, at 16,777,217 DoF damped held to the unsharded run;
+20. ``shard_hierarchy`` on ``poisson_full_hierarchy(n=16384)`` on a one-rank
+   NCCL group: float64 ``multigrid`` (12 cycles, x within 1e-12 ||b|| of the
+   unsharded x) and damped ``multigrid_mixed`` (the unsharded counts);
+21. two ranks on the one card over gloo: the north star built rank by rank
+   (each rank its 25,165,824 fine columns and no tensor of the global fine
+   width, at most 0.6 of the one-rank peak device memory, the one-rank
+   run's counts and history), the 16,777,217-DoF flagship (an odd node
+   count: unequal node shards and the shared vertex) held to the one-rank
+   run, and phase 20's solves held to the unsharded ones.
+
 The kernel phase also holds K6 (the float-float stencil defect) to its plain
 version bit for bit, hi and lo.
 
@@ -194,6 +217,17 @@ CHILD_TIMEOUT_S = 300  # each spawned rank of the two-rank phase
 K6_SHAPES = [(2, 50331648), (2, 16384), (4, 4194304), (2, 1000)]
 K6_BW = 4  # boundary columns of the stencil, as the setup extracts them
 NORTH_STAR_N = 50331648  # DG p=1 elements: 100,663,296 DoF
+# the sharded north star's _mixed_loop_ff: JAX's arguments, cut to 3 outer steps
+# (the float-float defect floors near 4e-7 there: the phases hold the sharded
+# runs to the unsharded one, not to a tolerance)
+NS_LOOP = dict(maxiter=3, tol=1e-8, inner_tol=3e-5, max_inner=20)
+NS_HIST_RTOL = 1e-5  # the sharded runs' relative-defect histories against the unsharded one's
+NS_PEAK_SHARE = 0.6  # a rank of two may peak at this share of the one-rank run's device memory
+# the 16,777,217-DoF flagship's damped _mixed_loop_ff stalls (1.396e-8 on one
+# rank): on two ranks its float64 residual must stall below FLAGSHIP_STALL and
+# within FLAGSHIP_STALL_RATIO of the one-rank run's
+FLAGSHIP_STALL = 1e-7
+FLAGSHIP_STALL_RATIO = 10.0
 NORTH_STAR_JAX_CYCLES = 15  # BENCH_r05.json (cycles do not depend on the hardware)
 # iterations of the JAX package on the CPU at the same sizes (its
 # multigrid_mixed with use_pallas=False), for comparison
@@ -395,6 +429,15 @@ def phase_k6(bk) -> dict:
     return out
 
 
+def north_star_spec():
+    """``examples/xl_north_star.py``'s spec: DG p = 1, 6 agglomerated levels
+    at 4:1, c_dir = 1000 n, on NORTH_STAR_N elements."""
+    from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
+
+    return HierarchySpec(cg_orders=(), dg_orders=(1,), n_agg_levels=6, p_agg=1, agg_factor=4,
+                         c_dir=1000.0 * NORTH_STAR_N)
+
+
 def phase_north_star(bk) -> int:
     """The 100,663,296-DoF north star: build on the card, one warm-up cycle,
     then the solve to 1e-8; returns the solve's K6 launches."""
@@ -402,11 +445,9 @@ def phase_north_star(bk) -> int:
     from agglomerationmultigrid1d_tpu_torch.ops.block_tridiag import BlockTridiag, bt_matvec
     from agglomerationmultigrid1d_tpu_torch.ops.coarse_solve import BTCoarseSolver
     from agglomerationmultigrid1d_tpu_torch.ops.df64 import ff_join
-    from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
 
     n = NORTH_STAR_N
-    spec = HierarchySpec(cg_orders=(), dg_orders=(1,), n_agg_levels=6, p_agg=1, agg_factor=4,
-                         c_dir=1000.0 * n)
+    spec = north_star_spec()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     timings = {}
@@ -681,7 +722,7 @@ def phase_flagship_xl(bk, n: int, true_solve: bool) -> dict:
     with ``ff_levels=True`` and solved by ``multigrid_true`` to 1e-8.  Each
     solve: setup timings, seconds, counts, the relative residual recomputed
     in float64, peak memory and the launches of its run (counts set to 0
-    just before).  Returns {tag: (outer, cycles)}."""
+    just before).  Returns {tag: {"outer", "cycles", "hist"}}."""
     from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem, default_stencil_factor, multigrid_true
     from agglomerationmultigrid1d_tpu_torch.models.solvers import _mixed_loop_ff
     from agglomerationmultigrid1d_tpu_torch.ops.df64 import FF
@@ -727,7 +768,7 @@ def phase_flagship_xl(bk, n: int, true_solve: bool) -> dict:
         elif rel >= 1e-10:
             print(f"flagship XL {tag}: the guarded refinement stopped at {rel:.3e} (above 1e-10) after {outer} "
                   f"outer steps; multigrid_true takes over from here in the JAX package", flush=True)
-        out[tag] = (outer, cycles)
+        out[tag] = dict(outer=outer, cycles=cycles, hist=np.asarray(hist[:outer], dtype=np.float64))
         del h, a_ff, b_ff, x_ff, x
     if true_solve:
         torch.cuda.empty_cache()
@@ -753,7 +794,7 @@ def phase_flagship_xl(bk, n: int, true_solve: bool) -> dict:
               f"res_history={[f'{v:.3e}' for v in hist]}", flush=True)
         check(bool(torch.isfinite(res.x).all()), "flagship XL multigrid_true x")
         check(rel < 1e-8, f"flagship XL multigrid_true relative residual {rel:.3e} >= 1e-8")
-        out["true"] = (res.iterations, res.iterations)
+        out["true"] = dict(outer=res.iterations, cycles=res.iterations)
         del h, ffops, b_ff, res
     torch.cuda.empty_cache()
     return out
@@ -1615,6 +1656,428 @@ def phase_two_ranks(one_rank: dict) -> int:
     return packs
 
 
+def phase_k6s(bk) -> dict:
+    """K6s, K6 on one shard, at the north star's fine shape (2, 50,331,648):
+    as one rank (no offset, no ghosts) against K6, as two ranks (25,165,824
+    columns at offsets 0 and 25,165,824, each the other's ghost) and as four
+    virtual shards, each shard against its plain version and the shards
+    stitched against K6: all bit for bit, hi and lo.  Timed at the two-rank
+    shard beside K6 on the same columns and the plain version; returns the
+    kernels-line numbers."""
+    bs, n = 2, NORTH_STAR_N
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    rnd = lambda *s, scale=1.0: scale * torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    blocks = torch.stack([rnd(3, bs, bs, 2 * K6_BW + 1, scale=1e3), rnd(3, bs, bs, 2 * K6_BW + 1, scale=1e-4)]).contiguous()
+    vecs = (rnd(bs, n), rnd(bs, n, scale=1e-8), rnd(bs, n, scale=1e3), rnd(bs, n, scale=1e-5))
+
+    def ghost(c):
+        return torch.stack([vecs[0][:, c], vecs[1][:, c]]).contiguous() if 0 <= c < n else None
+
+    def shard(c0, c1):
+        return (blocks, *(t[:, c0:c1].contiguous() for t in vecs), c0, n, ghost(c0 - 1), ghost(c1))
+
+    def n_diff(got, want):
+        return sum(int((a != b).sum()) for a, b in zip(got, want))
+
+    whole = bk.ff_stencil_mid_defect(blocks, *vecs)
+    one = bk.ff_stencil_shard_defect(blocks, *vecs, 0, n, None, None)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(t).all()) for t in one), "K6s non-finite")
+    check(n_diff(one, whole) == 0, f"K6s as one rank differs from K6 in {n_diff(one, whole)} elements")
+    del one
+    line = [f"K6s bs={bs} n={n}: one rank equals K6 bit for bit;"]
+    for world in (2, 4):
+        parts = []
+        for r in range(world):
+            args = shard(r * n // world, (r + 1) * n // world)
+            parts.append(bk.ff_stencil_shard_defect(*args))
+            want = bk.ff_stencil_mid_defect_plain(*args)
+            torch.cuda.synchronize()
+            d = n_diff(parts[-1], want)
+            check(d == 0, f"K6s rank {r} of {world} differs from its plain version in {d} elements")
+            del want, args
+        stitched = tuple(torch.cat([p[k] for p in parts], dim=1) for k in range(2))
+        d = n_diff(stitched, whole)
+        check(d == 0, f"K6s: {world} stitched shards differ from K6 in {d} elements")
+        line.append(f"{world} shards each equal to its plain version and, stitched, to K6, bit for bit;")
+        del parts, stitched
+        torch.cuda.empty_cache()
+    del whole
+    args = shard(n // 2, n)  # rank 1 of 2: the left neighbour's column as its ghost
+    ms = time_ms(lambda: bk.ff_stencil_shard_defect(*args))
+    k6_ms = time_ms(lambda: bk.ff_stencil_mid_defect(*args[:5]))
+    plain_ms = time_ms(lambda: bk.ff_stencil_mid_defect_plain(*args), reps=5)
+    bound_ms, bound_by = bound("K6", bs, n // 2)
+    gbps = col_bytes("K6", bs) * (n // 2) / (ms * 1e-3) / 1e9
+    line.append(f"timed at (2, {n // 2}) with a ghost: ms={ms:.4f} K6_ms={k6_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"GB/s={gbps:.1f} bound_ms={bound_ms:.4f} ({bound_by})")
+    print(" ".join(line), flush=True)
+    del args, blocks, vecs
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, gbps=gbps, k6_ms=k6_ms)
+
+
+def tensor_leaves(tree, path="", out=None) -> list:
+    """``(path, tensor)`` of every tensor of nested NamedTuples / tuples /
+    dataclasses, leaving out what only a sharded hierarchy has (its layout,
+    K7's operator ghosts and edge plans)."""
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append((path, tree))
+    elif hasattr(tree, "_fields"):
+        for f in tree._fields:
+            if f not in ("layout", "ghosts", "plan"):
+                tensor_leaves(getattr(tree, f), f"{path}.{f}", out)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            tensor_leaves(getattr(tree, f.name), f"{path}.{f.name}", out)
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            tensor_leaves(v, f"{path}[{i}]", out)
+    return out
+
+
+def ff_loop(bk, h, a_ff, b_ff, norm_b, **kw) -> dict:
+    """``_mixed_loop_ff`` from zero with the launch counts set to 0 just
+    before; also counts its float-float defects (each is one K6 or K6s
+    launch on a stencil fine level)."""
+    from agglomerationmultigrid1d_tpu_torch.models import solvers
+    from agglomerationmultigrid1d_tpu_torch.ops.df64 import FF
+
+    calls = [0]
+    own = solvers._ff_defect
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return own(*args, **kwargs)
+
+    zero = torch.zeros_like(b_ff.hi)
+    solvers._ff_defect = counted
+    try:
+        torch.cuda.synchronize()
+        bk.reset_launch_counts()
+        t0 = time.perf_counter()
+        x, outer, cycles, hist = solvers._mixed_loop_ff(h, a_ff, FF(zero, zero), b_ff, np.float32(1.0 / norm_b), **kw)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+    finally:
+        solvers._ff_defect = own
+    return dict(x=x, outer=outer, cycles=cycles, hist=np.asarray(hist[:outer], dtype=np.float64), solve_s=solve_s,
+                launches={k: v for k, v in bk.LAUNCHES.items() if v}, defects=calls[0])
+
+
+def held_to(got: dict, ref: dict, what: str, apart=(0, 0)) -> str:
+    """Hold a sharded ``_mixed_loop_ff`` run to another: equal counts and
+    histories within NS_HIST_RTOL relative, or counts at most ``apart``
+    (outer, cycles) apart, the difference printed."""
+    d_outer, d_cycles = got["outer"] - ref["outer"], got["cycles"] - ref["cycles"]
+    if (d_outer, d_cycles) == (0, 0):
+        rel = float(np.max(np.abs(got["hist"] - ref["hist"]) / np.abs(ref["hist"])))
+        check(rel <= NS_HIST_RTOL, f"{what}: history {got['hist']} against {ref['hist']}: {rel:.3e} relative")
+        return f"equal counts, history within {rel:.3e} relative"
+    check(abs(d_outer) <= apart[0] and abs(d_cycles) <= apart[1],
+          f"{what}: {got['outer']} / {got['cycles']} against {ref['outer']} / {ref['cycles']}, histories "
+          f"{[f'{v:.4e}' for v in got['hist']]} against {[f'{v:.4e}' for v in ref['hist']]}")
+    return f"counts {d_outer:+d} outer / {d_cycles:+d} cycles apart (allowed {apart[0]} / {apart[1]})"
+
+
+def phase_sharded_north_star(bk) -> dict:
+    """The north star built rank by rank (``build_sharded_xl_problem``,
+    ``slim_fine=True``) on a one-rank NCCL group, beside ``build_xl_problem``
+    on the same card: every leaf equal bit for bit; ``_mixed_loop_ff`` with
+    NS_LOOP on both, the sharded run's counts and history held to the
+    unsharded run's, its float-float defects through K6s (one launch each)
+    and its sharded levels' smoothings through the edge pair (one launch
+    each).  Returns the sharded run (with its peak device memory) and its
+    launches."""
+    from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem
+    from agglomerationmultigrid1d_tpu_torch.parallel import build_sharded_xl_problem, initialize, shutdown
+
+    n, spec = NORTH_STAR_N, north_star_spec()
+    with tempfile.TemporaryDirectory() as td:
+        grp = initialize(0, 1, store_path=os.path.join(td, "store"))
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            hs, a_s, b_s, nb_s = build_sharded_xl_problem(spec, n, group=grp, slim_fine=True)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            sh = ff_loop(bk, hs, a_s, b_s, nb_s, **NS_LOOP)
+            sh.update(peak=torch.cuda.max_memory_allocated(), setup_s=setup_s)
+            t0 = time.perf_counter()
+            h, a_ff, b_ff, norm_b = build_xl_problem(spec, n, slim_fine=True, device="cuda")
+            torch.cuda.synchronize()
+            setup_u = time.perf_counter() - t0
+            la = tensor_leaves((hs.levels, hs.transfers, hs.coarse, a_s, b_s))
+            lb = tensor_leaves((h.levels, h.transfers, h.coarse, a_ff, b_ff))
+            check([p for p, _ in la] == [p for p, _ in lb], "the sharded north star's leaves are not the unsharded one's")
+            bad = [p for (p, t), (_, w) in zip(la, lb) if t.shape != w.shape or not torch.equal(t, w)]
+            check(not bad, f"sharded north-star leaves differ from the unsharded build's: {bad[:8]}")
+            nb_rel = abs(nb_s - norm_b) / norm_b  # the norm all-reduced against vector_norm: another sum order
+            check(nb_rel <= 1e-12, f"sharded north-star ||b|| {nb_s!r} against {norm_b!r}")
+            del la, lb
+            un = ff_loop(bk, h, a_ff, b_ff, norm_b, **NS_LOOP)
+            flags = hs.layout.sharded
+            del h, a_ff, b_ff, hs, a_s, b_s
+        finally:
+            shutdown()
+    held = held_to(sh, un, "sharded north star, one rank")
+    launches = sh["launches"]
+    n_sh = sum(flags)
+    edges = {k: launches.get(k, 0) for k in ("chebyshev_edge_pair", "chebyshev_edge_pair_residual")}
+    print(f"sharded north star {2 * n} DoF, one-rank NCCL group, sharded={flags}: setup_s={sh['setup_s']:.3f} "
+          f"(unsharded {setup_u:.3f}) leaves all equal bit for bit, ||b|| within {nb_rel:.1e} outer={sh['outer']} "
+          f"v_cycles={sh['cycles']} (unsharded {un['outer']} / {un['cycles']}; {held}) "
+          f"history={[f'{v:.4e}' for v in sh['hist']]} (unsharded {[f'{v:.4e}' for v in un['hist']]}) "
+          f"solve_s={sh['solve_s']:.3f} (unsharded {un['solve_s']:.3f}) s_per_outer={sh['solve_s'] / sh['outer']:.3f} "
+          f"peak_mem_bytes={sh['peak']} defects={sh['defects']} launches={launches}", flush=True)
+    check(launches.get("ff_stencil_shard_defect", 0) == sh["defects"] > 0 and "ff_stencil_mid_defect" not in launches,
+          f"the sharded north star's defects did not each launch K6s: {sh['defects']} defects, {launches}")
+    check(un["launches"].get("ff_stencil_mid_defect", 0) == un["defects"], "the unsharded run's defects are not K6's")
+    check(all(v == sh["cycles"] * n_sh for v in edges.values()),
+          f"not one edge pair per smoothing of the {n_sh} sharded levels in {sh['cycles']} cycles: {edges}")
+    check(all(launches.get(K7_FORMS[k][1], 0) == 0 for k in K7_FORMS), "the sharded north star launched a K7 strip")
+    check(bool(torch.isfinite(sh["x"].hi).all()) and tuple(sh["x"].hi.shape) == (2, n), "sharded north star x")
+    del sh["x"], un["x"]
+    torch.cuda.empty_cache()
+    return sh
+
+
+def flagship_gathered_residual(h, a_ff, b_ff, x_ff, grp) -> float:
+    """``cg_rel_residual_f64`` of a sharded CG-topped build: the fine band,
+    the rhs and x gathered (unequal node shards) on every rank."""
+    from agglomerationmultigrid1d_tpu_torch.ops.df64 import FF, CgBandFF
+    from agglomerationmultigrid1d_tpu_torch.parallel import all_gather_cols, node_widths, unshard_vector
+
+    fine = h.levels[0]
+    widths = node_widths(fine.a.n_el * grp.world, fine.a.p, grp)
+    whole = lambda t: all_gather_cols(t, grp, widths)  # noqa: E731
+    band = CgBandFF(whole(a_ff.hi), whole(a_ff.lo))
+    x = unshard_vector(x_ff.hi, h).double() + unshard_vector(x_ff.lo, h).double()
+    hw = h._replace(levels=(fine._replace(a=fine.a._replace(windows=all_gather_cols(fine.a.windows, grp))),))
+    return cg_rel_residual_f64(hw, band, FF(whole(b_ff.hi), whole(b_ff.lo)), x)
+
+
+def phase_sharded_flagship(bk, unsharded: dict) -> dict:
+    """The CG-topped flagship built rank by rank on a one-rank NCCL group
+    (``min_blocks_per_device=8``): at 131,073 DoF damped and Chebyshev to
+    1e-10, at 16,777,217 DoF damped; each held to the unsharded phase's
+    counts (``unsharded``: {(n, tag): run}) and, where equal, its history;
+    the residual recomputed in float64 from the gathered solution.  Returns
+    the 16,777,217-DoF run."""
+    from agglomerationmultigrid1d_tpu_torch.parallel import build_sharded_xl_problem, initialize, shutdown
+
+    out = None
+    with tempfile.TemporaryDirectory() as td:
+        grp = initialize(0, 1, store_path=os.path.join(td, "store"))
+        try:
+            for n, cheb in ((FLAGSHIP_N, False), (FLAGSHIP_N, True), (FLAGSHIP_XL_N, False)):
+                tag = "chebyshev" if cheb else "damped"
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                h, a_ff, b_ff, norm_b = build_sharded_xl_problem(flagship_xl_spec(n), n, group=grp, chebyshev=cheb,
+                                                                 min_blocks_per_device=8)
+                torch.cuda.synchronize()
+                setup_s = time.perf_counter() - t0
+                run = ff_loop(bk, h, a_ff, b_ff, norm_b, maxiter=60, tol=1e-10, inner_tol=3e-5, max_inner=20)
+                rel = flagship_gathered_residual(h, a_ff, b_ff, run["x"], grp)
+                ref = unsharded[(n, tag)]
+                held = held_to(run, ref, f"sharded flagship {8 * n + 1} DoF {tag}")
+                print(f"sharded flagship {8 * n + 1} DoF {tag}, one-rank NCCL group, sharded={h.layout.sharded}: "
+                      f"setup_s={setup_s:.3f} outer={run['outer']} v_cycles={run['cycles']} (unsharded {ref['outer']} / "
+                      f"{ref['cycles']}; {held}) rel_history_end={run['hist'][-1]:.3e} rel_residual_f64={rel:.3e} "
+                      f"solve_s={run['solve_s']:.3f} launches={run['launches']}", flush=True)
+                check(all(h.layout.sharded[:4]), "the flagship's CG levels are not sharded")
+                if n <= FLAGSHIP_N:
+                    check(rel < 1e-10, f"sharded flagship {tag} relative residual {rel:.3e} >= 1e-10")
+                run.pop("x")
+                out = dict(run, rel=rel)
+                del h, a_ff, b_ff
+        finally:
+            shutdown()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_shard_hierarchy_cg(bk) -> dict:
+    """``poisson_full_hierarchy(n=16384)`` (131,073 DoF) through
+    ``shard_hierarchy`` on a one-rank NCCL group: float64 ``multigrid`` with
+    the unsharded iterations and x within 1e-12 ||b||, damped
+    ``multigrid_mixed`` with the unsharded counts.  Returns the unsharded
+    run, which the two-rank phase is held to."""
+    from agglomerationmultigrid1d_tpu_torch.models import make_low_precision_hierarchy, multigrid, multigrid_mixed
+    from agglomerationmultigrid1d_tpu_torch.models import poisson_full_hierarchy
+    from agglomerationmultigrid1d_tpu_torch.parallel import initialize, shard_hierarchy, shard_vector, shutdown
+    from agglomerationmultigrid1d_tpu_torch.parallel import unshard_vector
+
+    prob = poisson_full_hierarchy(n=FLAGSHIP_N, device="cuda")
+    h, b = prob.hierarchy, prob.b
+    ref = multigrid(h, torch.zeros_like(b), b, 100, 1e-10, compute_error=False)
+    ref_mixed = multigrid_mixed(h, make_low_precision_hierarchy(h), torch.zeros_like(b), b, 80, 1e-10)
+    with tempfile.TemporaryDirectory() as td:
+        grp = initialize(0, 1, store_path=os.path.join(td, "store"))
+        try:
+            hs = shard_hierarchy(h, grp)
+            bl = shard_vector(b, grp, hs)
+            res = multigrid(hs, torch.zeros_like(bl), bl, 100, 1e-10, compute_error=False)
+            x = unshard_vector(res.x, hs)
+            mixed, solve_s, launches = timed_solve(
+                lambda: multigrid_mixed(hs, make_low_precision_hierarchy(hs), torch.zeros_like(bl), bl, 80, 1e-10), bk)
+        finally:
+            shutdown()
+    nb = float(torch.linalg.vector_norm(b))
+    dx = float((x - ref.x).abs().max())
+    print(f"shard_hierarchy CG-topped flagship {b.numel()} DoF, one-rank NCCL group, sharded={hs.layout.sharded}: "
+          f"f64 multigrid iterations={res.iterations} (unsharded {ref.iterations}) max|x - x_unsharded|={dx:.3e} "
+          f"({dx / nb:.2e} of ||b||); mixed outer={mixed.iterations} inner_cycles={mixed.inner_cycles} (unsharded "
+          f"{ref_mixed.iterations} / {ref_mixed.inner_cycles}) solve_s={solve_s:.3f} launches="
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    check(res.iterations == ref.iterations == 12, f"sharded CG multigrid took {res.iterations} iterations")
+    check(dx <= 1e-12 * nb, f"sharded CG multigrid x differs by {dx:.3e}")
+    check((mixed.iterations, mixed.inner_cycles) == (ref_mixed.iterations, ref_mixed.inner_cycles),
+          "sharded CG multigrid_mixed counts differ from the unsharded solve's")
+    out = dict(iterations=ref.iterations, x=ref.x.cpu().numpy(), norm_b=nb,
+               mixed=(ref_mixed.iterations, ref_mixed.inner_cycles))
+    del prob, h, b, hs, bl, res, x, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_two_rank_child(rank: int, store_path: str, q) -> None:
+    """One rank of two on the card over gloo: the north star built rank by
+    rank and solved (NS_LOOP), the 16,777,217-DoF flagship built rank by rank
+    and solved damped, and ``shard_hierarchy`` of the 131,073-DoF flagship
+    solved by float64 ``multigrid`` and ``multigrid_mixed``."""
+    try:
+        from agglomerationmultigrid1d_tpu_torch.models import make_low_precision_hierarchy, multigrid, multigrid_mixed
+        from agglomerationmultigrid1d_tpu_torch.models import poisson_full_hierarchy
+        from agglomerationmultigrid1d_tpu_torch.ops.kernels import block_kernels as bk
+        from agglomerationmultigrid1d_tpu_torch.parallel import (
+            build_sharded_xl_problem,
+            initialize,
+            shard_hierarchy,
+            shard_vector,
+            shutdown,
+            unshard_vector,
+        )
+
+        grp = initialize(rank, 2, store_path=store_path, device="cuda", backend="gloo", timeout_s=CHILD_TIMEOUT_S)
+        n = NORTH_STAR_N
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        h, a_ff, b_ff, norm_b = build_sharded_xl_problem(north_star_spec(), n, group=grp, slim_fine=True)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        leaves = tensor_leaves((h, a_ff, b_ff))
+        ns = ff_loop(bk, h, a_ff, b_ff, norm_b, **NS_LOOP)
+        ns.pop("x")
+        ns.update(setup_s=setup_s, peak=torch.cuda.max_memory_allocated(), fine_width=h.levels[0].a.n_blocks,
+                  whole_width=[p for p, t in leaves if t.dim() > 0 and t.shape[-1] == n], flags=h.layout.sharded)
+        del h, a_ff, b_ff, leaves
+        torch.cuda.empty_cache()
+        out = dict(ns=ns)
+
+        nf = FLAGSHIP_XL_N
+        h, a_ff, b_ff, norm_b = build_sharded_xl_problem(flagship_xl_spec(nf), nf, group=grp, chebyshev=False,
+                                                         min_blocks_per_device=8)
+        fl = ff_loop(bk, h, a_ff, b_ff, norm_b, maxiter=60, tol=1e-10, inner_tol=3e-5, max_inner=20)
+        fl.update(rel=flagship_gathered_residual(h, a_ff, b_ff, fl.pop("x"), grp), nodes=h.levels[0].a.band.shape[-1])
+        out["flagship"] = fl
+        del h, a_ff, b_ff
+        torch.cuda.empty_cache()
+
+        prob = poisson_full_hierarchy(n=FLAGSHIP_N, device="cuda")
+        hs = shard_hierarchy(prob.hierarchy, grp)
+        bl = shard_vector(prob.b, grp, hs)
+        res = multigrid(hs, torch.zeros_like(bl), bl, 100, 1e-10, compute_error=False)
+        mixed = multigrid_mixed(hs, make_low_precision_hierarchy(hs), torch.zeros_like(bl), bl, 80, 1e-10)
+        out["cg"] = dict(iterations=res.iterations, x=unshard_vector(res.x, hs).cpu().numpy(),
+                         mixed=(mixed.iterations, mixed.inner_cycles), nodes=hs.levels[0].a.band.shape[-1])
+        shutdown()
+        q.put((rank, "ok", out))
+    except BaseException:
+        q.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def spawn_sharded_two_ranks() -> dict:
+    """Run ``_sharded_two_rank_child`` on two spawned ranks; {rank: its results}."""
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as td:
+        procs = [ctx.Process(target=_sharded_two_rank_child, args=(r, os.path.join(td, "store"), q)) for r in range(2)]
+        for p in procs:
+            p.start()
+        msgs = {}
+        try:
+            for _ in range(2):
+                rank, status, payload = q.get(timeout=2 * CHILD_TIMEOUT_S)
+                msgs[rank] = (status, payload)
+        except queue.Empty:
+            raise RuntimeError(f"chip_smoke: the sharded two-rank phase did not finish in {2 * CHILD_TIMEOUT_S} s") from None
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    for rank, (status, payload) in sorted(msgs.items()):
+        check(status == "ok", f"sharded two-rank phase, rank {rank}:\n{payload}")
+    return {rank: payload for rank, (_, payload) in msgs.items()}
+
+
+def phase_sharded_two_ranks(one_rank_ns: dict, flagship_one_rank: dict, cg_ref: dict) -> None:
+    """Two ranks on the one card over gloo (spawned, each with a time limit):
+    the north star built rank by rank, each rank holding its half (25,165,824
+    fine columns) and no tensor of the global fine width, at most
+    NS_PEAK_SHARE of the one-rank run's peak device memory, its run held to
+    the one-rank run; the 16,777,217-DoF flagship (an odd node count: the
+    shared vertex and unequal node shards) held to the one-rank run's first
+    step and stall level; and
+    ``shard_hierarchy`` on the 131,073-DoF flagship held to the unsharded
+    float64 and mixed solves."""
+    msgs = spawn_sharded_two_ranks()
+    n = NORTH_STAR_N
+    for rank in range(2):
+        ns = msgs[rank]["ns"]
+        share = ns["peak"] / one_rank_ns["peak"]
+        held = held_to(ns, one_rank_ns, f"sharded north star, rank {rank} of two", apart=(1, 2))
+        print(f"sharded north star on two gloo ranks, rank {rank}, sharded={ns['flags']}: fine width {ns['fine_width']} "
+              f"setup_s={ns['setup_s']:.3f} outer={ns['outer']} v_cycles={ns['cycles']} ({held}) "
+              f"history={[f'{v:.4e}' for v in ns['hist']]} solve_s={ns['solve_s']:.3f} peak_mem_bytes={ns['peak']} "
+              f"({share:.3f} of the one-rank run's {one_rank_ns['peak']}) defects={ns['defects']} "
+              f"launches={ns['launches']}", flush=True)
+        check(ns["fine_width"] == n // 2, f"rank {rank} holds {ns['fine_width']} fine columns")
+        check(not ns["whole_width"], f"rank {rank} holds tensors of the global fine width: {ns['whole_width'][:8]}")
+        check(share <= NS_PEAK_SHARE, f"rank {rank} peaks at {share:.3f} of the one-rank run's device memory")
+        check(ns["launches"].get("ff_stencil_shard_defect", 0) == ns["defects"], f"rank {rank}: not one K6s per defect")
+    r0 = msgs[0]
+    fl, cg, one = r0["flagship"], r0["cg"], flagship_one_rank
+    # this solve stalls in the float32 inner cycle's noise (G13, G20): the two
+    # ranks' rounding (the edge pair's and K3's edge columns, the all-reduced
+    # norms) moves its later steps, so it is held on its first step and on
+    # where it stalls, not on its counts
+    first = abs(fl["hist"][0] - one["hist"][0]) / one["hist"][0]
+    print(f"sharded flagship {8 * FLAGSHIP_XL_N + 1} DoF damped on two gloo ranks: rank 0 holds {fl['nodes']} nodes "
+          f"(rank 1 {msgs[1]['flagship']['nodes']}) outer={fl['outer']} v_cycles={fl['cycles']} (one rank "
+          f"{one['outer']} / {one['cycles']}) first step within {first:.2e} relative, rel_residual_f64={fl['rel']:.3e} "
+          f"(one rank {one['rel']:.3e}) history={[f'{v:.4e}' for v in fl['hist']]} (one rank "
+          f"{[f'{v:.4e}' for v in one['hist']]}) solve_s={fl['solve_s']:.3f} (one rank {one['solve_s']:.3f})",
+          flush=True)
+    check(first <= NS_HIST_RTOL, f"two-rank flagship: first step {fl['hist'][0]} against {one['hist'][0]}")
+    check(fl["rel"] < FLAGSHIP_STALL and fl["rel"] <= FLAGSHIP_STALL_RATIO * one["rel"],
+          f"two-rank flagship stalls at {fl['rel']:.3e}, the one-rank run at {one['rel']:.3e}")
+    check(msgs[1]["flagship"]["nodes"] == fl["nodes"] + 1 == 8 * FLAGSHIP_XL_N // 2 + 1, "flagship node shards")
+    dx = float(np.abs(cg["x"] - cg_ref["x"]).max())
+    print(f"shard_hierarchy CG-topped flagship on two gloo ranks: f64 multigrid iterations={cg['iterations']} "
+          f"(unsharded {cg_ref['iterations']}) max|x - x_unsharded|={dx:.3e} ({dx / cg_ref['norm_b']:.2e} of ||b||) "
+          f"mixed={cg['mixed']} (unsharded {cg_ref['mixed']}) nodes per rank {cg['nodes']} / "
+          f"{msgs[1]['cg']['nodes']}", flush=True)
+    check(cg["iterations"] == cg_ref["iterations"] and dx <= 1e-12 * cg_ref["norm_b"], "two-rank CG multigrid")
+    check(cg["mixed"] == cg_ref["mixed"], "two-rank CG multigrid_mixed counts")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a card", file=sys.stderr)
@@ -1647,8 +2110,8 @@ def main() -> int:
     phase_reference(bk)
     launches.update(phase_chebyshev(bk))
     phase_flagship(bk)
-    phase_flagship_xl(bk, FLAGSHIP_N, true_solve=False)
-    phase_flagship_xl(bk, FLAGSHIP_XL_N, true_solve=True)
+    flagship_runs = {(n, tag): run for n, true_solve in ((FLAGSHIP_N, False), (FLAGSHIP_XL_N, True))
+                     for tag, run in phase_flagship_xl(bk, n, true_solve).items()}
     phase_ragged(bk)
     phase_device_chain(bk)
     phase_scattered(bk)
@@ -1660,6 +2123,13 @@ def main() -> int:
     launches.update(bench_launches)
     torch.cuda.empty_cache()
     launches["pack_edges"] = phase_two_ranks(one_rank)
+    kernels["K6s"] = phase_k6s(bk)
+    ns_one_rank = phase_sharded_north_star(bk)
+    launches["ff_stencil_shard_defect"] = ns_one_rank["launches"]["ff_stencil_shard_defect"]
+    flagship_one_rank = phase_sharded_flagship(bk, flagship_runs)
+    cg_ref = phase_shard_hierarchy_cg(bk)
+    torch.cuda.empty_cache()
+    phase_sharded_two_ranks(ns_one_rank, flagship_one_rank, cg_ref)
 
     # kernel: (label, wrapper, launch counter, the TPU kernel it replaces)
     meta = {
@@ -1669,6 +2139,8 @@ def main() -> int:
         "K5": ("K5", "chebyshev_multisweep", "chebyshev_multisweep", PALLAS + ":422"),
         "K5r": ("K5", "chebyshev_multisweep_residual", "chebyshev_multisweep_residual", PALLAS + ":422"),
         "K6": ("K6", "ff_stencil_mid_defect", "ff_stencil_mid_defect", PALLAS + ":621"),
+        # K6 on a shard: the sharded north star's float-float defects
+        "K6s": ("K6s", "ff_stencil_shard_defect", "ff_stencil_shard_defect", PALLAS + ":621"),
         # K7, the whole-shard ghosted launch (its cols= strips are held in the K7 phase)
         "K7": ("K7", "multisweep(ghosts=)", "multisweep_ghost", PALLAS + ":522"),
         "K7r": ("K7", "multisweep_residual(ghosts=)", "multisweep_residual_ghost", PALLAS + ":522"),

@@ -1,4 +1,4 @@
-"""The torch port's CUDA kernels (K1-K3, K5, K6 bit for bit, K7 with ghosts
+"""The torch port's CUDA kernels (K1-K3, K5, K6 and K6s bit for bit, K7 with ghosts
 and in-place columns, the edge pair and its packing kernel, K8, K4), its
 mixed solve, its true-precision solve and its sharded solve on a one-rank
 NCCL group, the CG-topped stencil build, the ragged transfers and the
@@ -151,6 +151,34 @@ def test_cuda_k6_bit_exact(cuda, bs, n, bw):
     assert bk.LAUNCHES["ff_stencil_mid_defect"] == 1
     with pytest.raises(TypeError):  # no plain path for a CUDA tensor of another type
         bk.ff_stencil_mid_defect(args[0], args[1].double(), *args[2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,n", [(2, 1001), (4, 4097)])
+def test_cuda_k6s_bit_exact_and_stitched(cuda, bs, n):
+    """K6s equals its plain version bit for bit at a shard with ghosts on
+    both sides, and two stitched shards (cut at a column that is no multiple
+    of bw, ghosts from each other) equal K6 on the whole array."""
+    blocks, x_hi, x_lo, b_hi, b_lo = _k6_inputs(bs + n, bs, n, 4, cuda)
+
+    def ghost(c):
+        return torch.stack([x_hi[:, c], x_lo[:, c]]).contiguous() if 0 <= c < n else None
+
+    def shard(c0, c1):
+        cut = [t[:, c0:c1].contiguous() for t in (x_hi, x_lo, b_hi, b_lo)]
+        return (blocks, *cut, c0, n, ghost(c0 - 1), ghost(c1))
+
+    bk.reset_launch_counts()
+    mid = shard(3, n - 5)
+    got, want = bk.ff_stencil_shard_defect(*mid), bk.ff_stencil_mid_defect_plain(*mid)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    cut = n // 2 + 1
+    parts = [bk.ff_stencil_shard_defect(*shard(0, cut)), bk.ff_stencil_shard_defect(*shard(cut, n))]
+    whole = bk.ff_stencil_mid_defect(blocks, x_hi, x_lo, b_hi, b_lo)
+    for k in range(2):
+        assert torch.equal(torch.cat([p[k] for p in parts], dim=1), whole[k])
+    assert bk.LAUNCHES["ff_stencil_shard_defect"] == 3 and bk.LAUNCHES["ff_stencil_mid_defect"] == 1
 
 
 @pytest.mark.cuda

@@ -22,8 +22,9 @@ one spawned 4-rank gloo group per module (``torch_group.run_group``, a
   are reused, against plans built anew: exactly equal;
 
 and in this process (no communication): ``shard_hierarchy``'s flags and local
-sizes against JAX's, what it refuses, the ``initialize`` checks, and the
-entry points' default device (the card).
+sizes against JAX's, a CG-topped hierarchy's sharded layout, what it refuses
+(ROADMAP item 15 (d) among it), the ``initialize`` checks, and the entry
+points' default device (the card).
 """
 
 import inspect
@@ -254,12 +255,19 @@ def test_shard_hierarchy_flags_and_local_sizes():
 
 
 def test_shard_hierarchy_refuses_what_it_cannot_shard():
-    """CG levels and CG / seam transfers on sharded levels (ROADMAP queue 1,
-    item 15), ragged shards, and a second sharding."""
+    """A CG-topped hierarchy now shards (its CG levels by element, each rank
+    owning its elements' first nodes, the last rank also the last node); what
+    stays refused: ragged shards (agglomerates that straddle two ranks), a
+    second sharding, and Chebyshev bounds or the TRUE-precision solver on a
+    sharded hierarchy."""
     g = _fake_group()
     full = poisson_full_hierarchy(n=64, device="cpu").hierarchy
-    with pytest.raises(NotImplementedError, match="CG level"):
-        shard_hierarchy(full, g, min_blocks_per_device=2)
+    hs = shard_hierarchy(full, g, min_blocks_per_device=2)
+    assert hs.layout.sharded[:4] == (True,) * 4  # the four CG levels (p = 8, 4, 2, 1)
+    for lv, whole in zip(hs.levels[:4], full.levels[:4]):
+        p = whole.a.p
+        assert lv.a.n_el == 64 // WORLD and lv.a.band.shape[-1] == 64 // WORLD * p
+        assert torch.equal(lv.a.band, whole.a.band[:, : 64 // WORLD * p])
     h = poisson_dg_hierarchy(n=24, max_p=1, n_dg=1, n_agg=2, device="cpu").hierarchy  # 24 -> 6 -> 3 blocks
     with pytest.raises(ValueError, match="straddle"):
         shard_hierarchy(h, _fake_group(world=2), min_blocks_per_device=1)
@@ -269,8 +277,33 @@ def test_shard_hierarchy_refuses_what_it_cannot_shard():
         shard_hierarchy(hs, g)
     with pytest.raises(ValueError, match="unsharded"):
         chebyshev_hierarchy(hs)
-    with pytest.raises(ValueError, match="unsharded"):
+    with pytest.raises(ValueError, match="unsharded.*item 15"):
         multigrid_true(hs, None, None, 1.0)
+
+
+def _refused_chain(kind):
+    from agglomerationmultigrid1d_tpu_torch.models import build_problem, poisson_scattered_hierarchy
+    from agglomerationmultigrid1d_tpu_torch.models import poisson_switch_hierarchy
+    from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
+
+    if kind == "penta":
+        return poisson_switch_hierarchy(n=64, n_coarsen=1, device="cpu").hierarchy
+    if kind == "block-coo":
+        return poisson_scattered_hierarchy(n=64, device="cpu").hierarchy
+    # 42 CG elements under 4:1 agglomeration: a ragged seam (SeamProlong.offsets)
+    spec = HierarchySpec(cg_orders=(2, 1), n_agg_levels=1, p_agg=1, c_dir=1e4)
+    return build_problem(spec, 42, device="cpu").hierarchy
+
+
+@pytest.mark.parametrize("kind,what", [
+    ("penta", r"holds a BlockPenta"), ("block-coo", r"(holds a BlockCOO|is a ScatteredProlong)"), ("ragged-seam", r"ragged seam"),
+])
+def test_shard_hierarchy_refuses_the_layouts_of_item_15d(kind, what):
+    """Sharded block-pentadiagonal and block-COO levels and a ragged seam
+    under a sharded CG level raise, naming ROADMAP item 15 (d), before any
+    collective."""
+    with pytest.raises(NotImplementedError, match=what + r".*item 15 \(d\)"):
+        shard_hierarchy(_refused_chain(kind), _fake_group(world=2), min_blocks_per_device=1)
 
 
 def test_unsharded_hierarchies_have_no_layout():
@@ -327,12 +360,18 @@ ENTRY_POINTS = [
     models.build_problem, models.poisson_cg_hierarchy, models.poisson_dg_cg_hierarchy,
     models.poisson_dg_hierarchy, models.poisson_full_hierarchy, models.inflate_hierarchy,
     models.build_xl_problem, convert.hierarchy_from_numpy, convert.coarse_from_numpy,
-    convert.xl_problem_from_numpy, parallel.initialize,
+    convert.xl_problem_from_numpy, parallel.initialize, parallel.build_sharded_xl_problem,
 ]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=[f.__name__ for f in ENTRY_POINTS])
 def test_entry_points_default_to_the_card(fn):
     """The card unless the caller asks for the CPU (read from the signature:
-    no card is touched)."""
-    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    no card is touched).  The rank-local build has no device of its own:
+    it builds on its required ``group``'s, which ``initialize`` makes on the
+    card by default."""
+    params = inspect.signature(fn).parameters
+    if "device" not in params:
+        assert params["group"].default is inspect.Parameter.empty and params["group"].kind == params["group"].KEYWORD_ONLY
+        params = inspect.signature(parallel.initialize).parameters
+    assert params["device"].default == "cuda"

@@ -233,3 +233,190 @@ def job_plan_reuse(g, a, inv, xs, b, kind, kw):
 
     one = edge_plan(ml, mu, s_inv, loc.diag, gops, g)
     return run(lambda: one), run(lambda: edge_plan(ml, mu, s_inv, loc.diag, gops, g))
+
+
+# ---------------------------------------------------------------------------
+# CG levels on a shard and the rank-local stencil build
+# ---------------------------------------------------------------------------
+
+
+def tensor_leaves(tree, path="", out=None) -> list:
+    """``(path, tensor)`` of every tensor in nested NamedTuples / tuples /
+    dataclasses (a ``BTFFStencil``), in a fixed order, leaving out what only
+    a sharded hierarchy has: its layout, and its block levels' K7 operator
+    ghosts and edge plans."""
+    import dataclasses
+
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append((path, tree))
+    elif hasattr(tree, "_fields"):
+        for f in tree._fields:
+            if f not in ("layout", "ghosts", "plan"):
+                tensor_leaves(getattr(tree, f), f"{path}.{f}", out)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            tensor_leaves(getattr(tree, f.name), f"{path}.{f.name}", out)
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            tensor_leaves(v, f"{path}[{i}]", out)
+    return out
+
+
+def gathered(g, t: torch.Tensor, width: int) -> torch.Tensor:
+    """The whole of a leaf from the ranks' parts: gathered along the last
+    axis (each rank's width exchanged) where the rank's part is narrower
+    than the whole's ``width``, else the rank's own."""
+    from agglomerationmultigrid1d_tpu_torch.parallel import all_gather_cols, all_reduce_sum
+
+    mine = t.dim() > 0 and t.shape[-1] != width
+    widths = torch.zeros(g.world, dtype=torch.int64)
+    widths[g.rank] = t.shape[-1] if mine else -1
+    widths = all_reduce_sum(widths, g).tolist()
+    if all(w_ < 0 for w_ in widths):
+        return t
+    if not all(w_ >= 0 for w_ in widths):
+        raise AssertionError(f"a leaf sharded on some ranks only: widths {widths}")
+    return all_gather_cols(t, g, widths)
+
+
+def _gathered_mismatches(g, local, whole) -> list:
+    """The paths of the leaves whose gathered value differs from the whole
+    build's, bit for bit (and of a difference in the leaves' structure)."""
+    la, lb = tensor_leaves(local), tensor_leaves(whole)
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return ["structure"]
+    bad = []
+    for (path, t), (_, w) in zip(la, lb):
+        got = gathered(g, t, w.shape[-1] if w.dim() else 0)
+        if got.shape != w.shape or got.dtype != w.dtype or not torch.equal(got, w):
+            bad.append(path)
+    return bad
+
+
+def _xl_case(case):
+    from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
+
+    spec, n, kw, min_blocks = case
+    return HierarchySpec(**dict(spec)), n, dict(kw), min_blocks
+
+
+def _solve_ff(h, a_ff, b_ff, norm_b):
+    from agglomerationmultigrid1d_tpu_torch.models.solvers import _mixed_loop_ff
+    from agglomerationmultigrid1d_tpu_torch.ops.df64 import FF
+
+    zero = torch.zeros_like(b_ff.hi)
+    x, outer, cycles, hist = _mixed_loop_ff(h, a_ff, FF(zero, zero), b_ff, np.float32(1.0 / norm_b),
+                                            maxiter=100, tol=1e-10, inner_tol=3.0e-5, max_inner=20)
+    return x, outer, cycles, hist
+
+
+def job_sharded_xl(g, case):
+    """``build_sharded_xl_problem`` on the rank against the port's whole
+    ``build_xl_problem`` of the same arguments: the paths of the leaves
+    whose gathered value differs, bit for bit (``h_low``, ``a_ff``, the rhs
+    pair); the leaves at least ``n`` wide that this rank holds whole (none
+    may be); the fine level's own width; ``norm_b``; and ``_mixed_loop_ff`` on both builds (counts and the
+    last relative defect).  With ``ff_levels`` the whole build's ``a_ff`` is
+    its ``FFOps.a_ffs``, the sharded build's tuple."""
+    from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem
+    from agglomerationmultigrid1d_tpu_torch.models.hierarchy import CgLevel
+    from agglomerationmultigrid1d_tpu_torch.parallel import build_sharded_xl_problem, unshard_vector
+
+    spec, n, kw, min_blocks = _xl_case(case)
+    h, a_ff, b_ff, norm_b = build_sharded_xl_problem(spec, n, group=g, min_blocks_per_device=min_blocks, **kw)
+    hw, aw, bw_, nw = build_xl_problem(spec, n, device="cpu", **kw)
+    if kw.get("ff_levels"):
+        aw = aw.a_ffs
+    fine = h.levels[0]
+    local, whole = (h.levels, h.transfers, h.coarse, a_ff, b_ff), (hw.levels, hw.transfers, hw.coarse, aw, bw_)
+    out = dict(
+        flags=h.layout.sharded, norm_b=(norm_b, nw),
+        mismatches=_gathered_mismatches(g, local, whole),
+        # the leaves held whole on this rank although at least n wide
+        whole_wide=[path for (path, t), (_, w) in zip(tensor_leaves(local), tensor_leaves(whole))
+                    if w.dim() > 0 and w.shape[-1] >= n and t.shape[-1] == w.shape[-1]],
+        fine_width=fine.a.band.shape[-1] if isinstance(fine, CgLevel) else fine.a.n_blocks,
+    )
+    if not kw.get("ff_levels"):
+        x, outer, cycles, hist = _solve_ff(h, a_ff, b_ff, norm_b)
+        _, w_outer, w_cycles, w_hist = _solve_ff(hw, aw, bw_, nw)
+        out.update(solve=(outer, cycles, float(hist[outer - 1])), whole=(w_outer, w_cycles, float(w_hist[outer - 1])),
+                   hist=hist[:outer], whole_hist=w_hist[:w_outer],
+                   x_hi=unshard_vector(x.hi, h).numpy(), x_lo=unshard_vector(x.lo, h).numpy())
+    return out
+
+
+def job_cg_solves(g, h, b, min_blocks):
+    """float64 ``multigrid`` and the counts of ``multigrid_mixed`` /
+    ``multigrid_progressive`` on the sharded CG-topped hierarchy ``h`` (whole,
+    on the CPU), and every level's local width on this rank."""
+    from agglomerationmultigrid1d_tpu_torch.models import make_low_precision_hierarchy, multigrid_mixed, multigrid_progressive
+    from agglomerationmultigrid1d_tpu_torch.models.hierarchy import CgLevel
+    from agglomerationmultigrid1d_tpu_torch.parallel import distributed_multigrid, shard_hierarchy, shard_vector
+
+    hs = shard_hierarchy(h, g, min_blocks_per_device=min_blocks)
+    bl = shard_vector(torch.from_numpy(b), g, hs)
+    out = _result(distributed_multigrid(hs, torch.zeros_like(bl), bl, 50, 1e-10), hs)
+    h32 = make_low_precision_hierarchy(hs)
+    for name, fn in (("mixed", multigrid_mixed), ("progressive", multigrid_progressive)):
+        res = fn(hs, h32, torch.zeros_like(bl), bl, 60, 1e-10)
+        out[name] = (res.iterations, res.inner_cycles)
+    out["flags"] = hs.layout.sharded
+    out["local"] = [
+        (lv.a.band.shape[-1], lv.a.n_el) if isinstance(lv, CgLevel) else (lv.a.n_blocks,) for lv in hs.levels
+    ]
+    return out
+
+
+def job_cg_ops(g, h, min_blocks, seed):
+    """The CG-level operations on the rank's shards of random vectors,
+    gathered: per CG level ``cg_matvec`` and the level's smoother (and both
+    Schwarz forms on the first), per CG or seam transfer its prolongation and
+    restriction.  Every rank draws the same global vectors."""
+    from agglomerationmultigrid1d_tpu_torch.models.hierarchy import CgLevel
+    from agglomerationmultigrid1d_tpu_torch.models.solvers import _prolong, _restrict, _smoother_apply, level_matvec
+    from agglomerationmultigrid1d_tpu_torch.parallel import node_range, shard_hierarchy, unshard_vector
+    from agglomerationmultigrid1d_tpu_torch.smoothers.smoother import cg_smoother
+
+    hs = shard_hierarchy(h, g, min_blocks_per_device=min_blocks)
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def whole_vec(lv):
+        return rng.standard_normal(lv.a.n_nodes if isinstance(lv, CgLevel) else (lv.a.block_size, lv.a.n_blocks))
+
+    def mine(lv, v):
+        lo, hi = node_range(lv.a.n_el, lv.a.p, g) if isinstance(lv, CgLevel) else (None, None)
+        t = torch.from_numpy(v)
+        return t[lo:hi] if isinstance(lv, CgLevel) else t[..., g.rank * t.shape[-1] // g.world:(g.rank + 1) * t.shape[-1] // g.world]
+
+    def gather(k, t):
+        return unshard_vector(t, hs._replace(levels=hs.levels[k:], layout=hs.layout._replace(sharded=hs.layout.sharded[k:]))).numpy()
+
+    for k, (lv, lw) in enumerate(zip(hs.levels, h.levels)):
+        if not hs.layout.sharded[k] or not isinstance(lv, CgLevel):
+            continue
+        v = whole_vec(lw)
+        out[f"matvec{k}"] = (v, gather(k, level_matvec(lv, mine(lw, v), g)))
+        smoothers = {"own": lv.smoother}
+        if k == 0:
+            for kind in ("addSchwarz", "hybridSchwarz"):
+                sw = cg_smoother(lw.a, kind)
+                lo, hi = node_range(lw.a.n_el, lw.a.p, g)
+                e0, e1 = g.rank * lw.a.n_el // g.world, (g.rank + 1) * lw.a.n_el // g.world
+                smoothers[kind] = sw._replace(
+                    inv_windows=sw.inv_windows[..., e0:e1].contiguous(),
+                    mult_inv=None if sw.mult_inv is None else sw.mult_inv[lo:hi].contiguous())
+        for name, s in smoothers.items():
+            out[f"smoother{k}-{name}"] = (v, gather(k, _smoother_apply(s, mine(lw, v), 2.0 / 3.0, g)))
+    for k in range(len(h.transfers)):
+        if not hs.layout.sharded[k] or not isinstance(hs.levels[k], CgLevel):
+            continue
+        vc, vf = whole_vec(h.levels[k + 1]), whole_vec(h.levels[k])
+        coarse_sharded = hs.layout.sharded[k + 1]
+        uc = mine(h.levels[k + 1], vc) if coarse_sharded else torch.from_numpy(vc)
+        rc = _restrict(hs, k, mine(h.levels[k], vf))
+        out[f"prolong{k}"] = (vc, gather(k, _prolong(hs, k, uc)))
+        out[f"restrict{k}"] = (vf, gather(k + 1, rc) if coarse_sharded else rc.numpy())
+    return out
