@@ -1,16 +1,22 @@
-"""Agglomerated-DG flux operator assembly, for the CG -> agglomerated seam of
-a CG-topped hierarchy (the only place an agglomerated level assembles its own
-operators; below DG or agglomerated levels they are Galerkin products).
+"""Agglomerated-DG flux operator and right-hand side assembly.  In a
+hierarchy an agglomerated level assembles its own operators only at the
+CG -> agglomerated seam of a CG-topped chain (below DG or agglomerated levels
+they are Galerkin products); the right-hand sides discretize a problem on
+the agglomerated level itself.
 
 The flux scheme is the DG level's, but the vertex terms are rank-1 outer
-products of the agglomerates' boundary modal-basis values.  On the lite mesh
-everything is closed form: the modal basis {1, 2(x - xc)/h} has boundary
-values (1, -1) on the left and (1, 1) on the right, derivatives (0, 2/h), and
-integrates to (h, 0).  An explicit switch mirrors the couplings at its
-flipped vertices, as on the DG level.  Assembled on the host in float64.
+products of the agglomerates' boundary modal-basis values.  The modal basis
+{1, 2(x - xc)/h} has boundary values (1, -1) on the left and (1, 1) on the
+right, derivatives (0, 2/h), and integrates to (h, 0): on a lite mesh the
+volume moment is that closed form, on a tabled one the quadrature sum over
+the base elements (equal to rounding).  The load vector needs the tables.
+An explicit switch mirrors the couplings at its flipped vertices, as on the
+DG level.  Assembled on the host in float64.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -41,8 +47,11 @@ def agg_flux_operators(
     deriv_vals, bl, br = _closed_form_traces(agg)
 
     # volume: temp[i, j] = deriv_i * integral of phi_j over the agglomerate
-    q = np.zeros((m, bs))
-    q[:, 0] = agg.boxes[:, 1] - agg.boxes[:, 0]
+    if agg.has_tables:
+        q = np.einsum("cs,l,cslj->cj", agg.base_jacobians(), agg.quad_weights, agg.basis_q)
+    else:
+        q = np.zeros((m, bs))
+        q[:, 0] = agg.boxes[:, 1] - agg.boxes[:, 0]
     vol = np.einsum("ci,cj->ijc", deriv_vals, q)  # (bs, bs, m)
 
     g_diag = vol.copy()
@@ -88,3 +97,68 @@ def agg_flux_operators(
     d = BlockTridiag(lower=t(d_lower), diag=t(d_diag), upper=t(d_upper))
     c = BlockTridiag(lower=zero, diag=t(c_diag), upper=zero)
     return g, d, c
+
+
+def agg_load_vector(agg: AggMesh, func: Callable) -> torch.Tensor:
+    """Volume load ``f[i, c] = sum_s J_cs sum_l w_l phi_i(x_csl) f(x_csl)`` as
+    ``(p+1, m)``; ``func`` maps a float64 tensor of points to values.  Needs a
+    tabled mesh."""
+    t = torch.from_numpy
+    return torch.einsum(
+        "cs,l,csli,csl->ic", t(agg.base_jacobians()), t(agg.quad_weights), t(agg.basis_q),
+        func(t(agg.x_quad)),
+    )
+
+
+def agg_flux_rhs(
+    agg: AggMesh, func: Callable, bc: BoundaryCondition, c_dir: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(f, r) right-hand sides over agglomerates (``agglomerated_dg_mesh.jl:875-994``)."""
+    f = agg_load_vector(agg, func)
+    r = torch.zeros_like(f)
+    _, bl, br = _closed_form_traces(agg)
+    bl0, brn = torch.from_numpy(bl[0]), torch.from_numpy(br[-1])
+    if bc.dir_left:
+        g = bc.left[1]
+        f[:, 0] += c_dir * g * bl0
+        r[:, 0] += -g * bl0
+    elif bc.neu_left:
+        f[:, 0] += -bc.left[1] * bl0
+    if bc.dir_right:
+        g = bc.right[1]
+        f[:, -1] += c_dir * g * brn
+        r[:, -1] += g * brn
+    elif bc.neu_right:
+        f[:, -1] += bc.right[1] * brn
+    return f, r
+
+
+# -- the standalone single-operator forms (cf. agglomerated_dg_mesh.jl:1012-1381) --
+
+
+def agg_gradient(agg: AggMesh, bc: BoundaryCondition) -> BlockTridiag:
+    g, _, _ = agg_flux_operators(agg, bc, 0.0)
+    return g
+
+
+def agg_divergence(agg: AggMesh, bc: BoundaryCondition) -> BlockTridiag:
+    _, d, _ = agg_flux_operators(agg, bc, 0.0)
+    return d
+
+
+def agg_c_matrix(agg: AggMesh, bc: BoundaryCondition, c_dir: float) -> BlockTridiag:
+    """The penalty factor C of :func:`agg_flux_operators` (the reference's
+    standalone p = 0 ``C_matrix`` has a dead-code typo,
+    ``agglomerated_dg_mesh.jl:1362``; this is the C the hierarchy uses)."""
+    _, _, c = agg_flux_operators(agg, bc, c_dir)
+    return c
+
+
+def agg_r_vector(agg: AggMesh, bc: BoundaryCondition) -> torch.Tensor:
+    _, r = agg_flux_rhs(agg, torch.zeros_like, bc, 0.0)
+    return r
+
+
+def agg_f_vector(agg: AggMesh, func: Callable, bc: BoundaryCondition, c_dir: float) -> torch.Tensor:
+    f, _ = agg_flux_rhs(agg, func, bc, c_dir)
+    return f

@@ -49,6 +49,11 @@ def _raw_stiffness_windows(cg: CgMesh) -> torch.Tensor:
     return k_pos[:, :, None] * inv_jac[None, None, :]
 
 
+def cg_stiffness(cg: CgMesh, bc: BoundaryCondition) -> CgOperator:
+    """The assembled stiffness with the Dirichlet surgery, alone."""
+    return cg_from_windows(_fold_dirichlet(_raw_stiffness_windows(cg), bc))
+
+
 def _load_vector(cg: CgMesh, func: Callable) -> torch.Tensor:
     """Volume load ``f[node] = sum_el J w_l phi_i f(x_l)`` in grid order;
     ``func`` maps a float64 tensor of points to values."""
@@ -92,3 +97,9 @@ def cg_stiffness_and_rhs(
         f[-1] = g
 
     return cg_from_windows(_fold_dirichlet(raw, bc)), f
+
+
+def cg_rhs(cg: CgMesh, func: Callable, bc: BoundaryCondition) -> torch.Tensor:
+    """The right-hand side of :func:`cg_stiffness_and_rhs`, alone."""
+    _, f = cg_stiffness_and_rhs(cg, func, bc)
+    return f

@@ -137,3 +137,31 @@ def dg_flux_rhs(
     elif bc.neu_right:
         f[s1, -1] += bc.right[1]
     return f, r
+
+
+# -- the standalone single-operator forms (cf. dg_mesh.jl:474-943) --
+
+
+def gradient(dg: DgMesh, bc: BoundaryCondition) -> BlockTridiag:
+    g, _, _ = dg_flux_operators(dg, bc, 0.0)
+    return g
+
+
+def divergence(dg: DgMesh, bc: BoundaryCondition) -> BlockTridiag:
+    _, d, _ = dg_flux_operators(dg, bc, 0.0)
+    return d
+
+
+def c_matrix(dg: DgMesh, bc: BoundaryCondition, c_dir: float) -> BlockTridiag:
+    _, _, c = dg_flux_operators(dg, bc, c_dir)
+    return c
+
+
+def r_vector(dg: DgMesh, bc: BoundaryCondition) -> torch.Tensor:
+    _, r = dg_flux_rhs(dg, torch.zeros_like, bc, 0.0)
+    return r
+
+
+def f_vector(dg: DgMesh, func: Callable, bc: BoundaryCondition, c_dir: float) -> torch.Tensor:
+    f, _ = dg_flux_rhs(dg, func, bc, c_dir)
+    return f

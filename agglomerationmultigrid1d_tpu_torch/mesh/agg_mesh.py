@@ -1,10 +1,20 @@
 """Agglomerated-DG mesh levels (local modal basis on merged base elements).
 
 Agglomerate ``c`` owns the contiguous run of base elements
-``offsets[c] .. offsets[c] + sizes[c] - 1``.  Only the *lite* form is ported:
-the hierarchy never reads the per-base-element quadrature tables, because on
-an interval the modal basis {1, 2(x - xc)/h} integrates in closed form (mass =
-diag(h, h/3)) and every transfer is closed-form too.
+``offsets[c] .. offsets[c] + sizes[c] - 1``.  A mesh built with
+``tables=True`` (the default) carries the per-base-element quadrature
+tables, padded to the longest run ``r_max`` with ZERO jacobians so the
+padding adds nothing to any quadrature sum:
+
+* ``basis_q``  (m, r_max, n_q, p+1)  the modal basis at the mapped Gauss points
+* ``x_quad``   (m, r_max, n_q)       the mapped Gauss points
+* ``jacs``     (m, r_max)            the base elements' jacobians
+
+and its mass integrated base element by base element.  A *lite* mesh
+(``tables=False``) skips them: on an interval the modal basis
+{1, 2(x - xc)/h} integrates in closed form (mass = diag(h, h/3)) and every
+transfer is closed-form too, so the hierarchy builders take lite meshes.
+Load vectors need the tables.
 """
 
 from __future__ import annotations
@@ -14,7 +24,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.block_diag import BlockDiag
+from ..numerics import gauss_quad, modal_basis_vals_batched
+from ..ops.block_diag import BlockDiag, bd_inverse
 from .dg_mesh import normalize_switch
 from .topology import Mesh1D
 
@@ -35,6 +46,35 @@ class AggMesh:
     # LEFT agglomerate; None = all-default.  Read only where the level
     # assembles its own flux operators (a CG -> agg seam).
     u_hat_left: np.ndarray | None = None
+    quad_nodes: np.ndarray | None = None  # (n_q,) Gauss points on [-1, 1]
+    quad_weights: np.ndarray | None = None  # (n_q,)
+    # the quadrature tables, None on a lite mesh (see the module docstring)
+    basis_q: np.ndarray | None = None  # (m, r_max, n_q, p+1)
+    x_quad: np.ndarray | None = None  # (m, r_max, n_q)
+    jacs: np.ndarray | None = None  # (m, r_max), zero in the padding
+
+    @property
+    def n_elements(self) -> int:
+        return self.n_agg
+
+    @property
+    def n_nodes(self) -> int:
+        return self.n_agg * (self.p + 1)
+
+    @property
+    def has_tables(self) -> bool:
+        """Whether the per-base-element quadrature tables were built."""
+        return self.basis_q is not None
+
+    def base_jacobians(self) -> np.ndarray:
+        """``(m, r_max)`` jacobians of each agglomerate's base elements, zero
+        past ``sizes[c]``; a lite mesh has none."""
+        if self.jacs is None:
+            raise ValueError(
+                "this AggMesh was built with tables=False (hierarchy lite mode); "
+                "rebuild with tables=True for quadrature-table access"
+            )
+        return self.jacs
 
     @property
     def block_size(self) -> int:
@@ -88,13 +128,17 @@ def make_agg_mesh(
     *,
     partition=None,
     sub_sizes: np.ndarray | None = None,
+    tables: bool = True,
     switch: np.ndarray | None = None,
     allow_trapped: bool = False,
 ) -> AggMesh:
     """Agglomeration level from the base mesh: ``r_base`` consecutive base
     elements per agglomerate, or an explicit contiguous ``partition`` (group
-    sizes, or the reference's lists of element ids).  ``sub_sizes`` records how many previous-level elements each
-    agglomerate merges (default: the base sizes, i.e. a first level).
+    sizes, or the reference's lists of element ids).  ``sub_sizes`` records
+    how many previous-level elements each agglomerate merges (default: the
+    base sizes, i.e. a first level).
+    ``tables=False`` builds a lite mesh (no quadrature tables, the mass in
+    closed form), as every hierarchy builder does.
     ``switch`` (optional, ``(m - 1,)`` bool over the interior agglomerate
     vertices) is the explicit per-vertex switch of :func:`.dg_mesh.make_dg_mesh`,
     validated the same way."""
@@ -118,18 +162,36 @@ def make_agg_mesh(
         sub_sizes = sizes.copy()
     sub_offsets = np.concatenate([[0], np.cumsum(sub_sizes)[:-1]])
 
+    qx, qw = gauss_quad(2 * p)
     vx = mesh.vertex_x
     boxes = np.stack([vx[offsets], vx[offsets + sizes]], axis=1)
     h_agg = boxes[:, 1] - boxes[:, 0]
 
-    # closed form on the interval: {1, xi} is mass-orthogonal, diag(h, h/3)
-    mass_nij = np.zeros((m, p + 1, p + 1))
-    mass_nij[:, 0, 0] = h_agg
-    inv_nij = np.zeros_like(mass_nij)
-    inv_nij[:, 0, 0] = 1.0 / h_agg
-    if p == 1:
-        mass_nij[:, 1, 1] = h_agg / 3.0
-        inv_nij[:, 1, 1] = 3.0 / h_agg
+    to_blocks = lambda nij: BlockDiag(torch.from_numpy(np.moveaxis(nij, 0, -1).copy()))  # noqa: E731
+    basis_q = x_quad = jacs = None
+    if tables:
+        # padded (m, r_max) gather of the base elements; a zero jacobian in
+        # the padding makes every quadrature contribution of its rows zero
+        r_max = int(sizes.max())
+        valid = np.arange(r_max)[None, :] < sizes[:, None]
+        j_idx = np.minimum(offsets[:, None] + np.arange(r_max)[None, :], n_base - 1)
+        centers = np.where(valid, mesh.centers[j_idx], boxes[:, :1] * 0.5 + boxes[:, 1:] * 0.5)
+        jacs = np.where(valid, mesh.jacobians[j_idx], 0.0)
+        x_quad = centers[:, :, None] + jacs[:, :, None] * qx[None, None, :]
+        basis_q = modal_basis_vals_batched(p, boxes, x_quad)
+        # mass blocks: sum over base elements of J_b * sum_l w_l phi_i phi_j
+        mass = to_blocks(np.einsum("cs,l,csli,cslj->cij", jacs, qw, basis_q, basis_q))
+        mass_inv = bd_inverse(mass)
+    else:
+        # closed form on the interval: {1, xi} is mass-orthogonal, diag(h, h/3)
+        mass_nij = np.zeros((m, p + 1, p + 1))
+        mass_nij[:, 0, 0] = h_agg
+        inv_nij = np.zeros_like(mass_nij)
+        inv_nij[:, 0, 0] = 1.0 / h_agg
+        if p == 1:
+            mass_nij[:, 1, 1] = h_agg / 3.0
+            inv_nij[:, 1, 1] = 3.0 / h_agg
+        mass, mass_inv = to_blocks(mass_nij), to_blocks(inv_nij)
 
     return AggMesh(
         p=p,
@@ -140,15 +202,23 @@ def make_agg_mesh(
         sub_offsets=sub_offsets,
         n_agg=m,
         boxes=boxes,
-        mass=BlockDiag(torch.from_numpy(np.moveaxis(mass_nij, 0, -1).copy())),
-        mass_inv=BlockDiag(torch.from_numpy(np.moveaxis(inv_nij, 0, -1).copy())),
+        mass=mass,
+        mass_inv=mass_inv,
         u_hat_left=normalize_switch(switch, m, allow_trapped),
+        quad_nodes=qx,
+        quad_weights=qw,
+        basis_q=basis_q,
+        x_quad=x_quad,
+        jacs=jacs,
     )
 
 
-def coarsen_agg_mesh(fine: AggMesh, r_sub: int = 2, *, partition=None) -> AggMesh:
+def coarsen_agg_mesh(
+    fine: AggMesh, r_sub: int = 2, *, partition=None, tables: bool | None = None
+) -> AggMesh:
     """Next agglomeration level, merging ``r_sub`` consecutive fine
-    agglomerates (or explicit ``partition`` group sizes, in fine agglomerates)."""
+    agglomerates (or explicit ``partition`` group sizes, in fine
+    agglomerates).  ``tables`` defaults to the fine level's choice."""
     if partition is not None:
         sub = _normalize_partition(fine.n_agg, partition)
     else:
@@ -163,4 +233,6 @@ def coarsen_agg_mesh(fine: AggMesh, r_sub: int = 2, *, partition=None) -> AggMes
     starts = ends - sub
     cum = np.concatenate([[0], np.cumsum(fine.sizes)])
     base_sizes = cum[ends] - cum[starts]
-    return make_agg_mesh(fine.p, fine.mesh, partition=base_sizes, sub_sizes=sub)
+    if tables is None:
+        tables = fine.has_tables
+    return make_agg_mesh(fine.p, fine.mesh, partition=base_sizes, sub_sizes=sub, tables=tables)

@@ -33,7 +33,7 @@ from ..mesh.dg_mesh import make_dg_mesh
 from ..mesh.topology import BoundaryCondition, create_uniform_mesh
 from ..ops.block_diag import bd_matvec
 from ..ops.block_tridiag import bt_matvec
-from ..utils.config import HierarchySpec
+from ..utils.config import CycleParams, HierarchySpec, SolveParams
 from ..utils.precision import tree_to
 from .hierarchy import Hierarchy, build_dg_hierarchy, build_hierarchy, schur_stiffness
 
@@ -53,6 +53,7 @@ def build_problem(
     bc: BoundaryCondition | None = None,
     mesh=None,
     device="cuda",
+    agg_tables: bool = False,
 ) -> Problem:
     """Any of the reference's hierarchy configurations from a
     :class:`~..utils.config.HierarchySpec`: CG levels of ``spec.cg_orders``,
@@ -60,7 +61,11 @@ def build_problem(
     levels (``first_agg_factor`` base elements per agglomerate, then
     ``agg_factor`` per level).  ``spec.cg_orders`` empty selects the DG-topped
     constructor (``mesh_heirarchy.jl:140-181``), otherwise the CG-topped one
-    (``:30-138``)."""
+    (``:30-138``).
+
+    The agglomerated meshes in ``Problem.meshes`` are lite (no quadrature
+    tables: the hierarchy never reads them); ``agg_tables=True`` builds them
+    tabled, for ``agg_load_vector``, ``agg_flux_rhs`` or ``base_jacobians``."""
     func_, u_ex, ux_ex = default_model_problem()
     func = func or func_
     bc = bc or _default_bc(u_ex, ux_ex)
@@ -74,10 +79,12 @@ def build_problem(
             n_base, r = mesh.n_elements, spec.first_agg_factor
             if n_base % r:
                 meshes.append(
-                    make_agg_mesh(spec.p_agg, mesh, partition=_near_uniform_partition(n_base, r))
+                    make_agg_mesh(
+                        spec.p_agg, mesh, partition=_near_uniform_partition(n_base, r), tables=agg_tables
+                    )
                 )
             else:
-                meshes.append(make_agg_mesh(spec.p_agg, mesh, r))
+                meshes.append(make_agg_mesh(spec.p_agg, mesh, r, tables=agg_tables))
         else:
             fine = meshes[-1]
             if fine.n_agg % spec.agg_factor:
@@ -100,6 +107,30 @@ def build_problem(
         b = f - bt_matvec(d, bd_matvec(dg.mass_inv, r))
         h = build_dg_hierarchy(meshes, a, g, d, c)
     return Problem(hierarchy=tree_to(h, device), b=b.to(device), meshes=meshes, bc=bc)
+
+
+def solve(
+    problem: Problem,
+    x0: torch.Tensor | None = None,
+    solve_params: SolveParams = SolveParams(),
+    cycle_params: CycleParams = CycleParams(),
+):
+    """The outer multigrid iteration (:func:`.solvers.multigrid`) with the
+    config-dataclass parameters (defaults: the reference's keyword defaults,
+    ``solvers.jl:19-20``), from zero unless ``x0`` is given."""
+    from .solvers import multigrid
+
+    return multigrid(
+        problem.hierarchy,
+        torch.zeros_like(problem.b) if x0 is None else x0,
+        problem.b,
+        maxiter=solve_params.maxiter,
+        tol=solve_params.tol,
+        n_pre=cycle_params.n_pre,
+        n_post=cycle_params.n_post,
+        alpha=cycle_params.alpha,
+        compute_error=solve_params.compute_error,
+    )
 
 
 def _near_uniform_partition(n: int, r: int) -> np.ndarray:
@@ -301,7 +332,8 @@ def poisson_switch_hierarchy(
     c_dir = 1000.0 * n if c_dir is None else c_dir
     s = np.array([False] * (n // 2) + [True] * (n - 1 - n // 2))
     mesh = create_uniform_mesh(n, 0.0, 1.0)
-    meshes: list = [make_dg_mesh(mesh, 3, switch=s), make_dg_mesh(mesh, 1, switch=s), make_agg_mesh(1, mesh, 2)]
+    meshes: list = [make_dg_mesh(mesh, 3, switch=s), make_dg_mesh(mesh, 1, switch=s),
+                    make_agg_mesh(1, mesh, 2, tables=False)]
     for _ in range(n_coarsen):
         meshes.append(coarsen_agg_mesh(meshes[-1], 2))
     dg = meshes[0]

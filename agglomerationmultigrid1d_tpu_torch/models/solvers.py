@@ -509,6 +509,40 @@ def multigrid(
     return MultigridResult(x=x, iterations=it, res_history=res_h, err_history=err_h)
 
 
+def iterative_smoother_solve(
+    level,
+    x0: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    maxiter: int = 1000,
+    tol: float = 1e-6,
+    alpha: float = 1.0,
+) -> MultigridResult:
+    """Richardson iteration with the level's smoother, ``x += alpha S (b - A x)``,
+    until ``||A x - b|| < tol * ||b||`` (``solvers.jl:189-213``), with the
+    reference's contract: ``err_history`` against the banded direct solve of
+    the level's operator.  A host loop, one host read per step."""
+    from ..ops.banded_solve import fine_direct_solve
+
+    u_exact = torch.from_numpy(fine_direct_solve(level, _flatten_level_vec(b).detach().cpu().numpy()))
+    u_exact = u_exact.to(device=b.device, dtype=b.dtype)
+    norm_b = float(torch.linalg.vector_norm(_flatten_level_vec(b)))
+    res_h = torch.full((maxiter,), float("nan"), dtype=torch.float64)
+    err_h = torch.full((maxiter,), float("nan"), dtype=torch.float64)
+    x, it = x0, 0
+    while it < maxiter:
+        x = x + apply_smoother(level.smoother, b - level_matvec(level, x), alpha=alpha)
+        res, err = torch.stack([
+            torch.linalg.vector_norm(_flatten_level_vec(level_matvec(level, x) - b)),
+            torch.linalg.vector_norm(_flatten_level_vec(x) - u_exact),
+        ]).tolist()
+        res_h[it], err_h[it] = res, err
+        it += 1
+        if res < tol * norm_b:
+            break
+    return MultigridResult(x=x, iterations=it, res_history=res_h, err_history=err_h)
+
+
 # ---------------------------------------------------------------------------
 # Mixed precision: low-precision inner solves inside a float64 refinement loop
 # ---------------------------------------------------------------------------
@@ -551,7 +585,7 @@ def _mixed_inner_solve(h_low, r, inner_tol, max_cycles, *, n_pre, n_post, alpha)
     return best_e, i, best_i
 
 
-def _guarded_refinement(rel_defect, propose, x, *, maxiter, tol, max_inner):
+def _guarded_refinement(rel_defect, propose, x, *, maxiter, tol, max_inner, trickle=False, info=None):
     """The guard of the mixed-precision refinement loops (:func:`_mixed_loop`
     in float64, :func:`_mixed_loop_ff` in float-float): each proposed
     correction is judged by the trustworthy defect, ``rel_defect(x) ->
@@ -560,7 +594,10 @@ def _guarded_refinement(rel_defect, propose, x, *, maxiter, tol, max_inner):
     correction halved per rejection in a row and a single inner cycle; three
     rejections in a row end the iteration.  The inner cycle limit adapts:
     after an improving step it is the cycle count at which that inner solve
-    found its best, plus one on every 4th step (a re-probe).
+    found its best, plus one on every 4th step (a re-probe).  With
+    ``trickle`` the iteration also ends once it only trickles: less than a
+    decade over the last three outer steps, compared in float32 as the JAX
+    package's host loop does.
 
     ``propose(x_best, r_best, cap, scale) -> (x_new, n_cycles, i_best)``
     solves the correction equation in low precision with at most ``cap``
@@ -569,16 +606,20 @@ def _guarded_refinement(rel_defect, propose, x, *, maxiter, tol, max_inner):
     in the JAX package.
 
     Returns ``(x, outer, cycles, rel_history)`` with the best relative defect
-    after each outer step (NaN beyond ``outer``)."""
+    after each outer step (NaN beyond ``outer``).  ``info``, a dict, gets
+    ``ended`` (``"tol"``, ``"rejections"``, ``"budget"`` or ``"trickle"``)
+    and ``defects``, the calls of ``rel_defect``."""
     rel_h = np.full((maxiter,), np.nan)
     x_cur = x_best = x
     r_best = None
     rel_best = float("inf")
-    i = cycles = streak = 0
+    i = cycles = streak = defects = 0
     limit = max_inner
+    ended = "budget"
     while i < maxiter:
         # evaluate the previous proposal against the trustworthy defect
         r, rel = rel_defect(x_cur)
+        defects += 1
         improved = rel < rel_best
         if improved:
             x_best, r_best = x_cur, r
@@ -587,6 +628,10 @@ def _guarded_refinement(rel_defect, propose, x, *, maxiter, tol, max_inner):
         if i > 0:
             rel_h[i - 1] = rel_best
         if rel_best < tol or streak >= 3 or cycles >= maxiter:
+            ended = "tol" if rel_best < tol else "rejections" if streak >= 3 else "budget"
+            break
+        if trickle and i >= 4 and np.float32(rel_best) > np.float32(0.1) * np.float32(rel_h[i - 4]):
+            ended = "trickle"
             break
 
         # next proposal, from the best iterate
@@ -604,6 +649,8 @@ def _guarded_refinement(rel_defect, propose, x, *, maxiter, tol, max_inner):
     x_out = x_cur if rel_last < rel_best else x_best
     if i > 0:
         rel_h[i - 1] = min(rel_last, rel_best)
+    if info is not None:
+        info.update(ended=ended, defects=defects + 1)
     return x_out, i, cycles, rel_h
 
 
@@ -631,7 +678,7 @@ def _mixed_loop(h, h_low, x, b, norm_b, *, maxiter, tol, inner_tol, max_inner, k
 
 def _mixed_loop_ff(
     h_low, a_ff, x_ff: FF, b_ff: FF, inv_norm_b, *, maxiter, tol, inner_tol, max_inner,
-    n_pre=3, n_post=3, alpha=2.0 / 3.0,
+    n_pre=3, n_post=3, alpha=2.0 / 3.0, ffops=None, info=None,
 ):
     """The JAX package's guarded float-float refinement: the iterate is a
     float-float pair and every defect is the float-float one of ``a_ff``
@@ -649,9 +696,27 @@ def _mixed_loop_ff(
             h_low, a_ff, FF(zeros, zeros), b_ff, np.float32(1 / norm_b),
             maxiter=60, tol=1e-10, inner_tol=3e-5, max_inner=20)
 
-    Returns ``(x_ff, outer, cycles, rel_history)``, the history float32."""
+    With ``ffops`` (the ``FFOps`` of ``build_xl_problem(..., ff_levels=True)``,
+    ``a_ff`` its ``a_ffs[0]``) the refinement hands over to the
+    TRUE-precision cycles of :func:`multigrid_true` once it only trickles
+    (less than a decade over three outer steps) or stops above ``tol``: the
+    float32 inner V-cycle stops contracting where ``eps_f32 * kappa_elem(A)``
+    nears 1, the true cycles do not.  Their steps are appended to the
+    history and counted in both ``outer`` and ``cycles``, as in the JAX
+    package's host loop.  Unsharded hierarchies only, as ``multigrid_true``.
+
+    Returns ``(x_ff, outer, cycles, rel_history)``, the history float32.
+    ``info``, a dict, gets the guarded phase's ``ended`` and ``defects`` (see
+    :func:`_guarded_refinement`), ``guarded_outer``, ``guarded_cycles`` and
+    ``true_cycles``."""
+    if ffops is not None and h_low.layout is not None:
+        raise ValueError(
+            "_mixed_loop_ff(ffops=) takes an unsharded hierarchy (a sharded TRUE-precision solve is a "
+            "feature the JAX package lacks: ROADMAP queue 1, item 15, open question)"
+        )
     kw = dict(n_pre=n_pre, n_post=n_post, alpha=alpha)
     inv = float(np.float32(inv_norm_b))
+    info = {} if info is None else info
 
     g0 = _group(h_low, 0)
 
@@ -666,8 +731,22 @@ def _mixed_loop_ff(
         return ff_add(x_best, FF(e, torch.zeros_like(e))), n_cyc, i_best
 
     x, outer, cycles, rel_h = _guarded_refinement(
-        rel_defect, propose, x_ff, maxiter=maxiter, tol=np.float32(tol), max_inner=max_inner
+        rel_defect, propose, x_ff, maxiter=maxiter, tol=np.float32(tol), max_inner=max_inner,
+        trickle=ffops is not None, info=info,
     )
+    info.update(guarded_outer=outer, guarded_cycles=cycles, true_cycles=0)
+    remaining = maxiter - max(cycles, outer)
+    if ffops is not None and outer > 0 and rel_h[outer - 1] > tol and remaining > 0:
+        # the guarded working set (best pair, its defect, the last correction)
+        # went with _guarded_refinement's frame: the true cycle needs ~2x the
+        # float32 cycle's memory
+        x, it2, res2 = _progressive_true_eager(
+            h_low, ffops, x, b_ff, inv_norm_b, maxiter=remaining, tol=tol, **kw
+        )
+        rel_h[outer : outer + it2] = res2[:it2]
+        outer += it2
+        cycles += it2
+        info["true_cycles"] = it2
     return x, outer, cycles, rel_h.astype(np.float32)
 
 

@@ -83,13 +83,18 @@ def fine_banded_ab(level) -> tuple[int, np.ndarray]:
     raise TypeError(f"unknown operator type {type(op)}")
 
 
+def banded_solve(u: int, ab: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``A^-1 b`` from LAPACK banded storage with ``u`` sub- and super-diagonals."""
+    from scipy.linalg import solve_banded
+
+    return solve_banded((u, u), ab, b)
+
+
 def fine_direct_solve(level, b_flat: np.ndarray) -> np.ndarray:
     """``A^-1 b`` for a CG, block-tridiagonal or block-pentadiagonal level's
     operator; ``b_flat`` is the flattened DoF vector."""
-    from scipy.linalg import solve_banded
-
     u, ab = fine_banded_ab(level)
-    return solve_banded((u, u), ab, np.asarray(b_flat, dtype=np.float64))
+    return banded_solve(u, ab, np.asarray(b_flat, dtype=np.float64))
 
 
 def _banded_matvec(u: int, ab: np.ndarray, x: np.ndarray) -> np.ndarray:

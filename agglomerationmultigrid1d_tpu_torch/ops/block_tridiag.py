@@ -37,6 +37,11 @@ class BlockTridiag(NamedTuple):
         return self.diag.shape[0] * self.diag.shape[2]
 
 
+def bt_zeros(bs: int, n: int, dtype=torch.float64, device="cuda") -> BlockTridiag:
+    z = torch.zeros((bs, bs, n), dtype=dtype, device=device)
+    return BlockTridiag(z, z, z)
+
+
 def block_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched per-block product ``C[:, :, k] = A[:, :, k] @ B[:, :, k]`` on
     ``(bs, bs, n)`` tensors, summed over ``j`` in ascending order (the JAX
@@ -58,8 +63,16 @@ def bt_matvec(a: BlockTridiag, x: torch.Tensor, xm=None, xp=None) -> torch.Tenso
     return y
 
 
+def bt_add(a: BlockTridiag, b: BlockTridiag) -> BlockTridiag:
+    return BlockTridiag(a.lower + b.lower, a.diag + b.diag, a.upper + b.upper)
+
+
 def bt_sub(a: BlockTridiag, b: BlockTridiag) -> BlockTridiag:
     return BlockTridiag(a.lower - b.lower, a.diag - b.diag, a.upper - b.upper)
+
+
+def bt_scale(a: BlockTridiag, s) -> BlockTridiag:
+    return BlockTridiag(s * a.lower, s * a.diag, s * a.upper)
 
 
 def bd_mul_bt(m: BlockDiag, a: BlockTridiag) -> BlockTridiag:
@@ -98,6 +111,13 @@ def bt_mul_bt(a: BlockTridiag, b: BlockTridiag) -> BlockTridiag:
     return BlockTridiag(lower, diag, upper)
 
 
+def bt_distance2_residual(a: BlockTridiag, b: BlockTridiag) -> torch.Tensor:
+    """Max |distance-2 blocks| of A @ B: ~0 where ``bt_mul_bt`` is exact."""
+    lo2 = block_mul(a.lower, shift(b.lower, -1))
+    up2 = block_mul(a.upper, shift(b.upper, +1))
+    return torch.maximum(lo2.abs().max(), up2.abs().max())
+
+
 def bt_diagonal(a: BlockTridiag) -> torch.Tensor:
     """Scalar main diagonal as ``(bs, n)``."""
     i = torch.arange(a.block_size, device=a.diag.device)
@@ -120,3 +140,17 @@ def bt_to_dense(a: BlockTridiag) -> torch.Tensor:
         blocks[k[1:], :, k[:-1], :] = torch.movedim(a.lower[:, :, 1:], -1, 0)
         blocks[k[:-1], :, k[1:], :] = torch.movedim(a.upper[:, :, :-1], -1, 0)
     return blocks.reshape(n * bs, n * bs)
+
+
+def bt_from_dense(dense: torch.Tensor, bs: int) -> BlockTridiag:
+    """Inverse of :func:`bt_to_dense` (tests; entries off the band are ignored)."""
+    n = dense.shape[0] // bs
+    blocks = dense.reshape(n, bs, n, bs)
+    k = torch.arange(n, device=dense.device)
+    diag = torch.movedim(blocks[k, :, k, :], 0, -1)
+    lower = torch.zeros_like(diag)
+    upper = torch.zeros_like(diag)
+    if n > 1:
+        lower[:, :, 1:] = torch.movedim(blocks[k[1:], :, k[:-1], :], 0, -1)
+        upper[:, :, :-1] = torch.movedim(blocks[k[:-1], :, k[1:], :], 0, -1)
+    return BlockTridiag(lower, diag.contiguous(), upper)

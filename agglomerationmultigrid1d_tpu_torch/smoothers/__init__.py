@@ -3,6 +3,7 @@ from .smoother import (
     ChebyshevSmoother,
     JacobiSmoother,
     SchwarzSmoother,
+    Smoother,
     apply_smoother,
     cg_smoother,
     dg_smoother,
@@ -13,6 +14,7 @@ __all__ = [
     "ChebyshevSmoother",
     "JacobiSmoother",
     "SchwarzSmoother",
+    "Smoother",
     "apply_smoother",
     "cg_smoother",
     "dg_smoother",

@@ -18,7 +18,7 @@ from typing import NamedTuple, Union
 
 import torch
 
-from ..ops.block_diag import BlockDiag, bd_matvec
+from ..ops.block_diag import BlockDiag, bd_inverse, bd_matvec
 from ..ops.block_tridiag import BlockTridiag, block_mul, bt_diag_blocks
 from ..ops.cg_operator import (
     CgOperator,
@@ -124,13 +124,13 @@ def _inv_windows_2x2(w: torch.Tensor) -> torch.Tensor:
 
 def _invert_windows(windows: torch.Tensor) -> torch.Tensor:
     """(w, w, n) -> per-slice inverse, same layout: closed form for w <= 2,
-    ``torch.linalg.inv`` on the ``(n, w, w)`` view otherwise (setup only)."""
+    ``bd_inverse`` otherwise (setup only)."""
     bs = windows.shape[0]
     if bs == 1:
         return 1.0 / windows
     if bs == 2:
         return _inv_windows_2x2(windows)
-    return torch.movedim(torch.linalg.inv(torch.movedim(windows, -1, 0)), 0, -1).contiguous()
+    return bd_inverse(BlockDiag(windows)).blocks
 
 
 def cg_smoother(a: CgOperator, kind: str = "jac") -> Smoother:

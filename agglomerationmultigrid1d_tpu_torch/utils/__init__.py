@@ -1,11 +1,20 @@
 from .config import CycleParams, HierarchySpec, SolveParams
-from .precision import hierarchy_astype, tree_map, tree_to
+from .precision import hierarchy_astype, tree_astype, tree_map, tree_to
+from .checkpoint import load_solver_state, save_solver_state
+from .profiling import device_trace, nnz_per_second, sync, wall_timer
 
 __all__ = [
     "CycleParams",
     "HierarchySpec",
     "SolveParams",
     "hierarchy_astype",
+    "tree_astype",
     "tree_map",
     "tree_to",
+    "load_solver_state",
+    "save_solver_state",
+    "device_trace",
+    "nnz_per_second",
+    "sync",
+    "wall_timer",
 ]

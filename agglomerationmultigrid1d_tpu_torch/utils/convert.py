@@ -5,8 +5,9 @@ for example the JAX package's ``Hierarchy`` after
 ``jax.tree_util.tree_map(np.asarray, h)`` — by field name alone, so this
 module never imports the other package.  :func:`xl_problem_from_numpy` does
 the same for the four outputs of the JAX package's ``build_xl_problem``
-(DG- or CG-topped, with or without ``slim_fine`` and ``ff_levels``).  The tests use
-them to feed identical inputs to both packages.
+(DG- or CG-topped, with or without ``slim_fine`` and ``ff_levels``), and
+:func:`agg_mesh_from_numpy` for an agglomerated mesh (tabled or lite).  The
+tests use them to feed identical inputs to both packages.
 """
 
 from __future__ import annotations
@@ -14,8 +15,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..mesh.agg_mesh import AggMesh
+from ..mesh.topology import Mesh1D
 from ..models.hierarchy import BlockLevel, CgLevel, Hierarchy, _chebyshev_table
 from ..ops.block_coo import bcoo_make
+from ..ops.block_diag import BlockDiag
 from ..ops.block_penta import BlockPenta
 from ..ops.block_tridiag import BlockTridiag
 from ..ops.cg_operator import CgOperator
@@ -170,3 +174,21 @@ def xl_problem_from_numpy(h_low, a_ff, b_ff, norm_b: float, device="cuda"):
         a_ff = _ff_operator(a_ff, device)
     b = FF(_tensor(b_ff.hi, device), _tensor(b_ff.lo, device))
     return hierarchy_from_numpy(h_low, device), a_ff, b, float(norm_b)
+
+
+def agg_mesh_from_numpy(m) -> AggMesh:
+    """An agglomerated mesh from another package's (``mesh.vertex_x``, the
+    partition arrays, ``boxes``, ``mass`` / ``mass_inv`` as ``blocks``, the
+    switch and, where built, the quadrature tables), read by field name; its
+    arrays stay on the host, as this package's meshes do."""
+    def host(x):
+        return None if x is None else np.array(x)
+
+    return AggMesh(
+        p=int(m.p), mesh=Mesh1D(vertex_x=np.array(m.mesh.vertex_x)), sizes=host(m.sizes),
+        offsets=host(m.offsets), sub_sizes=host(m.sub_sizes), sub_offsets=host(m.sub_offsets),
+        n_agg=int(m.n_agg), boxes=host(m.boxes), mass=BlockDiag(_tensor(m.mass.blocks, "cpu")),
+        mass_inv=BlockDiag(_tensor(m.mass_inv.blocks, "cpu")), u_hat_left=host(m.u_hat_left),
+        quad_nodes=host(m.quad_nodes), quad_weights=host(m.quad_weights), basis_q=host(m.basis_q),
+        x_quad=host(m.x_quad), jacs=host(m.jacs),
+    )

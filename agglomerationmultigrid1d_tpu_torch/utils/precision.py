@@ -25,10 +25,15 @@ def tree_map(fn, tree):
     return tree
 
 
+def tree_astype(tree, dtype: torch.dtype):
+    """Cast every floating tensor leaf of an operator container to ``dtype``."""
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
+
+
 def hierarchy_astype(h, dtype: torch.dtype):
     """A copy of a Hierarchy (or any operator container) with every floating
     leaf cast to ``dtype``."""
-    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, h)
+    return tree_astype(h, dtype)
 
 
 def tree_to(tree, device):

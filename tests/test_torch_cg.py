@@ -101,7 +101,7 @@ def test_cg_mesh_and_assembly_match_jax(p, bc):
 @pytest.mark.parametrize("bc", list(BCS))
 def test_agg_flux_operators_match_jax(p_agg, bc):
     mesh, jm = create_uniform_mesh(24, 0.0, 1.0), jmesh(24, 0.0, 1.0)
-    agg = make_agg_mesh(p_agg, mesh, 4)
+    agg = make_agg_mesh(p_agg, mesh, 4, tables=False)
     jagg = jagg_mesh.make_agg_mesh(p_agg, jm, 4, tables=False)
     got = agg_flux_operators(agg, BoundaryCondition(*BCS[bc]), 2400.0)
     want = jagg_asm.agg_flux_operators(jagg, JBC(*BCS[bc]), 2400.0)
@@ -152,7 +152,7 @@ def test_dg_cg_seam_matches_jax(rng, p_cg, p_dg):
 def test_aggdg_cg_seam_matches_jax(rng, p_cg, p_agg, r):
     n = 16
     mesh, jm = create_uniform_mesh(n, 0.0, 1.0), jmesh(n, 0.0, 1.0)
-    cg, agg = make_cg_mesh(mesh, p_cg), make_agg_mesh(p_agg, mesh, r)
+    cg, agg = make_cg_mesh(mesh, p_cg), make_agg_mesh(p_agg, mesh, r, tables=False)
     jcgm = jcg_mesh.make_cg_mesh(jm, p_cg)
     jagg = jagg_mesh.make_agg_mesh(p_agg, jm, r, tables=False)
     l, jl = tint.aggdg_cg_interpolation(agg, cg), jint.aggdg_cg_interpolation(jagg, jcgm)

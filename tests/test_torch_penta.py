@@ -287,7 +287,7 @@ def test_agg_mixed_switch_solves_to_direct():
     bc, jbc = BoundaryCondition(*BC_NEU_DIR), JBC(*BC_NEU_DIR)
     cg, jcg = make_cg_mesh(mesh, 1), jcg_mesh.make_cg_mesh(jmesh, 1)
     a, b = cg_stiffness_and_rhs(cg, torch.cos, bc)
-    h = build_hierarchy([cg, make_agg_mesh(1, mesh, 4, switch=sw)], bc, a, c_dir=1000.0 * n)
+    h = build_hierarchy([cg, make_agg_mesh(1, mesh, 4, switch=sw, tables=False)], bc, a, c_dir=1000.0 * n)
     assert isinstance(h.levels[1].a, BlockPenta)
     ja, jb = jcg_asm.cg_stiffness_and_rhs(jcg, jnp.cos, jbc)
     jh = jhier.build_hierarchy([jcg, jagg_mesh.make_agg_mesh(1, jmesh, 4, switch=sw, tables=False)], jbc, ja,
@@ -579,7 +579,7 @@ def _switch_chain(n, n_coarsen):
     DG p = 1 -> agg r = 2 -> ``n_coarsen`` x 2:1, every level pentadiagonal."""
     s = np.array([False] * (n // 2) + [True] * (n - 1 - n // 2))
     mesh = create_uniform_mesh(n, 0.0, 1.0)
-    meshes = [make_dg_mesh(mesh, 3, switch=s), make_dg_mesh(mesh, 1, switch=s), make_agg_mesh(1, mesh, 2)]
+    meshes = [make_dg_mesh(mesh, 3, switch=s), make_dg_mesh(mesh, 1, switch=s), make_agg_mesh(1, mesh, 2, tables=False)]
     for _ in range(n_coarsen):
         meshes.append(coarsen_agg_mesh(meshes[-1], 2))
     bc, c_dir = BoundaryCondition(*BC_NEU_DIR), 1000.0 * n

@@ -180,7 +180,7 @@ def test_ragged_recursive_agglomeration_galerkin():
     c_dir = 100.0
     mesh, jm = _meshes(12)
     bc = BoundaryCondition(*BC)
-    a1 = make_agg_mesh(1, mesh, partition=[1, 2, 1, 2, 2, 1, 2, 1])
+    a1 = make_agg_mesh(1, mesh, partition=[1, 2, 1, 2, 2, 1, 2, 1], tables=False)
     a2 = coarsen_agg_mesh(a1, partition=[3, 2, 3])
     np.testing.assert_array_equal(a2.sizes, [4, 4, 4])
     l = tint.aggdg_aggdg_interpolation(a2, a1)

@@ -394,7 +394,7 @@ def test_linear_time_coarsening_equals_jax(n):
     _close(sa2.mass.blocks, jsa2.mass.blocks)
     from agglomerationmultigrid1d_tpu.mesh import agg_mesh as jagg_mesh
 
-    agg = make_agg_mesh(1, mesh, 2)
+    agg = make_agg_mesh(1, mesh, 2, tables=False)
     merge_c = rng.permutation(n // 2).reshape(-1, 4).tolist()
     sa3 = coarsen_scattered_agg_mesh(agg, merge_c)
     jsa3 = jsc_mesh.coarsen_scattered_agg_mesh(jagg_mesh.make_agg_mesh(1, jmesh, 2, tables=False), merge_c)
@@ -463,7 +463,7 @@ def test_contiguous_scattered_multigrid_iteration_parity():
     n = 32
     (mesh, dg, ops, b), (jmesh, jdg, jops_, jb) = _dg_problem(n)
     groups = [list(range(4 * i, 4 * i + 4)) for i in range(8)]
-    h_ref = build_dg_hierarchy([dg, make_agg_mesh(1, mesh, 4)], *ops)
+    h_ref = build_dg_hierarchy([dg, make_agg_mesh(1, mesh, 4, tables=False)], *ops)
     h_sc = build_dg_hierarchy([dg, make_scattered_agg_mesh(1, mesh, groups)], *ops)
     assert isinstance(h_sc.levels[1].a, BlockCOO) and isinstance(h_sc.transfers[0], ScatteredProlong)
     jh_sc = jhier.build_dg_hierarchy([jdg, jsc_mesh.make_scattered_agg_mesh(1, jmesh, groups)], *jops_)
@@ -499,7 +499,7 @@ def test_contiguous_below_scattered_rejected():
     a = schur_stiffness(g, d, c, dg.mass_inv)
     sa1 = make_scattered_agg_mesh(1, mesh, _interleaved_groups(n, 2, 4))
     with pytest.raises(TypeError, match="cannot follow a scattered"):
-        build_dg_hierarchy([dg, sa1, make_agg_mesh(1, mesh, 8)], a, g, d, c)
+        build_dg_hierarchy([dg, sa1, make_agg_mesh(1, mesh, 8, tables=False)], a, g, d, c)
 
 
 def test_poisson_scattered_hierarchy_factory():
@@ -649,7 +649,7 @@ def test_hierarchy_from_numpy_carries_scattered_and_penta_levels(chain):
     s = np.array([False] * (n // 2) + [True] * (n - 1 - n // 2))
     bcs = (("neu", 0.0), ("dir", 1.0))
     mesh, jmesh = _meshes(n)
-    tm = [make_dg_mesh(mesh, 1, switch=s), make_agg_mesh(1, mesh, 4)]
+    tm = [make_dg_mesh(mesh, 1, switch=s), make_agg_mesh(1, mesh, 4, tables=False)]
     jm = [jdg_mesh.make_dg_mesh(jmesh, 1, switch=s), jagg_mesh.make_agg_mesh(1, jmesh, 4, tables=False)]
     g, d, c = dg_flux_operators(tm[0], BoundaryCondition(*bcs), 1000.0 * n)
     h = tbuild(tm, schur_stiffness(g, d, c, tm[0].mass_inv, mixed_switch=True), g, d, c)

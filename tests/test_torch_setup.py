@@ -126,7 +126,7 @@ def test_unported_configurations_raise():
     assert float(g.upper.abs().max()) > 0 and float(d.lower.abs().max()) > 0  # the flipped vertices' couplings
     a = schur_stiffness(g, d, c, dg.mass_inv, mixed_switch=True)
     assert isinstance(a, BlockPenta)  # stored pentadiagonal; a non-trapping switch's distance-2 blocks are 0
-    h = build_dg_hierarchy([dg, make_agg_mesh(1, mesh, 2)], a, g, d, c)  # the fine level shards, the coarsest not
+    h = build_dg_hierarchy([dg, make_agg_mesh(1, mesh, 2, tables=False)], a, g, d, c)  # the fine level shards, the coarsest not
     group = SolverGroup(group=None, rank=0, world=2, device=torch.device("cpu"), backend="gloo")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         shard_hierarchy(h, group, min_blocks_per_device=2)
