@@ -26,11 +26,14 @@ fine-level float-float defects on a stencil operator go through kernel K6.
 Sharded hierarchies (``parallel.distributed.shard_hierarchy`` and
 ``parallel.multihost.build_sharded_xl_problem``) run through the same
 functions: on a level that ``h.layout`` holds sharded, every matvec takes its
-halo columns from the neighbour ranks (one a side on a block level, ``p``
-nodes on a CG level), norms all-reduce, transfers stay local (a CG level's
-exchange the vertex two ranks share, ``parallel.cg_levels``; the last sharded
-level restricts locally, then gathers), and the coarsest level is solved
-whole on every rank.  A sharded float32 block level smooths through
+halo columns from the neighbour ranks (one a side on a block-tridiagonal
+level, two on a block-pentadiagonal one, ``p`` nodes on a CG level; a
+block-COO level the columns its rows name, ``parallel.columns``), norms
+all-reduce, aligned transfers stay local (a CG level's exchange the vertex
+two ranks share, ``parallel.cg_levels``; the last sharded level restricts
+locally, then gathers), straddling and scattered ones read and send the
+coarse or fine columns they share (``parallel.transfers``), and the
+coarsest level is solved whole on every rank.  A sharded float32 block level smooths through
 ``parallel.sharded_kernels`` (K7's schedule), a sharded float64 or CG level
 with plain sweeps on halo matvecs; a sharded stencil fine operator's
 float-float defect is kernel K6s.  ``multigrid_true`` stays unsharded, as in
@@ -62,7 +65,7 @@ from ..ops.df64 import (
     ff_join,
     ff_split,
 )
-from ..ops.df64 import BlockTridiagFF, CgBandFF, ff_bt_defect, ff_bt_defect_stencil, ff_cg_defect
+from ..ops.df64 import BlockPentaFF, BlockTridiagFF, CgBandFF, ff_bp5_defect, ff_bt_defect, ff_bt_defect_stencil, ff_cg_defect
 from ..ops.kernels.block_kernels import (
     chebyshev_multisweep,
     chebyshev_multisweep_residual,
@@ -79,10 +82,12 @@ from ..parallel.cg_levels import (
     seam_prolong_sharded,
     seam_restrict_sharded,
 )
+from ..parallel.columns import gather_cols
 from ..parallel.distributed import level_widths
 from ..parallel.halo import edge_columns, halo_neighbours
 from ..parallel.multihost import all_gather_cols, all_reduce_sum, local_range, node_range, node_widths
 from ..parallel.sharded_kernels import sharded_chebyshev_multisweep, sharded_multisweep
+from ..parallel.transfers import SHARD_TRANSFERS, shard_prolong, shard_restrict
 from ..ops.transfer_ops import (
     BlockProlong,
     CgProlong,
@@ -141,9 +146,9 @@ def level_matvec(level, x: torch.Tensor, group=None) -> torch.Tensor:
     if isinstance(level, CgLevel):
         return cg_matvec(level.a, x) if group is None else cg_matvec_sharded(level.a, x, group)
     if isinstance(level.a, BlockPenta):
-        return bp5_matvec(level.a, x)
+        return bp5_matvec(level.a, x) if group is None else bp5_matvec(level.a, x, *edge_columns(x, group, width=2))
     if isinstance(level.a, BlockCOO):
-        return bcoo_matvec(level.a, x)
+        return bcoo_matvec(level.a, x if group is None else gather_cols(x, level.a.halo, group))
     if group is None:
         return _mform_matvec(level, x) if _is_slim_bt(level) else bt_matvec(level.a, x)
     if _is_slim_bt(level):
@@ -213,7 +218,8 @@ def _cg_widths(level, g) -> list | None:
 
 
 def _own_part(level, x: torch.Tensor, g) -> torch.Tensor:
-    """The rank's part of a whole level's vector: its nodes of a CG level, its columns of a block level."""
+    """The rank's part of a whole level's vector ``x``: its nodes of a CG
+    level, its columns of a block level; ``level`` is the whole level."""
     if isinstance(level, CgLevel):
         lo, hi = node_range(level.a.n_el, level.a.p, g)
     else:
@@ -222,14 +228,20 @@ def _own_part(level, x: torch.Tensor, g) -> torch.Tensor:
 
 
 def _restrict(h: Hierarchy, k: int, r: torch.Tensor) -> torch.Tensor:
-    """Restrict level ``k``'s residual to level ``k + 1``.  Below the last
-    sharded level the rank's agglomerates are whole (``shard_hierarchy``
-    checks it), so the restriction is local, then gathered.  The CG and seam
-    transfers of a sharded CG level exchange the vertex two ranks share
-    (``parallel.cg_levels``)."""
+    """Restrict level ``k``'s residual to level ``k + 1``.  On a sharded
+    level: an aligned block transfer restricts locally (then gathers onto a
+    whole coarse level); the CG and seam transfers of a sharded CG level
+    exchange the vertex two ranks share (``parallel.cg_levels``); a transfer
+    whose agglomerates straddle the ranks or scatter over them reads the
+    fine columns its groups share, or sends its partial sums to their
+    owners (``parallel.transfers``).  Below a whole level, a sharded coarse
+    level takes its part of the whole restriction."""
     t, g, gc = h.transfers[k], _group(h, k), _group(h, k + 1)
     if g is None:
-        return transfer_restrict(t, r)
+        rc = transfer_restrict(t, r)
+        return rc if gc is None else rc[..., slice(*local_range(rc.shape[-1], gc))]
+    if isinstance(t, SHARD_TRANSFERS):
+        return shard_restrict(t, r, g)
     if isinstance(t, BlockProlong):
         if gc is None:
             return all_gather_cols(transfer_restrict(_local_transfer(t, g), r), g)
@@ -240,11 +252,14 @@ def _restrict(h: Hierarchy, k: int, r: torch.Tensor) -> torch.Tensor:
 
 def _prolong(h: Hierarchy, k: int, uc: torch.Tensor) -> torch.Tensor:
     """Prolong level ``k + 1``'s correction to level ``k``; from a whole
-    coarse level onto a sharded one, the rank's part only."""
-    t, g = h.transfers[k], _group(h, k)
+    coarse level onto a sharded one, the rank's part only; from a sharded
+    coarse level onto a whole one, after gathering it."""
+    t, g, gc = h.transfers[k], _group(h, k), _group(h, k + 1)
     if g is None:
-        return transfer_prolong(t, uc)
-    if _group(h, k + 1) is None:
+        return transfer_prolong(t, uc if gc is None else all_gather_cols(uc, gc))
+    if isinstance(t, SHARD_TRANSFERS):
+        return shard_prolong(t, uc, g)
+    if gc is None:
         if isinstance(t, BlockProlong):
             lo, hi = local_range(t.n_coarse, g)
             return transfer_prolong(_local_transfer(t, g), uc[..., lo:hi])
@@ -887,6 +902,9 @@ def _ff_defect(a_ff, x: FF, b: FF, group=None) -> FF:
             None if none else t[..., 0].contiguous()
             for t, none in ((left, group.rank == 0), (right, group.rank == group.world - 1))
         ))
+    if isinstance(a_ff, BlockPentaFF):
+        left, right = edge_columns(pair, group, width=2)
+        return ff_bp5_defect(a_ff, x, b, FF(left[0], left[1]), FF(right[0], right[1]))
     if not isinstance(a_ff, BlockTridiagFF):
         raise TypeError(f"a sharded float-float defect of {type(a_ff).__name__}")
     xm, xp = halo_neighbours(pair, group)

@@ -40,6 +40,11 @@ class BlockCOO(NamedTuple):
     n_rows: int  # block-row count
     n_cols: int  # block-column count
     ell: torch.Tensor  # (n_rows, K) each row's entries, padded with nnz
+    # on a shard (parallel.distributed.shard_hierarchy): the
+    # parallel.columns.ColumnPlan of the columns the rank's rows read; rows
+    # are then the rank's, numbered from 0, and cols number halo.need (the
+    # global columns), n_cols = halo.n_need.  None on a whole operator.
+    halo: object | None = None
 
     @property
     def bs_row(self) -> int:
@@ -126,7 +131,7 @@ def _host(a: BlockCOO) -> tuple:
     return _np(a.rows).astype(np.int64), _np(a.cols).astype(np.int64), _np(a.blocks)
 
 
-def bcoo_make(rows, cols, blocks, n_rows: int, n_cols: int, device="cpu") -> BlockCOO:
+def bcoo_make(rows, cols, blocks, n_rows: int, n_cols: int, device) -> BlockCOO:
     """A BlockCOO from sorted, coalesced host index arrays and blocks (a
     NumPy array or a tensor), with its ``ell`` table, on ``device``."""
     rows = np.asarray(rows, dtype=np.int64)

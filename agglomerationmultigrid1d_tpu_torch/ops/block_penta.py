@@ -52,13 +52,21 @@ class BlockPenta(NamedTuple):
 _OFFSETS = (-2, -1, 0, 1, 2)  # of the fields, in order
 
 
-def bp5_matvec(a: BlockPenta, x: torch.Tensor) -> torch.Tensor:
-    """``y[:, k] = sum_d A[k, k+d] x_{k+d}`` over d in [-2, 2]; x is ``(bs, n)``."""
+def bp5_matvec(a: BlockPenta, x: torch.Tensor, left=None, right=None) -> torch.Tensor:
+    """``y[:, k] = sum_d A[k, k+d] x_{k+d}`` over d in [-2, 2]; x is ``(bs, n)``.
+    ``left`` / ``right`` are the two columns beyond x's first and last where
+    the caller has them (a shard's, from its neighbours); by default zeros."""
+    if left is None:
+        xs = {d: shift(x, d) for d in (-2, -1, 1, 2)}
+    else:
+        xe = torch.cat([left, x, right], dim=-1)
+        n = x.shape[-1]
+        xs = {d: xe[..., 2 + d : 2 + d + n] for d in (-2, -1, 1, 2)}
     y = torch.einsum("ijn,jn->in", a.diag, x)
-    y = y + torch.einsum("ijn,jn->in", a.lower, shift(x, -1))
-    y = y + torch.einsum("ijn,jn->in", a.upper, shift(x, +1))
-    y = y + torch.einsum("ijn,jn->in", a.lower2, shift(x, -2))
-    y = y + torch.einsum("ijn,jn->in", a.upper2, shift(x, +2))
+    y = y + torch.einsum("ijn,jn->in", a.lower, xs[-1])
+    y = y + torch.einsum("ijn,jn->in", a.upper, xs[+1])
+    y = y + torch.einsum("ijn,jn->in", a.lower2, xs[-2])
+    y = y + torch.einsum("ijn,jn->in", a.upper2, xs[+2])
     return y
 
 

@@ -111,7 +111,7 @@ def cg_to_dense(a: CgOperator) -> torch.Tensor:
     return dense
 
 
-def cg_node_multiplicity(p: int, n_el: int, dtype=torch.float64, device="cpu") -> torch.Tensor:
+def cg_node_multiplicity(p: int, n_el: int, dtype=torch.float64, *, device) -> torch.Tensor:
     """How many elements contain each grid node (2 at interior vertices, else 1)."""
     mult = torch.ones((n_el * p + 1,), dtype=dtype, device=device)
     if n_el > 1:

@@ -162,13 +162,21 @@ def ff_bt_defect(a: BlockTridiagFF, x: FF, b: FF, xm: FF | None = None, xp: FF |
     return _contract_ff(a, lambda t: t.upper, _shifted(x, +1) if xp is None else xp, acc, -1.0)
 
 
-def ff_bp5_defect(a: BlockPentaFF, x: FF, b: FF) -> FF:
+def ff_bp5_defect(a: BlockPentaFF, x: FF, b: FF, left: FF | None = None, right: FF | None = None) -> FF:
     """Pentadiagonal ``r = b - A x`` in float-float: :func:`ff_bt_defect`'s
-    three contractions, then the distance-2 ones (lower2, upper2)."""
+    three contractions, then the distance-2 ones (lower2, upper2).  ``left``
+    / ``right`` are the two columns beyond x's first and last where the
+    caller has them (a shard's, from its neighbours); by default zeros."""
+    if left is None:
+        xs = {d: _shifted(x, d) for d in (-2, -1, 1, 2)}
+    else:
+        n = x.hi.shape[-1]
+        hi, lo = (torch.cat([s, t, e], dim=-1) for s, t, e in ((left.hi, x.hi, right.hi), (left.lo, x.lo, right.lo)))
+        xs = {d: FF(hi[..., 2 + d : 2 + d + n], lo[..., 2 + d : 2 + d + n]) for d in (-2, -1, 1, 2)}
     acc = _contract_ff(a, lambda t: t.diag, x, b, -1.0)
     for d, sel in ((-1, lambda t: t.lower), (+1, lambda t: t.upper),
                    (-2, lambda t: t.lower2), (+2, lambda t: t.upper2)):
-        acc = _contract_ff(a, sel, _shifted(x, d), acc, -1.0)
+        acc = _contract_ff(a, sel, xs[d], acc, -1.0)
     return acc
 
 

@@ -1,8 +1,10 @@
 """Element-axis domain decomposition over ``torch.distributed``: the group
 handle, the collectives and the rank-local stencil build (``multihost``), the
 neighbour exchange (``halo``), sharded hierarchies (``distributed``), CG levels
-on a shard (``cg_levels``) and the fused smoothers on a shard
-(``sharded_kernels``, kernel K7 and the edge pair).  Importing it starts no process group."""
+on a shard (``cg_levels``), the exchange plans of block-COO levels and of
+straddling or scattered transfers (``columns``, ``transfers``) and the fused
+smoothers on a shard (``sharded_kernels``, kernel K7 and the edge pair).
+Importing it starts no process group."""
 
 from .multihost import (
     SolverGroup,

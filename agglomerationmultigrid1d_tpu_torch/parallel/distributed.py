@@ -31,39 +31,51 @@ level's last node (``multihost.node_range``; the node shards are unequal by
 that one node).  The vertex shared by two ranks belongs to the right one; the
 left one reads it, and adds its part of a scatter into it, through
 :mod:`.cg_levels`.  p-coarsening keeps ``n_el`` on every CG level, so a CG
-transfer is local up to that vertex, and a seam onto agglomerates that divide
-the world (the rule of the block levels) is too.  The JAX package instead
-pads each CG level's node axis to a device multiple with an identity band
-tail (``_pad_cg_level``) and lets its partitioner move what crosses devices;
-the unpadded layout here needs no pad, crop or identity tail, and
+transfer is local up to that vertex.  The JAX package instead pads each CG
+level's node axis to a device multiple with an identity band tail
+(``_pad_cg_level``) and lets its partitioner move what crosses devices; the
+unpadded layout here needs no pad, crop or identity tail, and
 :func:`unshard_vector` returns the same ``n_el p + 1`` nodes as the JAX
 package's does.
 
-Refused on a sharded level (``NotImplementedError``, ROADMAP queue 1, item
-15 (d)), where the JAX package's partitioner shards: block-pentadiagonal
-(mixed-switch) and block-COO (scattered) operators, and ragged seams; and
-(``ValueError``) agglomerates that straddle two ranks and a level that
-could be sharded below one that cannot.
+**Block-pentadiagonal (mixed-switch) levels** are sliced by columns like
+block-tridiagonal ones; their matvec and float-float defect read two edge
+columns a side of the neighbours, hi and lo in one exchange
+(``halo.edge_columns(..., width=2)``), and their block-Jacobi smoothing is
+local.  **Block-COO (scattered) levels** are cut by block rows: each rank
+holds the entries of its rows, and the matvec reads the columns they name
+through an exchange plan (:mod:`.columns`) that moves only those columns.
+
+**Transfers.**  Agglomerates need not line up with the ranks: a coarse
+column whose fine columns lie on two ranks (ragged groups, a coarse count
+that the world does not divide) or on many (scattered owners) is read by
+prolong from its owner and summed by restrict at its owner, through the
+transfer's exchange plan (:mod:`.transfers`).  A whole coarse level below a
+sharded one is read in place and restricted into by a sum over the ranks; a
+sharded level below a whole one is gathered for prolong and takes its own
+part of the whole restriction.  Every plan is built once, here, from the
+whole hierarchy that every rank passes.
+
+NCCL between two cards is not verified (one card was at hand): two ranks
+ran over gloo on one card, one rank over NCCL.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..models.hierarchy import BlockLevel, CgLevel, Hierarchy, ShardLayout
+from ..ops.block_coo import BlockCOO, bcoo_make
+from ..ops.block_penta import BlockPenta
 from ..ops.block_tridiag import BlockTridiag
 from ..ops.transfer_ops import BlockProlong, CgProlong, SeamProlong
 from ..smoothers.smoother import BlockJacobiSmoother, ChebyshevSmoother
 from ..utils.precision import tree_map, tree_to
+from .columns import column_plan
 from .multihost import SolverGroup, all_gather_cols, local_range, node_range, node_widths
 from .sharded_kernels import edge_plan, operator_ghosts
-
-
-def _refused(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}; sharding it is not ported (ROADMAP queue 1, item 15 (d): the JAX package's partitioner "
-        "shards it); raise min_blocks_per_device so it stays whole"
-    )
+from .transfers import shard_transfer
 
 
 def _slice_cols(tree, n: int, g: SolverGroup, n_nodes: tuple | None = None):
@@ -85,47 +97,63 @@ def _slice_cols(tree, n: int, g: SolverGroup, n_nodes: tuple | None = None):
     return tree_map(cut, tree)
 
 
+def _shard_coo(a: BlockCOO, g: SolverGroup) -> BlockCOO:
+    """The rank's block rows of a block-COO operator, numbered from 0, with
+    the exchange plan of the columns they read (``BlockCOO.halo``; ``cols``
+    number its ``need``).  Built from the whole operator, which every rank
+    holds: no communication."""
+    rows, cols = a.rows.cpu().numpy(), a.cols.cpu().numpy()
+    lo, hi = local_range(a.n_rows, g)
+    m = hi - lo
+    bounds = np.searchsorted(rows, np.arange(g.world + 1) * m)  # rows are sorted
+    needs = [np.unique(cols[bounds[q]:bounds[q + 1]]) for q in range(g.world)]
+    plan = column_plan(needs, a.n_cols, g)
+    s, e = bounds[g.rank], bounds[g.rank + 1]
+    local = bcoo_make(rows[s:e] - lo, np.searchsorted(needs[g.rank], cols[s:e]), a.blocks[..., s:e],
+                      m, plan.n_need, g.device)
+    return local._replace(blocks=local.blocks.contiguous(), halo=plan)
+
+
+def _shard_block_level(k: int, lv: BlockLevel, g: SolverGroup) -> BlockLevel:
+    """The rank's columns of a block level: a block-tridiagonal or
+    block-pentadiagonal level sliced by columns, a block-COO level's
+    operators by block rows (:func:`_shard_coo`)."""
+    n = lv.a.n_blocks
+    if isinstance(lv.a, BlockPenta) and n // g.world < 2:
+        raise ValueError(f"level {k}: a block-pentadiagonal shard reads two columns a side of its neighbours' "
+                         f"and needs at least two of its own ({n} blocks over {g.world} ranks)")
+    if not isinstance(lv.a, BlockCOO):
+        return _slice_cols(lv, n, g)
+    ops = {f: getattr(lv, f) for f in ("a", "g", "d", "c")}
+    rest = _slice_cols(lv._replace(**dict.fromkeys(ops)), n, g)
+    return rest._replace(**{f: _shard_coo(t, g) if isinstance(t, BlockCOO) else _slice_cols(t, n, g)
+                            for f, t in ops.items()})
+
+
 def level_size(lv) -> int:
     """A level's element (block) count: what is sharded."""
     return lv.a.n_el if isinstance(lv, CgLevel) else lv.a.n_blocks
 
 
-def check_transfer(k: int, tr, n_f: int, n_c: int, sh_f: bool, sh_c: bool, world: int) -> None:
-    """Refuse what the ranks cannot hold of transfer ``k`` (level ``k + 1``,
-    ``n_c`` elements, onto level ``k``, ``n_f``): a sharded level below a
-    whole one, a transfer of a kind not ported on a shard, agglomerates that
-    straddle two ranks."""
-    if not sh_f:
-        if sh_c:
-            raise ValueError(f"level {k + 1} is sharded below the whole level {k}")
-        return
-    if isinstance(tr, CgProlong):
-        return
-    if isinstance(tr, SeamProlong) and tr.offsets is not None:
-        raise _refused(f"transfer {k} is a ragged seam (SeamProlong.offsets: agglomerates of unequal size)")
-    if not isinstance(tr, (SeamProlong, BlockProlong)):
-        raise _refused(f"transfer {k} is a {type(tr).__name__}")
-    if n_f != tr.r * n_c or n_c % world:
-        raise ValueError(
-            f"level {k} ({n_f} blocks) over level {k + 1} ({n_c}): its agglomerates of "
-            f"{tr.r} would straddle the {world} ranks (the coarse count must divide the world size; "
-            "ROADMAP queue 1, item 15 (d))"
-        )
-
-
-def _shard_transfer(k: int, tr, fine, coarse, sh_f: bool, sh_c: bool, g: SolverGroup):
-    """Transfer ``k`` (level ``k + 1`` onto level ``k``) on the ranks.  A
-    block transfer keeps all its coarse columns unless the coarse level is
-    sharded (``models.solvers`` slices it on use); a seam under a sharded CG
-    level holds the rank's coarse columns and its nodes' lumped mass; a CG
-    transfer is one constant matrix."""
+def _shard_transfer(tr, fine, coarse, sh_f: bool, sh_c: bool, g: SolverGroup):
+    """Transfer ``k`` (``coarse``, level ``k + 1``, onto ``fine``, level
+    ``k``) on the ranks.  Under a whole fine level, and for a CG transfer
+    (one constant matrix), the transfer is whole.  Agglomerates that line up
+    with the ranks (uniform groups over a coarse count that divides the
+    world) keep the aligned forms: a block transfer all its coarse columns
+    unless the coarse level is sharded (``models.solvers`` slices it on
+    use), a seam under a sharded CG level the rank's coarse columns and its
+    nodes' lumped mass.  Every other transfer onto a sharded level becomes
+    the rank's part of it (:func:`.transfers.shard_transfer`)."""
     n_c = level_size(coarse)
-    check_transfer(k, tr, level_size(fine), n_c, sh_f, sh_c, g.world)
     if not sh_f or isinstance(tr, CgProlong):
         return tree_to(tr, g.device)
-    if isinstance(tr, SeamProlong):
+    aligned = n_c % g.world == 0
+    if isinstance(tr, BlockProlong) and aligned:
+        return _slice_cols(tr, n_c, g) if sh_c else tree_to(tr, g.device)
+    if isinstance(tr, SeamProlong) and tr.offsets is None and aligned:
         return _slice_cols(tr, n_c, g, n_nodes=(fine.a.n_el, fine.a.p))
-    return _slice_cols(tr, n_c, g) if sh_c else tree_to(tr, g.device)
+    return shard_transfer(tr, fine, level_size(fine), n_c, sh_c, g)
 
 
 def shard_hierarchy(h: Hierarchy, group: SolverGroup, *, min_blocks_per_device: int = 8) -> Hierarchy:
@@ -133,12 +161,15 @@ def shard_hierarchy(h: Hierarchy, group: SolverGroup, *, min_blocks_per_device: 
 
     JAX's policy: a level is sharded when it gives every rank at least
     ``min_blocks_per_device`` elements and its element count divides the
-    world size; a transfer is sharded iff its coarse side is; the coarsest
-    level and its factorization are replicated.  Each rank keeps only its own
-    columns of the sharded levels (``[r n / W, (r + 1) n / W)``; on a CG
-    level its nodes, see the module docstring), and the float32 block
-    levels K7's operator ghosts (:func:`attach_operator_ghosts`).  Raises
-    where an agglomerate would straddle two ranks.  Collective."""
+    world size (its ``_shard_last`` keeps the others whole); the coarsest
+    level and its factorization are replicated.  A level may be sharded
+    below a whole one, and agglomerates may straddle two ranks (see the
+    module docstring).  Each rank keeps only its own columns of the sharded
+    levels (``[r n / W, (r + 1) n / W)``; on a CG level its nodes; on a
+    block-COO level its block rows), the transfers cut to match, and the
+    float32 block-tridiagonal levels K7's operator ghosts
+    (:func:`attach_operator_ghosts`).  The exchange plans are built here,
+    from the whole hierarchy, which every rank passes.  Collective."""
     if h.layout is not None:
         raise ValueError("the hierarchy is already sharded")
     w = group.world
@@ -155,15 +186,10 @@ def shard_hierarchy(h: Hierarchy, group: SolverGroup, *, min_blocks_per_device: 
             levels.append(tree_to(lv, group.device))
         elif isinstance(lv, CgLevel):
             levels.append(_slice_cols(lv, lv.a.n_el, group, n_nodes=(lv.a.n_el, lv.a.p)))
-        elif not isinstance(lv.a, BlockTridiag):
-            # sliced by columns, its distance-2 or scattered couplings would be
-            # cut and the level smoothed as if it were tridiagonal
-            raise _refused(f"level {k} holds a {type(lv.a).__name__} operator (the port shards "
-                           "block-tridiagonal and CG levels only)")
         else:
-            levels.append(_slice_cols(lv, lv.a.n_blocks, group))
+            levels.append(_shard_block_level(k, lv, group))
     transfers = [
-        _shard_transfer(k, tr, h.levels[k], h.levels[k + 1], sharded[k], sharded[k + 1], group)
+        _shard_transfer(tr, h.levels[k], h.levels[k + 1], sharded[k], sharded[k + 1], group)
         for k, tr in enumerate(h.transfers)
     ]
     return attach_operator_ghosts(Hierarchy(
@@ -186,7 +212,10 @@ def level_widths(lv, g: SolverGroup) -> list | None:
 def shard_vector(x: torch.Tensor, group: SolverGroup, h: Hierarchy | None = None) -> torch.Tensor:
     """The rank's part of a fine-level vector: its columns of a block vector
     ``(bs, n)``; of a CG node vector ``(n_el p + 1,)`` its nodes, which needs
-    the hierarchy ``h`` (whole or sharded: its fine level's order)."""
+    the hierarchy ``h`` (whole or sharded: its fine level's order).  With a
+    sharded ``h`` whose fine level is whole, all of ``x``."""
+    if h is not None and h.layout is not None and not h.layout.sharded[0]:
+        return x.to(group.device).contiguous()
     if x.dim() == 1:
         if h is None or not isinstance(h.levels[0], CgLevel):
             raise ValueError("a CG node vector is sharded by its level's nodes: pass the hierarchy h")
@@ -230,7 +259,7 @@ def attach_operator_ghosts(h: Hierarchy) -> Hierarchy:
         return s._replace(ghosts=gops, plan=edge_plan(*ops, gops.contiguous(), g))
 
     def fix(lv, sharded):
-        if not sharded or not isinstance(lv, BlockLevel):
+        if not sharded or not isinstance(lv, BlockLevel) or not isinstance(lv.a, BlockTridiag):
             return lv
         s = lv.smoother
         if isinstance(s, ChebyshevSmoother):

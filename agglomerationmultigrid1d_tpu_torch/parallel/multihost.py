@@ -206,7 +206,8 @@ def build_sharded_xl_problem(
     from ..ops.block_tridiag import BlockTridiag
     from ..ops.df64 import ff_split
     from ..ops.transfer_ops import SeamProlong
-    from .distributed import attach_operator_ghosts, check_transfer, level_size
+    from ..ops.transfer_ops import CgProlong
+    from .distributed import attach_operator_ghosts, level_size
 
     device = group.device
     if slim_fine and spec.cg_orders:
@@ -216,7 +217,7 @@ def build_sharded_xl_problem(
     prob0, h64, a_ff_small, h_low0, z = st.prob0, st.h64, st.a_ff_small, st.h_low0, st.z
     for t in h_low0.transfers:
         if isinstance(t, SeamProlong) and t.offsets is not None:
-            raise ValueError("shard-local build requires uniform seam partitions (ROADMAP queue 1, item 15 (d))")
+            raise ValueError("shard-local build requires uniform seam partitions")
     coarse_lv = h64.levels[-1]
     if not (isinstance(coarse_lv, BlockLevel) and isinstance(coarse_lv.a, BlockTridiag)):
         raise TypeError(
@@ -228,8 +229,13 @@ def build_sharded_xl_problem(
     flags = tuple(k < len(sizes) - 1 and m >= w * min_blocks_per_device and m % w == 0
                   for k, m in enumerate(sizes))
 
-    for k, t in enumerate(h_low0.transfers):  # what shard_hierarchy refuses, on the full sizes
-        check_transfer(k, t, sizes[k], sizes[k + 1], flags[k], flags[k + 1], w)
+    for k, t in enumerate(h_low0.transfers):  # what the inflation cuts: agglomerates aligned with the ranks
+        if flags[k + 1] and not flags[k]:
+            raise ValueError(f"shard-local build: level {k + 1} would be sharded below the whole level {k} "
+                             "(shard_hierarchy of the whole build shards it)")
+        if flags[k] and not isinstance(t, CgProlong) and sizes[k + 1] % w:
+            raise ValueError(f"shard-local build: the agglomerates of level {k + 1} ({sizes[k + 1]} blocks) would "
+                             f"straddle the {w} ranks (shard_hierarchy of the whole build shards them)")
 
     shard = (group, flags)
     h_low = inflate_hierarchy(h_low0, h64, z, bw=bw, device=device, shard=shard)

@@ -70,7 +70,7 @@ def sp_restrict(l: ScatteredProlong, rf: torch.Tensor) -> torch.Tensor:
     return row_sums(_contract(l.blocks.transpose(0, 1), rf), l.members)
 
 
-def scattered_prolong(cols, blocks, n_coarse: int, device="cpu") -> ScatteredProlong:
+def scattered_prolong(cols, blocks, n_coarse: int, device) -> ScatteredProlong:
     """A ScatteredProlong from a host owner array and blocks (a NumPy array
     or a tensor), with its ``members`` table, on ``device``."""
     cols = np.asarray(cols, dtype=np.int64)
@@ -84,7 +84,7 @@ def scattered_dg_interpolation(sa: ScatteredAggMesh, base: DgMesh) -> ScatteredP
     centers, jacs = base.mesh.centers, base.mesh.jacobians
     xn = centers[:, None] + jacs[:, None] * np.asarray(base.ref.nodes_x)[None, :]
     per_el = modal_basis_vals_batched(sa.p, sa.boxes[sa.assign], xn)  # (n, w, bs)
-    return scattered_prolong(sa.assign, np.moveaxis(per_el, 0, -1), sa.n_agg)
+    return scattered_prolong(sa.assign, np.moveaxis(per_el, 0, -1), sa.n_agg, "cpu")
 
 
 def scattered_scattered_interpolation(coarse: ScatteredAggMesh, fine) -> ScatteredProlong:
@@ -115,7 +115,7 @@ def scattered_scattered_interpolation(coarse: ScatteredAggMesh, fine) -> Scatter
         blocks[0, 0] = 1.0
         blocks[0, 1] = 2.0 * (cf - cc) / hc
         blocks[1, 1] = hf / hc
-    return scattered_prolong(owner, blocks, coarse.n_agg)
+    return scattered_prolong(owner, blocks, coarse.n_agg, "cpu")
 
 
 def scattered_galerkin(l: ScatteredProlong, b) -> BlockCOO:

@@ -85,8 +85,13 @@ Phases, one line of numbers each:
    residual recomputed in float64 on the card from the float-float band;
 13. the ragged DG slice: 500,000 elements (2,000,000 DoF), whose
    agglomerated levels below 15,625 blocks are ragged
-   (``RaggedBlockProlong``), solved by ``multigrid_mixed`` damped and
-   Chebyshev to 1e-10 through K1-K3 and K5;
+   (``RaggedBlockProlong``), solved by float64 ``multigrid`` and by
+   ``multigrid_mixed`` damped and Chebyshev to 1e-10 through K1-K3 and K5;
+   then sharded by ``shard_hierarchy`` on a one-rank NCCL group
+   (``one_rank_family``: the sharded matvecs and transfers against the whole
+   ones on random vectors, then float64 ``multigrid`` and damped
+   ``multigrid_mixed`` on the shards with the unsharded counts, K1-K3 and
+   one edge pair per sharded smoothing);
 14. the device coarse chain: a DG p=1 chain at 2,097,152 DoF built on the
    host and cast (strip, float32, ``chebyshev_hierarchy``,
    ``prepare_fast_smoothers``) beside ``build_dg_hierarchy_device`` on the
@@ -97,11 +102,15 @@ Phases, one line of numbers each:
 15. the scattered slice: ``poisson_scattered_hierarchy`` at 1,048,576 DG
    p = 1 elements with ``interleaved_pair_groups`` (10 block-COO levels),
    float64 ``multigrid`` and ``multigrid_mixed`` damped and Chebyshev to
-   1e-10, the kernels at the fine level only, one launch per V-cycle;
+   1e-10, the kernels at the fine level only, one launch per V-cycle; then
+   sharded on a one-rank NCCL group as the ragged slice (block-COO levels by
+   block rows, their matvecs through the exchange plans);
 16. the mixed-switch slice: ``poisson_switch_hierarchy`` at 524,288 DG p = 3
    elements (every level block-pentadiagonal), ``multigrid``,
    ``multigrid_mixed`` and ``multigrid_progressive`` to 1e-10 with no kernel
-   launched; then the odd 500,000-element chain (a padded coarse solve) held
+   launched, then the same three sharded on a one-rank NCCL group as the
+   ragged slice (pentadiagonal levels by columns, two halo columns a side);
+   then the odd 500,000-element chain (a padded coarse solve) held
    on its residuals, with its distance to the banded direct solve and to an
    extended-precision refined solution printed beside the operator's
    condition estimate;
@@ -133,7 +142,14 @@ Phases, one line of numbers each:
    width, at most 0.6 of the one-rank peak device memory, the one-rank
    run's counts and history), the 16,777,217-DoF flagship (an odd node
    count: unequal node shards and the shared vertex) held to the one-rank
-   run, and phase 20's solves held to the unsharded ones.
+   run, phase 20's solves held to the unsharded ones, and the ragged,
+   mixed-switch and scattered slices of phases 13, 15 and 16, each rank
+   building the whole problem, sharding it and dropping the rest
+   (``sharded_family``): the sharded operations against the whole ones, the
+   unsharded float64 counts, the float32 inner solves within 1 outer step /
+   2 inner cycles, each rank at most 0.6 of the one-rank run's peak device
+   memory (ragged, mixed switch; the scattered slice's printed).  The whole
+   script's seconds are printed before the JSON lines.
 
 The kernel phase also holds K6 (the float-float stencil defect) to its plain
 version bit for bit, hi and lo.
@@ -225,6 +241,11 @@ EDGE_TOL = 1e-6  # of max|out|: the edge pair against the two strips (the same a
 PEAK_BPS = 3.35e12  # H100 SXM data sheet: HBM3 bytes/s
 PEAK_FLOPS = 67e12  # H100 SXM data sheet: float32 outside the tensor cores
 CHILD_TIMEOUT_S = 300  # each spawned rank of the two-rank phase
+# the sharded families (ragged, mixed-switch, scattered): the solves run on
+# their shards, on one NCCL rank and on two gloo ranks
+FAMILY_SOLVERS = {"ragged": ("multigrid", "mixed"), "switch": ("multigrid", "mixed", "progressive"),
+                  "scattered": ("multigrid", "mixed")}
+FAMILY_PEAK_SHARE = {"ragged": 0.6, "switch": 0.6}  # NS_PEAK_SHARE's bound; the scattered chain's is printed
 # K6's (bs, n): the north star's fine level, the JAX test's shape, the width of
 # K1-K3's headline, an awkward size
 K6_SHAPES = [(2, 50331648), (2, 16384), (4, 4194304), (2, 1000)]
@@ -1039,6 +1060,7 @@ def phase_ragged(bk) -> dict:
     from agglomerationmultigrid1d_tpu_torch.models import (
         chebyshev_hierarchy,
         make_low_precision_hierarchy,
+        multigrid,
         multigrid_mixed,
         poisson_dg_hierarchy,
     )
@@ -1053,6 +1075,13 @@ def phase_ragged(bk) -> dict:
     check(b.numel() == 2000000 and "RaggedBlockProlong" in kinds, f"ragged slice shape: {kinds}")
     n_ragged = sum(isinstance(t, RaggedBlockProlong) for t in prob.hierarchy.transfers)
     out = {}
+    res, solve_s, launches = timed_solve(
+        lambda: multigrid(prob.hierarchy, torch.zeros_like(b), b, 100, 1e-10, compute_error=False), bk)
+    rel = rel_residual(prob, res.x)
+    print(f"ragged slice multigrid f64: solve_s={solve_s:.3f} iterations={res.iterations} rel_residual_f64={rel:.3e}",
+          flush=True)
+    check(rel < 1e-10, f"ragged slice f64 relative residual {rel:.3e} >= 1e-10")
+    ref = {"multigrid": dict(counts=(res.iterations,), solve_s=solve_s)}
     for cheb in (False, True):
         tag = "chebyshev" if cheb else "damped"
         h = chebyshev_hierarchy(prob.hierarchy) if cheb else prob.hierarchy
@@ -1071,8 +1100,14 @@ def phase_ragged(bk) -> dict:
         used = ("bt_matvec", "chebyshev_multisweep", "chebyshev_multisweep_residual") if cheb else DAMPED
         check(all(launches.get(k, 0) > 0 for k in used), f"ragged slice {tag} skipped a kernel: {launches}")
         out[tag] = launches
+        if not cheb:
+            ref["mixed"] = dict(counts=(res.iterations, res.inner_cycles), solve_s=solve_s)
         del h, h32, res
+    whole = {"h": prob.hierarchy, "b": b}
+    del prob, b
     torch.cuda.empty_cache()
+    out["sharded"] = one_rank_family("ragged", whole, bk, ref)
+    out["ref"] = ref
     return out
 
 
@@ -1234,6 +1269,7 @@ def phase_scattered(bk) -> dict:
     check(not any(launches.values()), f"a float64 solve launched a kernel: {launches}")
     check(abs(res.iterations - SCATTERED_PORT_CPU["multigrid"]) <= 2,
           f"scattered f64 count {res.iterations}, the port on the CPU {SCATTERED_PORT_CPU['multigrid']}")
+    ref = {"multigrid": dict(counts=(res.iterations,), solve_s=solve_s)}
     for cheb in (False, True):
         tag = "chebyshev" if cheb else "damped"
         t0 = time.perf_counter()
@@ -1263,13 +1299,18 @@ def phase_scattered(bk) -> dict:
         check(abs(res.iterations - want[0]) <= 2 and abs(res.inner_cycles - want[1]) <= 2,
               f"scattered {tag} counts {res.iterations} / {res.inner_cycles}, the port on the CPU {want}")
         out[tag] = launches
+        if not cheb:
+            ref["mixed"] = dict(counts=(res.iterations, res.inner_cycles), solve_s=solve_s)
         del hc, h32, res
+    whole = {"h": h, "b": b}
     del prob, h, b
     torch.cuda.empty_cache()
+    out["sharded"] = one_rank_family("scattered", whole, bk, ref)
+    out["ref"] = ref
     return out
 
 
-def phase_mixed_switch(bk) -> None:
+def phase_mixed_switch(bk) -> dict:
     """The mixed-switch slice: DG p = 3 at 524,288 elements (2,097,152 DoF)
     with a mixed switch, every level block-pentadiagonal, the coarsest
     (4,096 agglomerates) solved by pair-merged cyclic reduction; float64
@@ -1311,6 +1352,7 @@ def phase_mixed_switch(bk) -> None:
         "mixed": lambda: multigrid_mixed(h, h32, torch.zeros_like(b), b, 80, 1e-10),
         "progressive": lambda: multigrid_progressive(h, h32, torch.zeros_like(b), b, 80, 1e-10),
     }
+    ref = {}
     for tag, fn in solves.items():
         torch.cuda.reset_peak_memory_stats()
         res, solve_s, launches = timed_solve(fn, bk)
@@ -1328,9 +1370,12 @@ def phase_mixed_switch(bk) -> None:
         got = counts if tag == "mixed" else (counts,)
         exp = want if tag == "mixed" else (want,)
         check(all(abs(g - e) <= 2 for g, e in zip(got, exp)), f"mixed-switch {tag} counts {counts}, the CPU's {want}")
+        ref[tag] = dict(counts=tuple(got), solve_s=solve_s)
         del res
-    del h, h32, b
+    whole = {"h": h, "b": b}
+    del h, h32, b, solves
     torch.cuda.empty_cache()
+    sharded = one_rank_family("switch", whole, bk, ref)
 
     n, k = SWITCH_ODD
     h, b, timings = switch_problem(n, k)
@@ -1381,6 +1426,194 @@ def phase_mixed_switch(bk) -> None:
           f"odd mixed-switch count {res.iterations}, the CPU's {SWITCH_PORT_CPU['odd multigrid']}")
     del h, b, res
     torch.cuda.empty_cache()
+    return {"sharded": sharded, "ref": ref}
+
+
+# ---------------------------------------------------------------------------
+# The ragged, mixed-switch and scattered families sharded (shard_hierarchy)
+# ---------------------------------------------------------------------------
+
+
+def family_problem(fam: str) -> dict:
+    """A family's whole problem as its unsharded phase builds it: the ragged
+    slice on the card, the mixed-switch and scattered slices on the host;
+    ``{"h": hierarchy, "b": rhs}``."""
+    from agglomerationmultigrid1d_tpu_torch.models import (
+        interleaved_pair_groups,
+        poisson_dg_hierarchy,
+        poisson_scattered_hierarchy,
+        poisson_switch_hierarchy,
+    )
+
+    if fam == "ragged":
+        prob = poisson_dg_hierarchy(**RAGGED_SLICE, device="cuda")
+    elif fam == "switch":
+        prob = poisson_switch_hierarchy(SWITCH_N, SWITCH_COARSEN, device="cpu")
+    else:
+        prob = poisson_scattered_hierarchy(n=SCATTERED_N, p_dg=1, device="cpu",
+                                           groups_per_level=interleaved_pair_groups(SCATTERED_N, SCATTERED_COARSEST))
+    return {"h": prob.hierarchy, "b": prob.b}
+
+
+def exchange_errors(h, hs, grp) -> dict:
+    """Every level's matvec and every transfer's prolongation and restriction
+    on the rank's parts of random float64 vectors (the same on every rank),
+    through the sharded hierarchy ``hs``, gathered, against the whole
+    hierarchy ``h``'s (on its own device): the largest difference over the
+    whole result's max, per kind.  What each new exchange (the pentadiagonal
+    halo, the block-COO plan, the straddling and scattered transfers) moves
+    at the slice's own sizes."""
+    from agglomerationmultigrid1d_tpu_torch.models.hierarchy import operator_data
+    from agglomerationmultigrid1d_tpu_torch.models.solvers import (
+        _group,
+        _prolong,
+        _restrict,
+        level_matvec,
+        transfer_prolong,
+        transfer_restrict,
+    )
+    from agglomerationmultigrid1d_tpu_torch.parallel import all_gather_cols, local_range
+
+    dev = operator_data(h.levels[0].a).device
+    gen = torch.Generator().manual_seed(SEED)
+    vecs = [torch.randn((lv.a.block_size, lv.a.n_blocks), generator=gen, dtype=torch.float64) for lv in h.levels]
+
+    def mine(k):
+        v = vecs[k].to(grp.device)
+        return v[..., slice(*local_range(v.shape[-1], grp))] if hs.layout.sharded[k] else v
+
+    def gathered(k, t):
+        return all_gather_cols(t, grp) if hs.layout.sharded[k] else t
+
+    def err(got, want):
+        return float((got.to(want.device) - want).abs().max() / want.abs().max())
+
+    errs = {"matvec": 0.0, "prolong": 0.0, "restrict": 0.0}
+    for k, lv in enumerate(hs.levels):
+        want = level_matvec(h.levels[k], vecs[k].to(dev))
+        errs["matvec"] = max(errs["matvec"], err(gathered(k, level_matvec(lv, mine(k), _group(hs, k))), want))
+    for k, t in enumerate(h.transfers):
+        want = transfer_prolong(t, vecs[k + 1].to(dev))
+        errs["prolong"] = max(errs["prolong"], err(gathered(k, _prolong(hs, k, mine(k + 1))), want))
+        want = transfer_restrict(t, vecs[k].to(dev))
+        errs["restrict"] = max(errs["restrict"], err(gathered(k + 1, _restrict(hs, k, mine(k))), want))
+    return errs
+
+
+def sharded_family(fam: str, whole: dict, grp, bk) -> dict:
+    """Shard the family's whole problem (``whole``, whose entries are taken
+    out and dropped once sharded: the card then holds only the rank's
+    shards) over ``grp``, cast the float32 copy, and run
+    ``FAMILY_SOLVERS[fam]`` on the shards, the launch counts set to 0 before
+    each, after a warm-up run: per solve its counts, seconds, launches and
+    relative residual (recomputed in float64 on the shards), rank 0 also
+    the whole float64 x; the rank's peak device memory over the solves (its
+    shards resident); and, before the whole problem is dropped, the
+    sharded operations' errors against the whole ones (``exchange_errors``)."""
+    from agglomerationmultigrid1d_tpu_torch.models import (
+        make_low_precision_hierarchy,
+        multigrid,
+        multigrid_mixed,
+        multigrid_progressive,
+    )
+    from agglomerationmultigrid1d_tpu_torch.models.solvers import _group, _norm, level_matvec
+    from agglomerationmultigrid1d_tpu_torch.parallel import shard_hierarchy, shard_vector, unshard_vector
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = shard_hierarchy(whole["h"], grp)
+    bl = shard_vector(whole["b"], grp, hs)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    errors = exchange_errors(whole["h"], hs, grp)
+    whole.clear()
+    t0 = time.perf_counter()
+    h32 = make_low_precision_hierarchy(hs)
+    torch.cuda.synchronize()
+    shard_s += time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    g0 = _group(hs, 0)
+    solves = {
+        "multigrid": lambda: multigrid(hs, torch.zeros_like(bl), bl, 100, 1e-10, compute_error=False),
+        "mixed": lambda: multigrid_mixed(hs, h32, torch.zeros_like(bl), bl, 80, 1e-10),
+        "progressive": lambda: multigrid_progressive(hs, h32, torch.zeros_like(bl), bl, 80, 1e-10),
+    }
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for tag in FAMILY_SOLVERS[fam]:
+        solves[tag]()  # a warm-up, as the unsharded phases' timed_solve runs
+        torch.cuda.synchronize()
+        bk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solves[tag]()
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launches = {k: v for k, v in bk.LAUNCHES.items() if v}
+        x = res.x.to(torch.float64)
+        rel = float(_norm(bl - level_matvec(hs.levels[0], x, g0), g0) / _norm(bl, g0))
+        x_whole = unshard_vector(x, hs) if tag == "multigrid" else None
+        runs[tag] = dict(counts=(res.iterations,) if tag != "mixed" else (res.iterations, res.inner_cycles),
+                         solve_s=solve_s, rel=rel, launches=launches,
+                         x=x_whole.cpu().numpy() if x_whole is not None and grp.rank == 0 else None)
+        del res, x, x_whole
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(flags=hs.layout.sharded, shard_s=shard_s, peak=peak, runs=runs, errors=errors,
+               local=[lv.a.n_el if hasattr(lv.a, "n_el") else lv.a.n_blocks for lv in hs.levels])
+    del hs, h32, bl
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_family_run(fam: str, where: str, got: dict, ref: dict) -> None:
+    """Hold a sharded family run to the unsharded one (``ref``: counts and
+    seconds per solve): the sharded matvecs and transfers within 1e-13 of
+    the whole ones; float64 ``multigrid`` its count, the float32 inner
+    solves within 1 outer step / 2 inner cycles, every relative residual
+    below 1e-10; the fused kernels where the family reaches them (the
+    ragged and scattered slices' block-tridiagonal levels, an edge pair per
+    sharded smoothing), none on the mixed-switch slice."""
+    print(f"sharded {fam} slice, {where}: the sharded matvecs and transfers against the whole ones, largest "
+          f"difference over max|whole| {got['errors']}", flush=True)
+    check(max(got["errors"].values()) <= 1e-13, f"sharded {fam} ({where}): exchange errors {got['errors']}")
+    for tag, run in got["runs"].items():
+        want = ref[tag]["counts"]
+        launches = run["launches"]
+        print(f"sharded {fam} slice {tag}, {where}, sharded={got['flags']}: counts={run['counts']} (unsharded "
+              f"{want}) rel_residual_f64={run['rel']:.3e} solve_s={run['solve_s']:.3f} (unsharded "
+              f"{ref[tag]['solve_s']:.3f}, ratio {run['solve_s'] / ref[tag]['solve_s']:.2f}) launches={launches}",
+              flush=True)
+        check(run["rel"] < 1e-10, f"sharded {fam} {tag} ({where}) relative residual {run['rel']:.3e}")
+        if tag == "multigrid":
+            check(run["counts"] == want, f"sharded {fam} f64 multigrid ({where}): {run['counts']} against {want}")
+            check(not launches, f"a float64 solve launched a kernel: {launches}")
+        else:
+            check(abs(run["counts"][0] - want[0]) <= 1 and (len(want) == 1 or abs(run["counts"][1] - want[1]) <= 2),
+                  f"sharded {fam} {tag} ({where}): {run['counts']} against {want}")
+            if fam == "switch":
+                check(not launches, f"a pentadiagonal level reached a kernel ({where}, {tag}): {launches}")
+            else:
+                used = ("multisweep", "multisweep_residual", "bt_matvec", "edge_pair", "edge_pair_residual")
+                check(all(launches.get(k, 0) > 0 for k in used), f"sharded {fam} {tag} ({where}) skipped a kernel: "
+                      f"{launches}")
+
+
+def one_rank_family(fam: str, whole: dict, bk, ref: dict) -> dict:
+    """A family on a one-rank NCCL group (``sharded_family``), held to the
+    unsharded runs ``ref``; returns the run (its x and peak are what the
+    two-rank phase is held to)."""
+    from agglomerationmultigrid1d_tpu_torch.parallel import initialize, shutdown
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        grp = initialize(0, 1, store_path=os.path.join(td, "store"))
+        try:
+            got = sharded_family(fam, whole, grp, bk)
+        finally:
+            shutdown()
+    print(f"sharded {fam} slice on one NCCL rank: shard_s={got['shard_s']:.3f} peak_mem_bytes={got['peak']} "
+          f"phase_s={time.perf_counter() - t0:.3f}", flush=True)
+    check_family_run(fam, "one NCCL rank", got, ref)
+    return got
 
 
 def strip_bound(name, bs, s=STRIP, sides=1) -> tuple:
@@ -2178,8 +2411,9 @@ def phase_shard_hierarchy_cg(bk) -> dict:
 def _sharded_two_rank_child(rank: int, store_path: str, q) -> None:
     """One rank of two on the card over gloo: the north star built rank by
     rank and solved (NS_LOOP), the 16,777,217-DoF flagship built rank by rank
-    and solved damped, and ``shard_hierarchy`` of the 131,073-DoF flagship
-    solved by float64 ``multigrid`` and ``multigrid_mixed``."""
+    and solved damped, ``shard_hierarchy`` of the 131,073-DoF flagship
+    solved by float64 ``multigrid`` and ``multigrid_mixed``, and the ragged,
+    mixed-switch and scattered slices sharded (``sharded_family``)."""
     try:
         from agglomerationmultigrid1d_tpu_torch.models import make_low_precision_hierarchy, multigrid, multigrid_mixed
         from agglomerationmultigrid1d_tpu_torch.models import poisson_full_hierarchy
@@ -2225,6 +2459,17 @@ def _sharded_two_rank_child(rank: int, store_path: str, q) -> None:
         mixed = multigrid_mixed(hs, make_low_precision_hierarchy(hs), torch.zeros_like(bl), bl, 80, 1e-10)
         out["cg"] = dict(iterations=res.iterations, x=unshard_vector(res.x, hs).cpu().numpy(),
                          mixed=(mixed.iterations, mixed.inner_cycles), nodes=hs.levels[0].a.band.shape[-1])
+        del prob, hs, bl, res, mixed
+        torch.cuda.empty_cache()
+
+        out["families"] = {}
+        for fam in FAMILY_SOLVERS:  # each rank builds the whole problem, shards it and drops the rest
+            t0 = time.perf_counter()
+            whole = family_problem(fam)
+            build_s = time.perf_counter() - t0
+            got = sharded_family(fam, whole, grp, bk)
+            got.update(build_s=build_s, phase_s=time.perf_counter() - t0)
+            out["families"][fam] = got
         shutdown()
         q.put((rank, "ok", out))
     except BaseException:
@@ -2243,10 +2488,10 @@ def spawn_sharded_two_ranks() -> dict:
         msgs = {}
         try:
             for _ in range(2):
-                rank, status, payload = q.get(timeout=2 * CHILD_TIMEOUT_S)
+                rank, status, payload = q.get(timeout=3 * CHILD_TIMEOUT_S)
                 msgs[rank] = (status, payload)
         except queue.Empty:
-            raise RuntimeError(f"chip_smoke: the sharded two-rank phase did not finish in {2 * CHILD_TIMEOUT_S} s") from None
+            raise RuntimeError(f"chip_smoke: the sharded two-rank phase did not finish in {3 * CHILD_TIMEOUT_S} s") from None
         finally:
             for p in procs:
                 p.join(timeout=30)
@@ -2258,7 +2503,7 @@ def spawn_sharded_two_ranks() -> dict:
     return {rank: payload for rank, (_, payload) in msgs.items()}
 
 
-def phase_sharded_two_ranks(one_rank_ns: dict, flagship_one_rank: dict, cg_ref: dict) -> None:
+def phase_sharded_two_ranks(one_rank_ns: dict, flagship_one_rank: dict, cg_ref: dict, families: dict) -> None:
     """Two ranks on the one card over gloo (spawned, each with a time limit):
     the north star built rank by rank, each rank holding its half (25,165,824
     fine columns) and no tensor of the global fine width, at most
@@ -2307,6 +2552,32 @@ def phase_sharded_two_ranks(one_rank_ns: dict, flagship_one_rank: dict, cg_ref: 
           f"{msgs[1]['cg']['nodes']}", flush=True)
     check(cg["iterations"] == cg_ref["iterations"] and dx <= 1e-12 * cg_ref["norm_b"], "two-rank CG multigrid")
     check(cg["mixed"] == cg_ref["mixed"], "two-rank CG multigrid_mixed counts")
+    report_two_rank_families(msgs, families)
+
+
+def report_two_rank_families(msgs: dict, families: dict) -> None:
+    """The ragged, mixed-switch and scattered slices on two gloo ranks, held
+    to the unsharded runs (``check_family_run``) and to the one-rank run:
+    each rank's peak device memory at most FAMILY_PEAK_SHARE of the
+    one-rank run's (printed for the scattered slice), both ranks the same
+    counts.  The float64 x's distance to the one-rank x is printed: both
+    solves stop at the same relative residual, and on the card the shards'
+    batched products round otherwise than the whole level's, which these
+    operators (c_dir = 1000 n) amplify up to the solves' own error."""
+    for fam in FAMILY_SOLVERS:
+        one = families[fam]["sharded"]
+        r0, r1 = (msgs[rank]["families"][fam] for rank in range(2))
+        shares = [r["peak"] / one["peak"] for r in (r0, r1)]
+        x1, x2 = one["runs"]["multigrid"]["x"], r0["runs"]["multigrid"]["x"]
+        dx = float(np.abs(x2 - x1).max() / np.abs(x1).max())
+        print(f"sharded {fam} slice on two gloo ranks: local blocks per level {r0['local']} build_s={r0['build_s']:.3f} "
+              f"shard_s={r0['shard_s']:.3f} phase_s={r0['phase_s']:.3f} peak_mem_bytes={r0['peak']} / {r1['peak']} "
+              f"({shares[0]:.3f} / {shares[1]:.3f} of the one-rank run's {one['peak']}) f64 max|x - x_one_rank| / "
+              f"max|x| = {dx:.3e}", flush=True)
+        check_family_run(fam, "two gloo ranks", r0, families[fam]["ref"])
+        check(all(r1["runs"][t]["counts"] == r0["runs"][t]["counts"] for t in r0["runs"]), f"{fam}: the ranks' counts")
+        if fam in FAMILY_PEAK_SHARE:
+            check(max(shares) <= FAMILY_PEAK_SHARE[fam], f"two-rank {fam} peaks at {shares} of the one-rank run")
 
 
 def main() -> int:
@@ -2316,6 +2587,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from agglomerationmultigrid1d_tpu_torch.ops.kernels import block_kernels as bk
 
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2343,10 +2615,10 @@ def main() -> int:
     phase_flagship(bk)
     flagship_runs = {(n, tag): run for n, true_solve in ((FLAGSHIP_N, False), (FLAGSHIP_XL_N, True))
                      for tag, run in phase_flagship_xl(bk, n, true_solve).items()}
-    phase_ragged(bk)
+    families = {"ragged": phase_ragged(bk)}
     phase_device_chain(bk)
-    phase_scattered(bk)
-    phase_mixed_switch(bk)
+    families["scattered"] = phase_scattered(bk)
+    families["switch"] = phase_mixed_switch(bk)
     phase_surface(bk)
     launches["ff_stencil_mid_defect"] = phase_north_star(bk)
     one_rank = phase_sharded(bk)
@@ -2361,7 +2633,10 @@ def main() -> int:
     flagship_one_rank = phase_sharded_flagship(bk, flagship_runs)
     cg_ref = phase_shard_hierarchy_cg(bk)
     torch.cuda.empty_cache()
-    phase_sharded_two_ranks(ns_one_rank, flagship_one_rank, cg_ref)
+    t1 = time.perf_counter()
+    phase_sharded_two_ranks(ns_one_rank, flagship_one_rank, cg_ref, families)
+    print(f"sharded two-rank phase (north star, flagship, CG, the three families): {time.perf_counter() - t1:.1f} s",
+          flush=True)
 
     # kernel: (label, wrapper, launch counter, the TPU kernel it replaces)
     meta = {
@@ -2399,6 +2674,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None,  # no single PyTorch call computes any of these functions
         })
+    print(f"chip_smoke total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

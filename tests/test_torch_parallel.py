@@ -22,9 +22,9 @@ one spawned 4-rank gloo group per module (``torch_group.run_group``, a
   are reused, against plans built anew: exactly equal;
 
 and in this process (no communication): ``shard_hierarchy``'s flags and local
-sizes against JAX's, a CG-topped hierarchy's sharded layout, what it refuses
-(ROADMAP item 15 (d) among it), the ``initialize`` checks, and the entry
-points' default device (the card).
+sizes against JAX's, a CG-topped hierarchy's sharded layout, the shards of
+the layouts ROADMAP item 15 (d) once refused, what it refuses, the
+``initialize`` checks, and the entry points' default device (the card).
 """
 
 import inspect
@@ -255,11 +255,16 @@ def test_shard_hierarchy_flags_and_local_sizes():
 
 
 def test_shard_hierarchy_refuses_what_it_cannot_shard():
-    """A CG-topped hierarchy now shards (its CG levels by element, each rank
-    owning its elements' first nodes, the last rank also the last node); what
-    stays refused: ragged shards (agglomerates that straddle two ranks), a
-    second sharding, and Chebyshev bounds or the TRUE-precision solver on a
-    sharded hierarchy."""
+    """A CG-topped hierarchy shards (its CG levels by element, each rank
+    owning its elements' first nodes, the last rank also the last node), and
+    so does a chain whose agglomerates straddle two ranks (24 -> 6 -> 3
+    blocks on two: the 2:1 groups of the sharded 6 over the whole 3, each
+    coarse column restricted by the rank of its group's first fine column,
+    which reads the rest of the group from its neighbour); what stays
+    refused: a second sharding, and Chebyshev bounds or the TRUE-precision
+    solver on a sharded hierarchy."""
+    from agglomerationmultigrid1d_tpu_torch.parallel.transfers import ShardBlock
+
     g = _fake_group()
     full = poisson_full_hierarchy(n=64, device="cpu").hierarchy
     hs = shard_hierarchy(full, g, min_blocks_per_device=2)
@@ -269,8 +274,13 @@ def test_shard_hierarchy_refuses_what_it_cannot_shard():
         assert lv.a.n_el == 64 // WORLD and lv.a.band.shape[-1] == 64 // WORLD * p
         assert torch.equal(lv.a.band, whole.a.band[:, : 64 // WORLD * p])
     h = poisson_dg_hierarchy(n=24, max_p=1, n_dg=1, n_agg=2, device="cpu").hierarchy  # 24 -> 6 -> 3 blocks
-    with pytest.raises(ValueError, match="straddle"):
-        shard_hierarchy(h, _fake_group(world=2), min_blocks_per_device=1)
+    for rank, mine, fine_need in ((0, [0, 1], [0, 1, 2, 3]), (1, [2], [4, 5])):
+        hs = shard_hierarchy(h, _fake_group(rank=rank, world=2), min_blocks_per_device=1)
+        assert hs.layout.sharded == (True, True, False)
+        t = hs.transfers[1]
+        assert isinstance(t, ShardBlock) and t.uniform and t.rplan.whole and t.rplan.n_local == 3
+        assert t.rplan.need.tolist() == mine and t.fplan.need.tolist() == fine_need
+        assert t.cplan.whole and t.cplan.need.tolist() == ([0, 1] if rank == 0 else [1, 2])
     _, h, _ = _problem()
     hs = shard_hierarchy(h, g, min_blocks_per_device=MIN_BLOCKS)
     with pytest.raises(ValueError, match="already sharded"):
@@ -299,11 +309,45 @@ def _refused_chain(kind):
     ("penta", r"holds a BlockPenta"), ("block-coo", r"(holds a BlockCOO|is a ScatteredProlong)"), ("ragged-seam", r"ragged seam"),
 ])
 def test_shard_hierarchy_refuses_the_layouts_of_item_15d(kind, what):
-    """Sharded block-pentadiagonal and block-COO levels and a ragged seam
-    under a sharded CG level raise, naming ROADMAP item 15 (d), before any
-    collective."""
-    with pytest.raises(NotImplementedError, match=what + r".*item 15 \(d\)"):
-        shard_hierarchy(_refused_chain(kind), _fake_group(world=2), min_blocks_per_device=1)
+    """The layouts ROADMAP item 15 (d) once refused now shard, on a fake
+    two-rank group (no collective: every plan is built from the whole
+    hierarchy): a block-pentadiagonal level holds its columns of all five
+    streams; a block-COO level its block rows, numbered from 0, whose
+    columns (global ones in its plan's ``need``) give the whole operator's
+    rows of the rank on the gathered vector; a ragged seam under a sharded
+    CG level (42 elements over a whole coarsest level of 11 agglomerates)
+    the coarse columns of the rank's elements, their windows and its nodes'
+    lumped mass."""
+    from agglomerationmultigrid1d_tpu_torch.ops import bcoo_matvec
+    from agglomerationmultigrid1d_tpu_torch.parallel.transfers import ShardScattered
+
+    h = _refused_chain(kind)
+    rng = np.random.default_rng(3)
+    for rank in range(2):
+        hs = shard_hierarchy(h, _fake_group(rank=rank, world=2), min_blocks_per_device=1)
+        for k, (lv, whole, sh) in enumerate(zip(hs.levels, h.levels, hs.layout.sharded)):
+            if not sh or kind == "ragged-seam":
+                continue
+            n = whole.a.n_blocks
+            lo, hi = rank * n // 2, (rank + 1) * n // 2
+            if kind == "penta":
+                assert all(torch.equal(t, w[..., lo:hi]) for t, w in zip(lv.a, whole.a))
+                continue
+            if k == 0:
+                continue
+            a, x = lv.a, torch.from_numpy(rng.standard_normal((whole.a.block_size, n)))
+            assert a.n_rows == hi - lo and a.halo.n_local == hi - lo and not a.halo.whole
+            assert a.rows.dtype == a.cols.dtype == a.halo.need.dtype == torch.int64
+            assert torch.equal(bcoo_matvec(a, x[:, a.halo.need]), bcoo_matvec(whole.a, x)[:, lo:hi])
+        if kind == "ragged-seam":
+            assert hs.layout.sharded == (True, True, False)
+            t, w = hs.transfers[1], h.transfers[1]
+            assert isinstance(t, ShardScattered) and t.plan.whole and w.offsets is not None
+            owners = torch.searchsorted(w.offsets.long(), torch.arange(rank * 21, (rank + 1) * 21), right=True) - 1
+            assert t.plan.need.tolist() == sorted(set(owners.tolist()))
+            assert t.p.blocks.shape == (w.w_cg, w.bs_coarse, 21)
+            n_lo = rank * 21 * 1
+            assert torch.equal(t.inv_lump, w.inv_lump[n_lo : n_lo + 21 + rank])
 
 
 def test_unsharded_hierarchies_have_no_layout():

@@ -707,15 +707,24 @@ def test_inv_norm1_estimate_exact_on_m_matrix(n):
 
 
 def test_shard_hierarchy_refuses_penta_levels():
-    """Sliced by columns, a pentadiagonal level would lose its distance-2
-    couplings and be smoothed as tridiagonal: ``shard_hierarchy`` refuses
-    it before any collective."""
+    """A pentadiagonal level shards by columns like a tridiagonal one (its
+    matvec reads two columns a side from the neighbours): on a fake
+    two-rank group every sharded level holds the rank's columns of all five
+    streams and of its smoother's inverse blocks; no M-form streams, so no
+    kernel takes it."""
     from agglomerationmultigrid1d_tpu_torch.parallel import shard_hierarchy
 
     h, _ = _switch_chain(64, 1)
-    g = SolverGroup(group=None, rank=0, world=2, device=torch.device("cpu"), backend="gloo")
-    with pytest.raises(NotImplementedError, match=r"BlockPenta.*item 15 \(d\)"):
-        shard_hierarchy(h, g, min_blocks_per_device=4)
+    for rank in range(2):
+        g = SolverGroup(group=None, rank=rank, world=2, device=torch.device("cpu"), backend="gloo")
+        hs = shard_hierarchy(h, g, min_blocks_per_device=4)
+        assert hs.layout.sharded == (True, True, True, False)
+        for lv, whole, sh in zip(hs.levels, h.levels, hs.layout.sharded):
+            n = whole.a.n_blocks
+            lo, hi = (rank * n // 2, (rank + 1) * n // 2) if sh else (0, n)
+            assert isinstance(lv.a, BlockPenta) and lv.smoother.ml is None
+            assert all(torch.equal(t, w[..., lo:hi]) for t, w in zip(lv.a, whole.a))
+            assert torch.equal(lv.smoother.inv, whole.smoother.inv[..., lo:hi])
 
 
 def test_precision_casts_keep_penta_structure():

@@ -681,9 +681,32 @@ def test_precision_keeps_index_tensors(chain):
 
 
 def test_shard_hierarchy_refuses_block_coo_levels(chain):
+    """A block-COO level shards by block rows: on a fake two-rank group each
+    rank holds its rows' entries, numbered from 0, with the plan of the
+    columns they read (global ones in ``halo.need``, the rest of the rank's
+    own first), so its matvec on the gathered columns is the whole
+    operator's rows of the rank; the plans' index tensors stay int64 through
+    ``hierarchy_astype``."""
+    from agglomerationmultigrid1d_tpu_torch.ops import bcoo_matvec
     from agglomerationmultigrid1d_tpu_torch.parallel import shard_hierarchy
+    from agglomerationmultigrid1d_tpu_torch.utils.precision import hierarchy_astype
 
     prob, _ = chain
-    g = SolverGroup(group=None, rank=0, world=2, device=torch.device("cpu"), backend="gloo")
-    with pytest.raises(NotImplementedError, match=r"level 1 holds a BlockCOO.*item 15 \(d\)"):
-        shard_hierarchy(prob.hierarchy, g)
+    h = prob.hierarchy
+    rng = np.random.default_rng(7)
+    for rank in range(2):
+        g = SolverGroup(group=None, rank=rank, world=2, device=torch.device("cpu"), backend="gloo")
+        hs = shard_hierarchy(h, g)
+        assert hs.layout.sharded == (True, True, True, True)[: h.n_levels - 1] + (False,)
+        h32 = hierarchy_astype(hs, torch.float32)
+        for k in range(1, h.n_levels - 1):
+            a, whole = hs.levels[k].a, h.levels[k].a
+            n = whole.n_rows
+            lo, hi = rank * n // 2, (rank + 1) * n // 2
+            x = torch.from_numpy(rng.standard_normal((whole.block_size, n)))
+            assert a.n_rows == hi - lo and a.n_cols == a.halo.n_need
+            assert torch.equal(a.halo.need[a.halo.own_pos] - lo, a.halo.own_idx)
+            assert torch.equal(bcoo_matvec(a, x[:, a.halo.need]), bcoo_matvec(whole, x)[:, lo:hi])
+            a32 = h32.levels[k].a
+            assert a32.blocks.dtype == torch.float32
+            assert all(t.dtype == torch.int64 for t in (a32.rows, a32.cols, a32.ell, a32.halo.need, *a32.halo.send))

@@ -105,8 +105,9 @@ def test_unported_configurations_raise():
     ragged agglomerated levels build, their operators against the JAX
     package's in ``tests/test_torch_ragged.py``), and so is the mixed switch
     (a block-pentadiagonal Schur stiffness, against the JAX package's in
-    ``tests/test_torch_penta.py``); sharding a pentadiagonal level stays
-    refused."""
+    ``tests/test_torch_penta.py``), and so is sharding a pentadiagonal
+    level: by columns, all five streams (its halo exchanges against the
+    unsharded operator in ``tests/test_torch_parallel_families.py``)."""
     from agglomerationmultigrid1d_tpu_torch.mesh import make_agg_mesh
     from agglomerationmultigrid1d_tpu_torch.models import build_dg_hierarchy
     from agglomerationmultigrid1d_tpu_torch.ops import BlockPenta
@@ -127,9 +128,13 @@ def test_unported_configurations_raise():
     a = schur_stiffness(g, d, c, dg.mass_inv, mixed_switch=True)
     assert isinstance(a, BlockPenta)  # stored pentadiagonal; a non-trapping switch's distance-2 blocks are 0
     h = build_dg_hierarchy([dg, make_agg_mesh(1, mesh, 2, tables=False)], a, g, d, c)  # the fine level shards, the coarsest not
-    group = SolverGroup(group=None, rank=0, world=2, device=torch.device("cpu"), backend="gloo")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shard_hierarchy(h, group, min_blocks_per_device=2)
+    for rank in range(2):
+        group = SolverGroup(group=None, rank=rank, world=2, device=torch.device("cpu"), backend="gloo")
+        hs = shard_hierarchy(h, group, min_blocks_per_device=2)
+        assert hs.layout.sharded == (True, False)
+        lo, hi = rank * 4, (rank + 1) * 4
+        assert isinstance(hs.levels[0].a, BlockPenta)
+        assert all(torch.equal(t, w[..., lo:hi]) for t, w in zip(hs.levels[0].a, a))
 
 
 @pytest.mark.parametrize("name", ["dg3-agg3", "dg4-mixed"])

@@ -420,3 +420,64 @@ def job_cg_ops(g, h, min_blocks, seed):
         out[f"prolong{k}"] = (vc, gather(k, _prolong(hs, k, uc)))
         out[f"restrict{k}"] = (vf, gather(k + 1, rc) if coarse_sharded else rc.numpy())
     return out
+
+
+# ---------------------------------------------------------------------------
+# Block-pentadiagonal and block-COO levels, straddling and scattered transfers
+# ---------------------------------------------------------------------------
+
+
+def job_family_solves(g, h, b, min_blocks, solvers=()):
+    """float64 ``multigrid`` (``compute_error=False``) on the sharded
+    hierarchy, and each of ``solvers`` ("mixed", "progressive") on it with
+    its float32 copy cast after sharding; and the level flags."""
+    from agglomerationmultigrid1d_tpu_torch.models import make_low_precision_hierarchy, multigrid_mixed, multigrid_progressive
+    from agglomerationmultigrid1d_tpu_torch.parallel import distributed_multigrid, shard_hierarchy, shard_vector
+
+    hs = shard_hierarchy(h, g, min_blocks_per_device=min_blocks)
+    bl = shard_vector(torch.from_numpy(b), g, hs)
+    out = dict(flags=hs.layout.sharded,
+               multigrid=_result(distributed_multigrid(hs, torch.zeros_like(bl), bl, 60, 1e-10, compute_error=False), hs))
+    h32 = make_low_precision_hierarchy(hs) if solvers else None
+    for name in solvers:
+        fn = multigrid_mixed if name == "mixed" else multigrid_progressive
+        out[name] = _result(fn(hs, h32, torch.zeros_like(bl), bl, 60, 1e-10), hs)
+    return out
+
+
+def job_family_ops(g, h, min_blocks, vecs):
+    """On the sharded hierarchy, from the rank's parts of the whole vectors
+    ``vecs`` (``vecs[k]`` of level k's shape): every level's matvec (and a block-pentadiagonal level's float-float defect,
+    ``b = 0``, x split from ``vecs[k]``), every transfer's prolongation of
+    ``vecs[k + 1]`` and restriction of ``vecs[k]``; each gathered whole."""
+    from agglomerationmultigrid1d_tpu_torch.models.hierarchy import CgLevel
+    from agglomerationmultigrid1d_tpu_torch.models.solvers import _ff_defect, _group, _prolong, _restrict, level_matvec
+    from agglomerationmultigrid1d_tpu_torch.ops import BlockPenta
+    from agglomerationmultigrid1d_tpu_torch.ops.df64 import FF, bp5_split, ff_join, ff_split
+    from agglomerationmultigrid1d_tpu_torch.parallel import all_gather_cols, local_range, node_range, shard_hierarchy
+    from agglomerationmultigrid1d_tpu_torch.parallel.distributed import level_widths
+
+    hs = shard_hierarchy(h, g, min_blocks_per_device=min_blocks)
+
+    def mine(k, v):
+        if not hs.layout.sharded[k]:
+            return torch.from_numpy(v)
+        lv = h.levels[k]
+        lo, hi = node_range(lv.a.n_el, lv.a.p, g) if isinstance(lv, CgLevel) else local_range(v.shape[-1], g)
+        return torch.from_numpy(v[..., lo:hi])
+
+    def whole(k, t):
+        return (all_gather_cols(t, g, level_widths(hs.levels[k], g)) if hs.layout.sharded[k] else t).numpy()
+
+    out = {}
+    for k, lv in enumerate(hs.levels):
+        out[f"matvec{k}"] = whole(k, level_matvec(lv, mine(k, vecs[k]), _group(hs, k)))
+        if isinstance(lv.a, BlockPenta):
+            x = ff_split(mine(k, vecs[k]))
+            zero = torch.zeros_like(x.hi)
+            out[f"ff_defect{k}"] = whole(k, ff_join(_ff_defect(bp5_split(lv.a), x, FF(zero, zero), _group(hs, k))))
+    for k in range(len(hs.transfers)):
+        out[f"prolong{k}"] = whole(k, _prolong(hs, k, mine(k + 1, vecs[k + 1])))
+        out[f"restrict{k}"] = whole(k + 1, _restrict(hs, k, mine(k, vecs[k])))
+    out["flags"] = hs.layout.sharded
+    return out
