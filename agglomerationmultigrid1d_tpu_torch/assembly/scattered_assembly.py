@@ -45,7 +45,7 @@ def _end_traces(sa: ScatteredAggMesh) -> tuple:
 def scattered_flux_operators(
     sa: ScatteredAggMesh, bc: BoundaryCondition, c_dir: float
 ) -> tuple[BlockCOO, BlockCOO, BlockCOO]:
-    """(G, D, C) block-COO over scattered agglomerates."""
+    """(G, D, C) block-COO over scattered agglomerates, on the host."""
     m = sa.n_agg
     bs = sa.block_size
 
@@ -107,12 +107,12 @@ def scattered_flux_operators(
 
     def coalesce(rows, cols, blocks):
         cat = lambda xs: np.concatenate([np.asarray(x) for x in xs])  # noqa: E731
-        return bcoo_coalesce(cat(rows), cat(cols), np.concatenate(blocks, axis=2), m, m)
+        return bcoo_coalesce(cat(rows), cat(cols), np.concatenate(blocks, axis=2), m, m, device="cpu")
 
     return (
         coalesce(g_rows, g_cols, g_blocks),
         coalesce(d_rows, d_cols, d_blocks),
-        bcoo_coalesce(diag_ids, diag_ids, c_diag, m, m),
+        bcoo_coalesce(diag_ids, diag_ids, c_diag, m, m, device="cpu"),
     )
 
 

@@ -276,11 +276,14 @@ def _plan_level(plan: _Plan, lv, k: int, device):
     return lambda out: BlockLevel(a=a_fn(out), g=g, d=d, c=c, mass_inv=m, smoother=s_fn(out))
 
 
-def _plan_transfer(plan: _Plan, t, k: int, device):
+def _plan_transfer(plan: _Plan, t, k: int, device, cols: bool = False, nodes: bool = False):
+    """``cols``: inflate the rank's coarse columns only; ``nodes``: a seam's
+    lumped mass at the rank's nodes of its CG level only."""
     what = f"transfer[{k}]"
     if isinstance(t, CgProlong):
         t = tree_to(t, device)
         return lambda out: t
+    plan.sharded = cols
     if isinstance(t, BlockProlong):
         i = plan.el(t.blocks, what + ".blocks")
         return lambda out: BlockProlong(blocks=out[i])
@@ -289,6 +292,7 @@ def _plan_transfer(plan: _Plan, t, k: int, device):
             raise ValueError("stencil inflation requires uniform seam partitions")
         # the lumped mass is node-axis with the CG level's p, not the coarse level's
         i = plan.el(t.n_win, what + ".n_win")
+        plan.sharded = nodes
         j = plan.node(t.inv_lump, t.w_cg - 1, what + ".inv_lump")
         return lambda out: SeamProlong(n_win=out[i], inv_lump=out[j])
     if isinstance(t, RaggedBlockProlong):
@@ -334,8 +338,15 @@ def inflate_hierarchy(
     ``shard = (group, flags)`` inflates only the rank's part of every level
     ``k`` with ``flags[k]`` (``parallel.multihost.build_sharded_xl_problem``),
     as ``parallel.distributed.shard_hierarchy`` would cut the whole level:
-    a block transfer by its coarse level's flag, a seam by its CG level's;
-    the result has no layout yet."""
+    a block transfer by its coarse level's flag, a seam by its CG level's.
+    A transfer onto a sharded level whose agglomerates straddle the ranks (a
+    coarse count the world does not divide: that level is whole) inflates at
+    the coarse level's width, a seam's lumped mass at the rank's nodes, and
+    is cut by ``parallel.transfers.shard_transfer``.  The result has no
+    layout yet."""
+    from ..parallel.distributed import level_size
+    from ..parallel.transfers import shard_transfer
+
     device = torch.device(device)
     group, flags = shard if shard is not None else (None, (False,) * h_small.n_levels)
     plan = _Plan(z, bw, group)
@@ -344,8 +355,13 @@ def inflate_hierarchy(
         plan.sharded = flags[k]
         level_fns.append(_plan_level(plan, lv, k, device))
     for k, t in enumerate(h_small.transfers):
-        plan.sharded = flags[k] if isinstance(t, SeamProlong) else flags[k + 1]
-        transfer_fns.append(_plan_transfer(plan, t, k, device))
+        n_f, n_c = (level_size(lv) * z for lv in h_small.levels[k : k + 2])
+        if flags[k] and not isinstance(t, CgProlong) and n_c % group.world:
+            fn = _plan_transfer(plan, t, k, device, nodes=True)
+            transfer_fns.append(lambda out, fn=fn, n_f=n_f, n_c=n_c: shard_transfer(fn(out), n_f, n_c, False, group))
+        else:
+            cols = flags[k] if isinstance(t, SeamProlong) else flags[k + 1]
+            transfer_fns.append(_plan_transfer(plan, t, k, device, cols=cols, nodes=flags[k]))
     out = plan.inflate(device)
     levels = tuple(fn(out) for fn in level_fns)
     transfers = tuple(fn(out) for fn in transfer_fns)
@@ -507,18 +523,21 @@ class _StencilProblem(NamedTuple):
     bc: BoundaryCondition
 
 
-def _stencil_problem(spec, n, func, bc, *, z, bw, dtype, chebyshev, slim_fine, domain) -> _StencilProblem:
+def _stencil_problem(spec, n, func, bc, *, z, bw, dtype, chebyshev, slim_fine, domain, min_z=2) -> _StencilProblem:
     """Step 1 of the stencil build, on the host: the float64 stencil problem
     at ``n0 = n / z`` elements of the REAL width ``h`` (its rhs is discarded,
     apart from the boundary patches) and the solve-path hierarchy made from
-    it.  Every rank of a sharded build runs it (cheaper than sending it)."""
+    it.  Every rank of a sharded build runs it (cheaper than sending it).
+    ``min_z``: the least stencil factor taken (the sharded build takes
+    ``z = 1``, the whole problem as its own stencil, as the JAX package's
+    does; the whole build does not, as the JAX package's does not)."""
     from .hierarchy import chebyshev_hierarchy, prepare_fast_smoothers, strip_hierarchy
     from .problems import build_problem, default_model_problem
 
     if z is None:
         z = default_stencil_factor(spec, n, bw)
-    if z < 2 or n % z:
-        raise ValueError(f"stencil factor z={z} must be >= 2 and divide n={n}")
+    if z < min_z or n % z:
+        raise ValueError(f"stencil factor z={z} must be >= {min_z} and divide n={n}")
     n0 = n // z
     xin, xout = domain
     h = (xout - xin) / n

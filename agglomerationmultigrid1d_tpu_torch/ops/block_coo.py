@@ -147,9 +147,10 @@ def _to(x, device) -> torch.Tensor:
 
 
 def bcoo_coalesce(rows, cols, blocks, n_rows: int, n_cols: int, *, prune_tol: float = 0.0,
-                  device="cpu") -> BlockCOO:
+                  device="cuda") -> BlockCOO:
     """Sort row-major, sum duplicate coordinates, drop all-zero blocks (all
-    are kept if every block is zero)."""
+    are kept if every block is zero); on the host, the result on
+    ``device``."""
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     blocks = _np(blocks)

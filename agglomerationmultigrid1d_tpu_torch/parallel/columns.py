@@ -8,8 +8,9 @@ reads, in ascending order.  On a sharded level (equal shards,
 the others from their owners, one message per peer that owns any; on a whole
 level it reads them in place.  The plan is built once, by every rank, from
 every rank's ``need`` (:func:`column_plan`): ``parallel.distributed.
-shard_hierarchy`` has the whole hierarchy on every rank, so building it takes
-no communication, and a rank's messages are known to both ends.  Two
+shard_hierarchy`` has the whole hierarchy on every rank, and the rank-local
+build derives every rank's ``need`` from the level counts, so building it
+takes no communication, and a rank's messages are known to both ends.  Two
 directions use it:
 
 * :func:`gather_cols`: the ``need`` columns of a vector whose shard the rank

@@ -54,7 +54,9 @@ transfer's exchange plan (:mod:`.transfers`).  A whole coarse level below a
 sharded one is read in place and restricted into by a sum over the ranks; a
 sharded level below a whole one is gathered for prolong and takes its own
 part of the whole restriction.  Every plan is built once, here, from the
-whole hierarchy that every rank passes.
+whole hierarchy that every rank passes (the rank-local
+``multihost.build_sharded_xl_problem`` builds the same plans from the level
+counts alone).
 
 NCCL between two cards is not verified (one card was at hand): two ranks
 ran over gloo on one card, one rank over NCCL.
@@ -153,7 +155,7 @@ def _shard_transfer(tr, fine, coarse, sh_f: bool, sh_c: bool, g: SolverGroup):
         return _slice_cols(tr, n_c, g) if sh_c else tree_to(tr, g.device)
     if isinstance(tr, SeamProlong) and tr.offsets is None and aligned:
         return _slice_cols(tr, n_c, g, n_nodes=(fine.a.n_el, fine.a.p))
-    return shard_transfer(tr, fine, level_size(fine), n_c, sh_c, g)
+    return shard_transfer(tr, level_size(fine), n_c, sh_c, g)
 
 
 def shard_hierarchy(h: Hierarchy, group: SolverGroup, *, min_blocks_per_device: int = 8) -> Hierarchy:

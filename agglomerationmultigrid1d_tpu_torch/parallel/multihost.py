@@ -173,7 +173,14 @@ def build_sharded_xl_problem(
     ``parallel.distributed.shard_hierarchy`` would cut the whole level), the
     small levels whole, and its part of the rhs.  No rank ever forms a tensor
     of a sharded level's global width: the small stencil problem (O(n / z))
-    is rebuilt by every rank, cheaper than sending it.  The JAX package's
+    is rebuilt by every rank, cheaper than sending it (``z = 1``, the
+    default factor where the coarsest count is odd, makes it the whole
+    problem on the host, as in the JAX package's build; the whole
+    ``build_xl_problem`` refuses that factor).  A transfer onto a sharded
+    level whose agglomerates straddle the ranks (its coarse count, which the
+    world does not divide, stays whole) is inflated at the coarse width and
+    cut as ``shard_hierarchy`` cuts it (``parallel.transfers``), its plans
+    from the level counts alone.  The JAX package's
     ``parallel/multihost.py:build_sharded_xl_problem``, with its branches:
     DG-topped and CG-topped chains, ``slim_fine`` (DG-topped only: the fine
     level keeps its diagonal blocks and the float-float fine operator is a
@@ -183,7 +190,10 @@ def build_sharded_xl_problem(
     A level is sharded when it is not the coarsest, has at least
     ``world * min_blocks_per_device`` elements and its count divides the
     world size (JAX's rule).  Chebyshev bounds come from the small problem;
-    the coarse factorization from the float64 stencils, replicated.
+    the coarse factorization from the float64 stencils, replicated.  Ragged
+    agglomerates are refused (the only layout they add, a level sharded
+    below a whole one, included), as by the JAX package's build, as are
+    ragged seams.
 
     Returns ``(h_low, a_ff, b_ff, norm_b)``: ``h_low`` carries its
     ``ShardLayout`` (the solvers route it) and, on its sharded float32 block
@@ -205,15 +215,14 @@ def build_sharded_xl_problem(
     )
     from ..ops.block_tridiag import BlockTridiag
     from ..ops.df64 import ff_split
-    from ..ops.transfer_ops import SeamProlong
-    from ..ops.transfer_ops import CgProlong
+    from ..ops.transfer_ops import RaggedBlockProlong, SeamProlong
     from .distributed import attach_operator_ghosts, level_size
 
     device = group.device
     if slim_fine and spec.cg_orders:
         raise ValueError("slim_fine requires a DG-topped chain")
     st = _stencil_problem(spec, n, func, bc, z=z, bw=bw, dtype=torch.float32, chebyshev=chebyshev,
-                          slim_fine=slim_fine, domain=(0.0, 1.0))
+                          slim_fine=slim_fine, domain=(0.0, 1.0), min_z=1)
     prob0, h64, a_ff_small, h_low0, z = st.prob0, st.h64, st.a_ff_small, st.h_low0, st.z
     for t in h_low0.transfers:
         if isinstance(t, SeamProlong) and t.offsets is not None:
@@ -229,13 +238,17 @@ def build_sharded_xl_problem(
     flags = tuple(k < len(sizes) - 1 and m >= w * min_blocks_per_device and m % w == 0
                   for k, m in enumerate(sizes))
 
-    for k, t in enumerate(h_low0.transfers):  # what the inflation cuts: agglomerates aligned with the ranks
+    for k, t in enumerate(h_low0.transfers):
+        # uniform agglomerates make every count below a sharded level's a divisor of it: only ragged ones
+        # shard a level below a whole one, and the JAX package's rank-local build takes no ragged transfer
+        # (its parallel/multihost.py:427 asserts a BlockProlong)
         if flags[k + 1] and not flags[k]:
-            raise ValueError(f"shard-local build: level {k + 1} would be sharded below the whole level {k} "
-                             "(shard_hierarchy of the whole build shards it)")
-        if flags[k] and not isinstance(t, CgProlong) and sizes[k + 1] % w:
-            raise ValueError(f"shard-local build: the agglomerates of level {k + 1} ({sizes[k + 1]} blocks) would "
-                             f"straddle the {w} ranks (shard_hierarchy of the whole build shards them)")
+            raise ValueError(f"shard-local build: level {k + 1} would be sharded below the whole level {k}, "
+                             "a layout only ragged agglomerates make, whose transfers the JAX package's rank-local "
+                             "build refuses")
+        if isinstance(t, RaggedBlockProlong):
+            raise ValueError(f"shard-local build requires uniform agglomerates: transfer {k} is ragged (the JAX "
+                             "package's rank-local build refuses it too)")
 
     shard = (group, flags)
     h_low = inflate_hierarchy(h_low0, h64, z, bw=bw, device=device, shard=shard)

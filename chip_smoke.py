@@ -148,7 +148,24 @@ Phases, one line of numbers each:
    (``sharded_family``): the sharded operations against the whole ones, the
    unsharded float64 counts, the float32 inner solves within 1 outer step /
    2 inner cycles, each rank at most 0.6 of the one-rank run's peak device
-   memory (ragged, mixed switch; the scattered slice's printed).  The whole
+   memory (ragged, mixed switch; the scattered slice's printed); for the
+   ragged and mixed-switch slices also ROADMAP G24's probes: (a) the
+   one-rank and the two-rank float64 x against the fine operator's banded
+   solve refined with extended-precision residuals, (b) float64
+   ``multigrid`` with every contraction a fixed-order multiply-and-sum
+   (``fixed_order_einsum``), unsharded and on the two ranks, whose x must
+   then agree within 1e-12 of max|x|;
+22. three ranks on the one card over gloo (spawned): the north star's spec
+   with 3:1 first agglomerates at 12,582,912 elements (25,165,824 DoF),
+   built whole on the card and solved with NS_LOOP (and further, by the
+   hand-over, for a reference x), then built rank by rank
+   (``build_sharded_xl_problem``: the fine level sharded, the 4,194,304
+   blocks below it whole on every rank, transfer 0 cut because its
+   agglomerates straddle the ranks): each rank the whole build's level
+   widths and counts, its history within 1e-5, one K6s per float-float
+   defect and one edge pair per V-cycle, no leaf of the global fine width,
+   its peak device memory printed over the whole build's; the gathered x
+   within half the whole build's own error of its x (G24's hold).  The whole
    script's seconds are printed before the JSON lines.
 
 The kernel phase also holds K6 (the float-float stencil defect) to its plain
@@ -163,6 +180,7 @@ without a CUDA device the script exits with code 2 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import multiprocessing as mp
@@ -255,6 +273,20 @@ NORTH_STAR_N = 50331648  # DG p=1 elements: 100,663,296 DoF
 # (the float-float defect floors near 4e-7 there: the phases hold the sharded
 # runs to the unsharded one, not to a tolerance)
 NS_LOOP = dict(maxiter=3, tol=1e-8, inner_tol=3e-5, max_inner=20)
+# the north star's spec with 3:1 first agglomerates, cut to 12,582,912 elements (25,165,824 DoF) on three gloo
+# ranks: the fine level sharded, the 4,194,304 blocks below it whole (3 does not divide them), so transfer 0's
+# agglomerates straddle the ranks; at 50,331,648 elements every rank would hold the whole 16.8M-block level
+THREE_RANK_N = 12582912
+THREE_RANK_FIRST_AGG = 3
+THREE_RANK_TIMEOUT_S = 600
+# G24's diagnosis: on two ranks the shards' rounding moved the float64 x of the ragged and mixed-switch
+# slices by 0.31 and 0.11 of the one-rank x's own error (its distance to the refined solution), and by 0
+# with fixed-order contractions.  So the three-rank x may lie from the whole build's x at most this share of
+# the whole build's own error (its distance to a longer solve of the same build)
+G24_X_SHARE = 0.5
+THREE_RANK_REF_LOOP = dict(maxiter=40, tol=1e-10, inner_tol=3e-5, max_inner=20)  # with the hand-over (ffops=)
+G24_FAMILIES = ("ragged", "switch")  # the families whose two-rank float64 x moved on the card (ROADMAP G24)
+G24_FIXED_TOL = 1e-12  # fixed-order contractions: the two-rank x against the one-rank x, of max|x|
 NS_HIST_RTOL = 1e-5  # the sharded runs' relative-defect histories against the unsharded one's
 NS_PEAK_SHARE = 0.6  # a rank of two may peak at this share of the one-rank run's device memory
 # the hand-over of _mixed_loop_ff(ffops=) to the true cycles: tools/run_xl_solve.py's call on the
@@ -588,13 +620,14 @@ def phase_surface(bk) -> None:
     print(f"surface: {len(outs)} examples ran side by side, each rc 0", flush=True)
 
 
-def north_star_spec():
+def north_star_spec(n: int = NORTH_STAR_N, first_agg_factor: int = 4):
     """``examples/xl_north_star.py``'s spec: DG p = 1, 6 agglomerated levels
-    at 4:1, c_dir = 1000 n, on NORTH_STAR_N elements."""
+    at 4:1 (the first at ``first_agg_factor``:1), c_dir = 1000 n, on ``n``
+    elements."""
     from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
 
-    return HierarchySpec(cg_orders=(), dg_orders=(1,), n_agg_levels=6, p_agg=1, agg_factor=4,
-                         c_dir=1000.0 * NORTH_STAR_N)
+    return HierarchySpec(cg_orders=(), dg_orders=(1,), n_agg_levels=6, p_agg=1, first_agg_factor=first_agg_factor,
+                         agg_factor=4, c_dir=1000.0 * n)
 
 
 def phase_north_star(bk) -> int:
@@ -2078,28 +2111,7 @@ def phase_two_ranks(one_rank: dict) -> int:
     built by this process first, so the children load the same library.
     Returns rank 0's packing launches (the path on which a rank has a
     neighbour to pack for)."""
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    with tempfile.TemporaryDirectory() as td:
-        procs = [ctx.Process(target=_two_rank_child, args=(r, os.path.join(td, "store"), q)) for r in range(2)]
-        for p in procs:
-            p.start()
-        msgs = {}
-        try:
-            for _ in range(2):
-                rank, status, payload = q.get(timeout=CHILD_TIMEOUT_S)
-                msgs[rank] = (status, payload)
-        except queue.Empty:
-            raise RuntimeError(f"chip_smoke: the two-rank gloo phase did not finish in {CHILD_TIMEOUT_S} s") from None
-        finally:
-            for p in procs:
-                p.join(timeout=30)
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-    for rank, (status, payload) in sorted(msgs.items()):
-        check(status == "ok", f"two-rank gloo phase, rank {rank}:\n{payload}")
-    r0 = msgs[0][1]
+    r0 = spawn_ranks(_two_rank_child, 2, CHILD_TIMEOUT_S, "two-rank gloo phase")[0]
     x1 = one_rank["x_one_rank"]
     diff = float((torch.from_numpy(r0["x"]).to(x1.device) - x1).abs().max())
     nb = one_rank["norm_b"]
@@ -2467,8 +2479,9 @@ def _sharded_two_rank_child(rank: int, store_path: str, q) -> None:
             t0 = time.perf_counter()
             whole = family_problem(fam)
             build_s = time.perf_counter() - t0
+            g24 = g24_probes(whole, grp) if fam in G24_FAMILIES else None
             got = sharded_family(fam, whole, grp, bk)
-            got.update(build_s=build_s, phase_s=time.perf_counter() - t0)
+            got.update(build_s=build_s, phase_s=time.perf_counter() - t0, g24=g24)
             out["families"][fam] = got
         shutdown()
         q.put((rank, "ok", out))
@@ -2477,21 +2490,23 @@ def _sharded_two_rank_child(rank: int, store_path: str, q) -> None:
         raise
 
 
-def spawn_sharded_two_ranks() -> dict:
-    """Run ``_sharded_two_rank_child`` on two spawned ranks; {rank: its results}."""
+def spawn_ranks(child, world: int, timeout_s: float, what: str) -> dict:
+    """Run ``child(rank, store_path, q)`` on ``world`` spawned ranks (gloo
+    on the one card), each putting ``(rank, status, payload)``; {rank: its
+    payload}.  Past ``timeout_s`` the processes are killed and this fails."""
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     with tempfile.TemporaryDirectory() as td:
-        procs = [ctx.Process(target=_sharded_two_rank_child, args=(r, os.path.join(td, "store"), q)) for r in range(2)]
+        procs = [ctx.Process(target=child, args=(r, os.path.join(td, "store"), q)) for r in range(world)]
         for p in procs:
             p.start()
         msgs = {}
         try:
-            for _ in range(2):
-                rank, status, payload = q.get(timeout=3 * CHILD_TIMEOUT_S)
+            for _ in range(world):
+                rank, status, payload = q.get(timeout=timeout_s)
                 msgs[rank] = (status, payload)
         except queue.Empty:
-            raise RuntimeError(f"chip_smoke: the sharded two-rank phase did not finish in {3 * CHILD_TIMEOUT_S} s") from None
+            raise RuntimeError(f"chip_smoke: the {what} did not finish in {timeout_s} s") from None
         finally:
             for p in procs:
                 p.join(timeout=30)
@@ -2499,8 +2514,13 @@ def spawn_sharded_two_ranks() -> dict:
                     p.kill()
                     p.join()
     for rank, (status, payload) in sorted(msgs.items()):
-        check(status == "ok", f"sharded two-rank phase, rank {rank}:\n{payload}")
+        check(status == "ok", f"{what}, rank {rank}:\n{payload}")
     return {rank: payload for rank, (_, payload) in msgs.items()}
+
+
+def spawn_sharded_two_ranks() -> dict:
+    """Run ``_sharded_two_rank_child`` on two spawned ranks; {rank: its results}."""
+    return spawn_ranks(_sharded_two_rank_child, 2, 3 * CHILD_TIMEOUT_S, "sharded two-rank phase")
 
 
 def phase_sharded_two_ranks(one_rank_ns: dict, flagship_one_rank: dict, cg_ref: dict, families: dict) -> None:
@@ -2574,10 +2594,230 @@ def report_two_rank_families(msgs: dict, families: dict) -> None:
               f"shard_s={r0['shard_s']:.3f} phase_s={r0['phase_s']:.3f} peak_mem_bytes={r0['peak']} / {r1['peak']} "
               f"({shares[0]:.3f} / {shares[1]:.3f} of the one-rank run's {one['peak']}) f64 max|x - x_one_rank| / "
               f"max|x| = {dx:.3e}", flush=True)
+        if r0["g24"] is not None:
+            report_g24(fam, r0["g24"], x1, x2)
         check_family_run(fam, "two gloo ranks", r0, families[fam]["ref"])
         check(all(r1["runs"][t]["counts"] == r0["runs"][t]["counts"] for t in r0["runs"]), f"{fam}: the ranks' counts")
         if fam in FAMILY_PEAK_SHARE:
             check(max(shares) <= FAMILY_PEAK_SHARE[fam], f"two-rank {fam} peaks at {shares} of the one-rank run")
+
+
+def fixed_order_einsum(eq: str, *ops):
+    """``torch.einsum(eq, *ops)`` as a broadcast multiply-and-sum over the
+    contracted indices in a fixed order: one elementwise product and one add
+    per term, so every output entry is rounded the same way whatever the
+    other axes' widths (a batched library product need not be).  G24's probe
+    (b) swaps it in for ``torch.einsum`` around a solve; nothing else uses
+    it."""
+    if "." in eq:
+        raise ValueError(f"fixed_order_einsum: no ellipsis: {eq!r}")
+    lhs, out = eq.replace(" ", "").split("->")
+    ins = lhs.split(",")
+    sizes = {c: d for spec, op in zip(ins, ops) for c, d in zip(spec, op.shape)}
+    red = [c for c in dict.fromkeys("".join(ins)) if c not in out]
+    full = out + "".join(red)
+    views = []
+    for spec, op in zip(ins, ops):  # every operand over ``full``, size 1 where it lacks an index
+        order = sorted(range(len(spec)), key=lambda i: full.index(spec[i]))
+        views.append(op.permute(*order).reshape([sizes[c] if c in spec else 1 for c in full]))
+    acc = None
+    for idx in itertools.product(*(range(sizes[c]) for c in red)):
+        term = None
+        for v in views:
+            part = v[(Ellipsis,) + tuple(i if v.shape[len(out) + k] > 1 else 0 for k, i in enumerate(idx))]
+            term = part if term is None else term * part
+        acc = term if acc is None else acc + term
+    return acc.expand([sizes[c] for c in out]).contiguous()
+
+
+def g24_probes(whole: dict, grp) -> dict:
+    """ROADMAP G24's two probes on a family's whole problem (``whole``, kept
+    for ``sharded_family``), on each of the two ranks: (a) on rank 0, the
+    fine operator's banded solve refined with extended-precision residuals
+    (``ops/banded_solve.py:fine_refined_solve``, on the host: the witness of
+    which float64 x is the accurate one) and its condition estimate; (b)
+    float64 ``multigrid`` to 1e-10 with every ``torch.einsum`` formed by
+    :func:`fixed_order_einsum`, unsharded on rank 0 and on the two ranks'
+    shards.  Rank 0 returns the x's (NumPy, ``(bs, n)``), the counts and the
+    seconds."""
+    from agglomerationmultigrid1d_tpu_torch.models import multigrid
+    from agglomerationmultigrid1d_tpu_torch.ops.banded_solve import fine_refined_solve
+    from agglomerationmultigrid1d_tpu_torch.parallel import shard_hierarchy, shard_vector, unshard_vector
+    from agglomerationmultigrid1d_tpu_torch.utils.precision import tree_to
+
+    h, b = whole["h"], whole["b"]
+    out = {}
+    if grp.rank == 0:
+        t0 = time.perf_counter()
+        bs, n = b.shape
+        cond, x_ref, last = fine_refined_solve(tree_to(h.levels[0], "cpu"), b.cpu().T.reshape(-1).numpy())
+        out.update(cond=cond, last=last, x_ref=np.asarray(x_ref, dtype=np.float64).reshape(n, bs).T.copy(),
+                   refine_s=time.perf_counter() - t0)
+    own = torch.einsum
+    torch.einsum = fixed_order_einsum
+    try:
+        if grp.rank == 0:
+            hd, bd = tree_to(h, grp.device), b.to(grp.device)
+            t0 = time.perf_counter()
+            res = multigrid(hd, torch.zeros_like(bd), bd, 100, 1e-10, compute_error=False)
+            torch.cuda.synchronize()
+            out.update(fixed_whole=res.x.cpu().numpy(), fixed_whole_it=res.iterations,
+                       fixed_whole_s=time.perf_counter() - t0)
+            del hd, bd, res
+        hs = shard_hierarchy(h, grp)
+        bl = shard_vector(b, grp, hs)
+        t0 = time.perf_counter()
+        res = multigrid(hs, torch.zeros_like(bl), bl, 100, 1e-10, compute_error=False)
+        x = unshard_vector(res.x, hs)
+        torch.cuda.synchronize()
+        out.update(fixed_sharded_it=res.iterations, fixed_sharded_s=time.perf_counter() - t0)
+        if grp.rank == 0:
+            out["fixed_sharded"] = x.cpu().numpy()
+        del hs, bl, res, x
+    finally:
+        torch.cuda.empty_cache()
+        torch.einsum = own
+    return out
+
+
+def report_g24(fam: str, g24: dict, x1: np.ndarray, x2: np.ndarray) -> None:
+    """G24's two lines for one family: (a) the one-rank and the two-rank
+    float64 x (cuBLAS contractions) against the refined solution, beside
+    cond_1 * eps; (b) the fixed-order contractions' two-rank x against their
+    unsharded x, which must lie within G24_FIXED_TOL of max|x| (the shards
+    then round as the whole level does), and both against the refined
+    solution."""
+    ref = g24["x_ref"]
+
+    def gap(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    eps = float(np.finfo(np.float64).eps)
+    print(f"G24 (a) {fam}: refined solution ({g24['refine_s']:.3f} s on the host, last correction "
+          f"{g24['last']:.3e} of max|x|, cond_1 {g24['cond']:.3e}, cond_1 * eps {g24['cond'] * eps:.3e}): "
+          f"max|x - x_refined| / max|x_refined| one rank {gap(x1, ref):.3e}, two ranks {gap(x2, ref):.3e}; "
+          f"two ranks from one rank {gap(x2, x1):.3e}", flush=True)
+    fw, fs = g24["fixed_whole"], g24["fixed_sharded"]
+    dx = gap(fs, fw)
+    print(f"G24 (b) {fam}: fixed-order contractions: unsharded {g24['fixed_whole_it']} iterations "
+          f"({g24['fixed_whole_s']:.3f} s), two ranks {g24['fixed_sharded_it']} ({g24['fixed_sharded_s']:.3f} s); "
+          f"max|x_two - x_one| / max|x| = {dx:.3e} (limit {G24_FIXED_TOL:.0e}); against the refined solution: "
+          f"unsharded {gap(fw, ref):.3e}, two ranks {gap(fs, ref):.3e}", flush=True)
+    check(g24["fixed_whole_it"] == g24["fixed_sharded_it"], f"G24 (b) {fam}: the iteration counts differ")
+    check(dx <= G24_FIXED_TOL, f"G24 (b) {fam}: fixed-order two-rank x {dx:.3e} of max|x| from the unsharded x")
+
+
+def _three_rank_child(rank: int, store_path: str, q) -> None:
+    """One rank of three on the card over gloo: the north star's spec with
+    3:1 first agglomerates at THREE_RANK_N elements built rank by rank
+    (``slim_fine``, ``ff_levels``) and solved with NS_LOOP from its fine
+    float-float operator; its level widths, cut transfers, the leaves it
+    holds at the fine level's global width (none may be), its own x."""
+    try:
+        from agglomerationmultigrid1d_tpu_torch.ops.df64 import ff_join
+        from agglomerationmultigrid1d_tpu_torch.ops.kernels import block_kernels as bk
+        from agglomerationmultigrid1d_tpu_torch.parallel import build_sharded_xl_problem, initialize, shutdown
+        from agglomerationmultigrid1d_tpu_torch.parallel.distributed import level_size
+        from agglomerationmultigrid1d_tpu_torch.parallel.transfers import SHARD_TRANSFERS
+
+        grp = initialize(rank, 3, store_path=store_path, device="cuda", backend="gloo",
+                         timeout_s=THREE_RANK_TIMEOUT_S)
+        n = THREE_RANK_N
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        h, a_ffs, b_ff, norm_b = build_sharded_xl_problem(north_star_spec(n, THREE_RANK_FIRST_AGG), n, group=grp,
+                                                          slim_fine=True, ff_levels=True)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        leaves = tensor_leaves((h, a_ffs, b_ff))
+        run = ff_loop(bk, h, a_ffs[0], b_ff, norm_b, **NS_LOOP)
+        run.update(setup_s=setup_s, peak=torch.cuda.max_memory_allocated(), flags=h.layout.sharded,
+                   widths=[level_size(lv) for lv in h.levels], norm_b=norm_b,
+                   cut=[k for k, t in enumerate(h.transfers) if isinstance(t, SHARD_TRANSFERS)],
+                   wide=[p for p, t in leaves if t.dim() > 0 and t.shape[-1] >= n],
+                   x=ff_join(run["x"]).cpu().numpy())
+        del h, a_ffs, b_ff, leaves
+        shutdown()
+        q.put((rank, "ok", run))
+    except BaseException:
+        q.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def phase_three_ranks(bk) -> dict:
+    """Three ranks on the one card over gloo, agglomerates that straddle them:
+    the north star's spec with 3:1 first agglomerates at THREE_RANK_N
+    elements, first built whole (``build_xl_problem``) on the card and solved
+    with NS_LOOP (its peak device memory, its x), and solved further with the
+    hand-over (THREE_RANK_REF_LOOP) for the reference x; then built rank by
+    rank on three spawned ranks (``_three_rank_child``).  Held: every rank's
+    level widths the whole build's (the fine level its third), transfer 0
+    cut and no leaf of the global fine width; its counts the whole build's
+    and its history within NS_HIST_RTOL; one K6s launch per float-float
+    defect and one edge pair per smoothing of the sharded fine level, no K7
+    strip; the gathered x from the whole build's x at most G24_X_SHARE of
+    the whole build's own error (its distance to the reference x).
+    Each rank's peak over the whole build's is printed.  Returns rank 0's
+    launches."""
+    from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem
+    from agglomerationmultigrid1d_tpu_torch.ops.df64 import ff_join
+    from agglomerationmultigrid1d_tpu_torch.parallel.distributed import level_size
+
+    n, t_phase = THREE_RANK_N, time.perf_counter()
+    spec = north_star_spec(n, THREE_RANK_FIRST_AGG)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    h, ffops, b_ff, norm_b = build_xl_problem(spec, n, slim_fine=True, ff_levels=True, device="cuda")
+    torch.cuda.synchronize()
+    setup_w = time.perf_counter() - t0
+    whole = ff_loop(bk, h, ffops.a_ffs[0], b_ff, norm_b, **NS_LOOP)
+    whole["peak"] = torch.cuda.max_memory_allocated()
+    x_whole = ff_join(whole.pop("x")).cpu().numpy()
+    widths = [level_size(lv) for lv in h.levels]
+    ref = ff_loop(bk, h, ffops.a_ffs[0], b_ff, norm_b, ffops=ffops, **THREE_RANK_REF_LOOP)
+    x_ref = ff_join(ref.pop("x")).cpu().numpy()
+    del h, ffops, b_ff
+    torch.cuda.empty_cache()
+    print(f"three-rank cell, whole build on the card: {2 * n} DoF, levels {widths}, setup_s={setup_w:.3f} "
+          f"outer={whole['outer']} v_cycles={whole['cycles']} history={[f'{v:.4e}' for v in whole['hist']]} "
+          f"solve_s={whole['solve_s']:.3f} peak_mem_bytes={whole['peak']}; reference (hand-over) outer={ref['outer']} "
+          f"v_cycles={ref['cycles']} rel_history_end={ref['hist'][-1]:.3e} solve_s={ref['solve_s']:.3f}", flush=True)
+    check(ref["hist"][-1] <= 1e-2 * whole["hist"][-1],
+          f"the reference solve ({ref['hist'][-1]:.3e}) is not far below the cell's ({whole['hist'][-1]:.3e})")
+    t1 = time.perf_counter()
+    msgs = spawn_ranks(_three_rank_child, 3, THREE_RANK_TIMEOUT_S, "three-rank phase")
+    spawn_s = time.perf_counter() - t1
+    for rank in range(3):
+        run = msgs[rank]
+        share = run["peak"] / whole["peak"]
+        held = held_to(run, whole, f"three-rank cell, rank {rank}")
+        launches = run["launches"]
+        edges = {k: launches.get(k, 0) for k in ("chebyshev_edge_pair", "chebyshev_edge_pair_residual")}
+        print(f"three-rank cell, rank {rank} of three gloo ranks, sharded={run['flags']}: level widths {run['widths']} "
+              f"cut transfers {run['cut']} setup_s={run['setup_s']:.3f} outer={run['outer']} v_cycles={run['cycles']} "
+              f"({held}) solve_s={run['solve_s']:.3f} peak_mem_bytes={run['peak']} ({share:.3f} of the whole "
+              f"build's) defects={run['defects']} launches={launches}", flush=True)
+        check(run["widths"] == [n // 3] + widths[1:] and run["flags"][0] and not any(run["flags"][1:]),
+              f"rank {rank}: level widths {run['widths']}, flags {run['flags']} (whole build {widths})")
+        check(run["cut"] == [0], f"rank {rank}: cut transfers {run['cut']}, transfer 0 expected")
+        check(not run["wide"], f"rank {rank} holds leaves of the global fine width: {run['wide'][:8]}")
+        check(launches.get("ff_stencil_shard_defect", 0) == run["defects"] > 0
+              and "ff_stencil_mid_defect" not in launches, f"rank {rank}: not one K6s per defect: {launches}")
+        check(all(v == run["cycles"] for v in edges.values()),
+              f"rank {rank}: not one edge pair per smoothing of the sharded fine level: {edges}, {run['cycles']} cycles")
+        check(all(launches.get(K7_FORMS[k][1], 0) == 0 for k in K7_FORMS), f"rank {rank} launched a K7 strip")
+        check(abs(run["norm_b"] - msgs[0]["norm_b"]) == 0, "the ranks' ||b|| differ")
+    x3 = np.concatenate([msgs[r]["x"] for r in range(3)], axis=-1)
+    check(x3.shape == x_whole.shape and bool(np.isfinite(x3).all()), f"three-rank x: {x3.shape}")
+    scale = float(np.abs(x_ref).max())
+    d3, dw = (float(np.abs(x - x_ref).max()) / scale for x in (x3, x_whole))
+    dx = float(np.abs(x3 - x_whole).max()) / scale
+    print(f"three-rank cell: gathered x from the whole build's {dx:.3e} of max|x| (limit {G24_X_SHARE} x the whole "
+          f"build's own error {dw:.3e}); from the reference x {d3:.3e}; spawn, build and solve on three ranks "
+          f"{spawn_s:.1f} s; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(dx <= G24_X_SHARE * dw, f"three-rank x {dx:.3e} from the whole build's, its own error {dw:.3e}")
+    return msgs[0]["launches"]
 
 
 def main() -> int:
@@ -2637,6 +2877,11 @@ def main() -> int:
     phase_sharded_two_ranks(ns_one_rank, flagship_one_rank, cg_ref, families)
     print(f"sharded two-rank phase (north star, flagship, CG, the three families): {time.perf_counter() - t1:.1f} s",
           flush=True)
+    torch.cuda.empty_cache()
+    three_rank = phase_three_ranks(bk)
+    print(f"three-rank launches (rank 0): K6s {three_rank.get('ff_stencil_shard_defect', 0)}, edge pairs "
+          f"{three_rank.get('chebyshev_edge_pair', 0)} + {three_rank.get('chebyshev_edge_pair_residual', 0)}, "
+          f"packings {three_rank.get('pack_edges', 0)}", flush=True)
 
     # kernel: (label, wrapper, launch counter, the TPU kernel it replaces)
     meta = {

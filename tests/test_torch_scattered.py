@@ -143,7 +143,7 @@ def _rand_coo_inputs(rng, n, bs, density):
 def test_bcoo_algebra_vs_dense(rng):
     n, bs = 7, 2
     ia, ib = _rand_coo_inputs(rng, n, bs, 0.3), _rand_coo_inputs(rng, n, bs, 0.4)
-    a, b = bcoo_coalesce(*ia, n, n), bcoo_coalesce(*ib, n, n)
+    a, b = bcoo_coalesce(*ia, n, n, device="cpu"), bcoo_coalesce(*ib, n, n, device="cpu")
     ja, jb = jops.bcoo_coalesce(*ia, n, n), jops.bcoo_coalesce(*ib, n, n)
     _close_coo(a, ja, "coalesce")
     ad, bd = _np(bcoo_to_dense(a)), _np(bcoo_to_dense(b))

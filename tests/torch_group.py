@@ -243,16 +243,20 @@ def job_plan_reuse(g, a, inv, xs, b, kind, kw):
 def tensor_leaves(tree, path="", out=None) -> list:
     """``(path, tensor)`` of every tensor in nested NamedTuples / tuples /
     dataclasses (a ``BTFFStencil``), in a fixed order, leaving out what only
-    a sharded hierarchy has: its layout, and its block levels' K7 operator
-    ghosts and edge plans."""
+    a sharded hierarchy's levels have: its layout, and its block levels' K7
+    operator ghosts and edge plans (a cut transfer's column plans stay)."""
     import dataclasses
+
+    from agglomerationmultigrid1d_tpu_torch.parallel.sharded_kernels import EdgePlan
 
     out = [] if out is None else out
     if isinstance(tree, torch.Tensor):
         out.append((path, tree))
+    elif isinstance(tree, EdgePlan):
+        pass
     elif hasattr(tree, "_fields"):
         for f in tree._fields:
-            if f not in ("layout", "ghosts", "plan"):
+            if f not in ("layout", "ghosts"):
                 tensor_leaves(getattr(tree, f), f"{path}.{f}", out)
     elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         for f in dataclasses.fields(tree):
@@ -311,39 +315,90 @@ def _solve_ff(h, a_ff, b_ff, norm_b):
     return x, outer, cycles, hist
 
 
-def job_sharded_xl(g, case):
-    """``build_sharded_xl_problem`` on the rank against the port's whole
+def _uncut(bundle, cut):
+    """``(levels, transfers, coarse, a_ff, b_ff)`` with the transfers ``cut``
+    (the indices of the rank-local build's ``ShardBlock`` / ``ShardScattered``,
+    which are not column slices of a whole transfer) left out."""
+    levels, transfers, *rest = bundle
+    return (levels, tuple(None if k in cut else t for k, t in enumerate(transfers)), *rest)
+
+
+def job_sharded_xl(g, case, jax_ref=None):
+    """``build_sharded_xl_problem`` on the rank: the level flags, the
+    transfers cut because their agglomerates straddle the ranks, the fine
+    level's own width, the widest leaf the rank holds, ``norm_b`` and
+    ``_mixed_loop_ff`` on it (counts, history, the rank's x).  Where the
+    stencil factor is at least 2, also against the port's whole
     ``build_xl_problem`` of the same arguments: the paths of the leaves
-    whose gathered value differs, bit for bit (``h_low``, ``a_ff``, the rhs
-    pair); the leaves at least ``n`` wide that this rank holds whole (none
-    may be); the fine level's own width; ``norm_b``; and ``_mixed_loop_ff`` on both builds (counts and the
-    last relative defect).  With ``ff_levels`` the whole build's ``a_ff`` is
-    its ``FFOps.a_ffs``, the sharded build's tuple."""
-    from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem
+    whose gathered value differs from it, bit for bit (``h_low`` but the cut
+    transfers, ``a_ff``, the rhs pair); the leaves at least ``n`` wide that
+    this rank holds whole (none may be); the paths of the leaves of
+    ``h_low`` (the cut transfers and their column plans included) that
+    differ, bit for bit, from ``shard_hierarchy`` of the whole build; and
+    ``_mixed_loop_ff`` on the whole build.  With ``ff_levels`` the whole
+    build's ``a_ff`` is its ``FFOps.a_ffs``, the sharded build's tuple, and
+    nothing is solved.  ``jax_ref``, the JAX package's sharded build of the
+    same arguments as the port's ``(h, a_ff, b_ff)`` (global arrays, its CG
+    node padding cut off): ``jax_leaves``, the rank's leaves gathered as
+    the JAX arrays are (rank 0's, NumPy), and ``jax_cut``, per cut transfer
+    the paths and NumPy leaves of the rank's part and of the JAX transfer
+    cut by ``parallel.transfers.shard_transfer``."""
+    from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem, default_stencil_factor
     from agglomerationmultigrid1d_tpu_torch.models.hierarchy import CgLevel
-    from agglomerationmultigrid1d_tpu_torch.parallel import build_sharded_xl_problem, unshard_vector
+    from agglomerationmultigrid1d_tpu_torch.parallel import build_sharded_xl_problem, shard_hierarchy, unshard_vector
+    from agglomerationmultigrid1d_tpu_torch.parallel.distributed import level_size
+    from agglomerationmultigrid1d_tpu_torch.parallel.transfers import SHARD_TRANSFERS, shard_transfer
 
     spec, n, kw, min_blocks = _xl_case(case)
     h, a_ff, b_ff, norm_b = build_sharded_xl_problem(spec, n, group=g, min_blocks_per_device=min_blocks, **kw)
-    hw, aw, bw_, nw = build_xl_problem(spec, n, device="cpu", **kw)
-    if kw.get("ff_levels"):
-        aw = aw.a_ffs
     fine = h.levels[0]
-    local, whole = (h.levels, h.transfers, h.coarse, a_ff, b_ff), (hw.levels, hw.transfers, hw.coarse, aw, bw_)
+    cut = [k for k, t in enumerate(h.transfers) if isinstance(t, SHARD_TRANSFERS)]
+    local = (h.levels, h.transfers, h.coarse, a_ff, b_ff)
     out = dict(
-        flags=h.layout.sharded, norm_b=(norm_b, nw),
-        mismatches=_gathered_mismatches(g, local, whole),
-        # the leaves held whole on this rank although at least n wide
-        whole_wide=[path for (path, t), (_, w) in zip(tensor_leaves(local), tensor_leaves(whole))
-                    if w.dim() > 0 and w.shape[-1] >= n and t.shape[-1] == w.shape[-1]],
+        flags=h.layout.sharded, cut=cut, norm_b=norm_b,
         fine_width=fine.a.band.shape[-1] if isinstance(fine, CgLevel) else fine.a.n_blocks,
+        widest=max(t.shape[-1] for _, t in tensor_leaves(local) if t.dim() > 0),
     )
     if not kw.get("ff_levels"):
         x, outer, cycles, hist = _solve_ff(h, a_ff, b_ff, norm_b)
-        _, w_outer, w_cycles, w_hist = _solve_ff(hw, aw, bw_, nw)
-        out.update(solve=(outer, cycles, float(hist[outer - 1])), whole=(w_outer, w_cycles, float(w_hist[outer - 1])),
-                   hist=hist[:outer], whole_hist=w_hist[:w_outer],
+        out.update(solve=(outer, cycles, float(hist[outer - 1])), hist=hist[:outer],
                    x_hi=unshard_vector(x.hi, h).numpy(), x_lo=unshard_vector(x.lo, h).numpy())
+    if (kw.get("z") or default_stencil_factor(spec, n)) >= 2:
+        hw, aw, bw_, nw = build_xl_problem(spec, n, device="cpu", **kw)
+        if kw.get("ff_levels"):
+            aw = aw.a_ffs
+        whole = (hw.levels, hw.transfers, hw.coarse, aw, bw_)
+        layout = shard_hierarchy(hw, g, min_blocks_per_device=min_blocks)
+        la, lb = (tensor_leaves((x_.levels, x_.transfers, x_.coarse)) for x_ in (h, layout))
+        out.update(
+            whole_norm_b=nw,
+            mismatches=_gathered_mismatches(g, _uncut(local, cut), _uncut(whole, cut)),
+            # the leaves held whole on this rank although at least n wide
+            whole_wide=[path for (path, t), (_, w) in zip(tensor_leaves(_uncut(local, cut)),
+                                                          tensor_leaves(_uncut(whole, cut)))
+                        if w.dim() > 0 and w.shape[-1] >= n and t.shape[-1] == w.shape[-1]],
+            layout_mismatches=["structure"] if [p for p, _ in la] != [p for p, _ in lb] else
+            [p for (p, t), (_, w) in zip(la, lb) if t.shape != w.shape or t.dtype != w.dtype or not torch.equal(t, w)],
+        )
+        if not kw.get("ff_levels"):
+            _, w_outer, w_cycles, w_hist = _solve_ff(hw, aw, bw_, nw)
+            out.update(whole=(w_outer, w_cycles, float(w_hist[w_outer - 1])), whole_hist=w_hist[:w_outer])
+    if jax_ref is not None:
+        jh, ja, jb = jax_ref
+        mine = tensor_leaves(_uncut(local, cut))
+        theirs = tensor_leaves(_uncut((jh.levels, jh.transfers, jh.coarse, ja, jb), cut))
+        if [p for p, _ in mine] != [p for p, _ in theirs]:
+            raise AssertionError("the rank-local build's leaves are not the JAX sharded build's")
+        got = [(p, gathered(g, t, w.shape[-1] if w.dim() else 0).numpy()) for (p, t), (_, w) in zip(mine, theirs)]
+        out["jax_leaves"] = got if g.rank == 0 else None
+        out["jax_cut"] = {}
+        for k in cut:
+            n_f, n_c = level_size(jh.levels[k]), level_size(jh.levels[k + 1])
+            ref = shard_transfer(jh.transfers[k], n_f, n_c, False, g)
+            a_, b_ = tensor_leaves(h.transfers[k]), tensor_leaves(ref)
+            if [p for p, _ in a_] != [p for p, _ in b_]:
+                raise AssertionError(f"transfer {k}: the rank's part is not shard_transfer's form")
+            out["jax_cut"][k] = [(p, t.numpy(), w.numpy()) for (p, t), (_, w) in zip(a_, b_)]
     return out
 
 
