@@ -35,6 +35,7 @@ from ..ops.block_diag import bd_matvec
 from ..ops.block_tridiag import bt_matvec
 from ..utils.config import CycleParams, HierarchySpec, SolveParams
 from ..utils.precision import tree_to
+from ..utils.profiling import span
 from .hierarchy import Hierarchy, build_dg_hierarchy, build_hierarchy, schur_stiffness
 
 
@@ -54,6 +55,7 @@ def build_problem(
     mesh=None,
     device="cuda",
     agg_tables: bool = False,
+    timings: dict | None = None,
 ) -> Problem:
     """Any of the reference's hierarchy configurations from a
     :class:`~..utils.config.HierarchySpec`: CG levels of ``spec.cg_orders``,
@@ -65,48 +67,61 @@ def build_problem(
 
     The agglomerated meshes in ``Problem.meshes`` are lite (no quadrature
     tables: the hierarchy never reads them); ``agg_tables=True`` builds them
-    tabled, for ``agg_load_vector``, ``agg_flux_rhs`` or ``base_jacobians``."""
+    tabled, for ``agg_load_vector``, ``agg_flux_rhs`` or ``base_jacobians``.
+
+    The set-up phases are spans ``aggmg.setup.<phase>``
+    (``utils.profiling.span``); ``timings``, a dict, receives their seconds,
+    the device drained at each end: ``"meshes"`` (every level's mesh),
+    ``"assemble"`` (the fine operator and the right-hand side),
+    ``"hierarchy"`` (the coarse operators, transfers, smoothers and the
+    coarse factorization, on the host) and ``"to_device"``."""
     func_, u_ex, ux_ex = default_model_problem()
     func = func or func_
     bc = bc or _default_bc(u_ex, ux_ex)
     if mesh is None:
         mesh = create_uniform_mesh(n, 0.0, 1.0)
 
-    meshes: list = [make_cg_mesh(mesh, p) for p in spec.cg_orders]
-    meshes += [make_dg_mesh(mesh, p) for p in spec.dg_orders]
-    for i in range(spec.n_agg_levels):
-        if i == 0:
-            n_base, r = mesh.n_elements, spec.first_agg_factor
-            if n_base % r:
-                meshes.append(
-                    make_agg_mesh(
-                        spec.p_agg, mesh, partition=_near_uniform_partition(n_base, r), tables=agg_tables
+    with span("aggmg.setup.meshes", timings):
+        meshes: list = [make_cg_mesh(mesh, p) for p in spec.cg_orders]
+        meshes += [make_dg_mesh(mesh, p) for p in spec.dg_orders]
+        for i in range(spec.n_agg_levels):
+            if i == 0:
+                n_base, r = mesh.n_elements, spec.first_agg_factor
+                if n_base % r:
+                    meshes.append(
+                        make_agg_mesh(
+                            spec.p_agg, mesh, partition=_near_uniform_partition(n_base, r), tables=agg_tables
+                        )
                     )
-                )
+                else:
+                    meshes.append(make_agg_mesh(spec.p_agg, mesh, r, tables=agg_tables))
             else:
-                meshes.append(make_agg_mesh(spec.p_agg, mesh, r, tables=agg_tables))
-        else:
-            fine = meshes[-1]
-            if fine.n_agg % spec.agg_factor:
-                meshes.append(
-                    coarsen_agg_mesh(
-                        fine, partition=_near_uniform_partition(fine.n_agg, spec.agg_factor)
+                fine = meshes[-1]
+                if fine.n_agg % spec.agg_factor:
+                    meshes.append(
+                        coarsen_agg_mesh(
+                            fine, partition=_near_uniform_partition(fine.n_agg, spec.agg_factor)
+                        )
                     )
-                )
-            else:
-                meshes.append(coarsen_agg_mesh(fine, spec.agg_factor))
+                else:
+                    meshes.append(coarsen_agg_mesh(fine, spec.agg_factor))
 
     if spec.cg_orders:
-        a, b = cg_stiffness_and_rhs(meshes[0], func, bc)
-        h = build_hierarchy(meshes, bc, a, c_dir=spec.c_dir, cg_smoother_kind=spec.cg_smoother)
+        with span("aggmg.setup.assemble", timings):
+            a, b = cg_stiffness_and_rhs(meshes[0], func, bc)
+        with span("aggmg.setup.hierarchy", timings):
+            h = build_hierarchy(meshes, bc, a, c_dir=spec.c_dir, cg_smoother_kind=spec.cg_smoother)
     else:
         dg = meshes[0]
-        g, d, c = dg_flux_operators(dg, bc, spec.c_dir)
-        a = schur_stiffness(g, d, c, dg.mass_inv)
-        f, r = dg_flux_rhs(dg, func, bc, spec.c_dir)
-        b = f - bt_matvec(d, bd_matvec(dg.mass_inv, r))
-        h = build_dg_hierarchy(meshes, a, g, d, c)
-    return Problem(hierarchy=tree_to(h, device), b=b.to(device), meshes=meshes, bc=bc)
+        with span("aggmg.setup.assemble", timings):
+            g, d, c = dg_flux_operators(dg, bc, spec.c_dir)
+            a = schur_stiffness(g, d, c, dg.mass_inv)
+            f, r = dg_flux_rhs(dg, func, bc, spec.c_dir)
+            b = f - bt_matvec(d, bd_matvec(dg.mass_inv, r))
+        with span("aggmg.setup.hierarchy", timings):
+            h = build_dg_hierarchy(meshes, a, g, d, c)
+    with span("aggmg.setup.to_device", timings):
+        return Problem(hierarchy=tree_to(h, device), b=b.to(device), meshes=meshes, bc=bc)
 
 
 def solve(
@@ -212,11 +227,13 @@ def poisson_dg_hierarchy(
     func: Callable | None = None,
     bc: BoundaryCondition | None = None,
     device="cuda",
+    timings: dict | None = None,
 ) -> Problem:
     """DG-topped hierarchy; finest operators assembled directly and
     ``b = f - D M^-1 r`` (dg_heirarchy_test.jl:38-46).  ``n_agg`` appends
     agglomerated h-coarsening levels below the DG p-chain (4:1 first, 2:1
-    after), which keeps the coarsest level small for large element counts."""
+    after), which keeps the coarsest level small for large element counts.
+    ``timings``: the set-up phases' seconds, as :func:`build_problem`'s."""
     spec = HierarchySpec(
         cg_orders=(),
         dg_orders=tuple(_orders(max_p, n_dg)),
@@ -224,7 +241,7 @@ def poisson_dg_hierarchy(
         p_agg=p_agg,
         c_dir=1000.0 * n if c_dir is None else c_dir,
     )
-    return build_problem(spec, n, func, bc, device=device)
+    return build_problem(spec, n, func, bc, device=device, timings=timings)
 
 
 def poisson_full_hierarchy(

@@ -38,6 +38,18 @@ coarsest level is solved whole on every rank.  A sharded float32 block level smo
 with plain sweeps on halo matvecs; a sharded stencil fine operator's
 float-float defect is kernel K6s.  ``multigrid_true`` stays unsharded, as in
 the JAX package.
+
+Every solve is marked for ``torch.profiler`` by spans (``utils.profiling.span``,
+``cpu_op`` events that cost about half a microsecond with no profiler):
+``aggmg.solve.<driver>`` around a public driver, ``aggmg.vcycle.<kind>``
+(``f32``, ``f64``, ``ff``, ``true``) around a whole V-cycle, and inside it
+four phases that partition its work, level ``k`` as a suffix:
+``aggmg.smooth@k`` (the sweeps, with a residual fused into them),
+``aggmg.transfer@k`` (restriction, prolongation and the correction add),
+``aggmg.coarse`` and ``aggmg.defect@k`` (every residual and norm computed
+outside a smoother, the drivers' stopping tests at ``@0``).  Each host read
+that waits for the device is an ``aggmg.sync.<site>`` span of its own and
+lies in no phase.
 """
 
 from __future__ import annotations
@@ -104,6 +116,7 @@ from ..ops.transfer_ops import (
 )
 from ..smoothers.smoother import BlockJacobiSmoother, ChebyshevSmoother, apply_smoother
 from ..transfer.scattered_transfer import ScatteredProlong, sp_prolong, sp_restrict
+from ..utils.profiling import span
 from .hierarchy import BlockLevel, CgLevel, Hierarchy, operator_data
 
 
@@ -413,6 +426,9 @@ def _level_matvec_opt(level, x, group=None):
     return level_matvec(level, x, group)
 
 
+_KINDS = {torch.float32: "f32", torch.float64: "f64"}  # a V-cycle's span by its dtype
+
+
 def v_cycle(
     h: Hierarchy,
     x0: torch.Tensor,
@@ -430,23 +446,29 @@ def v_cycle(
     rhs = [None] * n
     u[0], rhs[0] = x0, b
 
-    for k in range(n - 1):
-        level = h.levels[k]
-        if k > 0:
-            u[k] = torch.zeros_like(rhs[k])
-        u[k], r_k = _smooth_n_residual(
-            level, u[k], rhs[k], n_pre, alpha, group=_group(h, k)
-        )
-        rhs[k + 1] = _restrict(h, k, r_k)
+    with span(f"aggmg.vcycle.{_KINDS.get(b.dtype, b.dtype)}"):
+        for k in range(n - 1):
+            level = h.levels[k]
+            with span(f"aggmg.smooth@{k}"):
+                if k > 0:
+                    u[k] = torch.zeros_like(rhs[k])
+                u[k], r_k = _smooth_n_residual(
+                    level, u[k], rhs[k], n_pre, alpha, group=_group(h, k)
+                )
+            with span(f"aggmg.transfer@{k}"):
+                rhs[k + 1] = _restrict(h, k, r_k)
 
-    # coarsest level: dense direct solve (cf. solvers.jl:39), whole on every rank
-    flat = _flatten_level_vec(rhs[n - 1])
-    u[n - 1] = _unflatten_level_vec(coarse_solve(h.coarse, flat), rhs[n - 1])
+        # coarsest level: dense direct solve (cf. solvers.jl:39), whole on every rank
+        with span("aggmg.coarse"):
+            flat = _flatten_level_vec(rhs[n - 1])
+            u[n - 1] = _unflatten_level_vec(coarse_solve(h.coarse, flat), rhs[n - 1])
 
-    for k in range(n - 2, -1, -1):
-        level = h.levels[k]
-        u[k] = u[k] + _prolong(h, k, u[k + 1])
-        u[k] = _smooth_n(level, u[k], rhs[k], n_post, alpha, group=_group(h, k))
+        for k in range(n - 2, -1, -1):
+            level = h.levels[k]
+            with span(f"aggmg.transfer@{k}"):
+                u[k] = u[k] + _prolong(h, k, u[k + 1])
+            with span(f"aggmg.smooth@{k}"):
+                u[k] = _smooth_n(level, u[k], rhs[k], n_post, alpha, group=_group(h, k))
     return u[0]
 
 
@@ -505,22 +527,32 @@ def multigrid(
     the finest operator; ``compute_error=False`` skips it for large problems.
     On a sharded hierarchy ``x0``, ``b`` and ``x`` are the rank's shards.
     """
-    u_exact = _dense_fine_solve(h, b) if compute_error else None
-    fine, g0 = h.levels[0], _group(h, 0)
-    norm_b = float(_norm(b, g0))
-    res_h = torch.full((maxiter,), float("nan"), dtype=torch.float64, device="cpu")
-    err_h = torch.full((maxiter,), float("nan"), dtype=torch.float64, device="cpu")
-    x = x0
-    it = 0
-    while it < maxiter:
-        x = v_cycle(h, x, b, n_pre=n_pre, n_post=n_post, alpha=alpha)
-        res = float(_norm(level_matvec(fine, x, g0) - b, g0))
-        res_h[it] = res
-        if u_exact is not None:
-            err_h[it] = float(_norm(_flatten_level_vec(x) - u_exact, g0))
-        it += 1
-        if res < tol * norm_b:
-            break
+    with span("aggmg.solve.multigrid"):
+        u_exact = _dense_fine_solve(h, b) if compute_error else None
+        fine, g0 = h.levels[0], _group(h, 0)
+        with span("aggmg.defect@0"):
+            norm_b = _norm(b, g0)
+        with span("aggmg.sync.norm_b"):
+            norm_b = float(norm_b)
+        res_h = torch.full((maxiter,), float("nan"), dtype=torch.float64, device="cpu")
+        err_h = torch.full((maxiter,), float("nan"), dtype=torch.float64, device="cpu")
+        x = x0
+        it = 0
+        while it < maxiter:
+            x = v_cycle(h, x, b, n_pre=n_pre, n_post=n_post, alpha=alpha)
+            with span("aggmg.defect@0"):
+                res = _norm(level_matvec(fine, x, g0) - b, g0)
+            with span("aggmg.sync.residual"):
+                res = float(res)
+            res_h[it] = res
+            if u_exact is not None:
+                with span("aggmg.defect@0"):
+                    err = _norm(_flatten_level_vec(x) - u_exact, g0)
+                with span("aggmg.sync.error"):
+                    err_h[it] = float(err)
+            it += 1
+            if res < tol * norm_b:
+                break
     return MultigridResult(x=x, iterations=it, res_history=res_h, err_history=err_h)
 
 
@@ -586,14 +618,20 @@ def _mixed_inner_solve(h_low, r, inner_tol, max_cycles, *, n_pre, n_post, alpha)
     inner residual, the cycles run, and after how many cycles the best came.
     One residual matvec (kernel K3) per cycle, and one host sync."""
     fine, g0 = h_low.levels[0], _group(h_low, 0)
-    norm_r = float(_norm(r, g0))
+    with span("aggmg.defect@0"):
+        norm_r = _norm(r, g0)
+    with span("aggmg.sync.inner_norm"):
+        norm_r = float(norm_r)
     big = float(torch.finfo(r.dtype).max)
     e = torch.zeros_like(r)
     best_e, best_res, best_i = e, big, 0
     i, res, prev = 0, norm_r, big
     while i < max_cycles and not (res < inner_tol * norm_r or res > 0.7 * prev):
         e = v_cycle(h_low, e, r, n_pre=n_pre, n_post=n_post, alpha=alpha)
-        new = float(_norm(r - _level_matvec_opt(fine, e, g0), g0))
+        with span("aggmg.defect@0"):
+            new = _norm(r - _level_matvec_opt(fine, e, g0), g0)
+        with span("aggmg.sync.inner_residual"):
+            new = float(new)
         if new < best_res:
             best_e, best_res, best_i = e, new, i + 1
         i, res, prev = i + 1, new, res
@@ -681,8 +719,11 @@ def _mixed_loop(h, h_low, x, b, norm_b, *, maxiter, tol, inner_tol, max_inner, k
     low_dtype = operator_data(h_low.levels[0].a).dtype
 
     def rel_defect(x):
-        r = b - level_matvec(fine, x, g0)
-        return r, float(_norm(r, g0)) / norm_b
+        with span("aggmg.defect@0"):
+            r = b - level_matvec(fine, x, g0)
+            norm_r = _norm(r, g0)
+        with span("aggmg.sync.defect"):
+            return r, float(norm_r) / norm_b
 
     def propose(x_best, r_best, cap, scale):
         e, n_cyc, i_best = _mixed_inner_solve(h_low, r_best.to(low_dtype), inner_tol, cap, **kw)
@@ -729,40 +770,44 @@ def _mixed_loop_ff(
             "_mixed_loop_ff(ffops=) takes an unsharded hierarchy (a sharded TRUE-precision solve is a "
             "feature the JAX package lacks: ROADMAP queue 1, item 15, open question)"
         )
-    kw = dict(n_pre=n_pre, n_post=n_post, alpha=alpha)
-    inv = float(np.float32(inv_norm_b))
-    info = {} if info is None else info
+    with span("aggmg.solve._mixed_loop_ff"):
+        kw = dict(n_pre=n_pre, n_post=n_post, alpha=alpha)
+        inv = float(np.float32(inv_norm_b))
+        info = {} if info is None else info
 
-    g0 = _group(h_low, 0)
+        g0 = _group(h_low, 0)
 
-    def rel_defect(x):
-        # only the hi part feeds the float32 inner solve: keep no lo tail
-        r = _ff_defect(a_ff, x, b_ff, g0).hi
-        return r, np.float32(float(_norm(_flatten_level_vec(r) * inv, g0)))
+        def rel_defect(x):
+            # only the hi part feeds the float32 inner solve: keep no lo tail
+            with span("aggmg.defect@0"):
+                r = _ff_defect(a_ff, x, b_ff, g0).hi
+                rel = _norm(_flatten_level_vec(r) * inv, g0)
+            with span("aggmg.sync.defect"):
+                return r, np.float32(float(rel))
 
-    def propose(x_best, r_best, cap, scale):
-        e, n_cyc, i_best = _mixed_inner_solve(h_low, r_best, inner_tol, cap, **kw)
-        e = e * scale  # a power of two: exact
-        return ff_add(x_best, FF(e, torch.zeros_like(e))), n_cyc, i_best
+        def propose(x_best, r_best, cap, scale):
+            e, n_cyc, i_best = _mixed_inner_solve(h_low, r_best, inner_tol, cap, **kw)
+            e = e * scale  # a power of two: exact
+            return ff_add(x_best, FF(e, torch.zeros_like(e))), n_cyc, i_best
 
-    x, outer, cycles, rel_h = _guarded_refinement(
-        rel_defect, propose, x_ff, maxiter=maxiter, tol=np.float32(tol), max_inner=max_inner,
-        trickle=ffops is not None, info=info,
-    )
-    info.update(guarded_outer=outer, guarded_cycles=cycles, true_cycles=0)
-    remaining = maxiter - max(cycles, outer)
-    if ffops is not None and outer > 0 and rel_h[outer - 1] > tol and remaining > 0:
-        # the guarded working set (best pair, its defect, the last correction)
-        # went with _guarded_refinement's frame: the true cycle needs ~2x the
-        # float32 cycle's memory
-        x, it2, res2 = _progressive_true_eager(
-            h_low, ffops, x, b_ff, inv_norm_b, maxiter=remaining, tol=tol, **kw
+        x, outer, cycles, rel_h = _guarded_refinement(
+            rel_defect, propose, x_ff, maxiter=maxiter, tol=np.float32(tol), max_inner=max_inner,
+            trickle=ffops is not None, info=info,
         )
-        rel_h[outer : outer + it2] = res2[:it2]
-        outer += it2
-        cycles += it2
-        info["true_cycles"] = it2
-    return x, outer, cycles, rel_h.astype(np.float32)
+        info.update(guarded_outer=outer, guarded_cycles=cycles, true_cycles=0)
+        remaining = maxiter - max(cycles, outer)
+        if ffops is not None and outer > 0 and rel_h[outer - 1] > tol and remaining > 0:
+            # the guarded working set (best pair, its defect, the last correction)
+            # went with _guarded_refinement's frame: the true cycle needs ~2x the
+            # float32 cycle's memory
+            x, it2, res2 = _progressive_true_eager(
+                h_low, ffops, x, b_ff, inv_norm_b, maxiter=remaining, tol=tol, **kw
+            )
+            rel_h[outer : outer + it2] = res2[:it2]
+            outer += it2
+            cycles += it2
+            info["true_cycles"] = it2
+        return x, outer, cycles, rel_h.astype(np.float32)
 
 
 def multigrid_mixed(
@@ -800,24 +845,28 @@ def multigrid_mixed(
     On sharded hierarchies (``h`` and ``h_low`` from ``shard_hierarchy``)
     ``x0``, ``b`` and ``x`` are the rank's shards.
     """
-    norm_b = float(_norm(b, _group(h, 0)))
-    kw = dict(n_pre=n_pre, n_post=n_post, alpha=alpha)
-    x, outer, cycles, rel_h = _mixed_loop(
-        h, h_low, x0.to(torch.float64), b, norm_b,
-        maxiter=maxiter, tol=tol, inner_tol=inner_tol, max_inner=max_inner, kw=kw,
-    )
-    rel_out = rel_h[outer - 1] if outer > 0 else np.inf
-    remaining = maxiter - max(cycles, outer)
-    if rel_out > tol and remaining > 0:
-        a_ffs = tuple(_ff_split_level(lv) for lv in h.levels)
-        x_ff, it2, res2 = _progressive_loop(
-            h_low, a_ffs, ff_split(x), ff_split(b), np.float32(1.0 / norm_b),
-            maxiter=remaining, tol=tol, **kw,
+    with span("aggmg.solve.multigrid_mixed"):
+        with span("aggmg.defect@0"):
+            norm_b = _norm(b, _group(h, 0))
+        with span("aggmg.sync.norm_b"):
+            norm_b = float(norm_b)
+        kw = dict(n_pre=n_pre, n_post=n_post, alpha=alpha)
+        x, outer, cycles, rel_h = _mixed_loop(
+            h, h_low, x0.to(torch.float64), b, norm_b,
+            maxiter=maxiter, tol=tol, inner_tol=inner_tol, max_inner=max_inner, kw=kw,
         )
-        rel_h[outer : outer + it2] = res2[:it2]
-        outer += it2
-        cycles += it2
-        x = ff_join(x_ff)
+        rel_out = rel_h[outer - 1] if outer > 0 else np.inf
+        remaining = maxiter - max(cycles, outer)
+        if rel_out > tol and remaining > 0:
+            a_ffs = tuple(_ff_split_level(lv) for lv in h.levels)
+            x_ff, it2, res2 = _progressive_loop(
+                h_low, a_ffs, ff_split(x), ff_split(b), np.float32(1.0 / norm_b),
+                maxiter=remaining, tol=tol, **kw,
+            )
+            rel_h[outer : outer + it2] = res2[:it2]
+            outer += it2
+            cycles += it2
+            x = ff_join(x_ff)
     return MultigridResult(
         x=x,
         iterations=outer,
@@ -932,20 +981,27 @@ def v_cycle_ff(
     rhs = [None] * n
     u[0], rhs[0] = u_ff, rhs_ff
 
-    for k in range(n - 1):
-        level, g = h_low.levels[k], _group(h_low, k)
-        if k > 0:
-            u[k] = _ff_zeros_like(rhs[k])
-        u[k] = _smooth_ff(level, u[k], rhs[k], n_pre, alpha, group=g)
-        r_ff = _ff_defect(a_ffs[k], u[k], rhs[k], g)
-        rhs[k + 1] = FF(_restrict(h_low, k, r_ff.hi), _restrict(h_low, k, r_ff.lo))
+    with span("aggmg.vcycle.ff"):
+        for k in range(n - 1):
+            level, g = h_low.levels[k], _group(h_low, k)
+            with span(f"aggmg.smooth@{k}"):
+                if k > 0:
+                    u[k] = _ff_zeros_like(rhs[k])
+                u[k] = _smooth_ff(level, u[k], rhs[k], n_pre, alpha, group=g)
+            with span(f"aggmg.defect@{k}"):
+                r_ff = _ff_defect(a_ffs[k], u[k], rhs[k], g)
+            with span(f"aggmg.transfer@{k}"):
+                rhs[k + 1] = FF(_restrict(h_low, k, r_ff.hi), _restrict(h_low, k, r_ff.lo))
 
-    u[n - 1] = _coarse_ff(h_low, a_ffs[n - 1], rhs[n - 1], coarse64)
+        with span("aggmg.coarse"):
+            u[n - 1] = _coarse_ff(h_low, a_ffs[n - 1], rhs[n - 1], coarse64)
 
-    for k in range(n - 2, -1, -1):
-        corr = FF(_prolong(h_low, k, u[k + 1].hi), _prolong(h_low, k, u[k + 1].lo))
-        u[k] = ff_add(u[k], corr)
-        u[k] = _smooth_ff(h_low.levels[k], u[k], rhs[k], n_post, alpha, group=_group(h_low, k))
+        for k in range(n - 2, -1, -1):
+            with span(f"aggmg.transfer@{k}"):
+                corr = FF(_prolong(h_low, k, u[k + 1].hi), _prolong(h_low, k, u[k + 1].lo))
+                u[k] = ff_add(u[k], corr)
+            with span(f"aggmg.smooth@{k}"):
+                u[k] = _smooth_ff(h_low.levels[k], u[k], rhs[k], n_post, alpha, group=_group(h_low, k))
     return u[0]
 
 
@@ -972,8 +1028,10 @@ def _progressive_loop(
     res_h = np.full((maxiter,), np.nan, dtype=np.float32)
     it = 0
     while it < maxiter:
-        r_ff, rel = _ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b, g0)
-        rel = np.float32(float(rel))  # a 0-d tensor on the level's device
+        with span("aggmg.defect@0"):
+            r_ff, rel = _ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b, g0)
+        with span("aggmg.sync.defect"):
+            rel = np.float32(float(rel))  # a 0-d tensor on the level's device
         if it > 0:
             res_h[it - 1] = rel
         if rel < tol32:
@@ -982,7 +1040,10 @@ def _progressive_loop(
         x_ff = ff_add(x_ff, e_ff)
         it += 1
     if it > 0:  # the defect of the final iterate
-        res_h[it - 1] = np.float32(float(_ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b, g0)[1]))
+        with span("aggmg.defect@0"):
+            rel = _ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b, g0)[1]
+        with span("aggmg.sync.defect"):
+            res_h[it - 1] = np.float32(float(rel))
     return x_ff, it, res_h
 
 
@@ -1004,12 +1065,16 @@ def multigrid_progressive(
     :func:`multigrid_mixed`'s float32 inner V-cycle is no contraction.
     ``iterations`` counts V-cycles (``solvers.jl:116-139``); ``x`` is float64.
     Sharded hierarchies as in :func:`multigrid_mixed`."""
-    a_ffs = tuple(_ff_split_level(lv) for lv in h.levels)
-    norm_b = float(_norm(b, _group(h, 0)))
-    x_ff, it, rel_h = _progressive_loop(
-        h_low, a_ffs, ff_split(x0.to(torch.float64)), ff_split(b), np.float32(1.0 / norm_b),
-        maxiter=maxiter, tol=tol, n_pre=n_pre, n_post=n_post, alpha=alpha,
-    )
+    with span("aggmg.solve.multigrid_progressive"):
+        a_ffs = tuple(_ff_split_level(lv) for lv in h.levels)
+        with span("aggmg.defect@0"):
+            norm_b = _norm(b, _group(h, 0))
+        with span("aggmg.sync.norm_b"):
+            norm_b = float(norm_b)
+        x_ff, it, rel_h = _progressive_loop(
+            h_low, a_ffs, ff_split(x0.to(torch.float64)), ff_split(b), np.float32(1.0 / norm_b),
+            maxiter=maxiter, tol=tol, n_pre=n_pre, n_post=n_post, alpha=alpha,
+        )
     return MultigridResult(
         x=ff_join(x_ff),
         iterations=it,
@@ -1082,18 +1147,29 @@ def v_cycle_true(h_low: Hierarchy, ffops, rhs_ff: FF, k: int = 0, *, n_pre=3, n_
     """One TRUE-precision V-cycle from zero on levels ``k..end`` (see the
     section comment; ``ffops`` is ``stencil_setup.FFOps``).  On a stencil
     fine level it launches K6 ``n_pre + 1 + n_post`` times."""
+    with span("aggmg.vcycle.true"):
+        return _true_levels(h_low, ffops, rhs_ff, k, n_pre, n_post, alpha)
+
+
+def _true_levels(h_low: Hierarchy, ffops, rhs_ff: FF, k: int, n_pre, n_post, alpha) -> FF:
+    """:func:`v_cycle_true`'s recursion on levels ``k..end``."""
     if k == h_low.n_levels - 1:
-        return _true_coarse_solve(ffops.coarse64, rhs_ff)
+        with span("aggmg.coarse"):
+            return _true_coarse_solve(ffops.coarse64, rhs_ff)
     lv = h_low.levels[k]
     t32, t_lo = h_low.transfers[k], ffops.t_los[k]
-    u = _smooth_true(lv, ffops.a_ffs[k], _ff_zeros_like(rhs_ff), rhs_ff, n_pre, alpha)
-    r = ff_defect(ffops.a_ffs[k], u, rhs_ff)
-    e_c = v_cycle_true(
-        h_low, ffops, _restrict_true(t32, t_lo, r), k + 1, n_pre=n_pre, n_post=n_post, alpha=alpha
-    )
-    del r
-    u = ff_add(u, _prolong_true(t32, t_lo, e_c))
-    return _smooth_true(lv, ffops.a_ffs[k], u, rhs_ff, n_post, alpha)
+    with span(f"aggmg.smooth@{k}"):
+        u = _smooth_true(lv, ffops.a_ffs[k], _ff_zeros_like(rhs_ff), rhs_ff, n_pre, alpha)
+    with span(f"aggmg.defect@{k}"):
+        r = ff_defect(ffops.a_ffs[k], u, rhs_ff)
+    with span(f"aggmg.transfer@{k}"):
+        r_c = _restrict_true(t32, t_lo, r)
+    e_c = _true_levels(h_low, ffops, r_c, k + 1, n_pre, n_post, alpha)
+    del r, r_c
+    with span(f"aggmg.transfer@{k}"):
+        u = ff_add(u, _prolong_true(t32, t_lo, e_c))
+    with span(f"aggmg.smooth@{k}"):
+        return _smooth_true(lv, ffops.a_ffs[k], u, rhs_ff, n_post, alpha)
 
 
 def _f64_rel_defect(a_st: BTFFStencil, x_ff: FF, b_ff: FF, inv_norm_b) -> tuple:
@@ -1119,8 +1195,10 @@ def _progressive_true_eager(
     res_h = np.full((maxiter,), np.nan, dtype=np.float64)
     it = 0
     while it < maxiter:
-        r_ff, rel = defect(ffops.a_ffs[0], x_ff, b_ff, inv_norm_b)
-        rel = float(rel)
+        with span("aggmg.defect@0"):
+            r_ff, rel = defect(ffops.a_ffs[0], x_ff, b_ff, inv_norm_b)
+        with span("aggmg.sync.defect"):
+            rel = float(rel)
         if it > 0:
             res_h[it - 1] = rel
         if rel < float(tol):
@@ -1131,7 +1209,10 @@ def _progressive_true_eager(
         del e_ff
         it += 1
     if it > 0:
-        res_h[it - 1] = float(defect(ffops.a_ffs[0], x_ff, b_ff, inv_norm_b)[1])
+        with span("aggmg.defect@0"):
+            rel = defect(ffops.a_ffs[0], x_ff, b_ff, inv_norm_b)[1]
+        with span("aggmg.sync.defect"):
+            res_h[it - 1] = float(rel)
     return x_ff, it, res_h
 
 
@@ -1171,13 +1252,14 @@ def multigrid_true(
             "multigrid_true takes an unsharded hierarchy (a sharded TRUE-precision solve is a feature "
             "the JAX package lacks: ROADMAP queue 1, item 15, open question)"
         )
-    if x0_ff is None:
-        zero = torch.zeros_like(b_ff.hi)
-        x0_ff = FF(zero, zero)
-    x_ff, it, res_h = _progressive_true_eager(
-        h_low, ffops, x0_ff, b_ff, np.float32(1.0 / norm_b),
-        maxiter=maxiter, tol=tol, n_pre=n_pre, n_post=n_post, alpha=alpha,
-    )
+    with span("aggmg.solve.multigrid_true"):
+        if x0_ff is None:
+            zero = torch.zeros_like(b_ff.hi)
+            x0_ff = FF(zero, zero)
+        x_ff, it, res_h = _progressive_true_eager(
+            h_low, ffops, x0_ff, b_ff, np.float32(1.0 / norm_b),
+            maxiter=maxiter, tol=tol, n_pre=n_pre, n_post=n_post, alpha=alpha,
+        )
     return MultigridResult(
         x=ff_join(x_ff),
         iterations=it,

@@ -30,7 +30,6 @@ for DG-topped and CG-topped chains.  Ragged agglomerates and penta-diagonal
 
 from __future__ import annotations
 
-import time
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -48,6 +47,7 @@ from ..smoothers.smoother import (
 )
 from ..utils.config import HierarchySpec
 from ..utils.precision import hierarchy_astype, tree_to
+from ..utils.profiling import span
 from .hierarchy import BlockLevel, CgLevel, Hierarchy
 
 # stencil extraction width, in elements (blocks).  Boundary influence never
@@ -423,18 +423,6 @@ class FFOps(NamedTuple):
     coarse64: object  # float64 coarse factorization
 
 
-def _tick(timings, key, t0, device) -> float:
-    """Record the seconds since ``t0`` under ``key`` (after the device's queue
-    drained) when ``timings`` is a dict; returns the new start."""
-    if timings is None:
-        return t0
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t1 = time.perf_counter()
-    timings[key] = timings.get(key, 0.0) + (t1 - t0)
-    return t1
-
-
 def build_xl_problem(
     spec: HierarchySpec,
     n: int,
@@ -471,43 +459,44 @@ def build_xl_problem(
     * ``ff_levels=True`` returns an :class:`FFOps` in the ``a_ff`` slot: the
       inputs of ``solvers.multigrid_true``.
 
-    ``timings``, a dict, receives the seconds of the three setup phases:
-    ``"host_stencil"`` (the float64 stencil-size build, the float32 cast and
-    the Chebyshev bounds), ``"inflate"`` (the full-size tensors and coarse
-    factorizations on ``device``) and ``"rhs"`` (the float64 rhs on
-    ``device``, its norm and its float-float split)."""
+    The three setup phases are spans ``aggmg.setup.<phase>``
+    (``utils.profiling.span``); ``timings``, a dict, receives their seconds,
+    the device drained at each end: ``"host_stencil"`` (the float64
+    stencil-size build, the float32 cast and the Chebyshev bounds),
+    ``"inflate"`` (the full-size tensors and coarse factorizations on
+    ``device``) and ``"rhs"`` (the float64 rhs on ``device``, its norm and
+    its float-float split)."""
     from ..ops.df64 import ff_split
 
     device = torch.device(device)
-    t0 = time.perf_counter()
-    st = _stencil_problem(spec, n, func, bc, z=z, bw=bw, dtype=dtype, chebyshev=chebyshev,
-                          slim_fine=slim_fine, domain=domain)
-    prob0, h64, a_ff_small, h_low0, z, h, xin, func, bc = st
-    t0 = _tick(timings, "host_stencil", t0, device)
+    with span("aggmg.setup.host_stencil", timings):
+        prob0, h64, a_ff_small, h_low0, z, h, xin, func, bc = _stencil_problem(
+            spec, n, func, bc, z=z, bw=bw, dtype=dtype, chebyshev=chebyshev, slim_fine=slim_fine, domain=domain
+        )
 
     # 2) inflate the solve hierarchy and the float-float operators on the device
-    h_low = inflate_hierarchy(h_low0, h64, z, bw=bw, device=device)
-    if slim_fine:
-        a_ff = _stencil_ff_fine(a_ff_small, n, bw, device)
-    else:
-        a_ff = _inflate_ff_fine(a_ff_small, h_low.levels[0], z, bw, device)
-    if ff_levels:
-        a_ffs = (a_ff,) + _inflate_ff_tail(h64, h_low, z, bw, device)
-        t_los = _inflate_transfer_los(h64, z, bw, device)
-        # the float64 coarse factorization of the progressive cycles
-        coarse64 = _coarse_factor(h64.levels[-1].a, z, bw, "coarse64.a", device)
-        a_ff = FFOps(a_ffs=a_ffs, t_los=t_los, coarse64=coarse64)
-    t0 = _tick(timings, "inflate", t0, device)
+    with span("aggmg.setup.inflate", timings):
+        h_low = inflate_hierarchy(h_low0, h64, z, bw=bw, device=device)
+        if slim_fine:
+            a_ff = _stencil_ff_fine(a_ff_small, n, bw, device)
+        else:
+            a_ff = _inflate_ff_fine(a_ff_small, h_low.levels[0], z, bw, device)
+        if ff_levels:
+            a_ffs = (a_ff,) + _inflate_ff_tail(h64, h_low, z, bw, device)
+            t_los = _inflate_transfer_los(h64, z, bw, device)
+            # the float64 coarse factorization of the progressive cycles
+            coarse64 = _coarse_factor(h64.levels[-1].a, z, bw, "coarse64.a", device)
+            a_ff = FFOps(a_ffs=a_ffs, t_los=t_los, coarse64=coarse64)
 
     # 3) the O(n) rhs, in float64 on the device, split to float-float
-    if spec.cg_orders:
-        b = _uniform_cg_b(prob0, n, h, xin, func, bc, device)
-    else:
-        b = _uniform_dg_b(prob0, n, h, xin, func, bw, device)
-    norm_b = float(torch.linalg.vector_norm(b))
-    b_ff = ff_split(b)
-    del b
-    _tick(timings, "rhs", t0, device)
+    with span("aggmg.setup.rhs", timings):
+        if spec.cg_orders:
+            b = _uniform_cg_b(prob0, n, h, xin, func, bc, device)
+        else:
+            b = _uniform_dg_b(prob0, n, h, xin, func, bw, device)
+        norm_b = float(torch.linalg.vector_norm(b))
+        b_ff = ff_split(b)
+        del b
     return h_low, a_ff, b_ff, norm_b
 
 

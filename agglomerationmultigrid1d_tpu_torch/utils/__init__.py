@@ -1,7 +1,7 @@
 from .config import CycleParams, HierarchySpec, SolveParams
 from .precision import hierarchy_astype, tree_astype, tree_map, tree_to
 from .checkpoint import load_solver_state, save_solver_state
-from .profiling import device_trace, nnz_per_second, sync, wall_timer
+from .profiling import device_trace, span, sync
 
 __all__ = [
     "CycleParams",
@@ -14,7 +14,6 @@ __all__ = [
     "load_solver_state",
     "save_solver_state",
     "device_trace",
-    "nnz_per_second",
+    "span",
     "sync",
-    "wall_timer",
 ]

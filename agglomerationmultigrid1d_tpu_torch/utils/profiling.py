@@ -1,6 +1,6 @@
-"""Profiling helpers: a wall timer, a rate, a forced device sync, and a
-``torch.profiler`` trace written as a Chrome trace (CUDA activity included
-when a card is there)."""
+"""Profiling helpers: the span every timed region of the port is, a forced
+device sync, and a ``torch.profiler`` trace written as a Chrome trace (CUDA
+activity included when a card is there)."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import os
 import time
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 from .precision import tree_map
 
@@ -23,20 +24,55 @@ def sync(x) -> float:
     return float(sum(float(t.sum()) for t in leaves))
 
 
-@contextlib.contextmanager
-def wall_timer(label: str = "", sink=None):
-    """``with wall_timer("solve") as t: ...`` then ``t()`` gives seconds;
-    ``sink(label, seconds)`` is called on exit."""
-    t0 = time.perf_counter()
-    result = {}
-    yield lambda: result.get("dt", time.perf_counter() - t0)
-    result["dt"] = time.perf_counter() - t0
-    if sink is not None:
-        sink(label, result["dt"])
+class span:
+    """``with span("aggmg.smooth@2"): ...`` marks the enclosed host work for
+    ``torch.profiler`` as a ``cpu_op`` event of that name: on the profiler's
+    clock, beside the operators and kernel launches it encloses, and not a
+    user annotation, which the profiler would mirror onto the device's
+    timeline.  With no ``sink``, ``span(name)`` is the profiler's fast
+    record function itself (half a microsecond to enter and leave with no
+    profiler running, the cost of a hot path's span), and it never waits
+    for the device.
+
+    With a ``sink`` it also times the region on the host clock, the
+    device's queue drained at both ends (``torch.cuda.synchronize`` once
+    CUDA is in use), into ``seconds``; a dict sink adds them under the
+    name's last dotted part, a callable gets ``(name, seconds)``."""
+
+    __slots__ = ("name", "sink", "seconds", "_rf", "_t0")
+
+    def __new__(cls, name: str, sink=None):
+        if sink is None:
+            return _RecordFunctionFast(name)
+        return super().__new__(cls)
+
+    def __init__(self, name: str, sink=None):
+        self.name = name
+        self.sink = sink
+        self.seconds = None
+
+    def __enter__(self):
+        _drain()
+        self._t0 = time.perf_counter()
+        self._rf = _RecordFunctionFast(self.name)
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        _drain()
+        self.seconds = time.perf_counter() - self._t0
+        if callable(self.sink):
+            self.sink(self.name, self.seconds)
+        else:
+            key = self.name.rsplit(".", 1)[-1]
+            self.sink[key] = self.sink.get(key, 0.0) + self.seconds
+        return False
 
 
-def nnz_per_second(nnz: int, seconds: float) -> float:
-    return nnz / seconds
+def _drain() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 @contextlib.contextmanager

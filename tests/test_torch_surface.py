@@ -78,11 +78,10 @@ from agglomerationmultigrid1d_tpu_torch.utils import (
     SolveParams,
     device_trace,
     load_solver_state,
-    nnz_per_second,
     save_solver_state,
+    span,
     sync,
     tree_astype,
-    wall_timer,
 )
 
 RTOL = 1e-12
@@ -217,16 +216,21 @@ def test_checkpoints_cross_between_the_packages(tmp_path):
 def test_profiling_helpers(tmp_path):
     a, b = torch.arange(6.0).reshape(2, 3), torch.ones(4, dtype=torch.float64)
     assert sync((a, [b])) == 15.0 + 4.0
-    seen = []
-    with wall_timer("step", sink=lambda label, dt: seen.append((label, dt))) as t:
+    seen, totals = [], {}
+    with span("aggmg.setup.step", sink=lambda name, dt: seen.append((name, dt))) as t:
         torch.linalg.inv(torch.eye(64) * 2.0)
-    assert seen and seen[0][0] == "step" and seen[0][1] == t() >= 0.0
-    assert nnz_per_second(10, 4.0) == 2.5
+    assert seen and seen[0][0] == "aggmg.setup.step" and seen[0][1] == t.seconds >= 0.0
+    for _ in range(2):  # a dict sink adds up under the name's last part
+        with span("aggmg.setup.step", totals):
+            torch.linalg.inv(torch.eye(64) * 2.0)
+    assert list(totals) == ["step"] and totals["step"] >= 0.0
+    assert not isinstance(span("aggmg.x"), span)  # no sink: the profiler's record function itself
     prob = poisson_dg_hierarchy(n=16, max_p=2, n_dg=2, device="cpu")
     with device_trace(str(tmp_path / "trace")) as prof:
         multigrid(prob.hierarchy, torch.zeros_like(prob.b), prob.b, 1, 1e-10, compute_error=False)
     events = json.load(open(tmp_path / "trace" / "trace.json"))["traceEvents"]
     assert any("einsum" in e.get("name", "") for e in events)
+    assert {"aggmg.solve.multigrid", "aggmg.vcycle.f64", "aggmg.coarse"} <= {e.get("name") for e in events}
     assert prof.key_averages()
 
 

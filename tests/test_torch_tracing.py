@@ -1,0 +1,199 @@
+"""The spans of the port's solvers (``utils.profiling.span``) under
+``torch.profiler`` on the CPU: ``aggmg.solve.<driver>``,
+``aggmg.vcycle.<kind>``, the four phases ``aggmg.smooth@k``,
+``aggmg.transfer@k``, ``aggmg.coarse`` and ``aggmg.defect@k``, and
+``aggmg.sync.<site>`` around each host read.  Four drivers on tiny problems:
+``multigrid`` and ``multigrid_mixed`` on ``poisson_dg_hierarchy``,
+``multigrid_true`` and the hand-over ``_mixed_loop_ff(ffops=)`` on a
+``build_xl_problem(..., ff_levels=True)`` bundle."""
+
+import functools
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from agglomerationmultigrid1d_tpu_torch.models import (
+    build_xl_problem,
+    make_low_precision_hierarchy,
+    multigrid,
+    multigrid_mixed,
+    multigrid_true,
+    poisson_dg_hierarchy,
+)
+from agglomerationmultigrid1d_tpu_torch.models.solvers import _mixed_loop_ff
+from agglomerationmultigrid1d_tpu_torch.ops.df64 import FF
+from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
+
+PHASES = ("smooth", "transfer", "coarse", "defect")
+XL_N = 1024
+XL_SPEC = dict(cg_orders=(), dg_orders=(1,), n_agg_levels=4, p_agg=1, c_dir=1000.0 * XL_N)
+
+
+def _slice(n):
+    return poisson_dg_hierarchy(n=n, max_p=3, n_dg=2, n_agg=2, device="cpu")
+
+
+def _xl():
+    return build_xl_problem(HierarchySpec(**XL_SPEC), XL_N, slim_fine=True, ff_levels=True, device="cpu")
+
+
+def _multigrid():
+    prob = _slice(32)
+
+    def solve():
+        res = multigrid(prob.hierarchy, torch.zeros_like(prob.b), prob.b, 40, 1e-10)
+        return res.iterations, {"f64": res.iterations}
+
+    return "multigrid", prob.hierarchy.n_levels, solve
+
+
+def _multigrid_mixed():
+    prob = _slice(64)
+    h_low = make_low_precision_hierarchy(prob.hierarchy)
+
+    def solve():
+        res = multigrid_mixed(prob.hierarchy, h_low, torch.zeros_like(prob.b), prob.b, 40, 1e-10)
+        return res.inner_cycles, {"f32": res.inner_cycles}
+
+    return "multigrid_mixed", h_low.n_levels, solve
+
+
+def _multigrid_true():
+    h, ffops, b, norm_b = _xl()
+
+    def solve():
+        res = multigrid_true(h, ffops, b, norm_b, 12, 1e-10)
+        return res.iterations, {"true": res.iterations}
+
+    return "multigrid_true", h.n_levels, solve
+
+
+def _handover():
+    """``inner_tol`` 0.5: the guard trickles and hands over to true cycles."""
+    h, ffops, b, norm_b = _xl()
+    z = torch.zeros_like(b.hi)
+
+    def solve():
+        info = {}
+        _, _, cycles, _ = _mixed_loop_ff(h, ffops.a_ffs[0], FF(z, z), b, np.float32(1.0 / norm_b), maxiter=40,
+                                         tol=1e-9, inner_tol=0.5, max_inner=20, ffops=ffops, info=info)
+        assert info["true_cycles"] > 0 and info["guarded_cycles"] > 0
+        return cycles, {"f32": info["guarded_cycles"], "true": info["true_cycles"]}
+
+    return "_mixed_loop_ff", h.n_levels, solve
+
+
+CASES = {"multigrid": _multigrid, "multigrid_mixed": _multigrid_mixed, "multigrid_true": _multigrid_true,
+         "handover": _handover}
+
+
+@functools.lru_cache(maxsize=None)
+def _traced(case):
+    """One solve of ``case`` under the profiler: its kineto events as
+    ``(name, start, end, is_user_annotation)``, sorted by start."""
+    driver, n_levels, solve = CASES[case]()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        cycles, kinds = solve()
+    events = sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns(), e.is_user_annotation())
+                     for e in prof.profiler.kineto_results.events()), key=lambda e: e[1])
+    return SimpleNamespace(driver=driver, n_levels=n_levels, cycles=cycles, kinds=kinds, events=events)
+
+
+def _named(tr, prefix):
+    return [e for e in tr.events if e[0].startswith(prefix)]
+
+
+def _phase(name):
+    p = name.removeprefix("aggmg.").split("@")[0]
+    return p if name.startswith("aggmg.") and p in PHASES else None
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_spans_are_cpu_ops_not_annotations(case):
+    tr = _traced(case)
+    spans = _named(tr, "aggmg.")
+    assert spans and not any(e[3] for e in spans)
+    assert [e[0] for e in _named(tr, "aggmg.solve.")] == [f"aggmg.solve.{tr.driver}"]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_one_vcycle_span_per_cycle(case):
+    tr = _traced(case)
+    assert tr.cycles > 0 and len(_named(tr, "aggmg.vcycle.")) == tr.cycles
+    for kind, n in tr.kinds.items():
+        assert len(_named(tr, f"aggmg.vcycle.{kind}")) == n, kind
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_each_level_smooths_and_transfers_twice_a_cycle(case):
+    tr = _traced(case)
+    for k in range(tr.n_levels - 1):
+        assert len(_named(tr, f"aggmg.smooth@{k}")) == 2 * tr.cycles, k
+        assert len(_named(tr, f"aggmg.transfer@{k}")) == 2 * tr.cycles, k
+    assert not _named(tr, f"aggmg.smooth@{tr.n_levels - 1}")
+    assert len([e for e in tr.events if e[0] == "aggmg.coarse"]) == tr.cycles
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_one_sync_span_per_host_read(case):
+    """Every host read (``aten::_local_scalar_dense``, what ``float(t)``
+    runs) lies in an ``aggmg.sync.*`` span, one read a span."""
+    tr = _traced(case)
+    syncs = _named(tr, "aggmg.sync.")
+    reads = [e for e in tr.events if e[0] == "aten::_local_scalar_dense"]
+    assert syncs and len(syncs) == len(reads)
+    for name, t0, t1, _ in syncs:
+        assert sum(t0 <= r[1] and r[2] <= t1 for r in reads) == 1, name
+    if case == "multigrid":  # ||b||, then the residual and the error after each cycle
+        assert len(syncs) == 1 + 2 * tr.cycles
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_phase_spans_enclose_their_operators(case):
+    """The phases never nest, never hold a host read, and each holds the
+    operators it starts, to their ends (one clock)."""
+    tr = _traced(case)
+    phases = [e for e in tr.events if _phase(e[0])]
+    assert {_phase(e[0]) for e in phases} == set(PHASES)
+    for a, b in zip(phases, phases[1:]):
+        assert a[2] <= b[1], (a[0], b[0])
+    held, i = [0] * len(phases), 0
+    for name, t0, t1, _ in tr.events:
+        if not name.startswith("aten::"):
+            continue
+        while i < len(phases) and phases[i][2] < t0:
+            i += 1
+        if i < len(phases) and phases[i][1] <= t0:
+            assert t1 <= phases[i][2] and name != "aten::_local_scalar_dense", (phases[i][0], name)
+            held[i] += 1
+    assert all(held)
+
+
+SETUP = {
+    "poisson_dg_hierarchy": (lambda t: poisson_dg_hierarchy(n=32, max_p=3, n_dg=2, n_agg=2, device="cpu", timings=t),
+                             ("meshes", "assemble", "hierarchy", "to_device")),
+    "build_xl_problem": (lambda t: build_xl_problem(HierarchySpec(**XL_SPEC), XL_N, slim_fine=True, ff_levels=True,
+                                                    device="cpu", timings=t),
+                         ("host_stencil", "inflate", "rhs")),
+}
+
+
+@pytest.mark.parametrize("builder", SETUP)
+def test_setup_phases_are_spans_and_timed(builder):
+    build, phases = SETUP[builder]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        build(None)
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                   for e in prof.profiler.kineto_results.events() if e.name().startswith("aggmg."))
+    outer, end = [], -1
+    for t0, t1, name in spans:  # the stencil build's own problem nests its set-up phases in host_stencil
+        if t0 >= end:
+            outer.append(name)
+            end = t1
+    assert outer == [f"aggmg.setup.{p}" for p in phases] and all(n.startswith("aggmg.setup.") for *_, n in spans)
+    timings = {}
+    build(timings)
+    assert tuple(timings) == phases and all(v >= 0.0 for v in timings.values())
