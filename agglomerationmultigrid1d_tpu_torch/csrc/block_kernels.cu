@@ -29,7 +29,9 @@
 // messages its ring neighbours receive, and edge_pair_kernel recomputes both
 // shard edges of a zero-ghost pass in one launch, reading the received
 // messages where the exchange left them.  aggmg_empty launches nothing but
-// an empty kernel: the launch floor those two are measured against.
+// an empty kernel: the launch floor those two are measured against.  The
+// block contractions (bd / bp_prolong / bp_restrict _gemv_kernel, float and
+// double) close the file's kernels; see their section.
 
 #include <cuda_runtime.h>
 
@@ -707,8 +709,8 @@ void launch_stream(const float* ml, const float* mu, const float* sinv, const fl
   stream_kernel<BS><<<grid, kThreads, 0, stream>>>(ml, mu, sinv, x, b, out, n);
 }
 
-}  // namespace
-
+// The block sizes every kernel below is instantiated for (SUPPORTED_BLOCK_SIZES
+// in ops/kernels/block_kernels.py); -1 for any other.
 #define AGGMG_DISPATCH_BS(bs, CALL) \
   switch (bs) {                     \
     case 1: CALL(1); break;         \
@@ -719,6 +721,215 @@ void launch_stream(const float* ml, const float* mu, const float* sinv, const fl
     case 9: CALL(9); break;         \
     default: return -1;             \
   }
+
+// ---------------------------------------------------------------------------
+// The block contractions of the solve path: bd_gemv_kernel (every
+// block-Jacobi apply, ops/block_diag.py:bd_matvec), bp_prolong_gemv_kernel
+// and bp_restrict_gemv_kernel (every block-aligned transfer,
+// ops/transfer_ops.py:bp_prolong / bp_restrict).  They replace no Pallas
+// kernel: the JAX package leaves these jnp.einsum contractions to XLA, which
+// fuses them; on the card torch.einsum handed them to the library's batched
+// gemv, with a copy of the operands to (n, bs, bs) before and a permute
+// after.  Each moves a few FLOPs per byte, so device-memory bandwidth bounds
+// it: the blocks, the input vector and the output are each touched once.
+// One thread per (coarse) block column reads the SoA streams coalesced; no
+// copy is made, the prolongation stores its r fine columns in fine order (the
+// permute folded into the store, one vector store per row for r = 2 and 4)
+// and the restriction reads them (across a warp the r offsets' loads cover
+// one contiguous run, served by L1).
+//
+// Rounding: every output entry as the library's batched gemv rounds it at
+// the cells' shapes (measured on the card for K = 1-4,
+// tools/gemv_rounding_order.py; K = 5 and 9 take the same rule, unmeasured):
+// the contracted index split in halves j < H and j >= H, H = ceil(K / 2),
+// each half m_first v_first then fma(m_j, v_j, acc) ascending, the halves
+// added: K = 2 gives m_0 v_0 + m_1 v_1 (both products rounded), K = 4
+// fma(m_1, v_1, m_0 v_0) + fma(m_3, v_3, m_2 v_2).  The restriction adds its
+// r offsets' contractions in ascending j with rounded adds, as
+// ops/transfer_ops.py did.  Explicit intrinsics, so the compiler
+// fuses nothing else.  Templated on the block sizes of the other kernels
+// (AGGMG_DISPATCH_BS: the apply's bs, each transfer's bs_f and bs_c) and on
+// float / double; operands at any element strides (an expanded r = 1
+// prolongation has column stride 0), outputs contiguous.
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+// m[0] v[0] rounded, then one fma per further term, ascending (N terms)
+template <int N, typename T>
+__device__ __forceinline__ T fma_chain(const T* __restrict__ m, long long stride, const T* v) {
+  T acc = mul_rn(m[0], v[0]);
+#pragma unroll
+  for (int j = 1; j < N; ++j) acc = fma_rn(m[j * stride], v[j], acc);
+  return acc;
+}
+
+// sum_j m[j * stride] v[j], j < K, in the library's order (see above): the
+// halves j < H and j >= H, H = ceil(K / 2), each an fma chain, then added
+template <int K, typename T>
+__device__ __forceinline__ T dot_gemv(const T* __restrict__ m, long long stride, const T (&v)[K]) {
+  constexpr int H = (K + 1) / 2;
+  const T lo = fma_chain<H>(m, stride, v);
+  if constexpr (H == K) {
+    return lo;
+  } else {
+    return add_rn(lo, fma_chain<K - H>(m + H * stride, stride, v + H));
+  }
+}
+
+// y[i, k] = sum_j blocks[i, j, k] x[j, k]; blocks' strides (s_i, s_j, s_n),
+// x's (x_i, x_n); y (BS, n) contiguous.
+template <int BS, typename T>
+__global__ void __launch_bounds__(kThreads)
+    bd_gemv_kernel(const T* __restrict__ blocks, long long s_i, long long s_j, long long s_n,
+                   const T* __restrict__ x, long long x_i, long long x_n, T* __restrict__ y,
+                   long long n) {
+  const long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n) return;
+  T v[BS];
+#pragma unroll
+  for (int j = 0; j < BS; ++j) v[j] = x[j * x_i + k * x_n];
+  const T* m = blocks + k * s_n;
+#pragma unroll
+  for (int i = 0; i < BS; ++i) y[i * n + k] = dot_gemv<BS>(m + i * s_i, s_j, v);
+}
+
+// A thread's R consecutive outputs of one row as aligned vector stores.
+__device__ __forceinline__ void store_run(float* p, const float (&v)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void store_run(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_run(double* p, const double (&v)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+__device__ __forceinline__ void store_run(double* p, const double (&v)[4]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
+// Fine column r c + j of y (BSF, r n_c) is blocks[j, :, :, c] @ xc[:, c];
+// blocks (r, BSF, BSC, n_c) at strides (s_j, s_i, s_b, s_c), xc at (x_b, x_c).
+// R = r in {2, 4}: a row's R fine columns leave as one vector store, so a
+// warp writes each row in one contiguous run (scalar stores r apart cost r
+// times the store transactions); y's rows are then aligned to R elements
+// (n_f = R n_c, and y is a fresh allocation).  R = 0: any r, scalar stores.
+template <int BSF, int BSC, int R, typename T>
+__global__ void __launch_bounds__(kThreads)
+    bp_prolong_gemv_kernel(const T* __restrict__ blocks, long long s_j, long long s_i,
+                           long long s_b, long long s_c, const T* __restrict__ xc, long long x_b,
+                           long long x_c, T* __restrict__ y, int r, long long n_c) {
+  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (c >= n_c) return;
+  T v[BSC];
+#pragma unroll
+  for (int b = 0; b < BSC; ++b) v[b] = xc[b * x_b + c * x_c];
+  const long long n_f = (long long)r * n_c;
+  if constexpr (R == 0) {
+    for (int j = 0; j < r; ++j) {
+      const T* m = blocks + j * s_j + c * s_c;
+#pragma unroll
+      for (int i = 0; i < BSF; ++i) y[i * n_f + r * c + j] = dot_gemv<BSC>(m + i * s_i, s_b, v);
+    }
+  } else {
+    T out[BSF][R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const T* m = blocks + j * s_j + c * s_c;
+#pragma unroll
+      for (int i = 0; i < BSF; ++i) out[i][j] = dot_gemv<BSC>(m + i * s_i, s_b, v);
+    }
+#pragma unroll
+    for (int i = 0; i < BSF; ++i) store_run(y + i * n_f + R * c, out[i]);
+  }
+}
+
+// out[b, c] = sum over j ascending of (sum_i blocks[j, i, b, c] rf[i, r c + j]);
+// blocks as for the prolongation, rf (BSF, r n_c) at (f_i, f_n), out (BSC, n_c).
+template <int BSF, int BSC, typename T>
+__global__ void __launch_bounds__(kThreads)
+    bp_restrict_gemv_kernel(const T* __restrict__ blocks, long long s_j, long long s_i,
+                            long long s_b, long long s_c, const T* __restrict__ rf,
+                            long long f_i, long long f_n, T* __restrict__ out, int r,
+                            long long n_c) {
+  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (c >= n_c) return;
+  T acc[BSC];
+  for (int j = 0; j < r; ++j) {
+    T v[BSF];
+#pragma unroll
+    for (int i = 0; i < BSF; ++i) v[i] = rf[i * f_i + (r * c + j) * f_n];
+    const T* m = blocks + j * s_j + c * s_c;
+#pragma unroll
+    for (int b = 0; b < BSC; ++b) {
+      const T t = dot_gemv<BSF>(m + b * s_b, s_i, v);
+      acc[b] = j == 0 ? t : add_rn(acc[b], t);
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < BSC; ++b) out[b * n_c + c] = acc[b];
+}
+
+template <int BS, typename T>
+void launch_bd_gemv(const void* blocks, long long s_i, long long s_j, long long s_n,
+                    const void* x, long long x_i, long long x_n, void* y, long long n,
+                    cudaStream_t stream) {
+  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  bd_gemv_kernel<BS, T><<<grid, kThreads, 0, stream>>>((const T*)blocks, s_i, s_j, s_n,
+                                                       (const T*)x, x_i, x_n, (T*)y, n);
+}
+
+template <int BSF, int BSC, typename T>
+void launch_bp_gemv(bool restrict_, const void* blocks, long long s_j, long long s_i,
+                    long long s_b, long long s_c, const void* v, long long v_0, long long v_1,
+                    void* out, int r, long long n_c, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((n_c + kThreads - 1) / kThreads);
+#define AGGMG_PROLONG(R)                                                        \
+  bp_prolong_gemv_kernel<BSF, BSC, R, T><<<grid, kThreads, 0, stream>>>(        \
+      (const T*)blocks, s_j, s_i, s_b, s_c, (const T*)v, v_0, v_1, (T*)out, r, n_c)
+  if (restrict_) {
+    bp_restrict_gemv_kernel<BSF, BSC, T><<<grid, kThreads, 0, stream>>>(
+        (const T*)blocks, s_j, s_i, s_b, s_c, (const T*)v, v_0, v_1, (T*)out, r, n_c);
+  } else if (r == 4) {
+    AGGMG_PROLONG(4);
+  } else if (r == 2) {
+    AGGMG_PROLONG(2);
+  } else {
+    AGGMG_PROLONG(0);
+  }
+#undef AGGMG_PROLONG
+}
+
+// Every pair (bs_f, bs_c) of the block sizes AGGMG_DISPATCH_BS has.
+template <int BSF, typename T>
+int dispatch_bp_gemv_c(bool restrict_, int bs_c, const void* blocks, long long s_j, long long s_i,
+                       long long s_b, long long s_c, const void* v, long long v_0, long long v_1,
+                       void* out, int r, long long n_c, cudaStream_t stream) {
+#define AGGMG_CALL(C) \
+  launch_bp_gemv<BSF, C, T>(restrict_, blocks, s_j, s_i, s_b, s_c, v, v_0, v_1, out, r, n_c, stream)
+  AGGMG_DISPATCH_BS(bs_c, AGGMG_CALL)
+#undef AGGMG_CALL
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_bp_gemv(bool restrict_, int bs_f, int bs_c, const void* blocks, long long s_j,
+                     long long s_i, long long s_b, long long s_c, const void* v, long long v_0,
+                     long long v_1, void* out, int r, long long n_c, cudaStream_t stream) {
+#define AGGMG_CALL(F)                                                                          \
+  return dispatch_bp_gemv_c<F, T>(restrict_, bs_c, blocks, s_j, s_i, s_b, s_c, v, v_0, v_1, out, \
+                                  r, n_c, stream)
+  AGGMG_DISPATCH_BS(bs_f, AGGMG_CALL)
+#undef AGGMG_CALL
+  return -1;  // not reached: every case returns
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -886,6 +1097,46 @@ int aggmg_stream(int bs, const void* ml, const void* mu, const void* sinv, const
   AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
 #undef AGGMG_CALL
   return (int)cudaGetLastError();
+}
+
+// The block contractions; f64 = 0 for float, 1 for double; -1 for a block
+// size without an instance.  Strides in elements.
+int aggmg_bd_gemv(int f64, int bs, const void* blocks, long long s_i, long long s_j,
+                  long long s_n, const void* x, long long x_i, long long x_n, void* y,
+                  long long n, void* stream) {
+#define AGGMG_CALL(BS)                                                                     \
+  if (f64) {                                                                               \
+    launch_bd_gemv<BS, double>(blocks, s_i, s_j, s_n, x, x_i, x_n, y, n,                   \
+                               (cudaStream_t)stream);                                      \
+  } else {                                                                                 \
+    launch_bd_gemv<BS, float>(blocks, s_i, s_j, s_n, x, x_i, x_n, y, n, (cudaStream_t)stream); \
+  }
+  AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
+#undef AGGMG_CALL
+  return (int)cudaGetLastError();
+}
+
+// blocks (r, bs_f, bs_c, n_c) at strides (s_j, s_i, s_b, s_c); xc (bs_c, n_c)
+// at (x_b, x_c); y (bs_f, r n_c).
+int aggmg_bp_prolong_gemv(int f64, int bs_f, int bs_c, const void* blocks, long long s_j,
+                          long long s_i, long long s_b, long long s_c, const void* xc,
+                          long long x_b, long long x_c, void* y, int r, long long n_c,
+                          void* stream) {
+  return f64 ? dispatch_bp_gemv<double>(false, bs_f, bs_c, blocks, s_j, s_i, s_b, s_c, xc, x_b,
+                                        x_c, y, r, n_c, (cudaStream_t)stream)
+             : dispatch_bp_gemv<float>(false, bs_f, bs_c, blocks, s_j, s_i, s_b, s_c, xc, x_b,
+                                       x_c, y, r, n_c, (cudaStream_t)stream);
+}
+
+// blocks as for the prolongation; rf (bs_f, r n_c) at (f_i, f_n); out (bs_c, n_c).
+int aggmg_bp_restrict_gemv(int f64, int bs_f, int bs_c, const void* blocks, long long s_j,
+                           long long s_i, long long s_b, long long s_c, const void* rf,
+                           long long f_i, long long f_n, void* out, int r, long long n_c,
+                           void* stream) {
+  return f64 ? dispatch_bp_gemv<double>(true, bs_f, bs_c, blocks, s_j, s_i, s_b, s_c, rf, f_i,
+                                        f_n, out, r, n_c, (cudaStream_t)stream)
+             : dispatch_bp_gemv<float>(true, bs_f, bs_c, blocks, s_j, s_i, s_b, s_c, rf, f_i,
+                                       f_n, out, r, n_c, (cudaStream_t)stream);
 }
 
 }  // extern "C"

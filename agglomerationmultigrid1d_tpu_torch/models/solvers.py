@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from ..ops.block_coo import BlockCOO, bcoo_matvec
+from ..ops.block_diag import BlockDiag, bd_matvec
 from ..ops.block_penta import BlockPenta, bp5_matvec
 from ..ops.block_tridiag import BlockTridiag, block_mul, bt_matvec
 from ..ops.shifts import shift
@@ -150,8 +151,8 @@ def _mform_matvec(level, x: torch.Tensor, xm=None, xp=None) -> torch.Tensor:
     base = _base_smoother(level)
     xm = shift(x, -1) if xm is None else xm
     xp = shift(x, +1) if xp is None else xp
-    t = x + torch.einsum("ijn,jn->in", base.ml, xm) + torch.einsum("ijn,jn->in", base.mu, xp)
-    return torch.einsum("ijn,jn->in", level.a.diag, t)
+    t = x + bd_matvec(BlockDiag(base.ml), xm) + bd_matvec(BlockDiag(base.mu), xp)
+    return bd_matvec(BlockDiag(level.a.diag), t)
 
 
 def level_matvec(level, x: torch.Tensor, group=None) -> torch.Tensor:

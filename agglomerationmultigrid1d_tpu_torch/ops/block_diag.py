@@ -42,7 +42,12 @@ def bd_to_dense_blocks(bd: BlockDiag) -> torch.Tensor:
 
 
 def bd_matvec(bd: BlockDiag, x: torch.Tensor) -> torch.Tensor:
-    """``y[:, k] = blocks[:, :, k] @ x[:, k]`` for ``x`` of shape ``(bs, n)``."""
+    """``y[:, k] = blocks[:, :, k] @ x[:, k]`` for ``x`` of shape ``(bs, n)``;
+    on the card one launch of ``bd_gemv_kernel`` (``ops.kernels.block_kernels.bd_gemv``)."""
+    if x.is_cuda:
+        from .kernels.block_kernels import bd_gemv  # block_kernels imports this module's package
+
+        return bd_gemv(bd.blocks, x)
     return torch.einsum("ijn,jn->in", bd.blocks, x)
 
 

@@ -26,7 +26,15 @@
 * K8 :func:`block_jacobi_sweep` — one A-form sweep ``x + alpha S^-1 (b - A x)``
   on four operator streams (a public op; no solver path calls it);
 * K4 :func:`stream_kernel` — the bandwidth yardstick: reads the multisweep's
-  operands (ML, MU, S^-1, x, b) once and writes one vector, one add each.
+  operands (ML, MU, S^-1, x, b) once and writes one vector, one add each;
+* the block contractions of the solve path, off the library's batched gemv:
+  :func:`bd_gemv` (``ops.block_diag.bd_matvec``, every block-Jacobi apply),
+  :func:`bp_prolong_gemv` and :func:`bp_restrict_gemv`
+  (``ops.transfer_ops.bp_prolong`` / ``bp_restrict``, every block-aligned
+  transfer), float32 and float64, each block size in
+  ``SUPPORTED_BLOCK_SIZES``, operands at any strides.
+  Each output entry is rounded as the card's gemv rounds it (``_gemv_dot``);
+  their plain versions emulate the fused multiply-add exactly.
 
 M-form: with ``S^-1`` the exact inverse of ``A_D``, the damped sweep
 ``x + alpha S^-1 (b - A x)`` equals ``x + alpha ((c - x) - (ML x_{-1} + MU x_{+1}))``
@@ -91,6 +99,9 @@ LAUNCHES = {
     "chebyshev_edge_pair": 0,
     "chebyshev_edge_pair_residual": 0,
     "pack_edges": 0,
+    "bd_gemv": 0,
+    "bp_prolong_gemv": 0,
+    "bp_restrict_gemv": 0,
 }
 
 _LIB = None
@@ -316,6 +327,94 @@ def stream_kernel_plain(ml, mu, s_inv, x, b):
     return acc
 
 
+def _two_sum(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """``(s, e)`` with ``s = a + b`` rounded and ``s + e = a + b`` exactly."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _round_to_odd(s: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """The float64 ``s + e`` (``s`` its rounding to nearest, ``e`` exact)
+    rounded to odd: ``s`` where ``e = 0``, else the neighbour of ``s + e``
+    whose last bit is 1.  Rounding that value once more to fewer than 52
+    bits gives the correct rounding of ``s + e`` (Boldo and Melquiond, IEEE
+    Trans. Computers 57(4), 2008)."""
+    bits = s.view(torch.int64) - ((e != 0) & ((e < 0) != (s < 0))).to(torch.int64)  # toward zero
+    return torch.where(e != 0, bits | 1, bits).view(torch.float64)
+
+
+def _split(a: torch.Tensor) -> tuple:
+    t = 134217729.0 * a  # 2^27 + 1: Veltkamp's split of a float64
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once, in the operands' dtype, as a fused
+    multiply-add unit rounds it.  float32: the product is exact in float64,
+    and the float64 sum is rounded to odd before its rounding to float32
+    (a plain float64 sum would round twice, and can miss by one ulp).
+    float64: Dekker's exact product and the same rounding to odd (the
+    emulated FMA of Boldo and Melquiond)."""
+    if a.dtype == torch.float32:
+        return _round_to_odd(*_two_sum(a.double() * b.double(), c.double())).float()
+    p = a * b
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, p)
+    return th + _round_to_odd(*_two_sum(tl, e))
+
+
+def _fma_chain(ms, vs) -> torch.Tensor:
+    """``ms[0] * vs[0]`` rounded, then one fused multiply-add per further
+    term, ascending."""
+    acc = ms[0] * vs[0]
+    for m, v in zip(ms[1:], vs[1:]):
+        acc = _fma(m, v, acc)
+    return acc
+
+
+def _gemv_dot(ms, vs) -> torch.Tensor:
+    """``sum_j ms[j] * vs[j]`` (``j < K``) as the card's batched gemv rounds
+    it at the cells' shapes (``tools/gemv_rounding_order.py``) and the
+    ``*_gemv_kernel`` s form it: the halves ``j < h`` and ``j >= h``, ``h =
+    ceil(K / 2)``, each an fma chain (:func:`_fma_chain`), then their rounded
+    sum.  K = 2: ``m0 v0 + m1 v1``, both products rounded; K = 4:
+    ``fma(m1, v1, m0 v0) + fma(m3, v3, m2 v2)``."""
+    h = (len(ms) + 1) // 2
+    lo = _fma_chain(ms[:h], vs[:h])
+    return lo if h == len(ms) else lo + _fma_chain(ms[h:], vs[h:])
+
+
+def bd_gemv_plain(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """:func:`bd_gemv`'s plain version: ``y[i] = sum_j blocks[i, j] x[j]``
+    per column, in the kernel's order (:func:`_gemv_dot`)."""
+    bs = x.shape[0]
+    return torch.stack([_gemv_dot(blocks[i], x) for i in range(bs)])
+
+
+def bp_prolong_gemv_plain(blocks: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
+    """:func:`bp_prolong_gemv`'s plain version: fine column ``r c + j`` is
+    ``blocks[j, :, :, c] @ xc[:, c]``, each entry in the kernel's order."""
+    r, bs_f, _, n_c = blocks.shape
+    t = torch.stack([torch.stack([_gemv_dot(blocks[j, i], xc) for i in range(bs_f)]) for j in range(r)])
+    return t.permute(1, 2, 0).reshape(bs_f, r * n_c)
+
+
+def bp_restrict_gemv_plain(blocks: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:
+    """:func:`bp_restrict_gemv`'s plain version: per offset ``j`` the
+    contraction ``blocks[j, :, b, c] . rf[:, r c + j]`` in the kernel's order,
+    the offsets added in ascending ``j`` with rounded adds."""
+    r, bs_f, bs_c, _ = blocks.shape
+    out = None
+    for j in range(r):
+        v = rf[:, j::r]
+        oj = torch.stack([_gemv_dot(blocks[j, :, b], v) for b in range(bs_c)])
+        out = oj if out is None else out + oj
+    return out
+
+
 def _stencil_op(blocks: torch.Tensor, cols):
     """The float-float BlockTridiag of the packed stencil's columns ``cols``."""
     from ..df64 import BlockTridiagFF
@@ -449,6 +548,11 @@ def _lib():
             lib.aggmg_edge_pair_chebyshev.restype = i
             lib.aggmg_pack_edges.argtypes = [i, p, p, p, p, i, ll, p]
             lib.aggmg_pack_edges.restype = i
+            lib.aggmg_bd_gemv.argtypes = [i, i, p, ll, ll, ll, p, ll, ll, p, ll, p]
+            lib.aggmg_bd_gemv.restype = i
+            for fn in (lib.aggmg_bp_prolong_gemv, lib.aggmg_bp_restrict_gemv):
+                fn.argtypes = [i, i, i, p, ll, ll, ll, ll, p, ll, ll, p, i, ll, p]
+                fn.restype = i
             lib.aggmg_empty.argtypes = [p]
             lib.aggmg_empty.restype = i
             _LIB = lib
@@ -889,6 +993,68 @@ def stream_kernel(ml, mu, s_inv, x, b):
     _raise_on(rc, "stream_kernel")
     LAUNCHES["stream_kernel"] += 1
     return out
+
+
+_GEMV_DTYPES = {torch.float32: 0, torch.float64: 1}
+
+
+def _gemv(name: str, plain, blocks: torch.Tensor, v: torch.Tensor, shapes: tuple, sizes: tuple, out_shape: tuple,
+          n: int, *args) -> torch.Tensor:
+    """A block contraction: its operands checked (float32 or float64, one
+    dtype and device, ``blocks`` and ``v`` of ``shapes``, on CUDA block
+    ``sizes`` the kernels have), then ``plain(blocks, v)`` on the CPU, or on
+    CUDA one launch of ``aggmg_<name>(f64, *sizes, blocks, its strides, v,
+    its strides, out, *args)`` over ``n`` columns."""
+    if v.dtype not in _GEMV_DTYPES or blocks.dtype != v.dtype:
+        raise TypeError(f"the block contractions take float32 or float64 of one dtype, got {blocks.dtype} "
+                        f"and {v.dtype}")
+    if blocks.device != v.device:
+        raise ValueError(f"all inputs must be on one device ({blocks.device} and {v.device})")
+    if (tuple(blocks.shape), tuple(v.shape)) != shapes:
+        raise ValueError(f"operands of shapes {tuple(blocks.shape)} and {tuple(v.shape)}, expected {shapes}")
+    if v.device.type == "cpu":
+        return plain(blocks, v)
+    if v.device.type != "cuda":
+        raise ValueError(f"unsupported device {v.device}")
+    if any(bs not in SUPPORTED_BLOCK_SIZES for bs in sizes):
+        raise ValueError(f"block sizes {sizes} have no kernel (supported: {SUPPORTED_BLOCK_SIZES})")
+    out = torch.empty(out_shape, dtype=v.dtype, device=v.device)
+    if n > 0:
+        rc = _launch(v.device, getattr(_lib(), "aggmg_" + name), _GEMV_DTYPES[v.dtype], *sizes, blocks.data_ptr(),
+                     *blocks.stride(), v.data_ptr(), *v.stride(), out.data_ptr(), *args)
+        _raise_on(rc, name)
+        LAUNCHES[name] += 1
+    return out
+
+
+def bd_gemv(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``y[:, k] = blocks[:, :, k] @ x[:, k]`` (``(bs, bs, n)``, ``(bs, n)``,
+    at any strides): on CUDA one launch of ``bd_gemv_kernel``, on the CPU
+    :func:`bd_gemv_plain`, whose rounding the kernel has."""
+    bs, n = blocks.shape[0], blocks.shape[-1]
+    return _gemv("bd_gemv", bd_gemv_plain, blocks, x, ((bs, bs, n), (bs, n)), (bs,), (bs, n), n, n)
+
+
+def bp_prolong_gemv(blocks: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
+    """The block prolongation ``(bs_c, n_c) -> (bs_f, r n_c)``: fine column
+    ``r c + j`` is ``blocks[j, :, :, c] @ xc[:, c]`` (``blocks`` ``(r, bs_f,
+    bs_c, n_c)``, at any strides, an expanded r = 1 block too).  On CUDA one
+    launch of ``bp_prolong_gemv_kernel``, which writes the fine columns in
+    place of the einsum's permuted copy; on the CPU
+    :func:`bp_prolong_gemv_plain`, whose rounding the kernel has."""
+    r, bs_f, bs_c, n_c = blocks.shape
+    return _gemv("bp_prolong_gemv", bp_prolong_gemv_plain, blocks, xc, (tuple(blocks.shape), (bs_c, n_c)),
+                 (bs_f, bs_c), (bs_f, r * n_c), n_c, r, n_c)
+
+
+def bp_restrict_gemv(blocks: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:
+    """The block restriction ``L^T rf``, ``(bs_f, r n_c) -> (bs_c, n_c)``:
+    on CUDA one launch of ``bp_restrict_gemv_kernel`` (each thread reads its
+    coarse column's r fine columns), on the CPU
+    :func:`bp_restrict_gemv_plain`, whose rounding the kernel has."""
+    r, bs_f, bs_c, n_c = blocks.shape
+    return _gemv("bp_restrict_gemv", bp_restrict_gemv_plain, blocks, rf, (tuple(blocks.shape), (bs_f, r * n_c)),
+                 (bs_f, bs_c), (bs_c, n_c), n_c, r, n_c)
 
 
 def _ff_stencil(name, blocks, x_hi, x_lo, b_hi, b_lo, col0, n_total, ghost_left, ghost_right):

@@ -22,6 +22,7 @@ import torch
 
 from .block_tridiag import BlockTridiag, block_mul
 from .cg_operator import CgOperator, cg_element_nodes, cg_from_windows
+from .kernels.block_kernels import bp_prolong_gemv, bp_restrict_gemv
 from .shifts import shift
 
 
@@ -52,14 +53,20 @@ def block_prolong_constant(e: torch.Tensor, n: int) -> BlockProlong:
 
 def bp_prolong(l: BlockProlong, xc: torch.Tensor) -> torch.Tensor:
     """``(bs_c, n_c) -> (bs_f, r * n_c)``: fine column ``r*c + j`` is
-    ``blocks[j, :, :, c] @ xc[:, c]``."""
+    ``blocks[j, :, :, c] @ xc[:, c]``; on the card one launch of
+    ``bp_prolong_gemv_kernel`` (``ops.kernels.block_kernels.bp_prolong_gemv``)."""
+    if xc.is_cuda:
+        return bp_prolong_gemv(l.blocks, xc)
     t = torch.einsum("jibn,bn->jin", l.blocks, xc)  # (r, bs_f, n_c)
     return t.permute(1, 2, 0).reshape(l.bs_fine, l.r * xc.shape[-1])
 
 
 def bp_restrict(l: BlockProlong, rf: torch.Tensor) -> torch.Tensor:
     """``L^T rf``: ``(bs_f, r * n_c) -> (bs_c, n_c)``, one strided slice per
-    offset ``j``, summed in ascending ``j``."""
+    offset ``j``, summed in ascending ``j``; on the card one launch of
+    ``bp_restrict_gemv_kernel`` (``ops.kernels.block_kernels.bp_restrict_gemv``)."""
+    if rf.is_cuda:
+        return bp_restrict_gemv(l.blocks, rf)
     r = l.r
     out = None
     for j in range(r):

@@ -169,7 +169,15 @@ Phases, one line of numbers each:
    script's seconds are printed before the JSON lines.
 
 The kernel phase also holds K6 (the float-float stencil defect) to its plain
-version bit for bit, hi and lo.
+version bit for bit, hi and lo, and the three block contractions K9-K11
+(``bd_gemv``, ``bp_prolong_gemv``, ``bp_restrict_gemv``) at the north star's
+level-0 and level-1 shapes and the slice's fine shapes, float32 (and float64
+at the slice's): each bit for bit against its plain version, timed beside it
+and beside the einsum it replaced, against its bytes over 3.35 TB/s.  Phase
+7 also solves the north star with the contractions swapped back to the
+einsum (``einsum_contractions``), by ``multigrid_true`` and by the
+hand-over: the residual histories (the hand-over's every norm) and the
+hand-over's x must equal the kernels' to the last bit.
 
 Then a JSON line with the kernels' numbers (each kernel's launches from the
 path that runs it, counted from zero just before that path), and last a JSON
@@ -179,6 +187,7 @@ without a CUDA device the script exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -233,6 +242,14 @@ SWITCH_JAX_CPU = "at 65,536 elements: multigrid 11, mixed 10 / 14, progressive 1
 KERNEL_COUNTERS = ("bt_matvec", "multisweep", "multisweep_residual", "chebyshev_multisweep",
                    "chebyshev_multisweep_residual")  # K3, K2, K1, K5, K5r
 SEED = 0
+GEMV_COUNTERS = ("bd_gemv", "bp_prolong_gemv", "bp_restrict_gemv")
+# the block contractions at the main path's shapes: north-star levels 0 and 1, the slice's two fine levels
+# (the first of each list is the kernel table's headline); bd: (bs, n), transfers: (r, bs_f, bs_c, n_c)
+GEMV_BD_SHAPES = [(2, 50331648, torch.float32), (2, 12582912, torch.float32), (4, 524288, torch.float32),
+                  (2, 524288, torch.float32), (4, 524288, torch.float64), (2, 524288, torch.float64)]
+GEMV_BP_SHAPES = [(4, 2, 2, 12582912, torch.float32), (4, 2, 2, 3145728, torch.float32),
+                  (1, 4, 2, 524288, torch.float32), (2, 2, 2, 262144, torch.float32),
+                  (1, 4, 2, 524288, torch.float64), (2, 2, 2, 262144, torch.float64)]
 DAMPED = ("bt_matvec", "multisweep", "multisweep_residual")  # K3, K2, K1: the damped solves' kernels
 CHEB_INTERVAL = (0.3, 1.2)  # K5's and K7's coefficients in the kernel phases, k = 3
 # the whole-shard form: a shard of the four-shards phase (the path that launches
@@ -325,6 +342,12 @@ JAX_CPU = {
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def k1_k8(launches: dict) -> dict:
+    """The nonzero counts of ``launches`` but the contraction kernels'
+    (K9-K11, which every solve on the card runs, float64 ones too)."""
+    return {k: v for k, v in launches.items() if v and k not in GEMV_COUNTERS}
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -513,6 +536,57 @@ def phase_k6(bk) -> dict:
     return out
 
 
+def phase_gemv(bk) -> dict:
+    """The three block contractions (``bd_gemv``, ``bp_prolong_gemv``,
+    ``bp_restrict_gemv``) at the main path's shapes: each held to its plain
+    version bit for bit (and its difference from the einsum it replaced, the
+    einsum path, counted), timed with CUDA events beside the plain version
+    and that einsum, against its bytes over 3.35 TB/s."""
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    cases = [("bd", (bs, bs, n), (bs, n), (bs * bs + 2 * bs) * n, dt, f"bs={bs} n={n}")
+             for bs, n, dt in GEMV_BD_SHAPES]
+    for r, bs_f, bs_c, n_c, dt in GEMV_BP_SHAPES:
+        nbytes = (r * bs_f * bs_c + bs_c + r * bs_f) * n_c
+        cases.append(("prolong", (r, bs_f, bs_c, n_c), (bs_c, n_c), nbytes, dt, f"r={r} {bs_f}x{bs_c} n_c={n_c}"))
+        cases.append(("restrict", (r, bs_f, bs_c, n_c), (bs_f, r * n_c), nbytes, dt, f"r={r} {bs_f}x{bs_c} n_c={n_c}"))
+    from agglomerationmultigrid1d_tpu_torch.ops.block_diag import BlockDiag, bd_matvec
+    from agglomerationmultigrid1d_tpu_torch.ops.transfer_ops import BlockProlong, bp_prolong, bp_restrict
+
+    def einsum_path(op, wrap):  # the package's own einsum line, the kernels off
+        def run(blocks, v):
+            with einsum_contractions(bk):
+                return op(wrap(blocks), v)
+        return run
+
+    forms = {"bd": (bk.bd_gemv, bk.bd_gemv_plain, einsum_path(bd_matvec, BlockDiag)),
+             "prolong": (bk.bp_prolong_gemv, bk.bp_prolong_gemv_plain, einsum_path(bp_prolong, BlockProlong)),
+             "restrict": (bk.bp_restrict_gemv, bk.bp_restrict_gemv_plain, einsum_path(bp_restrict, BlockProlong))}
+    for form, bshape, vshape, words, dt, what in cases:
+        kern, plain, einsum = forms[form]
+        blocks = torch.randn(*bshape, generator=g, device="cuda", dtype=dt)
+        v = torch.randn(*vshape, generator=g, device="cuda", dtype=dt)
+        got, want, lib = kern(blocks, v), plain(blocks, v), einsum(blocks, v)
+        torch.cuda.synchronize()
+        n_diff, n_lib = int((got != want).sum()), int((got != lib).sum())
+        check(bool(torch.isfinite(got).all()), f"{form} gemv non-finite at {what}")
+        check(n_diff == 0, f"{form} gemv differs from its plain version at {what} {dt}: {n_diff} entries")
+        del got, want, lib
+        ms = time_ms(lambda: kern(blocks, v))
+        plain_ms = time_ms(lambda: plain(blocks, v), reps=3)
+        lib_ms = time_ms(lambda: einsum(blocks, v), reps=10)
+        bound_ms = words * blocks.element_size() / PEAK_BPS * 1e3
+        print(f"gemv {form} {what} {str(dt)[6:]}: bit-exact; differs from the einsum in {n_lib} entries; "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} einsum_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({100 * bound_ms / ms:.1f} % of the bound; einsum {100 * bound_ms / lib_ms:.1f} %)", flush=True)
+        if form not in out:  # the first shape of each form is the headline
+            out[form] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                             bound_by="bytes")
+        del blocks, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_surface(bk) -> None:
     """The rest of the port's surface on the card, held for correctness only
     (nothing here is timed: the examples share the card): ``solve`` on the
@@ -630,9 +704,68 @@ def north_star_spec(n: int = NORTH_STAR_N, first_agg_factor: int = 4):
                          agg_factor=4, c_dir=1000.0 * n)
 
 
-def phase_north_star(bk) -> int:
+def _einsum_bd(blocks, x):  # ops/block_diag.py:bd_matvec's CPU line
+    return torch.einsum("ijn,jn->in", blocks, x)
+
+
+def _einsum_prolong(blocks, xc):  # ops/transfer_ops.py:bp_prolong's CPU lines
+    t = torch.einsum("jibn,bn->jin", blocks, xc)
+    return t.permute(1, 2, 0).reshape(blocks.shape[1], blocks.shape[0] * xc.shape[-1])
+
+
+def _einsum_restrict(blocks, rf):  # ops/transfer_ops.py:bp_restrict's CPU lines
+    r, out = blocks.shape[0], None
+    for j in range(r):
+        oj = torch.einsum("ibn,in->bn", blocks[j], rf[:, j::r])
+        out = oj if out is None else out + oj
+    return out
+
+
+@contextlib.contextmanager
+def einsum_contractions(bk):
+    """Inside, every block contraction on the card takes the
+    ``torch.einsum`` its kernel replaced (the package's CPU lines, in place
+    of ``bd_gemv`` / ``bp_prolong_gemv`` / ``bp_restrict_gemv``, uncounted):
+    the path before K9-K11, for the rounding comparisons."""
+    from agglomerationmultigrid1d_tpu_torch.ops import transfer_ops
+
+    saved = bk.bd_gemv, transfer_ops.bp_prolong_gemv, transfer_ops.bp_restrict_gemv
+    bk.bd_gemv, transfer_ops.bp_prolong_gemv, transfer_ops.bp_restrict_gemv = (
+        _einsum_bd, _einsum_prolong, _einsum_restrict)
+    try:
+        yield
+    finally:
+        bk.bd_gemv, transfer_ops.bp_prolong_gemv, transfer_ops.bp_restrict_gemv = saved
+
+
+@contextlib.contextmanager
+def recorded_norms():
+    """Inside, every norm the solvers take (``models.solvers._norm``: the
+    outer defects, each inner solve's right-hand side and residuals, the
+    true cycles' residuals) is kept in the yielded list, as the 0-d tensor it
+    returned."""
+    from agglomerationmultigrid1d_tpu_torch.models import solvers
+
+    own, log = solvers._norm, []
+
+    def kept(*a, **kw):
+        v = own(*a, **kw)
+        log.append(v.detach().clone())
+        return v
+
+    solvers._norm = kept
+    try:
+        yield log
+    finally:
+        solvers._norm = own
+
+
+def phase_north_star(bk) -> dict:
     """The 100,663,296-DoF north star: build on the card, one warm-up cycle,
-    then the solve to 1e-8; returns the solve's K6 launches."""
+    then the solve to 1e-8, then the same solve with the contractions on the
+    einsum (its residual history must equal the kernels'); the hand-over,
+    twice too (its outer history, every norm it takes and its x must equal
+    the einsum path's); returns the solve's K6 and contraction launches."""
     from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem, default_stencil_factor, multigrid_true
     from agglomerationmultigrid1d_tpu_torch.ops.block_tridiag import BlockTridiag, bt_matvec
     from agglomerationmultigrid1d_tpu_torch.ops.coarse_solve import BTCoarseSolver
@@ -668,12 +801,40 @@ def phase_north_star(bk) -> int:
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     k6 = bk.LAUNCHES["ff_stencil_mid_defect"]
+    gemv = {k: bk.LAUNCHES[k] for k in GEMV_COUNTERS}
     peak = torch.cuda.max_memory_allocated()
     it = res.iterations
     hist = (res.res_history[:it] / norm_b).tolist()
+    res_h = res.res_history.clone()
     x = res.x.cpu()  # the two solves start from the same resident set
     del res
-    ho = handover_solve(bk, h, ffops, b_ff, norm_b, NS_HANDOVER)
+    with einsum_contractions(bk):  # the einsum path: the kernels must round as it does
+        t0 = time.perf_counter()
+        ein = multigrid_true(h, ffops, b_ff, norm_b, 40, 1e-8)
+        torch.cuda.synchronize()
+        ein_s = time.perf_counter() - t0
+    print(f"north star multigrid_true through the einsum: cycles={ein.iterations} solve_s={ein_s:.3f}; "
+          f"residual history equal to the kernels' to the last bit: {torch.equal(ein.res_history[:it], res_h[:it])}; "
+          f"contraction launches {gemv}", flush=True)
+    check(ein.iterations == it and torch.equal(ein.res_history[:it], res_h[:it]),
+          "north star: the contraction kernels' residual history differs from the einsum path's")
+    check(all(gemv.values()), f"north star: a contraction kernel did not run: {gemv}")
+    del ein
+    with recorded_norms() as norms:
+        ho = handover_solve(bk, h, ffops, b_ff, norm_b, NS_HANDOVER)
+    # the einsum path: the hand-over's inner stopping test reads _mform_matvec's contractions too
+    with einsum_contractions(bk), recorded_norms() as norms_ein:
+        ho_ein = handover_solve(bk, h, ffops, b_ff, norm_b, NS_HANDOVER)
+    same = dict(outer_history=bool(np.array_equal(ho["hist"], ho_ein["hist"])),
+                every_norm=len(norms) == len(norms_ein) and all(map(torch.equal, norms, norms_ein)),
+                x=torch.equal(ho["x"], ho_ein["x"]))
+    print(f"north star hand-over through the einsum: outer={ho_ein['outer']} cycles={ho_ein['cycles']} "
+          f"solve_s={ho_ein['solve_s']:.3f}; {len(norms)} norms (the outer defects, each inner solve's "
+          f"right-hand side and residuals, the true cycles'); equal to the kernels' to the last bit: {same}",
+          flush=True)
+    check((ho_ein["outer"], ho_ein["cycles"]) == (ho["outer"], ho["cycles"]) and all(same.values()),
+          "north star hand-over: the contraction kernels' residual histories or x differ from the einsum path's")
+    del ho_ein, norms, norms_ein
 
     # independent check: the fine operator materialized in float64 from the
     # stencil (hi + lo joined, interior broadcast, boundary columns spliced)
@@ -715,7 +876,7 @@ def phase_north_star(bk) -> int:
           f"north star hand-over skipped K5 / K5r: {ho['launches']}")
     del x
     torch.cuda.empty_cache()
-    return k6
+    return {"ff_stencil_mid_defect": k6, **gemv}
 
 
 def handover_solve(bk, h, ffops, b_ff, norm_b, kw) -> dict:
@@ -1299,7 +1460,7 @@ def phase_scattered(bk) -> dict:
           f"{SCATTERED_PORT_CPU['multigrid']}; JAX on the CPU {SCATTERED_JAX_CPU}) rel_residual_f64={rel:.3e} "
           f"launches={ {k: v for k, v in launches.items() if v} }", flush=True)
     check(rel < 1e-10, f"scattered slice f64 relative residual {rel:.3e}")
-    check(not any(launches.values()), f"a float64 solve launched a kernel: {launches}")
+    check(not k1_k8(launches), f"a float64 solve launched a kernel: {launches}")
     check(abs(res.iterations - SCATTERED_PORT_CPU["multigrid"]) <= 2,
           f"scattered f64 count {res.iterations}, the port on the CPU {SCATTERED_PORT_CPU['multigrid']}")
     ref = {"multigrid": dict(counts=(res.iterations,), solve_s=solve_s)}
@@ -1326,7 +1487,7 @@ def phase_scattered(bk) -> dict:
         check(rel < 1e-10, f"scattered slice {tag} relative residual {rel:.3e} >= 1e-10")
         used = ("bt_matvec",) + (("chebyshev_multisweep", "chebyshev_multisweep_residual") if cheb
                                  else ("multisweep", "multisweep_residual"))
-        check(set(launches) == set(used) and all(launches[k] == res.inner_cycles for k in used),
+        check(set(k1_k8(launches)) == set(used) and all(launches[k] == res.inner_cycles for k in used),
               f"scattered {tag}: kernels must launch once per V-cycle, at the fine level only: {launches}, "
               f"{res.inner_cycles} V-cycles")
         check(abs(res.iterations - want[0]) <= 2 and abs(res.inner_cycles - want[1]) <= 2,
@@ -1399,7 +1560,7 @@ def phase_mixed_switch(bk) -> dict:
               f"launches={ {k: v for k, v in launches.items() if v} }", flush=True)
         check(tuple(res.x.shape) == (4, SWITCH_N) and bool(torch.isfinite(res.x).all()), f"mixed-switch {tag} x")
         check(rel < 1e-10, f"mixed-switch {tag} relative residual {rel:.3e} >= 1e-10")
-        check(not any(launches.values()), f"a pentadiagonal level reached a kernel ({tag}): {launches}")
+        check(not k1_k8(launches), f"a pentadiagonal level reached a kernel ({tag}): {launches}")
         got = counts if tag == "mixed" else (counts,)
         exp = want if tag == "mixed" else (want,)
         check(all(abs(g - e) <= 2 for g, e in zip(got, exp)), f"mixed-switch {tag} counts {counts}, the CPU's {want}")
@@ -1454,7 +1615,7 @@ def phase_mixed_switch(bk) -> dict:
     # which one is the accurate one
     check(max(gap(res.x), gap(deep.x)) < 1e-3,
           f"odd mixed-switch x against the banded direct solve: {gap(res.x):.3e} (tol 1e-14: {gap(deep.x):.3e})")
-    check(not any(launches.values()), f"the odd pentadiagonal chain reached a kernel: {launches}")
+    check(not k1_k8(launches), f"the odd pentadiagonal chain reached a kernel: {launches}")
     check(abs(res.iterations - SWITCH_PORT_CPU["odd multigrid"]) <= 2,
           f"odd mixed-switch count {res.iterations}, the CPU's {SWITCH_PORT_CPU['odd multigrid']}")
     del h, b, res
@@ -1618,12 +1779,12 @@ def check_family_run(fam: str, where: str, got: dict, ref: dict) -> None:
         check(run["rel"] < 1e-10, f"sharded {fam} {tag} ({where}) relative residual {run['rel']:.3e}")
         if tag == "multigrid":
             check(run["counts"] == want, f"sharded {fam} f64 multigrid ({where}): {run['counts']} against {want}")
-            check(not launches, f"a float64 solve launched a kernel: {launches}")
+            check(not k1_k8(launches), f"a float64 solve launched a kernel: {launches}")
         else:
             check(abs(run["counts"][0] - want[0]) <= 1 and (len(want) == 1 or abs(run["counts"][1] - want[1]) <= 2),
                   f"sharded {fam} {tag} ({where}): {run['counts']} against {want}")
             if fam == "switch":
-                check(not launches, f"a pentadiagonal level reached a kernel ({where}, {tag}): {launches}")
+                check(not k1_k8(launches), f"a pentadiagonal level reached a kernel ({where}, {tag}): {launches}")
             else:
                 used = ("multisweep", "multisweep_residual", "bt_matvec", "edge_pair", "edge_pair_residual")
                 check(all(launches.get(k, 0) > 0 for k in used), f"sharded {fam} {tag} ({where}) skipped a kernel: "
@@ -2637,11 +2798,13 @@ def g24_probes(whole: dict, grp) -> dict:
     (``ops/banded_solve.py:fine_refined_solve``, on the host: the witness of
     which float64 x is the accurate one) and its condition estimate; (b)
     float64 ``multigrid`` to 1e-10 with every ``torch.einsum`` formed by
-    :func:`fixed_order_einsum`, unsharded on rank 0 and on the two ranks'
-    shards.  Rank 0 returns the x's (NumPy, ``(bs, n)``), the counts and the
+    :func:`fixed_order_einsum` and the contraction kernels off (their
+    callers take the einsum, :func:`einsum_contractions`), unsharded on rank
+    0 and on the two ranks' shards.  Rank 0 returns the x's (NumPy, ``(bs, n)``), the counts and the
     seconds."""
     from agglomerationmultigrid1d_tpu_torch.models import multigrid
     from agglomerationmultigrid1d_tpu_torch.ops.banded_solve import fine_refined_solve
+    from agglomerationmultigrid1d_tpu_torch.ops.kernels import block_kernels as bk
     from agglomerationmultigrid1d_tpu_torch.parallel import shard_hierarchy, shard_vector, unshard_vector
     from agglomerationmultigrid1d_tpu_torch.utils.precision import tree_to
 
@@ -2656,24 +2819,25 @@ def g24_probes(whole: dict, grp) -> dict:
     own = torch.einsum
     torch.einsum = fixed_order_einsum
     try:
-        if grp.rank == 0:
-            hd, bd = tree_to(h, grp.device), b.to(grp.device)
+        with einsum_contractions(bk):  # the contraction kernels off too: every contraction in fixed order
+            if grp.rank == 0:
+                hd, bd = tree_to(h, grp.device), b.to(grp.device)
+                t0 = time.perf_counter()
+                res = multigrid(hd, torch.zeros_like(bd), bd, 100, 1e-10, compute_error=False)
+                torch.cuda.synchronize()
+                out.update(fixed_whole=res.x.cpu().numpy(), fixed_whole_it=res.iterations,
+                           fixed_whole_s=time.perf_counter() - t0)
+                del hd, bd, res
+            hs = shard_hierarchy(h, grp)
+            bl = shard_vector(b, grp, hs)
             t0 = time.perf_counter()
-            res = multigrid(hd, torch.zeros_like(bd), bd, 100, 1e-10, compute_error=False)
+            res = multigrid(hs, torch.zeros_like(bl), bl, 100, 1e-10, compute_error=False)
+            x = unshard_vector(res.x, hs)
             torch.cuda.synchronize()
-            out.update(fixed_whole=res.x.cpu().numpy(), fixed_whole_it=res.iterations,
-                       fixed_whole_s=time.perf_counter() - t0)
-            del hd, bd, res
-        hs = shard_hierarchy(h, grp)
-        bl = shard_vector(b, grp, hs)
-        t0 = time.perf_counter()
-        res = multigrid(hs, torch.zeros_like(bl), bl, 100, 1e-10, compute_error=False)
-        x = unshard_vector(res.x, hs)
-        torch.cuda.synchronize()
-        out.update(fixed_sharded_it=res.iterations, fixed_sharded_s=time.perf_counter() - t0)
-        if grp.rank == 0:
-            out["fixed_sharded"] = x.cpu().numpy()
-        del hs, bl, res, x
+            out.update(fixed_sharded_it=res.iterations, fixed_sharded_s=time.perf_counter() - t0)
+            if grp.rank == 0:
+                out["fixed_sharded"] = x.cpu().numpy()
+            del hs, bl, res, x
     finally:
         torch.cuda.empty_cache()
         torch.einsum = own
@@ -2842,6 +3006,8 @@ def main() -> int:
 
     kernels = phase_kernels(bk)
     kernels["K6"] = phase_k6(bk)
+    gemv = phase_gemv(bk)
+    kernels.update({"bd": gemv["bd"], "prolong": gemv["prolong"], "restrict": gemv["restrict"]})
     k7_strips, k7_edges, pack, k7_whole = phase_k7(bk)
     for k in K7_FORMS:  # K7's rows: the whole-shard form, which a path launches; its error also over the strips
         kernels[k] = dict(k7_whole[k], max_abs_err=max(k7_whole[k]["max_abs_err"], k7_strips[k]["max_abs_err"]))
@@ -2860,7 +3026,7 @@ def main() -> int:
     families["scattered"] = phase_scattered(bk)
     families["switch"] = phase_mixed_switch(bk)
     phase_surface(bk)
-    launches["ff_stencil_mid_defect"] = phase_north_star(bk)
+    launches.update(phase_north_star(bk))
     one_rank = phase_sharded(bk)
     launches.update({EDGE_FORMS[k]: one_rank[k] for k in EDGE_FORMS})
     launches.update(k7_launches)
@@ -2909,6 +3075,11 @@ def main() -> int:
         "pack": ("K7", "EdgePlan.pack pack_edges", "pack_edges", SHARDED + ":60"),
         "K8": ("K8", "block_jacobi_sweep", "block_jacobi_sweep", PALLAS + ":103"),
         "K4": ("K4", "stream_kernel", "stream_kernel", "bench.py:159"),
+        # the block contractions: no Pallas kernel (the JAX package's jnp.einsum, fused by XLA); launches from
+        # the north star's multigrid_true; library_ms the einsum they replaced
+        "bd": ("K9", "bd_gemv", "bd_gemv", None),
+        "prolong": ("K10", "bp_prolong_gemv", "bp_prolong_gemv", None),
+        "restrict": ("K11", "bp_restrict_gemv", "bp_restrict_gemv", None),
     }
     out = []
     for k, (label, wrapper, counter, replaces) in meta.items():
@@ -2917,7 +3088,8 @@ def main() -> int:
             "name": f"{label} {wrapper}", "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[counter], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,  # no single PyTorch call computes any of these functions
+            # no single PyTorch call computes K1-K8; the contractions' is the einsum they replaced
+            "library_ms": r.get("library_ms"),
         })
     print(f"chip_smoke total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": out}), flush=True)

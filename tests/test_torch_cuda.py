@@ -1,5 +1,6 @@
 """The torch port's CUDA kernels (K1-K3, K5, K6 and K6s bit for bit, K7 with ghosts
-and in-place columns, the edge pair and its packing kernel, K8, K4), its
+and in-place columns, the edge pair and its packing kernel, K8, K4, the three
+block contractions bit for bit), its
 mixed solve, its true-precision solve and its sharded solve on a one-rank
 NCCL group, the CG-topped stencil build, the ragged transfers and the
 pentadiagonal and scattered chains against the CPU's, on a CUDA card.
@@ -25,6 +26,9 @@ from agglomerationmultigrid1d_tpu_torch.models import (
 )
 from agglomerationmultigrid1d_tpu_torch.ops.block_tridiag import BlockTridiag, block_mul, bt_matvec
 from agglomerationmultigrid1d_tpu_torch.ops.kernels import block_kernels as bk
+
+
+GEMV_KEYS = ("bd_gemv", "bp_prolong_gemv", "bp_restrict_gemv")
 
 
 @pytest.fixture
@@ -487,7 +491,7 @@ def test_cuda_ragged_transfers_equal_cpu(cuda):
 def test_cuda_penta_and_scattered_chains(cuda):
     """The mixed-switch chain on the card: float64 ``multigrid`` and
     ``multigrid_progressive`` (whose float32 stopping test reads a 0-d
-    tensor on the card) with the CPU's counts and no kernel launched; the
+    tensor on the card) with the CPU's counts and none of K1-K8 launched; the
     scattered chain: ``multigrid_mixed`` with one K1 / K2 / K3 launch per
     V-cycle (the fine level only), its block-COO matvec equal to the CPU's."""
     from agglomerationmultigrid1d_tpu_torch.models import (
@@ -507,7 +511,7 @@ def test_cuda_penta_and_scattered_chains(cuda):
         bk.reset_launch_counts()
         r1 = multigrid(h, torch.zeros_like(b), b, 80, 1e-10, compute_error=False)
         r2 = multigrid_progressive(h, h32, torch.zeros_like(b), b, 80, 1e-10)
-        assert not any(bk.LAUNCHES.values())
+        assert not any(v for k, v in bk.LAUNCHES.items() if k not in GEMV_KEYS)
         nb = float(torch.linalg.vector_norm(b))
         assert float(r2.res_history[r2.iterations - 1]) < 1e-10 * nb
         counts[str(dev)] = (r1.iterations, r2.iterations)
@@ -527,3 +531,140 @@ def test_cuda_penta_and_scattered_chains(cuda):
     assert float(res.res_history[res.iterations - 1]) < 1e-10 * float(torch.linalg.vector_norm(b))
     for k in ("multisweep", "multisweep_residual", "bt_matvec"):
         assert bk.LAUNCHES[k] == res.inner_cycles, (k, dict(bk.LAUNCHES), res.inner_cycles)
+
+
+def _einsum_restrict(blocks, rf):
+    r, out = blocks.shape[0], None
+    for j in range(r):
+        oj = torch.einsum("ibn,in->bn", blocks[j], rf[:, j::r])
+        out = oj if out is None else out + oj
+    return out
+
+
+def _einsum_contractions(monkeypatch):
+    """Send every block contraction on the card to the einsum its kernel
+    replaced (the CPU lines of ``bd_matvec``, ``bp_prolong`` and
+    ``bp_restrict``, uncounted): the path before K9-K11."""
+    from agglomerationmultigrid1d_tpu_torch.ops import transfer_ops
+
+    monkeypatch.setattr(bk, "bd_gemv", lambda blocks, x: torch.einsum("ijn,jn->in", blocks, x))
+    monkeypatch.setattr(transfer_ops, "bp_prolong_gemv", lambda blocks, xc: torch.einsum(
+        "jibn,bn->jin", blocks, xc).permute(1, 2, 0).reshape(blocks.shape[1], blocks.shape[0] * xc.shape[-1]))
+    monkeypatch.setattr(transfer_ops, "bp_restrict_gemv", _einsum_restrict)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_cuda_gemv_kernels_equal_plain(cuda, dtype):
+    """The three contraction kernels equal their plain versions bit for bit:
+    every block size and pair of ``SUPPORTED_BLOCK_SIZES``, r = 1, 2, 3, 4,
+    column counts off the 256-thread block, a strided vector and an expanded
+    r = 1 prolongation; one launch per call.  A block size outside the range
+    raises."""
+    from agglomerationmultigrid1d_tpu_torch.ops.transfer_ops import block_prolong_constant
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=cuda, dtype=dtype)
+
+    bk.reset_launch_counts()
+    calls = 0
+    for bs in bk.SUPPORTED_BLOCK_SIZES:
+        for n in (1, 255, 257, 70001):
+            blocks, x = rnd(bs, bs, n), rnd(bs, 2 * n)
+            for v in (x[:, :n].contiguous(), x[:, ::2]):
+                assert torch.equal(bk.bd_gemv(blocks, v), bk.bd_gemv_plain(blocks, v))
+                calls += 1
+    for bs_f in bk.SUPPORTED_BLOCK_SIZES:
+        for bs_c in bk.SUPPORTED_BLOCK_SIZES:
+            for r, n_c in ((1, 70001), (2, 257), (3, 1000), (4, 33333)):
+                blocks, xc, rf = rnd(r, bs_f, bs_c, n_c), rnd(bs_c, n_c), rnd(bs_f, r * n_c)
+                assert torch.equal(bk.bp_prolong_gemv(blocks, xc), bk.bp_prolong_gemv_plain(blocks, xc))
+                assert torch.equal(bk.bp_restrict_gemv(blocks, rf), bk.bp_restrict_gemv_plain(blocks, rf))
+    blocks = block_prolong_constant(rnd(4, 2), 4097).blocks
+    xc, rf = rnd(2, 4097), rnd(4, 4097)
+    assert torch.equal(bk.bp_prolong_gemv(blocks, xc), bk.bp_prolong_gemv_plain(blocks, xc))
+    assert torch.equal(bk.bp_restrict_gemv(blocks, rf), bk.bp_restrict_gemv_plain(blocks, rf))
+    assert bk.LAUNCHES["bd_gemv"] == calls
+    assert bk.LAUNCHES["bp_prolong_gemv"] == bk.LAUNCHES["bp_restrict_gemv"] == 36 * 4 + 1
+    with pytest.raises(ValueError, match="no kernel"):
+        bk.bd_gemv(rnd(6, 6, 8), rnd(6, 8))
+    with pytest.raises(ValueError, match="no kernel"):
+        bk.bp_prolong_gemv(rnd(2, 6, 2, 8), rnd(2, 8))
+
+
+def _north_star_like(n: int, cuda):
+    from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem
+    from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
+
+    spec = HierarchySpec(cg_orders=(), dg_orders=(1,), n_agg_levels=4, p_agg=1, first_agg_factor=4, agg_factor=4,
+                         c_dir=1000.0 * n)
+    return build_xl_problem(spec, n, slim_fine=True, ff_levels=True, device=cuda)
+
+
+@pytest.mark.cuda
+def test_cuda_gemv_kernels_on_the_cells_hierarchies(cuda):
+    """The four benchmark cells' hierarchies, cut in size, solved as their
+    cells solve them (``multigrid_mixed`` and float64 ``multigrid`` on the
+    DG p = 3, p = 1, agglomerated slice; ``multigrid_true`` and the hand-over
+    on the 4:1 DG p = 1 chain), and the max_p = 4 slice of the on-device
+    examples (bs 5 on the fine level, a 5 -> 3 transfer): every block
+    contraction launches its kernel."""
+    from agglomerationmultigrid1d_tpu_torch.models import multigrid_true
+    from agglomerationmultigrid1d_tpu_torch.models import solvers
+    from agglomerationmultigrid1d_tpu_torch.ops.df64 import FF
+
+    prob = poisson_dg_hierarchy(n=8192, max_p=3, n_dg=2, n_agg=6, device=cuda)
+    h, b = prob.hierarchy, prob.b
+    runs = {}
+    bk.reset_launch_counts()
+    multigrid_mixed(h, make_low_precision_hierarchy(h), torch.zeros_like(b), b, 80, 1e-10)
+    runs["mixed"] = {k: bk.LAUNCHES[k] for k in GEMV_KEYS}
+    bk.reset_launch_counts()
+    multigrid(h, torch.zeros_like(b), b, 80, 1e-10, compute_error=False)
+    runs["f64"] = {k: bk.LAUNCHES[k] for k in GEMV_KEYS}
+    h_low, ffops, b_ff, norm_b = _north_star_like(65536, cuda)
+    bk.reset_launch_counts()
+    multigrid_true(h_low, ffops, b_ff, norm_b, 40, 1e-8)
+    runs["true"] = {k: bk.LAUNCHES[k] for k in GEMV_KEYS}
+    bk.reset_launch_counts()
+    zero = torch.zeros_like(b_ff.hi)
+    solvers._mixed_loop_ff(h_low, ffops.a_ffs[0], FF(zero, zero), b_ff, np.float32(1 / norm_b), ffops=ffops,
+                           maxiter=100, tol=1e-8, inner_tol=3e-5, max_inner=20)
+    runs["handover"] = {k: bk.LAUNCHES[k] for k in GEMV_KEYS}
+    its = {}
+    for dev in ("cpu", cuda):  # max_p = 4: DG p = 4, 2, 1 (bs 5, 3, 2), then the agglomerated levels
+        prob = poisson_dg_hierarchy(n=4096, max_p=4, n_dg=3, n_agg=6, device=dev)
+        bk.reset_launch_counts()
+        its[str(dev)] = multigrid(prob.hierarchy, torch.zeros_like(prob.b), prob.b, 80, 1e-10,
+                                  compute_error=False).iterations
+    runs["max_p4"] = {k: bk.LAUNCHES[k] for k in GEMV_KEYS}
+    assert its["cpu"] == its[str(cuda)], its
+    for cell, counts in runs.items():  # the mixed cell smooths through K1 / K2: no block-Jacobi apply
+        assert all(counts[k] > 0 for k in GEMV_KEYS if (cell, k) != ("mixed", "bd_gemv")), (cell, counts)
+
+
+@pytest.mark.cuda
+def test_cuda_true_cycle_rounds_as_the_einsum(cuda, monkeypatch):
+    """At the G7 witness's size and conditioning (16,384 elements, eps_f32
+    kappa_elem ~ 6, where the rounding of ``T e_hi`` decides the contraction
+    rate) ``multigrid_true`` through the kernels takes the einsum path's
+    cycles and residual history, bit for bit."""
+    from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem, multigrid_true
+    from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
+
+    n = 16384
+    spec = HierarchySpec(cg_orders=(), dg_orders=(1,), n_agg_levels=4, p_agg=1, agg_factor=4,
+                         c_dir=1000.0 * float(3 << 24) ** 2 / n)
+    prob = build_xl_problem(spec, n, slim_fine=True, ff_levels=True, device=cuda)
+    bk.reset_launch_counts()
+    kern = multigrid_true(*prob, 25, 1e-10)
+    assert all(bk.LAUNCHES[k] > 0 for k in GEMV_KEYS)
+    _einsum_contractions(monkeypatch)
+    bk.reset_launch_counts()
+    ein = multigrid_true(*prob, 25, 1e-10)
+    assert not any(bk.LAUNCHES[k] for k in GEMV_KEYS)
+    it = kern.iterations
+    assert it == ein.iterations
+    assert torch.equal(kern.res_history[:it], ein.res_history[:it])  # NaN beyond the cycles run

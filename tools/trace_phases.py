@@ -10,7 +10,9 @@ per V-cycle of the traced solves:
 * the device's idle seconds by the innermost ``aggmg.*`` span at each gap's
   midpoint (``outside`` where none covers it);
 * how much of the kernels' device time and of the traced span the four
-  phases hold, and the time of the traced solves.
+  phases hold, and the time of the traced solves;
+* the block-contraction kernels' launches over the run (every contraction
+  on the card launches one; a block size without an instance raises).
 
     PYTHONPATH=. python3 tools/trace_phases.py --cell dg_slice.mixed_damped \\
         [--seed N] [--seconds S] [--program DIR] [--out FILE]
@@ -122,11 +124,14 @@ def main(argv=None) -> int:
     torch.profiler.profile = Timed
     out, detail = harness.run(harness.resolve(a.cell, ROOT), a.seed, a.seconds, True, device="cuda")
     import agglomerationmultigrid1d_tpu_torch as port
+    from agglomerationmultigrid1d_tpu_torch.ops.kernels import block_kernels as bk
 
     res = {"cell": a.cell, "card": harness.power_limit(), "program": str(Path(port.__file__).parent.parent),
            "correct": out["correct"], "solve_median_s": detail["solve_min_median_max_s"][1],
            "traced_solves_s": clock["t1"] - clock["t0"], "metrics": {k: v["value"] for k, v in out["metrics"].items()},
-           "breakdown": out.get("breakdown"), **analyse(kept[0], detail["traced_cycles"])}
+           "breakdown": out.get("breakdown"),
+           "contraction_launches": {k: bk.LAUNCHES.get(k) for k in ("bd_gemv", "bp_prolong_gemv", "bp_restrict_gemv")},
+           **analyse(kept[0], detail["traced_cycles"])}
     text = json.dumps(res)
     print(text, flush=True)
     if a.out:
