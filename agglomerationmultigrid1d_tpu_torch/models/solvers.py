@@ -47,13 +47,15 @@ four phases that partition its work, level ``k`` as a suffix:
 ``aggmg.smooth@k`` (the sweeps, with a residual fused into them),
 ``aggmg.transfer@k`` (restriction, prolongation and the correction add),
 ``aggmg.coarse`` and ``aggmg.defect@k`` (every residual and norm computed
-outside a smoother, the drivers' stopping tests at ``@0``).  Each host read
-that waits for the device is an ``aggmg.sync.<site>`` span of its own and
-lies in no phase.
+outside a smoother, the drivers' stopping tests at ``@0``).  Inside a phase
+span, the work on a CG level ``k`` is also an ``aggmg.cg@k`` span, which is
+no phase and holds no other.  Each host read that waits for the device is
+an ``aggmg.sync.<site>`` span of its own and lies in no phase.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -125,6 +127,16 @@ def _group(h: Hierarchy, k: int):
     """The SolverGroup of level ``k`` when ``h`` holds it sharded, else None."""
     lay = h.layout
     return lay.group if lay is not None and lay.sharded[k] else None
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _cg_span(level, k: int):
+    """``aggmg.cg@k`` around work on level ``k`` when it is a CG level (its
+    smoothing, its defects and norms, the transfers from it), opened inside
+    the phase span that holds the work; nothing on a block level."""
+    return span(f"aggmg.cg@{k}") if isinstance(level, CgLevel) else _NO_SPAN
 
 
 def _is_slim_bt(level) -> bool:
@@ -450,13 +462,13 @@ def v_cycle(
     with span(f"aggmg.vcycle.{_KINDS.get(b.dtype, b.dtype)}"):
         for k in range(n - 1):
             level = h.levels[k]
-            with span(f"aggmg.smooth@{k}"):
+            with span(f"aggmg.smooth@{k}"), _cg_span(level, k):
                 if k > 0:
                     u[k] = torch.zeros_like(rhs[k])
                 u[k], r_k = _smooth_n_residual(
                     level, u[k], rhs[k], n_pre, alpha, group=_group(h, k)
                 )
-            with span(f"aggmg.transfer@{k}"):
+            with span(f"aggmg.transfer@{k}"), _cg_span(level, k):
                 rhs[k + 1] = _restrict(h, k, r_k)
 
         # coarsest level: dense direct solve (cf. solvers.jl:39), whole on every rank
@@ -466,9 +478,9 @@ def v_cycle(
 
         for k in range(n - 2, -1, -1):
             level = h.levels[k]
-            with span(f"aggmg.transfer@{k}"):
+            with span(f"aggmg.transfer@{k}"), _cg_span(level, k):
                 u[k] = u[k] + _prolong(h, k, u[k + 1])
-            with span(f"aggmg.smooth@{k}"):
+            with span(f"aggmg.smooth@{k}"), _cg_span(level, k):
                 u[k] = _smooth_n(level, u[k], rhs[k], n_post, alpha, group=_group(h, k))
     return u[0]
 
@@ -531,7 +543,7 @@ def multigrid(
     with span("aggmg.solve.multigrid"):
         u_exact = _dense_fine_solve(h, b) if compute_error else None
         fine, g0 = h.levels[0], _group(h, 0)
-        with span("aggmg.defect@0"):
+        with span("aggmg.defect@0"), _cg_span(fine, 0):
             norm_b = _norm(b, g0)
         with span("aggmg.sync.norm_b"):
             norm_b = float(norm_b)
@@ -541,13 +553,13 @@ def multigrid(
         it = 0
         while it < maxiter:
             x = v_cycle(h, x, b, n_pre=n_pre, n_post=n_post, alpha=alpha)
-            with span("aggmg.defect@0"):
+            with span("aggmg.defect@0"), _cg_span(fine, 0):
                 res = _norm(level_matvec(fine, x, g0) - b, g0)
             with span("aggmg.sync.residual"):
                 res = float(res)
             res_h[it] = res
             if u_exact is not None:
-                with span("aggmg.defect@0"):
+                with span("aggmg.defect@0"), _cg_span(fine, 0):
                     err = _norm(_flatten_level_vec(x) - u_exact, g0)
                 with span("aggmg.sync.error"):
                     err_h[it] = float(err)
@@ -619,7 +631,7 @@ def _mixed_inner_solve(h_low, r, inner_tol, max_cycles, *, n_pre, n_post, alpha)
     inner residual, the cycles run, and after how many cycles the best came.
     One residual matvec (kernel K3) per cycle, and one host sync."""
     fine, g0 = h_low.levels[0], _group(h_low, 0)
-    with span("aggmg.defect@0"):
+    with span("aggmg.defect@0"), _cg_span(fine, 0):
         norm_r = _norm(r, g0)
     with span("aggmg.sync.inner_norm"):
         norm_r = float(norm_r)
@@ -629,7 +641,7 @@ def _mixed_inner_solve(h_low, r, inner_tol, max_cycles, *, n_pre, n_post, alpha)
     i, res, prev = 0, norm_r, big
     while i < max_cycles and not (res < inner_tol * norm_r or res > 0.7 * prev):
         e = v_cycle(h_low, e, r, n_pre=n_pre, n_post=n_post, alpha=alpha)
-        with span("aggmg.defect@0"):
+        with span("aggmg.defect@0"), _cg_span(fine, 0):
             new = _norm(r - _level_matvec_opt(fine, e, g0), g0)
         with span("aggmg.sync.inner_residual"):
             new = float(new)
@@ -720,7 +732,7 @@ def _mixed_loop(h, h_low, x, b, norm_b, *, maxiter, tol, inner_tol, max_inner, k
     low_dtype = operator_data(h_low.levels[0].a).dtype
 
     def rel_defect(x):
-        with span("aggmg.defect@0"):
+        with span("aggmg.defect@0"), _cg_span(fine, 0):
             r = b - level_matvec(fine, x, g0)
             norm_r = _norm(r, g0)
         with span("aggmg.sync.defect"):
@@ -780,7 +792,7 @@ def _mixed_loop_ff(
 
         def rel_defect(x):
             # only the hi part feeds the float32 inner solve: keep no lo tail
-            with span("aggmg.defect@0"):
+            with span("aggmg.defect@0"), _cg_span(h_low.levels[0], 0):
                 r = _ff_defect(a_ff, x, b_ff, g0).hi
                 rel = _norm(_flatten_level_vec(r) * inv, g0)
             with span("aggmg.sync.defect"):
@@ -847,7 +859,7 @@ def multigrid_mixed(
     ``x0``, ``b`` and ``x`` are the rank's shards.
     """
     with span("aggmg.solve.multigrid_mixed"):
-        with span("aggmg.defect@0"):
+        with span("aggmg.defect@0"), _cg_span(h.levels[0], 0):
             norm_b = _norm(b, _group(h, 0))
         with span("aggmg.sync.norm_b"):
             norm_b = float(norm_b)
@@ -985,24 +997,25 @@ def v_cycle_ff(
     with span("aggmg.vcycle.ff"):
         for k in range(n - 1):
             level, g = h_low.levels[k], _group(h_low, k)
-            with span(f"aggmg.smooth@{k}"):
+            with span(f"aggmg.smooth@{k}"), _cg_span(level, k):
                 if k > 0:
                     u[k] = _ff_zeros_like(rhs[k])
                 u[k] = _smooth_ff(level, u[k], rhs[k], n_pre, alpha, group=g)
-            with span(f"aggmg.defect@{k}"):
+            with span(f"aggmg.defect@{k}"), _cg_span(level, k):
                 r_ff = _ff_defect(a_ffs[k], u[k], rhs[k], g)
-            with span(f"aggmg.transfer@{k}"):
+            with span(f"aggmg.transfer@{k}"), _cg_span(level, k):
                 rhs[k + 1] = FF(_restrict(h_low, k, r_ff.hi), _restrict(h_low, k, r_ff.lo))
 
         with span("aggmg.coarse"):
             u[n - 1] = _coarse_ff(h_low, a_ffs[n - 1], rhs[n - 1], coarse64)
 
         for k in range(n - 2, -1, -1):
-            with span(f"aggmg.transfer@{k}"):
+            level = h_low.levels[k]
+            with span(f"aggmg.transfer@{k}"), _cg_span(level, k):
                 corr = FF(_prolong(h_low, k, u[k + 1].hi), _prolong(h_low, k, u[k + 1].lo))
                 u[k] = ff_add(u[k], corr)
-            with span(f"aggmg.smooth@{k}"):
-                u[k] = _smooth_ff(h_low.levels[k], u[k], rhs[k], n_post, alpha, group=_group(h_low, k))
+            with span(f"aggmg.smooth@{k}"), _cg_span(level, k):
+                u[k] = _smooth_ff(level, u[k], rhs[k], n_post, alpha, group=_group(h_low, k))
     return u[0]
 
 
@@ -1029,7 +1042,7 @@ def _progressive_loop(
     res_h = np.full((maxiter,), np.nan, dtype=np.float32)
     it = 0
     while it < maxiter:
-        with span("aggmg.defect@0"):
+        with span("aggmg.defect@0"), _cg_span(h_low.levels[0], 0):
             r_ff, rel = _ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b, g0)
         with span("aggmg.sync.defect"):
             rel = np.float32(float(rel))  # a 0-d tensor on the level's device
@@ -1041,7 +1054,7 @@ def _progressive_loop(
         x_ff = ff_add(x_ff, e_ff)
         it += 1
     if it > 0:  # the defect of the final iterate
-        with span("aggmg.defect@0"):
+        with span("aggmg.defect@0"), _cg_span(h_low.levels[0], 0):
             rel = _ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b, g0)[1]
         with span("aggmg.sync.defect"):
             res_h[it - 1] = np.float32(float(rel))
@@ -1068,7 +1081,7 @@ def multigrid_progressive(
     Sharded hierarchies as in :func:`multigrid_mixed`."""
     with span("aggmg.solve.multigrid_progressive"):
         a_ffs = tuple(_ff_split_level(lv) for lv in h.levels)
-        with span("aggmg.defect@0"):
+        with span("aggmg.defect@0"), _cg_span(h.levels[0], 0):
             norm_b = _norm(b, _group(h, 0))
         with span("aggmg.sync.norm_b"):
             norm_b = float(norm_b)
@@ -1159,17 +1172,17 @@ def _true_levels(h_low: Hierarchy, ffops, rhs_ff: FF, k: int, n_pre, n_post, alp
             return _true_coarse_solve(ffops.coarse64, rhs_ff)
     lv = h_low.levels[k]
     t32, t_lo = h_low.transfers[k], ffops.t_los[k]
-    with span(f"aggmg.smooth@{k}"):
+    with span(f"aggmg.smooth@{k}"), _cg_span(lv, k):
         u = _smooth_true(lv, ffops.a_ffs[k], _ff_zeros_like(rhs_ff), rhs_ff, n_pre, alpha)
-    with span(f"aggmg.defect@{k}"):
+    with span(f"aggmg.defect@{k}"), _cg_span(lv, k):
         r = ff_defect(ffops.a_ffs[k], u, rhs_ff)
-    with span(f"aggmg.transfer@{k}"):
+    with span(f"aggmg.transfer@{k}"), _cg_span(lv, k):
         r_c = _restrict_true(t32, t_lo, r)
     e_c = _true_levels(h_low, ffops, r_c, k + 1, n_pre, n_post, alpha)
     del r, r_c
-    with span(f"aggmg.transfer@{k}"):
+    with span(f"aggmg.transfer@{k}"), _cg_span(lv, k):
         u = ff_add(u, _prolong_true(t32, t_lo, e_c))
-    with span(f"aggmg.smooth@{k}"):
+    with span(f"aggmg.smooth@{k}"), _cg_span(lv, k):
         return _smooth_true(lv, ffops.a_ffs[k], u, rhs_ff, n_post, alpha)
 
 
@@ -1196,7 +1209,7 @@ def _progressive_true_eager(
     res_h = np.full((maxiter,), np.nan, dtype=np.float64)
     it = 0
     while it < maxiter:
-        with span("aggmg.defect@0"):
+        with span("aggmg.defect@0"), _cg_span(h_low.levels[0], 0):
             r_ff, rel = defect(ffops.a_ffs[0], x_ff, b_ff, inv_norm_b)
         with span("aggmg.sync.defect"):
             rel = float(rel)
@@ -1210,7 +1223,7 @@ def _progressive_true_eager(
         del e_ff
         it += 1
     if it > 0:
-        with span("aggmg.defect@0"):
+        with span("aggmg.defect@0"), _cg_span(h_low.levels[0], 0):
             rel = defect(ffops.a_ffs[0], x_ff, b_ff, inv_norm_b)[1]
         with span("aggmg.sync.defect"):
             res_h[it - 1] = float(rel)

@@ -2,11 +2,15 @@
 ``torch.profiler`` on the CPU: ``aggmg.solve.<driver>``,
 ``aggmg.vcycle.<kind>``, the four phases ``aggmg.smooth@k``,
 ``aggmg.transfer@k``, ``aggmg.coarse`` and ``aggmg.defect@k``, and
-``aggmg.sync.<site>`` around each host read.  Four drivers on tiny problems:
+``aggmg.sync.<site>`` around each host read, and ``aggmg.cg@k`` around the
+work on a CG level inside its phase spans.  Five drivers on tiny problems:
 ``multigrid`` and ``multigrid_mixed`` on ``poisson_dg_hierarchy``,
 ``multigrid_true`` and the hand-over ``_mixed_loop_ff(ffops=)`` on a
-``build_xl_problem(..., ff_levels=True)`` bundle."""
+DG-topped ``build_xl_problem(..., ff_levels=True)`` bundle, the hand-over on
+a CG-topped one (float32 ``v_cycle`` and ``v_cycle_true``), and
+``multigrid_progressive`` (``v_cycle_ff``) on ``poisson_full_hierarchy``."""
 
+import bisect
 import functools
 from types import SimpleNamespace
 
@@ -20,8 +24,10 @@ from agglomerationmultigrid1d_tpu_torch.models import (
     make_low_precision_hierarchy,
     multigrid,
     multigrid_mixed,
+    multigrid_progressive,
     multigrid_true,
     poisson_dg_hierarchy,
+    poisson_full_hierarchy,
 )
 from agglomerationmultigrid1d_tpu_torch.models.solvers import _mixed_loop_ff
 from agglomerationmultigrid1d_tpu_torch.ops.df64 import FF
@@ -30,6 +36,7 @@ from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
 PHASES = ("smooth", "transfer", "coarse", "defect")
 XL_N = 1024
 XL_SPEC = dict(cg_orders=(), dg_orders=(1,), n_agg_levels=4, p_agg=1, c_dir=1000.0 * XL_N)
+XL_CG_SPEC = dict(cg_orders=(8, 4, 2, 1), n_agg_levels=2, p_agg=1, c_dir=1000.0 * XL_N)
 
 
 def _slice(n):
@@ -71,23 +78,41 @@ def _multigrid_true():
     return "multigrid_true", h.n_levels, solve
 
 
-def _handover():
+def _handover(xl=_xl, tol=1e-9, maxiter=40):
     """``inner_tol`` 0.5: the guard trickles and hands over to true cycles."""
-    h, ffops, b, norm_b = _xl()
+    h, ffops, b, norm_b = xl()
     z = torch.zeros_like(b.hi)
 
     def solve():
         info = {}
-        _, _, cycles, _ = _mixed_loop_ff(h, ffops.a_ffs[0], FF(z, z), b, np.float32(1.0 / norm_b), maxiter=40,
-                                         tol=1e-9, inner_tol=0.5, max_inner=20, ffops=ffops, info=info)
+        _, _, cycles, _ = _mixed_loop_ff(h, ffops.a_ffs[0], FF(z, z), b, np.float32(1.0 / norm_b), maxiter=maxiter,
+                                         tol=tol, inner_tol=0.5, max_inner=20, ffops=ffops, info=info)
         assert info["true_cycles"] > 0 and info["guarded_cycles"] > 0
         return cycles, {"f32": info["guarded_cycles"], "true": info["true_cycles"]}
 
     return "_mixed_loop_ff", h.n_levels, solve
 
 
+def _handover_cg():
+    """tol 1e-13: the CG chain's guard reaches 1e-9 alone, and trickles at ~4e-13."""
+    return _handover(lambda: build_xl_problem(HierarchySpec(**XL_CG_SPEC), XL_N, ff_levels=True, device="cpu"),
+                     tol=1e-13, maxiter=16)
+
+
+def _progressive_cg():
+    prob = poisson_full_hierarchy(n=32, device="cpu")
+    h_low = make_low_precision_hierarchy(prob.hierarchy)
+
+    def solve():
+        res = multigrid_progressive(prob.hierarchy, h_low, torch.zeros_like(prob.b), prob.b, 40, 1e-10)
+        return res.iterations, {"ff": res.iterations}
+
+    return "multigrid_progressive", h_low.n_levels, solve
+
+
 CASES = {"multigrid": _multigrid, "multigrid_mixed": _multigrid_mixed, "multigrid_true": _multigrid_true,
-         "handover": _handover}
+         "handover": _handover, "handover_cg": _handover_cg, "progressive_cg": _progressive_cg}
+CG_LEVELS = {"handover_cg": 4, "progressive_cg": 4}  # CG p = 8, 4, 2, 1 on top; the other chains have none
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,6 +195,30 @@ def test_phase_spans_enclose_their_operators(case):
             assert t1 <= phases[i][2] and name != "aten::_local_scalar_dense", (phases[i][0], name)
             held[i] += 1
     assert all(held)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_cg_spans_mark_the_cg_levels_inside_their_phases(case):
+    """Every phase span of a CG level ``k`` holds exactly one
+    ``aggmg.cg@k`` span, every other phase span none; no CG span lies
+    outside a phase span or in another CG span.  Block-topped chains open
+    none, so the phase readings of their cells are as before."""
+    tr = _traced(case)
+    cg = _named(tr, "aggmg.cg@")
+    n_cg = CG_LEVELS.get(case, 0)
+    assert {int(e[0].split("@")[1]) for e in cg} == set(range(n_cg))
+    for a, b in zip(cg, cg[1:]):
+        assert a[2] <= b[1], (a[0], b[0])
+    phases = [e for e in tr.events if _phase(e[0])]
+    starts = [e[1] for e in phases]
+    held = [[] for _ in phases]
+    for name, t0, t1, _ in cg:
+        i = bisect.bisect_right(starts, t0) - 1
+        assert i >= 0 and t1 <= phases[i][2], name
+        held[i].append(name)
+    for (name, *_), inner in zip(phases, held):
+        level = int(name.split("@")[1]) if "@" in name else None
+        assert inner == ([f"aggmg.cg@{level}"] if level is not None and level < n_cg else []), (name, inner)
 
 
 SETUP = {
