@@ -14,15 +14,17 @@
 // ops/kernels/block_kernels.py: block contractions sum over j in ascending
 // order, and the off-diagonal term is formed as (lower + upper).  In K1-K5
 // FMA contraction is allowed, so results agree with the plain versions to a
-// few float32 ulps, not bit for bit; K6 rounds every operation on its own
-// and equals its plain version bit for bit.
+// few float32 ulps, not bit for bit; K6 and K12 round every operation on
+// their own and equal their plain versions bit for bit.
 //
 // Host entry points have a plain C interface (loaded with ctypes) and return
 // cudaGetLastError() after the launch; -1 means an unsupported block size,
 // -2 more sweeps than kMaxSweeps, -3 a shard or ghost width the edge pair (or
 // a shard's columns K6s) does not take.  K6 (ff_stencil_defect_kernel) takes
 // float-float pairs: two (bs, n) arrays per vector; K6s is its launch on one
-// shard, with the neighbours' edge columns as ghosts.  K7 is the multisweep kernel with ghost columns
+// shard, with the neighbours' edge columns as ghosts; K12 (ff_bt_defect_kernel) is
+// the same defect on a materialised operator, per-column streams in place of the
+// stencil.  K7 is the multisweep kernel with ghost columns
 // (a shard's neighbours), K8 one A-form sweep, K4 the bandwidth yardstick that
 // reads the multisweep's operands.  The sharded path's per-smoothing pair:
 // pack_edges_kernel copies a shard's edge columns of x and b into the two
@@ -518,6 +520,66 @@ __device__ __forceinline__ void sub_product(float& acc_hi, float& acc_lo, float 
 
 }  // namespace eft
 
+// The vectors of a float-float defect: x and b in, r out, each a (hi, lo)
+// pair of (bs, n) float32 arrays; entry i of column k of array a at
+// [i * si[a] + k * sn[a]], the arrays in the order x_hi, x_lo, b_hi, b_lo,
+// r_hi, r_lo.
+struct FFVectors {
+  const float* in[4];  // x_hi, x_lo, b_hi, b_lo
+  float* out[2];       // r_hi, r_lo
+  long long si[6], sn[6];
+};
+
+// The float-float defect of block column k, the body of K6 and K12: acc = b,
+// then for each diagonal d (diag on x_k, lower on x_{k-1}, upper on
+// x_{k+1}) and each block column j ascending, acc_i <- ff_add(acc_i,
+// -ff_mul(A_d[i, j], v_j)) for every row i; r = acc.  entry(d, i, j, a_hi,
+// a_lo) reads the operator's hi and lo entry.  A neighbour past the array's
+// ends is the ghost gl / gr ((2, bs): hi, then lo) or, where that is null,
+// zero, and the arithmetic runs on it all the same, as the plain chain's
+// zero-padded shift does (signed zeros included).  The split of each x
+// value is made once per diagonal and reused by all bs rows.
+template <int BS, typename Entry>
+__device__ __forceinline__ void ff_defect_column(const Entry& entry, const FFVectors& v, long long n,
+                                                 long long k, const float* __restrict__ gl,
+                                                 const float* __restrict__ gr) {
+  const auto at = [&](int a, int i, long long c) { return i * v.si[a] + c * v.sn[a]; };
+  float acc_hi[BS], acc_lo[BS];
+#pragma unroll
+  for (int i = 0; i < BS; ++i) {
+    acc_hi[i] = __ldg(v.in[2] + at(2, i, k));
+    acc_lo[i] = __ldg(v.in[3] + at(3, i, k));
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {  // diag on x_k, lower on x_{k-1}, upper on x_{k+1}
+    const long long kk = d == 0 ? k : (d == 1 ? k - 1 : k + 1);
+    // past the array's ends: the neighbour's edge column, or zero at a ring end
+    const float* ghost = kk < 0 ? gl : (kk >= n ? gr : nullptr);
+    const bool in = kk >= 0 && kk < n;
+    float v_hi[BS], v_lo[BS], vh[BS], vl[BS];
+#pragma unroll
+    for (int j = 0; j < BS; ++j) {
+      v_hi[j] = in ? __ldg(v.in[0] + at(0, j, kk)) : (ghost != nullptr ? ghost[j] : 0.f);
+      v_lo[j] = in ? __ldg(v.in[1] + at(1, j, kk)) : (ghost != nullptr ? ghost[BS + j] : 0.f);
+      eft::split(v_hi[j], vh[j], vl[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < BS; ++j) {
+#pragma unroll
+      for (int i = 0; i < BS; ++i) {
+        float a_hi, a_lo;
+        entry(d, i, j, a_hi, a_lo);
+        eft::sub_product(acc_hi[i], acc_lo[i], a_hi, a_lo, v_hi[j], v_lo[j], vh[j], vl[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < BS; ++i) {
+    v.out[0][at(4, i, k)] = acc_hi[i];
+    v.out[1][at(5, i, k)] = acc_lo[i];
+  }
+}
+
 template <int BS>
 __global__ void __launch_bounds__(kThreads)
     ff_stencil_defect_kernel(const float* __restrict__ blocks, int bw,
@@ -532,42 +594,60 @@ __global__ void __launch_bounds__(kThreads)
   // the stencil column of global block column kg: a boundary column's own, else the mid
   const long long kg = col0 + k;
   const int c = kg < bw ? (int)kg : (kg >= n_total - bw ? (int)(kg - (n_total - bw)) + bw + 1 : bw);
-
-  float acc_hi[BS], acc_lo[BS];
-#pragma unroll
-  for (int i = 0; i < BS; ++i) {
-    acc_hi[i] = b_hi[i * n + k];
-    acc_lo[i] = b_lo[i * n + k];
-  }
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {  // diag on x_k, lower on x_{k-1}, upper on x_{k+1}
-    const long long kk = d == 0 ? k : (d == 1 ? k - 1 : k + 1);
-    // past the shard's ends: the neighbour's edge column, or zero at a ring end
-    const float* ghost = kk < 0 ? gl : (kk >= n ? gr : nullptr);
-    const bool in = kk >= 0 && kk < n;
-    float v_hi[BS], v_lo[BS], vh[BS], vl[BS];
-#pragma unroll
-    for (int j = 0; j < BS; ++j) {
-      v_hi[j] = in ? x_hi[j * n + kk] : (ghost != nullptr ? ghost[j] : 0.f);
-      v_lo[j] = in ? x_lo[j * n + kk] : (ghost != nullptr ? ghost[BS + j] : 0.f);
-      eft::split(v_hi[j], vh[j], vl[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < BS; ++j) {
-#pragma unroll
-      for (int i = 0; i < BS; ++i) {
+  const FFVectors v = {{x_hi, x_lo, b_hi, b_lo}, {r_hi, r_lo}, {n, n, n, n, n, n}, {1, 1, 1, 1, 1, 1}};
+  ff_defect_column<BS>(
+      [&](int d, int i, int j, float& a_hi, float& a_lo) {
         const int e = ((d * BS + i) * BS + j) * width + c;  // hi block entry (i, j)
-        const float a_hi = __ldg(blocks + e);
-        const float a_lo = __ldg(blocks + e + 3 * BS * BS * width);
-        eft::sub_product(acc_hi[i], acc_lo[i], a_hi, a_lo, v_hi[j], v_lo[j], vh[j], vl[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < BS; ++i) {
-    r_hi[i * n + k] = acc_hi[i];
-    r_lo[i * n + k] = acc_lo[i];
-  }
+        a_hi = __ldg(blocks + e);
+        a_lo = __ldg(blocks + e + 3 * BS * BS * width);
+      },
+      v, n, k, gl, gr);
+}
+
+// ---------------------------------------------------------------------------
+// K12: the float-float defect r = b - A x of a materialised block-tridiagonal
+// operator (ops.df64.BlockTridiagFF), whose blocks differ from column to
+// column: the agglomerated levels of the true-precision cycle, where every
+// sweep's residual is this defect.
+//
+// Replaces no Pallas kernel: the JAX package's ff_bt_defect
+// (agglomerationmultigrid1d_tpu/ops/df64.py:197) is plain jnp, which XLA
+// fuses; in plain torch the chain is ~40 launches per block entry (~238 at
+// bs = 2), each streaming (bs, n) temporaries.  The arithmetic is K6's
+// (ff_defect_column), in the same order, with the operator's entry (i, j) of
+// diagonal d at column k read from its own streams: p[d] (hi) and p[3 + d]
+// (lo) for d = diag, lower, upper, each (bs, bs, n) at its element strides
+// (si, sj, sn).  So it equals the plain chain (ops/kernels/block_kernels.py:
+// ff_bt_defect_plain) bit for bit.  The vectors come at their own strides
+// too (a CG-topped chain's agglomerated levels hold them column-major, as
+// the seam transfer leaves them), so none is copied.  Ghost columns gl / gr
+// as in K6s: the neighbours' edge columns of a shard, null for zeros.
+//
+// Cost per block column: 24 bs^2 + 24 bs bytes (the six operator streams;
+// the x and b pairs in, the r pair out: 144 B at bs = 2, 1.81 GB at the
+// north star's level 1, 0.54 ms at 3.35 TB/s) against 105 bs^2 float32
+// operations that may not fuse (~0.16 ms of instruction throughput there): bytes-bound.
+// Design: one thread per block column, so each operator stream, x, b and r
+// are read or written once and coalesced across a warp; the neighbours
+// x_{k+-1} are the adjacent threads' columns, served by L1; the operator
+// goes through the read-only path.
+struct FFStreams {
+  const float* p[6];  // hi diag, lower, upper, then lo diag, lower, upper
+  long long si[6], sj[6], sn[6];
+};
+
+template <int BS>
+__global__ void __launch_bounds__(kThreads)
+    ff_bt_defect_kernel(const FFStreams a, const FFVectors v, long long n,
+                        const float* __restrict__ gl, const float* __restrict__ gr) {
+  const long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n) return;
+  ff_defect_column<BS>(
+      [&](int d, int i, int j, float& a_hi, float& a_lo) {
+        a_hi = __ldg(a.p[d] + i * a.si[d] + j * a.sj[d] + k * a.sn[d]);
+        a_lo = __ldg(a.p[3 + d] + i * a.si[3 + d] + j * a.sj[3 + d] + k * a.sn[3 + d]);
+      },
+      v, n, k, gl, gr);
 }
 
 template <int BS>
@@ -578,6 +658,13 @@ void launch_ff_stencil(const float* blocks, int bw, const float* x_hi, const flo
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
   ff_stencil_defect_kernel<BS><<<grid, kThreads, 0, stream>>>(blocks, bw, x_hi, x_lo, b_hi, b_lo,
                                                               r_hi, r_lo, n, col0, n_total, gl, gr);
+}
+
+template <int BS>
+void launch_ff_bt(const FFStreams& a, const FFVectors& v, long long n, const float* gl,
+                  const float* gr, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  ff_bt_defect_kernel<BS><<<grid, kThreads, 0, stream>>>(a, v, n, gl, gr);
 }
 
 template <int BS>
@@ -1070,6 +1157,38 @@ int aggmg_ff_stencil_defect(int bs, const void* blocks, int bw, const void* x_hi
                         (const float*)b_hi, (const float*)b_lo, (float*)r_hi, (float*)r_lo, n, \
                         col0, n_total, (const float*)gl, (const float*)gr,                     \
                         (cudaStream_t)stream)
+  AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
+#undef AGGMG_CALL
+  return (int)cudaGetLastError();
+}
+
+// K12.  ptrs: the six operator streams (hi diag, lower, upper, then lo diag,
+// lower, upper), each (bs, bs, n) float32, then x_hi, x_lo, b_hi, b_lo and
+// the outputs r_hi, r_lo, each (bs, n); strides: the element strides of the
+// same twelve arrays in turn, (i, j, n) of each stream and (i, n) of each
+// vector; gl / gr the (2, bs) ghost columns past the two ends, null for
+// zeros.
+int aggmg_ff_bt_defect(int bs, const void* const* ptrs, const long long* strides, long long n,
+                       const void* gl, const void* gr, void* stream) {
+  FFStreams a;
+  for (int s = 0; s < 6; ++s) {
+    a.p[s] = (const float*)ptrs[s];
+    a.si[s] = strides[3 * s];
+    a.sj[s] = strides[3 * s + 1];
+    a.sn[s] = strides[3 * s + 2];
+  }
+  FFVectors v;
+  for (int t = 0; t < 6; ++t) {
+    if (t < 4) {
+      v.in[t] = (const float*)ptrs[6 + t];
+    } else {
+      v.out[t - 4] = (float*)ptrs[6 + t];
+    }
+    v.si[t] = strides[18 + 2 * t];
+    v.sn[t] = strides[18 + 2 * t + 1];
+  }
+#define AGGMG_CALL(BS) \
+  launch_ff_bt<BS>(a, v, n, (const float*)gl, (const float*)gr, (cudaStream_t)stream)
   AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
 #undef AGGMG_CALL
   return (int)cudaGetLastError();

@@ -949,8 +949,8 @@ def _coarse_ff(h_low: Hierarchy, a_ff_c, r: FF, coarse64) -> FF:
 def _ff_defect(a_ff, x: FF, b: FF, group=None) -> FF:
     """``ff_defect``; on a shard, with the neighbours' hi and lo edge columns
     (one exchange for both parts): one column a side of a block operator
-    (a stencil one through K6s, at the shard's global columns), ``p`` nodes
-    a side of a CG band."""
+    (a stencil one through K6s, at the shard's global columns, a
+    materialised one through K12), ``p`` nodes a side of a CG band."""
     if group is None:
         return ff_defect(a_ff, x, b)
     pair = torch.stack([x.hi, x.lo])
@@ -969,8 +969,8 @@ def _ff_defect(a_ff, x: FF, b: FF, group=None) -> FF:
         return ff_bp5_defect(a_ff, x, b, FF(left[0], left[1]), FF(right[0], right[1]))
     if not isinstance(a_ff, BlockTridiagFF):
         raise TypeError(f"a sharded float-float defect of {type(a_ff).__name__}")
-    xm, xp = halo_neighbours(pair, group)
-    return ff_bt_defect(a_ff, x, b, FF(xm[0], xm[1]), FF(xp[0], xp[1]))
+    left, right = edge_columns(pair, group)
+    return ff_bt_defect(a_ff, x, b, left[..., 0].contiguous(), right[..., 0].contiguous())
 
 
 def v_cycle_ff(

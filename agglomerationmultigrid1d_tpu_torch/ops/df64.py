@@ -10,9 +10,10 @@ A float64 quantity is held as an unevaluated pair of float32 tensors
 
 Every torch elementwise operation rounds once, so these chains run as written
 on either device.  The order of operations is the JAX package's
-(``agglomerationmultigrid1d_tpu/ops/df64.py``), and the CUDA kernel K6
-(``ops/kernels/block_kernels.py: ff_stencil_mid_defect``) is held to it bit
-for bit: the sign goes on the product, never on the multiplicand; block
+(``agglomerationmultigrid1d_tpu/ops/df64.py``), and the CUDA kernels K6
+(``ops/kernels/block_kernels.py: ff_stencil_mid_defect``) and K12
+(``ff_bt_defect``, which :func:`ff_bt_defect` launches on the card) are held
+to it bit for bit: the sign goes on the product, never on the multiplicand; block
 columns are contracted in ascending order; the diagonals in the order diag,
 lower, upper; and :func:`ff_add` is the "sloppy" add as written.
 
@@ -153,13 +154,25 @@ def ff_bt_matvec(a: BlockTridiagFF, x: FF) -> FF:
     return _contract_ff(a, lambda t: t.upper, _shifted(x, +1), acc, +1.0)
 
 
-def ff_bt_defect(a: BlockTridiagFF, x: FF, b: FF, xm: FF | None = None, xp: FF | None = None) -> FF:
-    """``r = b - A x`` in float-float, ~2^-48-accurate.  ``xm`` / ``xp`` are
-    ``x_{k-1}`` / ``x_{k+1}`` where the caller has them (a shard's, with its
-    neighbours' edge columns); by default the zero-padded shifts."""
+def ff_bt_defect_chain(a: BlockTridiagFF, x: FF, b: FF, xm: FF, xp: FF) -> FF:
+    """``r = b - A x`` in float-float as a chain of torch elementwise
+    operations, ~2^-48-accurate.  ``xm`` / ``xp`` are the vectors the lower
+    and upper diagonals multiply (``x_{k-1}`` / ``x_{k+1}``).  The plain
+    versions of kernels K6 and K12 run it."""
     acc = _contract_ff(a, lambda t: t.diag, x, b, -1.0)
-    acc = _contract_ff(a, lambda t: t.lower, _shifted(x, -1) if xm is None else xm, acc, -1.0)
-    return _contract_ff(a, lambda t: t.upper, _shifted(x, +1) if xp is None else xp, acc, -1.0)
+    acc = _contract_ff(a, lambda t: t.lower, xm, acc, -1.0)
+    return _contract_ff(a, lambda t: t.upper, xp, acc, -1.0)
+
+
+def ff_bt_defect(a: BlockTridiagFF, x: FF, b: FF, ghost_left=None, ghost_right=None) -> FF:
+    """``r = b - A x`` in float-float, ~2^-48-accurate: one launch of kernel
+    K12 for CUDA tensors, the plain chain (:func:`ff_bt_defect_chain`) for
+    CPU tensors, equal bit for bit.  ``ghost_left`` / ``ghost_right`` (a
+    shard's: ``(2, bs)``, hi then lo) are the neighbours' edge columns of x
+    past its two ends; zeros by default."""
+    from .kernels.block_kernels import ff_bt_defect as k12
+
+    return FF(*k12(a, x.hi, x.lo, b.hi, b.lo, ghost_left, ghost_right))
 
 
 def ff_bp5_defect(a: BlockPentaFF, x: FF, b: FF, left: FF | None = None, right: FF | None = None) -> FF:

@@ -12,6 +12,9 @@
   bit for bit equal to :func:`ff_stencil_mid_defect_plain`; K6s
   :func:`ff_stencil_shard_defect` — the same on one shard of a sharded
   vector, with its global column offset and its neighbours' edge columns;
+* K12 :func:`ff_bt_defect` — the same float-float defect of a materialised
+  ``ops.df64.BlockTridiagFF`` (per-column operator streams; streams and
+  vectors at any strides), with optional ghost columns, bit for bit equal to :func:`ff_bt_defect_plain`;
 * K7 — K1, K2 and K5 (four forms) with ``ghosts=(gops, gvec)``: one shard of
   an element-sharded operator, with its neighbours' columns as ghosts
   (``parallel.sharded_kernels``); the result is the sweeps over
@@ -51,7 +54,7 @@ version: a build or launch failure raises.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain runs do not count), so
 a run can show that it went through the kernels; K6s counts under
-``ff_stencil_shard_defect``, K7's four forms under the ``*_ghost`` names, the edge pair's under the ``*edge_pair*`` names
+``ff_stencil_shard_defect``, K12 under ``ff_bt_defect``, K7's four forms under the ``*_ghost`` names, the edge pair's under the ``*edge_pair*`` names
 and its packing under ``pack_edges``.
 
 K5's coefficient table (:func:`chebyshev_coefficients`) is passed to the
@@ -88,6 +91,7 @@ LAUNCHES = {
     "chebyshev_multisweep_residual": 0,
     "ff_stencil_mid_defect": 0,
     "ff_stencil_shard_defect": 0,
+    "ff_bt_defect": 0,
     "multisweep_ghost": 0,
     "multisweep_residual_ghost": 0,
     "chebyshev_multisweep_ghost": 0,
@@ -439,6 +443,38 @@ def _stencil_boundary(bw: int, col0: int, n: int, n_total: int) -> tuple:
     return local, stencil
 
 
+def _neighbours(x_hi, x_lo, ghost_left, ghost_right) -> tuple:
+    """``(x_{k-1}, x_{k+1})`` as float-float pairs: x shifted by one column,
+    the ghost column ``(2, bs)`` (hi, then lo) at each end where given, else
+    zeros (the zero-padded shift)."""
+    from ..df64 import FF
+
+    def ghost(gc):
+        if gc is None:
+            z = x_hi.new_zeros((x_hi.shape[0], 1))
+            return z, z
+        return gc[0][:, None], gc[1][:, None]
+
+    (gl_hi, gl_lo), (gr_hi, gr_lo) = ghost(ghost_left), ghost(ghost_right)
+    xm = FF(torch.cat([gl_hi, x_hi[:, :-1]], dim=1), torch.cat([gl_lo, x_lo[:, :-1]], dim=1))
+    xp = FF(torch.cat([x_hi[:, 1:], gr_hi], dim=1), torch.cat([x_lo[:, 1:], gr_lo], dim=1))
+    return xm, xp
+
+
+def ff_bt_defect_plain(a, x_hi, x_lo, b_hi, b_lo, ghost_left=None, ghost_right=None):
+    """K12's plain version: ``r = b - A x`` in float-float for the
+    materialised operator ``a`` (``ops.df64.BlockTridiagFF``), the chain of
+    ``ops.df64.ff_bt_defect_chain`` in the kernel's order (acc = b; diag on
+    x, lower on ``x_{k-1}``, upper on ``x_{k+1}``; block columns ascending).
+    ``x_{k-1}`` / ``x_{k+1}`` past the ends are ``ghost_left`` /
+    ``ghost_right`` (``(2, bs)``: hi, then lo), zero where None.  Returns
+    ``(r_hi, r_lo)``."""
+    from ..df64 import FF, ff_bt_defect_chain
+
+    r = ff_bt_defect_chain(a, FF(x_hi, x_lo), FF(b_hi, b_lo), *_neighbours(x_hi, x_lo, ghost_left, ghost_right))
+    return r.hi, r.lo
+
+
 def ff_stencil_mid_defect_plain(blocks, x_hi, x_lo, b_hi, b_lo, col0: int = 0, n_total: int | None = None,
                                 ghost_left=None, ghost_right=None):
     """``r = b - A x`` in float-float for the packed stencil ``blocks``
@@ -453,23 +489,14 @@ def ff_stencil_mid_defect_plain(blocks, x_hi, x_lo, b_hi, b_lo, col0: int = 0, n
     neighbours' edge columns ``ghost_left`` / ``ghost_right`` (``(2, bs)``:
     hi, then lo), zero where None (a ring end).  Every column runs the same
     operations in the same order as in the whole array."""
-    from ..df64 import FF, ff_bt_defect
+    from ..df64 import FF, ff_bt_defect_chain
 
     bw = (blocks.shape[-1] - 1) // 2
-    bs, n = x_hi.shape
+    n = x_hi.shape[1]
     n_total = n if n_total is None else n_total
-
-    def ghost(gc):
-        if gc is None:
-            z = x_hi.new_zeros((bs, 1))
-            return z, z
-        return gc[0][:, None], gc[1][:, None]
-
-    (gl_hi, gl_lo), (gr_hi, gr_lo) = ghost(ghost_left), ghost(ghost_right)
     x = FF(x_hi, x_lo)
-    xm = FF(torch.cat([gl_hi, x_hi[:, :-1]], dim=1), torch.cat([gl_lo, x_lo[:, :-1]], dim=1))
-    xp = FF(torch.cat([x_hi[:, 1:], gr_hi], dim=1), torch.cat([x_lo[:, 1:], gr_lo], dim=1))
-    r = ff_bt_defect(_stencil_op(blocks, slice(bw, bw + 1)), x, FF(b_hi, b_lo), xm, xp)
+    xm, xp = _neighbours(x_hi, x_lo, ghost_left, ghost_right)
+    r = ff_bt_defect_chain(_stencil_op(blocks, slice(bw, bw + 1)), x, FF(b_hi, b_lo), xm, xp)
     local, stencil = _stencil_boundary(bw, col0, n, n_total)
     if not local:
         return r.hi, r.lo
@@ -478,7 +505,7 @@ def ff_stencil_mid_defect_plain(blocks, x_hi, x_lo, b_hi, b_lo, col0: int = 0, n
     def at(v: FF) -> FF:
         return FF(v.hi[:, idx], v.lo[:, idx])
 
-    rb = ff_bt_defect(_stencil_op(blocks, stencil), at(x), FF(b_hi[:, idx], b_lo[:, idx]), at(xm), at(xp))
+    rb = ff_bt_defect_chain(_stencil_op(blocks, stencil), at(x), FF(b_hi[:, idx], b_lo[:, idx]), at(xm), at(xp))
     r_hi, r_lo = r.hi.clone(), r.lo.clone()
     r_hi[:, idx], r_lo[:, idx] = rb.hi, rb.lo
     return r_hi, r_lo
@@ -538,6 +565,8 @@ def _lib():
             lib.aggmg_chebyshev.restype = i
             lib.aggmg_ff_stencil_defect.argtypes = [i, p, i, p, p, p, p, p, p, ll, ll, ll, p, p, p]
             lib.aggmg_ff_stencil_defect.restype = i
+            lib.aggmg_ff_bt_defect.argtypes = [i, p, p, ll, p, p, p]
+            lib.aggmg_ff_bt_defect.restype = i
             lib.aggmg_block_jacobi_sweep.argtypes = [i, p, p, p, p, p, p, p, ll, f, p]
             lib.aggmg_block_jacobi_sweep.restype = i
             lib.aggmg_stream.argtypes = [i, p, p, p, p, p, p, ll, p]
@@ -564,14 +593,15 @@ def _lib():
 # ---------------------------------------------------------------------------
 
 
-def _check_tensors(tensors, bs: int, dev: torch.device) -> None:
-    """float32, contiguous, on ``dev``; a block size the kernels have on CUDA."""
+def _check_tensors(tensors, bs: int, dev: torch.device, contiguous: bool = True) -> None:
+    """float32, on ``dev``, contiguous unless told otherwise; a block size
+    the kernels have on CUDA."""
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"the block kernels take float32 only, got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"all inputs must be on one device ({dev} and {t.device})")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError("the block kernels take contiguous tensors")
     if dev.type == "cuda" and bs not in SUPPORTED_BLOCK_SIZES:
         raise ValueError(f"block size {bs} has no kernel (supported: {SUPPORTED_BLOCK_SIZES})")
@@ -1113,3 +1143,49 @@ def ff_stencil_shard_defect(blocks, x_hi, x_lo, b_hi, b_lo, col0: int, n_total: 
     the whole array."""
     return _ff_stencil("ff_stencil_shard_defect", blocks, x_hi, x_lo, b_hi, b_lo, col0, n_total,
                        ghost_left, ghost_right)
+
+
+def ff_bt_defect(a, x_hi, x_lo, b_hi, b_lo, ghost_left=None, ghost_right=None):
+    """K12: the float-float defect ``r = b - A x`` of the materialised
+    block-tridiagonal operator ``a`` (``ops.df64.BlockTridiagFF``: its six
+    ``(bs, bs, n)`` float32 streams) in one launch; ``x`` and ``b`` as
+    ``(bs, n)`` hi / lo parts; every operand at any strides, ``r`` in
+    ``b``'s layout (as the plain chain leaves it).  ``ghost_left`` /
+    ``ghost_right`` are the neighbours' edge columns of x past the two ends
+    (``(2, bs)`` contiguous, hi then lo; None reads zero).  Returns ``(r_hi,
+    r_lo)``, equal bit for bit to :func:`ff_bt_defect_plain`, which a CPU
+    tensor runs."""
+    if x_hi.dim() != 2:
+        raise ValueError(f"vector of shape {tuple(x_hi.shape)}, expected (bs, n)")
+    bs, n = x_hi.shape
+    dev = x_hi.device
+    streams = (a.hi.diag, a.hi.lower, a.hi.upper, a.lo.diag, a.lo.lower, a.lo.upper)
+    vecs = (x_hi, x_lo, b_hi, b_lo)
+    ghosts = [t for t in (ghost_left, ghost_right) if t is not None]
+    _check_tensors(ghosts, bs, dev)
+    _check_tensors((*streams, *vecs), bs, dev, contiguous=False)
+    for m in streams:
+        if tuple(m.shape) != (bs, bs, n):
+            raise ValueError(f"operator stream of shape {tuple(m.shape)}, expected {(bs, bs, n)}")
+    for v in vecs[1:]:
+        if v.shape != x_hi.shape:
+            raise ValueError(f"vector of shape {tuple(v.shape)}, expected {tuple(x_hi.shape)}")
+    for t in ghosts:
+        if tuple(t.shape) != (2, bs):
+            raise ValueError(f"ghost column of shape {tuple(t.shape)}, expected (2, {bs}): hi, then lo")
+    if dev.type == "cpu":
+        return ff_bt_defect_plain(a, x_hi, x_lo, b_hi, b_lo, ghost_left, ghost_right)
+    r_hi, r_lo = torch.empty_like(b_hi), torch.empty_like(b_lo)
+    if n == 0:
+        return r_hi, r_lo
+    arrays = (*streams, *vecs, r_hi, r_lo)
+    ptrs = (ctypes.c_void_p * 12)(*(t.data_ptr() for t in arrays))
+    strides = (ctypes.c_longlong * 30)(*(st for t in arrays for st in t.stride()))
+    rc = _launch(
+        dev, _lib().aggmg_ff_bt_defect, bs, ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(strides, ctypes.c_void_p),
+        n, None if ghost_left is None else ghost_left.data_ptr(),
+        None if ghost_right is None else ghost_right.data_ptr(),
+    )
+    _raise_on(rc, "ff_bt_defect")
+    LAUNCHES["ff_bt_defect"] += 1
+    return r_hi, r_lo

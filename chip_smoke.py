@@ -168,8 +168,12 @@ Phases, one line of numbers each:
    within half the whole build's own error of its x (G24's hold).  The whole
    script's seconds are printed before the JSON lines.
 
-The kernel phase also holds K6 (the float-float stencil defect) to its plain
-version bit for bit, hi and lo, and the three block contractions K9-K11
+The kernel phase also holds K6 (the float-float stencil defect) and K12 (the
+float-float defect of a materialised operator, ``ff_bt_defect``: the north
+star's levels 1 and 2, and every other block size, without and with ghost
+columns) to their plain versions bit for bit, hi and lo, K12 timed beside
+its plain chain against its bytes over 3.35 TB/s, and the three block
+contractions K9-K11
 (``bd_gemv``, ``bp_prolong_gemv``, ``bp_restrict_gemv``) at the north star's
 level-0 and level-1 shapes and the slice's fine shapes, float32 (and float64
 at the slice's): each bit for bit against its plain version, timed beside it
@@ -177,7 +181,10 @@ and beside the einsum it replaced, against its bytes over 3.35 TB/s.  Phase
 7 also solves the north star with the contractions swapped back to the
 einsum (``einsum_contractions``), by ``multigrid_true`` and by the
 hand-over: the residual histories (the hand-over's every norm) and the
-hand-over's x must equal the kernels' to the last bit.
+hand-over's x must equal the kernels' to the last bit; and by
+``multigrid_true`` with the plain float-float chain in K12's place
+(``plain_ff_bt_defect``): its residual history must equal K12's to the last
+bit, with K12 launched 7 times a cycle on each of the 5 agglomerated levels.
 
 Then a JSON line with the kernels' numbers (each kernel's launches from the
 path that runs it, counted from zero just before that path), and last a JSON
@@ -285,6 +292,9 @@ FAMILY_PEAK_SHARE = {"ragged": 0.6, "switch": 0.6}  # NS_PEAK_SHARE's bound; the
 # K1-K3's headline, an awkward size
 K6_SHAPES = [(2, 50331648), (2, 16384), (4, 4194304), (2, 1000)]
 K6_BW = 4  # boundary columns of the stencil, as the setup extracts them
+# K12's (bs, n): the north star's levels 1 and 2 (the first is the kernel table's headline), then every
+# other block size of SUPPORTED_BLOCK_SIZES at an awkward size
+K12_SHAPES = [(2, 12582912), (2, 3145728), (1, 100003), (3, 100003), (4, 100003), (5, 100003), (9, 100003)]
 NORTH_STAR_N = 50331648  # DG p=1 elements: 100,663,296 DoF
 # the sharded north star's _mixed_loop_ff: JAX's arguments, cut to 3 outer steps
 # (the float-float defect floors near 4e-7 there: the phases hold the sharded
@@ -408,6 +418,7 @@ def col_bytes(name, bs):
         "K5": 3 * bs * bs + 2 * bs + bs,
         "K5r": 4 * bs * bs + 2 * bs + 2 * bs,
         "K6": 6 * bs,
+        "K12": 6 * bs * bs + 6 * bs,
         "K8": 4 * bs * bs + 2 * bs + bs,
         "K4": 3 * bs * bs + 2 * bs + bs,
     }[name]
@@ -433,6 +444,7 @@ def col_ops(name, bs, k=3):
         "K5": mat + k * (sweeps + 3 * bs),
         "K5r": mat + k * (sweeps + 3 * bs) + 2 * mat + 3 * bs + mat + bs,
         "K6": 105 * bs * bs,
+        "K12": 105 * bs * bs,
         "K8": 4 * mat + 5 * bs,
         "K4": 3 * bs * bs + 2 * bs,
     }[name]
@@ -532,6 +544,49 @@ def phase_k6(bk) -> dict:
             bound_ms, bound_by = bound("K6", bs, n)
             out.update(ms=ms, plain_ms=plain_ms, gbps=gbps, bound_ms=bound_ms, bound_by=bound_by)
         del args, blocks, x_hi, x_lo, b_hi, b_lo
+        torch.cuda.empty_cache()
+    return out
+
+
+def k12_inputs(bs: int, n: int, seed: int):
+    """A random float-float block-tridiagonal operator (hi ~ 1e3, lo ~ 1e-4),
+    x and b pairs and two ghost columns, on the card."""
+    from agglomerationmultigrid1d_tpu_torch.ops.block_tridiag import BlockTridiag
+    from agglomerationmultigrid1d_tpu_torch.ops.df64 import BlockTridiagFF
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s, scale=1.0: scale * torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    a = BlockTridiagFF(BlockTridiag(*(rnd(bs, bs, n, scale=1e3) for _ in range(3))),
+                       BlockTridiag(*(rnd(bs, bs, n, scale=1e-4) for _ in range(3))))
+    v = (rnd(bs, n), rnd(bs, n, scale=1e-8), rnd(bs, n, scale=1e3), rnd(bs, n, scale=1e-5))
+    return a, v, (rnd(2, bs), rnd(2, bs, scale=1e-8))
+
+
+def phase_k12(bk) -> dict:
+    """K12, the float-float defect of a materialised operator, against its
+    plain version bit for bit (hi and lo), without and with ghost columns;
+    both timed with CUDA events, against the byte bound."""
+    out = {"max_abs_err": 0.0}
+    for bs, n in K12_SHAPES:
+        a, v, ghosts = k12_inputs(bs, n, SEED + 11 * bs + n)
+        for gl, gr in ((None, None), ghosts):
+            got, want = bk.ff_bt_defect(a, *v, gl, gr), bk.ff_bt_defect_plain(a, *v, gl, gr)
+            torch.cuda.synchronize()
+            n_diff = sum(int((got_.view(torch.int32) != want_.view(torch.int32)).sum())
+                         for got_, want_ in zip(got, want))
+            check(all(bool(torch.isfinite(t).all()) for t in got), f"K12 non-finite at {bs},{n}")
+            check(n_diff == 0, f"K12 differs from plain at bs={bs} n={n} ghosts={gl is not None}: {n_diff} elements")
+            del got, want
+        ms = time_ms(lambda: bk.ff_bt_defect(a, *v))
+        plain_ms = time_ms(lambda: bk.ff_bt_defect_plain(a, *v), reps=3)
+        bound_ms, bound_by = bound("K12", bs, n)
+        gbps = col_bytes("K12", bs) * n / (ms * 1e-3) / 1e9
+        print(f"K12 bs={bs} n={n}: bit-exact (hi and lo, without and with ghosts) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; {100 * bound_ms / ms:.1f} % of the "
+              f"bound) GB/s={gbps:.1f}", flush=True)
+        if "ms" not in out:  # the first shape is the headline
+            out.update(ms=ms, plain_ms=plain_ms, gbps=gbps, bound_ms=bound_ms, bound_by=bound_by)
+        del a, v, ghosts
         torch.cuda.empty_cache()
     return out
 
@@ -739,6 +794,19 @@ def einsum_contractions(bk):
 
 
 @contextlib.contextmanager
+def plain_ff_bt_defect(bk):
+    """Inside, every float-float defect of a materialised operator on the
+    card takes the plain torch chain (``ff_bt_defect_plain``, uncounted) in
+    place of K12: the path before K12, for the bit-for-bit comparisons."""
+    saved = bk.ff_bt_defect
+    bk.ff_bt_defect = bk.ff_bt_defect_plain
+    try:
+        yield
+    finally:
+        bk.ff_bt_defect = saved
+
+
+@contextlib.contextmanager
 def recorded_norms():
     """Inside, every norm the solvers take (``models.solvers._norm``: the
     outer defects, each inner solve's right-hand side and residuals, the
@@ -769,7 +837,7 @@ def phase_north_star(bk) -> dict:
     from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem, default_stencil_factor, multigrid_true
     from agglomerationmultigrid1d_tpu_torch.ops.block_tridiag import BlockTridiag, bt_matvec
     from agglomerationmultigrid1d_tpu_torch.ops.coarse_solve import BTCoarseSolver
-    from agglomerationmultigrid1d_tpu_torch.ops.df64 import ff_join
+    from agglomerationmultigrid1d_tpu_torch.ops.df64 import BlockTridiagFF, ff_join
 
     n = NORTH_STAR_N
     spec = north_star_spec()
@@ -801,6 +869,7 @@ def phase_north_star(bk) -> dict:
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     k6 = bk.LAUNCHES["ff_stencil_mid_defect"]
+    k12 = bk.LAUNCHES["ff_bt_defect"]
     gemv = {k: bk.LAUNCHES[k] for k in GEMV_COUNTERS}
     peak = torch.cuda.max_memory_allocated()
     it = res.iterations
@@ -820,6 +889,20 @@ def phase_north_star(bk) -> dict:
           "north star: the contraction kernels' residual history differs from the einsum path's")
     check(all(gemv.values()), f"north star: a contraction kernel did not run: {gemv}")
     del ein
+    with plain_ff_bt_defect(bk):  # the path before K12: the plain chain on levels 1-5
+        t0 = time.perf_counter()
+        pl = multigrid_true(h, ffops, b_ff, norm_b, 40, 1e-8)
+        torch.cuda.synchronize()
+        pl_s = time.perf_counter() - t0
+    materialised = sum(isinstance(a, BlockTridiagFF) for a in ffops.a_ffs[: h.n_levels - 1])
+    print(f"north star multigrid_true through the plain float-float chain: cycles={pl.iterations} "
+          f"solve_s={pl_s:.3f}; residual history equal to K12's to the last bit: "
+          f"{torch.equal(pl.res_history[:it], res_h[:it])}; K12 launches {k12} ({materialised} materialised levels)",
+          flush=True)
+    check(pl.iterations == it and torch.equal(pl.res_history[:it], res_h[:it]),
+          "north star: the residual history through K12 differs from the plain chain's")
+    check(k12 == 7 * materialised * it, f"K12 launched {k12} times in {it} cycles, expected {7 * materialised * it}")
+    del pl
     with recorded_norms() as norms:
         ho = handover_solve(bk, h, ffops, b_ff, norm_b, NS_HANDOVER)
     # the einsum path: the hand-over's inner stopping test reads _mform_matvec's contractions too
@@ -876,7 +959,7 @@ def phase_north_star(bk) -> dict:
           f"north star hand-over skipped K5 / K5r: {ho['launches']}")
     del x
     torch.cuda.empty_cache()
-    return {"ff_stencil_mid_defect": k6, **gemv}
+    return {"ff_stencil_mid_defect": k6, "ff_bt_defect": k12, **gemv}
 
 
 def handover_solve(bk, h, ffops, b_ff, norm_b, kw) -> dict:
@@ -1200,7 +1283,7 @@ def phase_flagship_xl(bk, n: int, true_solve: bool) -> dict:
         print(f"flagship XL {8 * n + 1} DoF multigrid_true: setup_s={setup_s:.3f} (host stencil "
               f"{timings['host_stencil']:.3f}, inflation {timings['inflate']:.3f}, device rhs {timings['rhs']:.3f}) "
               f"solve_s={solve_s:.3f} cycles={res.iterations} rel_residual_f64={rel:.3e} peak_mem_bytes={peak} "
-              f"launches={launches} (CG levels and float-float defects in plain torch) "
+              f"launches={launches} (CG levels in plain torch; the agglomerated levels' float-float defects K12) "
               f"res_history={[f'{v:.3e}' for v in hist]}", flush=True)
         check(bool(torch.isfinite(res.x).all()), "flagship XL multigrid_true x")
         check(rel < 1e-8, f"flagship XL multigrid_true relative residual {rel:.3e} >= 1e-8")
@@ -3006,6 +3089,7 @@ def main() -> int:
 
     kernels = phase_kernels(bk)
     kernels["K6"] = phase_k6(bk)
+    kernels["K12"] = phase_k12(bk)
     gemv = phase_gemv(bk)
     kernels.update({"bd": gemv["bd"], "prolong": gemv["prolong"], "restrict": gemv["restrict"]})
     k7_strips, k7_edges, pack, k7_whole = phase_k7(bk)
@@ -3059,6 +3143,9 @@ def main() -> int:
         "K6": ("K6", "ff_stencil_mid_defect", "ff_stencil_mid_defect", PALLAS + ":621"),
         # K6 on a shard: the sharded north star's float-float defects
         "K6s": ("K6s", "ff_stencil_shard_defect", "ff_stencil_shard_defect", PALLAS + ":621"),
+        # the float-float defect of a materialised operator: no Pallas kernel (the JAX package's plain jnp);
+        # launches from the north star's multigrid_true, 7 a cycle on each agglomerated level
+        "K12": ("K12", "ff_bt_defect", "ff_bt_defect", None),
         # K7, the whole-shard ghosted launch (its cols= strips are held in the K7 phase)
         "K7": ("K7", "multisweep(ghosts=)", "multisweep_ghost", PALLAS + ":522"),
         "K7r": ("K7", "multisweep_residual(ghosts=)", "multisweep_residual_ghost", PALLAS + ":522"),

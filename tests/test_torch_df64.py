@@ -14,9 +14,12 @@ plain version against the JAX package's, on the CPU.
   ``df64._ff_mid_defect`` (bs=2, n=16,384 as the JAX test; bs=4 at a size the
   Pallas wrapper accepts), and the whole ``ff_bt_defect_stencil`` with its
   boundary splice, to ``1e-11 max|v|``;
+* K12's plain version ``ff_bt_defect_plain`` against JAX's defect, on the whole
+  array and on shards with their neighbours' edge columns as ghosts;
 * the K6 wrapper's CPU path and its input checks.
 
-The CUDA kernel itself is tested in ``test_torch_cuda.py``."""
+The CUDA kernels themselves are tested in ``test_torch_cuda.py`` and, K12, in
+``test_torch_ff_bt_defect.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -105,6 +108,29 @@ def test_ff_bt_defect_matches_jax(rng, bs, n):
     _compare(tdf.ff_bt_defect(ta, tx, tb), jdf.ff_bt_defect(ja, jx, jb), f"ff_bt_defect bs={bs} n={n}")
     _compare(tdf.ff_bt_matvec(ta, tx), jdf.ff_bt_matvec(ja, jx), f"ff_bt_matvec bs={bs} n={n}")
     _compare(tdf.ff_defect(ta, tx, tb), jdf.ff_defect(ja, jx, jb), "ff_defect dispatch")
+
+
+@pytest.mark.parametrize("cols", ["whole", "first", "middle", "last"])
+@pytest.mark.parametrize("bs", [1, 2, 4])
+def test_k12_plain_matches_jax(rng, bs, cols):
+    """K12's plain version ``ff_bt_defect_plain`` against JAX's defect of the
+    whole array: on the whole array without ghosts, and on a shard's columns
+    with its neighbours' edge columns of x as ghosts (what
+    ``parallel.halo.edge_columns`` gives a rank; None at a ring end), equal
+    bit for bit to the same columns of the whole array's defect."""
+    n = 1000
+    ta, ja = _random_bt(rng, bs, n, scale=1e3)
+    tx, jx = _ff_pair(rng, (bs, n))
+    tb, jb = _ff_pair(rng, (bs, n), 1e3)
+    c0, c1 = {"whole": (0, n), "first": (0, 250), "middle": (250, 601), "last": (601, n)}[cols]
+    part = tdf.BlockTridiagFF(*(BlockTridiag(*(t[..., c0:c1] for t in bt)) for bt in ta))
+    gl = None if c0 == 0 else torch.stack([tx.hi[:, c0 - 1], tx.lo[:, c0 - 1]])
+    gr = None if c1 == n else torch.stack([tx.hi[:, c1], tx.lo[:, c1]])
+    got = tdf.FF(*bk.ff_bt_defect_plain(part, *(t[:, c0:c1].contiguous() for t in (*tx, *tb)), gl, gr))
+    want = jdf.ff_bt_defect(ja, jx, jb)
+    _compare(got, jdf.FF(want.hi[:, c0:c1], want.lo[:, c0:c1]), f"K12 plain bs={bs} columns [{c0}, {c1})")
+    whole = tdf.ff_bt_defect(ta, tx, tb)
+    assert torch.equal(got.hi, whole.hi[:, c0:c1]) and torch.equal(got.lo, whole.lo[:, c0:c1])
 
 
 @pytest.mark.parametrize("p", [1, 4])

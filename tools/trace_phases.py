@@ -12,7 +12,10 @@ per V-cycle of the traced solves:
 * how much of the kernels' device time and of the traced span the four
   phases hold, and the time of the traced solves;
 * the block-contraction kernels' launches over the run (every contraction
-  on the card launches one; a block size without an instance raises).
+  on the card launches one; a block size without an instance raises);
+* kernel K12's (``ff_bt_defect_kernel``, the float-float defect of a
+  materialised operator) launches and device ms per V-cycle, in all and by
+  level and by ``phase@level``, and its launches over the run.
 
     PYTHONPATH=. python3 tools/trace_phases.py --cell dg_slice.mixed_damped \\
         [--seed N] [--seconds S] [--program DIR] [--out FILE]
@@ -32,6 +35,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+K12 = "ff_bt_defect_kernel"
 
 
 def analyse(tr, cycles: int) -> dict:
@@ -50,15 +54,21 @@ def analyse(tr, cycles: int) -> dict:
         "aggmg_vcycle_spans": sum(c for n, c in counts.items() if n.startswith("aggmg.vcycle.")),
         "aggmg_spans_per_cycle": sum(c for n, c in counts.items() if n.startswith("aggmg.")) * per,
         "aggmg_device_events": sum(name.startswith("aggmg.") for name, _, _ in tr.kernels + tr.copies),
+        "k12": {"launches_per_cycle": sum(K12 in name for name, _, _ in kernels) * per,
+                "device_ms_per_cycle": sum(d for name, _, d in kernels if K12 in name) / 1e6 * per},
     }
     if not any(n.startswith("aggmg.") for n in counts):
         return out
     by_span = collections.defaultdict(lambda: [0, 0, 0])  # device ns, host ns, launches
     labels = spans.kernel_spans(tr)
+    k12 = collections.defaultdict(lambda: [0, 0])  # device ns, launches, by phase span
     if labels is not None:
-        for (_, _, d), label in zip(kernels, labels):
+        for (name, _, d), label in zip(kernels, labels):
             by_span[label or "outside"][0] += d
             by_span[label or "outside"][2] += 1
+            if K12 in name:
+                k12[label or "outside"][0] += d
+                k12[label or "outside"][1] += 1
     for name, t0, d in tr.host:  # phase spans never nest: a level's host time is the sum of its spans
         if spans.phase(name):
             by_span[name][1] += d
@@ -70,6 +80,14 @@ def analyse(tr, cycles: int) -> dict:
     out["paired"] = labels is not None
     out["phases"] = {p: fmt(v) for p, v in sorted(phases.items())}
     out["levels"] = {n: fmt(v) for n, v in sorted(by_span.items(), key=lambda kv: -kv[1][0] - kv[1][1])}
+    k12_fmt = lambda v: {"device_ms": v[0] / 1e6 * per, "launches": v[1] * per}  # noqa: E731
+    by_level = collections.defaultdict(lambda: [0, 0])
+    for label, (ns, launches) in k12.items():
+        level = by_level[label.rsplit("@", 1)[-1]]
+        level[0] += ns
+        level[1] += launches
+    out["k12"]["by_level"] = {lv: k12_fmt(v) for lv, v in sorted(by_level.items())}
+    out["k12"]["by_span"] = {n: k12_fmt(v) for n, v in sorted(k12.items())}
     out["sync_host_ms_per_cycle"] = sum(d for n, _, d in tr.host if n.startswith("aggmg.sync.")) / 1e6 * per
     kernel_ms = sum(d for _, _, d in kernels) / 1e6 * per
     timed = [(t0, t0 + d) for _, t0, d in tr.kernels + tr.copies + tr.host]
@@ -131,6 +149,7 @@ def main(argv=None) -> int:
            "traced_solves_s": clock["t1"] - clock["t0"], "metrics": {k: v["value"] for k, v in out["metrics"].items()},
            "breakdown": out.get("breakdown"),
            "contraction_launches": {k: bk.LAUNCHES.get(k) for k in ("bd_gemv", "bp_prolong_gemv", "bp_restrict_gemv")},
+           "k12_launches": bk.LAUNCHES.get("ff_bt_defect"),
            **analyse(kept[0], detail["traced_cycles"])}
     text = json.dumps(res)
     print(text, flush=True)
