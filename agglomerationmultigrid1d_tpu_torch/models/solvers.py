@@ -47,7 +47,9 @@ four phases that partition its work, level ``k`` as a suffix:
 ``aggmg.smooth@k`` (the sweeps, with a residual fused into them),
 ``aggmg.transfer@k`` (restriction, prolongation and the correction add),
 ``aggmg.coarse`` and ``aggmg.defect@k`` (every residual and norm computed
-outside a smoother, the drivers' stopping tests at ``@0``).  Inside a phase
+outside a smoother, the drivers' stopping tests at ``@0``).  The three
+V-cycles are one level walk, :func:`_cycle`, with a step set of their
+precision (:class:`_Steps`), and it alone opens the phases.  Inside a phase
 span, the work on a CG level ``k`` is also an ``aggmg.cg@k`` span, which is
 no phase and holds no other.  Each host read that waits for the device is
 an ``aggmg.sync.<site>`` span of its own and lies in no phase.
@@ -56,7 +58,8 @@ an ``aggmg.sync.<site>`` span of its own and lies in no phase.
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple
+import operator
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -231,6 +234,15 @@ def _norm(x: torch.Tensor, group=None) -> torch.Tensor:
     return torch.sqrt(all_reduce_sum(torch.sum(x * x), group))
 
 
+def _read_norm(level, site: str, norm) -> float:
+    """An outer loop's host read of a norm on level 0 (``level``): ``norm()``, a
+    0-d tensor, runs in ``aggmg.defect@0``, the read in ``aggmg.sync.<site>``."""
+    with span("aggmg.defect@0"), _cg_span(level, 0):
+        value = norm()
+    with span(f"aggmg.sync.{site}"):
+        return float(value)
+
+
 def _local_transfer(t: BlockProlong, group) -> BlockProlong:
     """The rank's coarse columns of a whole block transfer."""
     lo, hi = local_range(t.n_coarse, group)
@@ -361,66 +373,57 @@ def _smooth_cheb(level, u, rhs, degree, emit_residual=False, group=None):
             )
         return chebyshev_multisweep(ml, mu, s.base.inv, u.contiguous(), rhs.contiguous(), coef)
 
-    theta = 0.5 * (s.lam_hi + s.lam_lo)
-    delta = 0.5 * (s.lam_hi - s.lam_lo)
-    sigma = theta / delta
-    rho = 1.0 / sigma
-
-    z = _smoother_apply(s.base, rhs - _level_matvec_opt(level, u, group), group=group)
-    d = z / theta
-    u = u + d
-    for _ in range(1, degree):
-        z = _smoother_apply(s.base, rhs - _level_matvec_opt(level, u, group), group=group)
-        rho_new = 1.0 / (2.0 * sigma - rho)
-        d = (rho_new * rho) * d + (2.0 * rho_new / delta) * z
-        u = u + d
-        rho = rho_new
+    u = _chebyshev(s, degree, u, lambda u: rhs - _level_matvec_opt(level, u, group), operator.add, group)
     if emit_residual:
         return u, rhs - _level_matvec_opt(level, u, group)
     return u
 
 
-def _smooth_n(level, u, rhs, n_sweeps, alpha, group=None):
-    """``n_sweeps`` damped smoother applications ``u += alpha S (rhs - A u)``;
-    a Chebyshev level runs the degree-``n_sweeps`` recurrence instead
-    (``alpha`` is ignored: the damping is in the polynomial).  ``group`` as
-    in :func:`_smooth_cheb`."""
-    if isinstance(level.smoother, ChebyshevSmoother):
-        return _smooth_cheb(level, u, rhs, n_sweeps, group=group)
-    if _on_kernels(level, u):
-        ml, mu = _mform(level)
-        if group is not None:
-            return sharded_multisweep(
-                group, level.a, level.smoother.inv, u, rhs, n_sweeps=n_sweeps, alpha=alpha,
-                ml=ml, mu=mu, op_ghosts=level.smoother.ghosts, plan=level.smoother.plan,
-            )
-        return multisweep(
-            ml, mu, level.smoother.inv, u.contiguous(), rhs.contiguous(),
-            n_sweeps=n_sweeps, alpha=alpha,
-        )
-    for _ in range(n_sweeps):
-        u = u + _smoother_apply(level.smoother, rhs - level_matvec(level, u, group), alpha, group)
+def _chebyshev(s, degree, u, residual, update, group=None):
+    """The Chebyshev three-term recurrence of ``s`` (a ChebyshevSmoother),
+    ``degree`` steps on the preconditioned residual ``S_base residual(u)``;
+    ``update(u, d)`` is ``u + d`` in the iterate's own form.  The recurrence
+    runs in the level's own precision, on 0-d tensors (no host read)."""
+    theta = 0.5 * (s.lam_hi + s.lam_lo)
+    delta = 0.5 * (s.lam_hi - s.lam_lo)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+
+    d = _smoother_apply(s.base, residual(u), group=group) / theta
+    u = update(u, d)
+    for _ in range(1, degree):
+        z = _smoother_apply(s.base, residual(u), group=group)
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        d = (rho_new * rho) * d + (2.0 * rho_new / delta) * z
+        u = update(u, d)
+        rho = rho_new
     return u
 
 
-def _smooth_n_residual(level, u, rhs, n_sweeps, alpha, group=None):
-    """``_smooth_n`` plus the residual ``rhs - A u`` of the smoothed ``u``."""
-    if isinstance(level.smoother, ChebyshevSmoother):
-        return _smooth_cheb(level, u, rhs, n_sweeps, emit_residual=True, group=group)
+def _smooth_n(level, u, rhs, n_sweeps, alpha, group=None, residual=False):
+    """``n_sweeps`` damped smoother applications ``u += alpha S (rhs - A u)``;
+    a Chebyshev level runs the degree-``n_sweeps`` recurrence instead
+    (``alpha`` is ignored: the damping is in the polynomial).  With
+    ``residual``, ``(u, rhs - A u)`` of the smoothed ``u``.  ``group`` as in
+    :func:`_smooth_cheb`."""
+    s = level.smoother
+    if isinstance(s, ChebyshevSmoother):
+        return _smooth_cheb(level, u, rhs, n_sweeps, emit_residual=residual, group=group)
     if _on_kernels(level, u):
         ml, mu = _mform(level)
         if group is not None:
             return sharded_multisweep(
-                group, level.a, level.smoother.inv, u, rhs, n_sweeps=n_sweeps, alpha=alpha,
-                emit_residual=True, ml=ml, mu=mu, op_ghosts=level.smoother.ghosts,
-                plan=level.smoother.plan,
+                group, level.a, s.inv, u, rhs, n_sweeps=n_sweeps, alpha=alpha,
+                emit_residual=residual, ml=ml, mu=mu, op_ghosts=s.ghosts, plan=s.plan,
             )
-        return multisweep_residual(
-            ml, mu, level.smoother.inv, level.a.diag, u.contiguous(), rhs.contiguous(),
-            n_sweeps=n_sweeps, alpha=alpha,
-        )
-    u = _smooth_n(level, u, rhs, n_sweeps, alpha, group=group)
-    return u, rhs - _level_matvec_opt(level, u, group)
+        if residual:
+            return multisweep_residual(
+                ml, mu, s.inv, level.a.diag, u.contiguous(), rhs.contiguous(), n_sweeps=n_sweeps, alpha=alpha,
+            )
+        return multisweep(ml, mu, s.inv, u.contiguous(), rhs.contiguous(), n_sweeps=n_sweeps, alpha=alpha)
+    for _ in range(n_sweeps):
+        u = u + _smoother_apply(s, rhs - level_matvec(level, u, group), alpha, group)
+    return (u, rhs - _level_matvec_opt(level, u, group)) if residual else u
 
 
 def _level_matvec_opt(level, x, group=None):
@@ -439,6 +442,47 @@ def _level_matvec_opt(level, x, group=None):
     return level_matvec(level, x, group)
 
 
+class _Steps(NamedTuple):
+    """The arithmetic of one kind of V-cycle, for :func:`_cycle`; the
+    per-level steps take the level ``k`` first."""
+
+    zeros: Callable  # rhs -> the zero iterate
+    smooth: Callable  # (k, u, rhs, n_sweeps[, residual]) -> u, or (u, rhs - A u) with residual
+    defect: Callable | None  # (k, u, rhs) -> rhs - A u; None: smooth returns it fused
+    restrict: Callable  # (k, r) -> level k + 1's rhs
+    prolong: Callable  # (k, e_c) -> level k's correction
+    add: Callable  # (u, e) -> u + e
+    coarse: Callable  # rhs -> the coarsest level's solution
+
+
+def _cycle(h: Hierarchy, steps: _Steps, u, rhs, k: int, n_pre: int, n_post: int):
+    """The V-cycle on levels ``k..end`` from ``u`` (None: from zero), the one
+    place that opens the phase spans.  Level ``k``'s defect and its
+    restriction are dropped before the coarser levels run."""
+    if k == h.n_levels - 1:
+        with span("aggmg.coarse"):
+            return steps.coarse(rhs)
+    level, fused = h.levels[k], steps.defect is None
+    with span(f"aggmg.smooth@{k}"), _cg_span(level, k):
+        u = steps.zeros(rhs) if u is None else u
+        if fused:
+            u, r = steps.smooth(k, u, rhs, n_pre, residual=True)
+        else:
+            u = steps.smooth(k, u, rhs, n_pre)
+    if not fused:
+        with span(f"aggmg.defect@{k}"), _cg_span(level, k):
+            r = steps.defect(k, u, rhs)
+    with span(f"aggmg.transfer@{k}"), _cg_span(level, k):
+        r_c = steps.restrict(k, r)
+    del r
+    e_c = _cycle(h, steps, None, r_c, k + 1, n_pre, n_post)
+    del r_c
+    with span(f"aggmg.transfer@{k}"), _cg_span(level, k):
+        u = steps.add(u, steps.prolong(k, e_c))
+    with span(f"aggmg.smooth@{k}"), _cg_span(level, k):
+        return steps.smooth(k, u, rhs, n_post)
+
+
 _KINDS = {torch.float32: "f32", torch.float64: "f64"}  # a V-cycle's span by its dtype
 
 
@@ -453,36 +497,20 @@ def v_cycle(
 ) -> torch.Tensor:
     """One multigrid V-cycle (cf. ``solvers.jl:19-50``); on a sharded
     hierarchy ``x0``, ``b`` and the result are the rank's shards (see the
-    module docstring)."""
-    n = h.n_levels
-    u = [None] * n
-    rhs = [None] * n
-    u[0], rhs[0] = x0, b
-
+    module docstring).  The residual comes fused with the pre-smoothing; the
+    coarsest level is a direct solve (cf. ``solvers.jl:39``), whole on every
+    rank."""
+    steps = _Steps(
+        zeros=torch.zeros_like,
+        smooth=lambda k, u, rhs, n, residual=False: _smooth_n(h.levels[k], u, rhs, n, alpha, _group(h, k), residual),
+        defect=None,
+        restrict=lambda k, r: _restrict(h, k, r),
+        prolong=lambda k, e: _prolong(h, k, e),
+        add=operator.add,
+        coarse=lambda rhs: _unflatten_level_vec(coarse_solve(h.coarse, _flatten_level_vec(rhs)), rhs),
+    )
     with span(f"aggmg.vcycle.{_KINDS.get(b.dtype, b.dtype)}"):
-        for k in range(n - 1):
-            level = h.levels[k]
-            with span(f"aggmg.smooth@{k}"), _cg_span(level, k):
-                if k > 0:
-                    u[k] = torch.zeros_like(rhs[k])
-                u[k], r_k = _smooth_n_residual(
-                    level, u[k], rhs[k], n_pre, alpha, group=_group(h, k)
-                )
-            with span(f"aggmg.transfer@{k}"), _cg_span(level, k):
-                rhs[k + 1] = _restrict(h, k, r_k)
-
-        # coarsest level: dense direct solve (cf. solvers.jl:39), whole on every rank
-        with span("aggmg.coarse"):
-            flat = _flatten_level_vec(rhs[n - 1])
-            u[n - 1] = _unflatten_level_vec(coarse_solve(h.coarse, flat), rhs[n - 1])
-
-        for k in range(n - 2, -1, -1):
-            level = h.levels[k]
-            with span(f"aggmg.transfer@{k}"), _cg_span(level, k):
-                u[k] = u[k] + _prolong(h, k, u[k + 1])
-            with span(f"aggmg.smooth@{k}"), _cg_span(level, k):
-                u[k] = _smooth_n(level, u[k], rhs[k], n_post, alpha, group=_group(h, k))
-    return u[0]
+        return _cycle(h, steps, x0, b, 0, n_pre, n_post)
 
 
 def mg_preconditioner(h: Hierarchy, b: torch.Tensor, **kw) -> torch.Tensor:
@@ -543,26 +571,17 @@ def multigrid(
     with span("aggmg.solve.multigrid"):
         u_exact = _dense_fine_solve(h, b) if compute_error else None
         fine, g0 = h.levels[0], _group(h, 0)
-        with span("aggmg.defect@0"), _cg_span(fine, 0):
-            norm_b = _norm(b, g0)
-        with span("aggmg.sync.norm_b"):
-            norm_b = float(norm_b)
+        norm_b = _read_norm(fine, "norm_b", lambda: _norm(b, g0))
         res_h = torch.full((maxiter,), float("nan"), dtype=torch.float64, device="cpu")
         err_h = torch.full((maxiter,), float("nan"), dtype=torch.float64, device="cpu")
         x = x0
         it = 0
         while it < maxiter:
             x = v_cycle(h, x, b, n_pre=n_pre, n_post=n_post, alpha=alpha)
-            with span("aggmg.defect@0"), _cg_span(fine, 0):
-                res = _norm(level_matvec(fine, x, g0) - b, g0)
-            with span("aggmg.sync.residual"):
-                res = float(res)
+            res = _read_norm(fine, "residual", lambda: _norm(level_matvec(fine, x, g0) - b, g0))
             res_h[it] = res
             if u_exact is not None:
-                with span("aggmg.defect@0"), _cg_span(fine, 0):
-                    err = _norm(_flatten_level_vec(x) - u_exact, g0)
-                with span("aggmg.sync.error"):
-                    err_h[it] = float(err)
+                err_h[it] = _read_norm(fine, "error", lambda: _norm(_flatten_level_vec(x) - u_exact, g0))
             it += 1
             if res < tol * norm_b:
                 break
@@ -631,20 +650,14 @@ def _mixed_inner_solve(h_low, r, inner_tol, max_cycles, *, n_pre, n_post, alpha)
     inner residual, the cycles run, and after how many cycles the best came.
     One residual matvec (kernel K3) per cycle, and one host sync."""
     fine, g0 = h_low.levels[0], _group(h_low, 0)
-    with span("aggmg.defect@0"), _cg_span(fine, 0):
-        norm_r = _norm(r, g0)
-    with span("aggmg.sync.inner_norm"):
-        norm_r = float(norm_r)
+    norm_r = _read_norm(fine, "inner_norm", lambda: _norm(r, g0))
     big = float(torch.finfo(r.dtype).max)
     e = torch.zeros_like(r)
     best_e, best_res, best_i = e, big, 0
     i, res, prev = 0, norm_r, big
     while i < max_cycles and not (res < inner_tol * norm_r or res > 0.7 * prev):
         e = v_cycle(h_low, e, r, n_pre=n_pre, n_post=n_post, alpha=alpha)
-        with span("aggmg.defect@0"), _cg_span(fine, 0):
-            new = _norm(r - _level_matvec_opt(fine, e, g0), g0)
-        with span("aggmg.sync.inner_residual"):
-            new = float(new)
+        new = _read_norm(fine, "inner_residual", lambda: _norm(r - _level_matvec_opt(fine, e, g0), g0))
         if new < best_res:
             best_e, best_res, best_i = e, new, i + 1
         i, res, prev = i + 1, new, res
@@ -859,10 +872,7 @@ def multigrid_mixed(
     ``x0``, ``b`` and ``x`` are the rank's shards.
     """
     with span("aggmg.solve.multigrid_mixed"):
-        with span("aggmg.defect@0"), _cg_span(h.levels[0], 0):
-            norm_b = _norm(b, _group(h, 0))
-        with span("aggmg.sync.norm_b"):
-            norm_b = float(norm_b)
+        norm_b = _read_norm(h.levels[0], "norm_b", lambda: _norm(b, _group(h, 0)))
         kw = dict(n_pre=n_pre, n_post=n_post, alpha=alpha)
         x, outer, cycles, rel_h = _mixed_loop(
             h, h_low, x0.to(torch.float64), b, norm_b,
@@ -931,13 +941,10 @@ def _true_coarse_solve(coarse64, rhs_ff: FF) -> FF:
     return FF(_unflatten_level_vec(sp.hi, like), _unflatten_level_vec(sp.lo, like))
 
 
-def _coarse_ff(h_low: Hierarchy, a_ff_c, r: FF, coarse64) -> FF:
-    """The coarsest solve of :func:`v_cycle_ff`: from the float64
-    factorization ``coarse64`` when given, else a float32 solve plus one
+def _coarse_ff(h_low: Hierarchy, a_ff_c, r: FF) -> FF:
+    """The coarsest solve of :func:`v_cycle_ff`: a float32 solve plus one
     float-float-defect refinement step (enough while the coarse operator is
     mildly conditioned)."""
-    if coarse64 is not None:
-        return _true_coarse_solve(coarse64, r)
     like = r.hi
     e1 = _unflatten_level_vec(coarse_solve(h_low.coarse, _flatten_level_vec(r.hi)), like)
     e_ff = FF(e1, torch.zeros_like(e1))
@@ -978,7 +985,6 @@ def v_cycle_ff(
     a_ffs,
     u_ff: FF,
     rhs_ff: FF,
-    coarse64=None,
     *,
     n_pre: int = 3,
     n_post: int = 3,
@@ -986,37 +992,20 @@ def v_cycle_ff(
 ) -> FF:
     """One *progressive-precision* V-cycle: the control flow of
     :func:`v_cycle`, with every residual, transfer and iterate update in
-    float-float while the smoother sweeps (and, without ``coarse64``, the
-    coarse solve) run in float32 on ``h_low``.  ``a_ffs`` holds the per-level
-    float-float operators split from the float64 hierarchy."""
-    n = h_low.n_levels
-    u = [None] * n
-    rhs = [None] * n
-    u[0], rhs[0] = u_ff, rhs_ff
-
+    float-float while the smoother sweeps and the coarse solve run in
+    float32 on ``h_low``.  ``a_ffs`` holds the per-level float-float
+    operators split from the float64 hierarchy."""
+    steps = _Steps(
+        zeros=_ff_zeros_like,
+        smooth=lambda k, u, rhs, n: _smooth_ff(h_low.levels[k], u, rhs, n, alpha, group=_group(h_low, k)),
+        defect=lambda k, u, rhs: _ff_defect(a_ffs[k], u, rhs, _group(h_low, k)),
+        restrict=lambda k, r: FF(_restrict(h_low, k, r.hi), _restrict(h_low, k, r.lo)),
+        prolong=lambda k, e: FF(_prolong(h_low, k, e.hi), _prolong(h_low, k, e.lo)),
+        add=ff_add,
+        coarse=lambda r: _coarse_ff(h_low, a_ffs[h_low.n_levels - 1], r),
+    )
     with span("aggmg.vcycle.ff"):
-        for k in range(n - 1):
-            level, g = h_low.levels[k], _group(h_low, k)
-            with span(f"aggmg.smooth@{k}"), _cg_span(level, k):
-                if k > 0:
-                    u[k] = _ff_zeros_like(rhs[k])
-                u[k] = _smooth_ff(level, u[k], rhs[k], n_pre, alpha, group=g)
-            with span(f"aggmg.defect@{k}"), _cg_span(level, k):
-                r_ff = _ff_defect(a_ffs[k], u[k], rhs[k], g)
-            with span(f"aggmg.transfer@{k}"), _cg_span(level, k):
-                rhs[k + 1] = FF(_restrict(h_low, k, r_ff.hi), _restrict(h_low, k, r_ff.lo))
-
-        with span("aggmg.coarse"):
-            u[n - 1] = _coarse_ff(h_low, a_ffs[n - 1], rhs[n - 1], coarse64)
-
-        for k in range(n - 2, -1, -1):
-            level = h_low.levels[k]
-            with span(f"aggmg.transfer@{k}"), _cg_span(level, k):
-                corr = FF(_prolong(h_low, k, u[k + 1].hi), _prolong(h_low, k, u[k + 1].lo))
-                u[k] = ff_add(u[k], corr)
-            with span(f"aggmg.smooth@{k}"), _cg_span(level, k):
-                u[k] = _smooth_ff(level, u[k], rhs[k], n_post, alpha, group=_group(h_low, k))
-    return u[0]
+        return _cycle(h_low, steps, u_ff, rhs_ff, 0, n_pre, n_post)
 
 
 def _ff_rel_defect(a_ff, x_ff: FF, b_ff: FF, inv_norm_b, group=None) -> tuple:
@@ -1025,40 +1014,49 @@ def _ff_rel_defect(a_ff, x_ff: FF, b_ff: FF, inv_norm_b, group=None) -> tuple:
     return r_ff, _norm(_flatten_level_vec(r_ff.hi) * float(inv_norm_b), group)
 
 
-def _progressive_loop(
-    h_low, a_ffs, x_ff, b_ff, inv_norm_b, coarse64=None, *, maxiter, tol, n_pre, n_post, alpha,
-):
-    """Progressive-precision iteration, a host loop: each cycle solves the
-    CORRECTION equation ``A e = r`` from zero (with a well-scaled rhs every
-    float32 cancellation inside the cycle is relative to the current
-    residual, so the contraction holds down to the float-float defect's
-    ~2^-48 floor), until the float32 relative defect is below ``tol``.
-    Returns ``(x_ff, iterations, rel_history)``, the history as float32
-    relative defects after each cycle (the JAX package's ``_progressive_loop``,
-    one host read per cycle)."""
-    kw = dict(n_pre=n_pre, n_post=n_post, alpha=alpha)
-    g0 = _group(h_low, 0)
-    tol32 = np.float32(tol)
-    res_h = np.full((maxiter,), np.nan, dtype=np.float32)
+def _correction_loop(fine, defect, cycle, x_ff: FF, *, maxiter: int, tol: float, dtype):
+    """The host loop of the progressive and TRUE-precision iterations: each
+    cycle solves the CORRECTION equation ``A e = r`` from zero (with a
+    well-scaled rhs every float32 cancellation inside the cycle is relative
+    to the current residual, so the contraction holds down to the defect's
+    floor), until the relative defect is below ``tol``.  ``defect(x_ff) ->
+    (r_ff, rel)`` with ``rel`` a 0-d tensor, read once a cycle and compared
+    as ``dtype``; ``cycle(r_ff) -> e_ff``.  Returns ``(x_ff, iterations,
+    rel_history)``, the history (``dtype``) the relative defect after each
+    cycle."""
+    res_h = np.full((maxiter,), np.nan, dtype=dtype)
     it = 0
     while it < maxiter:
-        with span("aggmg.defect@0"), _cg_span(h_low.levels[0], 0):
-            r_ff, rel = _ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b, g0)
+        with span("aggmg.defect@0"), _cg_span(fine, 0):
+            r_ff, rel = defect(x_ff)
         with span("aggmg.sync.defect"):
-            rel = np.float32(float(rel))  # a 0-d tensor on the level's device
+            rel = dtype(float(rel))
         if it > 0:
             res_h[it - 1] = rel
-        if rel < tol32:
+        if rel < dtype(tol):
             break
-        e_ff = v_cycle_ff(h_low, a_ffs, _ff_zeros_like(r_ff), r_ff, coarse64, **kw)
+        e_ff = cycle(r_ff)
+        del r_ff
         x_ff = ff_add(x_ff, e_ff)
+        del e_ff
         it += 1
     if it > 0:  # the defect of the final iterate
-        with span("aggmg.defect@0"), _cg_span(h_low.levels[0], 0):
-            rel = _ff_rel_defect(a_ffs[0], x_ff, b_ff, inv_norm_b, g0)[1]
-        with span("aggmg.sync.defect"):
-            res_h[it - 1] = np.float32(float(rel))
+        res_h[it - 1] = dtype(_read_norm(fine, "defect", lambda: defect(x_ff)[1]))
     return x_ff, it, res_h
+
+
+def _progressive_loop(h_low, a_ffs, x_ff, b_ff, inv_norm_b, *, maxiter, tol, n_pre, n_post, alpha):
+    """Progressive-precision iteration (the JAX package's
+    ``_progressive_loop``): :func:`v_cycle_ff` cycles in
+    :func:`_correction_loop` on the float-float defect, its norm, history
+    and stopping test in float32."""
+    g0 = _group(h_low, 0)
+    return _correction_loop(
+        h_low.levels[0],
+        lambda x: _ff_rel_defect(a_ffs[0], x, b_ff, inv_norm_b, g0),
+        lambda r: v_cycle_ff(h_low, a_ffs, _ff_zeros_like(r), r, n_pre=n_pre, n_post=n_post, alpha=alpha),
+        x_ff, maxiter=maxiter, tol=tol, dtype=np.float32,
+    )
 
 
 def multigrid_progressive(
@@ -1081,10 +1079,7 @@ def multigrid_progressive(
     Sharded hierarchies as in :func:`multigrid_mixed`."""
     with span("aggmg.solve.multigrid_progressive"):
         a_ffs = tuple(_ff_split_level(lv) for lv in h.levels)
-        with span("aggmg.defect@0"), _cg_span(h.levels[0], 0):
-            norm_b = _norm(b, _group(h, 0))
-        with span("aggmg.sync.norm_b"):
-            norm_b = float(norm_b)
+        norm_b = _read_norm(h.levels[0], "norm_b", lambda: _norm(b, _group(h, 0)))
         x_ff, it, rel_h = _progressive_loop(
             h_low, a_ffs, ff_split(x0.to(torch.float64)), ff_split(b), np.float32(1.0 / norm_b),
             maxiter=maxiter, tol=tol, n_pre=n_pre, n_post=n_post, alpha=alpha,
@@ -1117,22 +1112,8 @@ def _smooth_true(level, a_ff_k, u_ff: FF, rhs_ff: FF, n_sweeps: int, alpha: floa
     defect; the float32 preconditioner is applied to its hi part."""
     s = level.smoother
     if isinstance(s, ChebyshevSmoother):
-        # the recurrence in the level's own precision, on 0-d tensors (no host read)
-        theta = 0.5 * (s.lam_hi + s.lam_lo)
-        delta = 0.5 * (s.lam_hi - s.lam_lo)
-        sigma = theta / delta
-        rho = 1.0 / sigma
-        r = ff_defect(a_ff_k, u_ff, rhs_ff)
-        d = apply_smoother(s.base, r.hi) / theta
-        u_ff = ff_add(u_ff, FF(d, torch.zeros_like(d)))
-        for _ in range(1, n_sweeps):
-            r = ff_defect(a_ff_k, u_ff, rhs_ff)
-            z = apply_smoother(s.base, r.hi)
-            rho_new = 1.0 / (2.0 * sigma - rho)
-            d = (rho_new * rho) * d + (2.0 * rho_new / delta) * z
-            u_ff = ff_add(u_ff, FF(d, torch.zeros_like(d)))
-            rho = rho_new
-        return u_ff
+        return _chebyshev(s, n_sweeps, u_ff, lambda u: ff_defect(a_ff_k, u, rhs_ff).hi,
+                          lambda u, d: ff_add(u, FF(d, torch.zeros_like(d))))
     for _ in range(n_sweeps):
         r = ff_defect(a_ff_k, u_ff, rhs_ff)
         du = alpha * apply_smoother(s, r.hi)
@@ -1149,41 +1130,22 @@ def _transfer_true(apply, t32, t_lo, v: FF) -> FF:
     return ff_add(FF(hi, torch.zeros_like(hi)), FF(cross, torch.zeros_like(cross)))
 
 
-def _restrict_true(t32, t_lo, r_ff: FF) -> FF:
-    return _transfer_true(transfer_restrict, t32, t_lo, r_ff)
-
-
-def _prolong_true(t32, t_lo, u_c_ff: FF) -> FF:
-    return _transfer_true(transfer_prolong, t32, t_lo, u_c_ff)
-
-
 def v_cycle_true(h_low: Hierarchy, ffops, rhs_ff: FF, k: int = 0, *, n_pre=3, n_post=3, alpha=2.0 / 3.0) -> FF:
     """One TRUE-precision V-cycle from zero on levels ``k..end`` (see the
     section comment; ``ffops`` is ``stencil_setup.FFOps``).  On a stencil
     fine level it launches K6 ``n_pre + 1 + n_post`` times."""
+    a_ffs, t32, t_los = ffops.a_ffs, h_low.transfers, ffops.t_los
+    steps = _Steps(
+        zeros=_ff_zeros_like,
+        smooth=lambda k, u, rhs, n: _smooth_true(h_low.levels[k], a_ffs[k], u, rhs, n, alpha),
+        defect=lambda k, u, rhs: ff_defect(a_ffs[k], u, rhs),
+        restrict=lambda k, r: _transfer_true(transfer_restrict, t32[k], t_los[k], r),
+        prolong=lambda k, e: _transfer_true(transfer_prolong, t32[k], t_los[k], e),
+        add=ff_add,
+        coarse=lambda r: _true_coarse_solve(ffops.coarse64, r),
+    )
     with span("aggmg.vcycle.true"):
-        return _true_levels(h_low, ffops, rhs_ff, k, n_pre, n_post, alpha)
-
-
-def _true_levels(h_low: Hierarchy, ffops, rhs_ff: FF, k: int, n_pre, n_post, alpha) -> FF:
-    """:func:`v_cycle_true`'s recursion on levels ``k..end``."""
-    if k == h_low.n_levels - 1:
-        with span("aggmg.coarse"):
-            return _true_coarse_solve(ffops.coarse64, rhs_ff)
-    lv = h_low.levels[k]
-    t32, t_lo = h_low.transfers[k], ffops.t_los[k]
-    with span(f"aggmg.smooth@{k}"), _cg_span(lv, k):
-        u = _smooth_true(lv, ffops.a_ffs[k], _ff_zeros_like(rhs_ff), rhs_ff, n_pre, alpha)
-    with span(f"aggmg.defect@{k}"), _cg_span(lv, k):
-        r = ff_defect(ffops.a_ffs[k], u, rhs_ff)
-    with span(f"aggmg.transfer@{k}"), _cg_span(lv, k):
-        r_c = _restrict_true(t32, t_lo, r)
-    e_c = _true_levels(h_low, ffops, r_c, k + 1, n_pre, n_post, alpha)
-    del r, r_c
-    with span(f"aggmg.transfer@{k}"), _cg_span(lv, k):
-        u = ff_add(u, _prolong_true(t32, t_lo, e_c))
-    with span(f"aggmg.smooth@{k}"), _cg_span(lv, k):
-        return _smooth_true(lv, ffops.a_ffs[k], u, rhs_ff, n_post, alpha)
+        return _cycle(h_low, steps, None, rhs_ff, k, n_pre, n_post)
 
 
 def _f64_rel_defect(a_st: BTFFStencil, x_ff: FF, b_ff: FF, inv_norm_b) -> tuple:
@@ -1199,35 +1161,17 @@ def _progressive_true_eager(
     h_low, ffops, x_ff: FF, b_ff: FF, inv_norm_b, *, maxiter: int, tol: float,
     n_pre: int = 3, n_post: int = 3, alpha: float = 2.0 / 3.0,
 ):
-    """TRUE-precision iteration, a host loop: value-accurate cycles on the
-    correction equation, driven by the float64 outer defect (stencil fine
-    operators) or the float-float one.  One host read per cycle.  Returns
-    ``(x_ff, iterations, rel_history)``."""
-    use64 = isinstance(ffops.a_ffs[0], BTFFStencil)
-    defect = _f64_rel_defect if use64 else _ff_rel_defect
-
-    res_h = np.full((maxiter,), np.nan, dtype=np.float64)
-    it = 0
-    while it < maxiter:
-        with span("aggmg.defect@0"), _cg_span(h_low.levels[0], 0):
-            r_ff, rel = defect(ffops.a_ffs[0], x_ff, b_ff, inv_norm_b)
-        with span("aggmg.sync.defect"):
-            rel = float(rel)
-        if it > 0:
-            res_h[it - 1] = rel
-        if rel < float(tol):
-            break
-        e_ff = v_cycle_true(h_low, ffops, r_ff, n_pre=n_pre, n_post=n_post, alpha=alpha)
-        del r_ff
-        x_ff = ff_add(x_ff, e_ff)
-        del e_ff
-        it += 1
-    if it > 0:
-        with span("aggmg.defect@0"), _cg_span(h_low.levels[0], 0):
-            rel = defect(ffops.a_ffs[0], x_ff, b_ff, inv_norm_b)[1]
-        with span("aggmg.sync.defect"):
-            res_h[it - 1] = float(rel)
-    return x_ff, it, res_h
+    """TRUE-precision iteration: :func:`v_cycle_true` cycles in
+    :func:`_correction_loop`, driven by the float64 outer defect (stencil
+    fine operators) or the float-float one, the history and stopping test
+    in float64."""
+    defect = _f64_rel_defect if isinstance(ffops.a_ffs[0], BTFFStencil) else _ff_rel_defect
+    return _correction_loop(
+        h_low.levels[0],
+        lambda x: defect(ffops.a_ffs[0], x, b_ff, inv_norm_b),
+        lambda r: v_cycle_true(h_low, ffops, r, n_pre=n_pre, n_post=n_post, alpha=alpha),
+        x_ff, maxiter=maxiter, tol=tol, dtype=np.float64,
+    )
 
 
 def multigrid_true(

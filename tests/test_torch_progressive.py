@@ -113,7 +113,7 @@ def test_mixed_handover_contracts_with_a_float64_coarse_solve(monkeypatch):
     kw = dict(n=1024, max_p=1, n_dg=1, n_agg=3, c_dir=1e10)
     prob = poisson_dg_hierarchy(**kw, device="cpu")
     steps = []
-    loop, coarse_ff = tsolvers._progressive_loop, tsolvers._coarse_ff
+    loop = tsolvers._progressive_loop
 
     def spy(*args, **kw):
         out = loop(*args, **kw)
@@ -121,7 +121,7 @@ def test_mixed_handover_contracts_with_a_float64_coarse_solve(monkeypatch):
         return out
 
     monkeypatch.setattr(tsolvers, "_progressive_loop", spy)
-    monkeypatch.setattr(tsolvers, "_coarse_ff", lambda h, a, r, c64: coarse_ff(h, a, r, prob.hierarchy.coarse))
+    monkeypatch.setattr(tsolvers, "_coarse_ff", lambda h, a, r: tsolvers._true_coarse_solve(prob.hierarchy.coarse, r))
     res = multigrid_mixed(prob.hierarchy, make_low_precision_hierarchy(prob.hierarchy),
                           torch.zeros_like(prob.b), prob.b, 60, 1e-10)
     hist = res.res_history.numpy()[: res.iterations] / _norm(prob.b)

@@ -211,7 +211,7 @@ def _prolong_fused(l, xc):
 
 def test_true_cycle_contracts_with_a_fused_prolongation(monkeypatch):
     """Where the counts at n=16,384 part: the float32 prolongation ``T e_hi``
-    of ``_prolong_true`` cancels at this conditioning, and its rounding decides
+    of ``_transfer_true`` cancels at this conditioning, and its rounding decides
     whether the cycle contracts.  With the contraction fused as XLA's CPU code
     and the card's gemv form it, the port contracts every cycle at JAX's rate
     and reaches tol no later than JAX; the plain float32 sum does not (its

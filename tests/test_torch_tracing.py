@@ -162,6 +162,31 @@ def test_each_level_smooths_and_transfers_twice_a_cycle(case):
     assert len([e for e in tr.events if e[0] == "aggmg.coarse"]) == tr.cycles
 
 
+def _cycle_phases(n_levels, fused):
+    """The phase spans of one V-cycle on ``n_levels`` levels, in order: down
+    smooth (then a defect unless the residual is ``fused`` into the
+    smoothing) and restrict, the coarse solve, up prolong and smooth."""
+    down = [p for k in range(n_levels - 1)
+            for p in (f"aggmg.smooth@{k}", *(() if fused else (f"aggmg.defect@{k}",)), f"aggmg.transfer@{k}")]
+    up = [p for k in reversed(range(n_levels - 1)) for p in (f"aggmg.transfer@{k}", f"aggmg.smooth@{k}")]
+    return [*down, "aggmg.coarse", *up]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_phase_sequence_within_each_vcycle(case):
+    """Inside every ``aggmg.vcycle.<kind>`` span the phases come in the one
+    V-cycle order, by name and level: a native (``f32`` / ``f64``) cycle has
+    its residual fused into the pre-smoothing and opens no ``defect@k``; a
+    float-float (``ff``) or TRUE-precision (``true``) cycle opens one after
+    each pre-smoothing."""
+    tr = _traced(case)
+    cycles = _named(tr, "aggmg.vcycle.")
+    assert len(cycles) == tr.cycles
+    for name, t0, t1, _ in cycles:
+        got = [e[0] for e in tr.events if _phase(e[0]) and t0 <= e[1] and e[2] <= t1]
+        assert got == _cycle_phases(tr.n_levels, fused=name.split(".")[-1] in ("f32", "f64")), name
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_one_sync_span_per_host_read(case):
     """Every host read (``aten::_local_scalar_dense``, what ``float(t)``
