@@ -14,8 +14,8 @@
 // ops/kernels/block_kernels.py: block contractions sum over j in ascending
 // order, and the off-diagonal term is formed as (lower + upper).  In K1-K5
 // FMA contraction is allowed, so results agree with the plain versions to a
-// few float32 ulps, not bit for bit; K6 and K12 round every operation on
-// their own and equal their plain versions bit for bit.
+// few float32 ulps, not bit for bit; K6, K12 and K13 round every operation
+// on their own and equal their plain versions bit for bit.
 //
 // Host entry points have a plain C interface (loaded with ctypes) and return
 // cudaGetLastError() after the launch; -1 means an unsupported block size,
@@ -24,7 +24,8 @@
 // float-float pairs: two (bs, n) arrays per vector; K6s is its launch on one
 // shard, with the neighbours' edge columns as ghosts; K12 (ff_bt_defect_kernel) is
 // the same defect on a materialised operator, per-column streams in place of the
-// stencil.  K7 is the multisweep kernel with ghost columns
+// stencil; K13 (ff_cg_defect_kernel) the same float-float defect on a CG
+// band, one thread per node.  K7 is the multisweep kernel with ghost columns
 // (a shard's neighbours), K8 one A-form sweep, K4 the bandwidth yardstick that
 // reads the multisweep's operands.  The sharded path's per-smoothing pair:
 // pack_edges_kernel copies a shard's edge columns of x and b into the two
@@ -650,6 +651,117 @@ __global__ void __launch_bounds__(kThreads)
       v, n, k, gl, gr);
 }
 
+// ---------------------------------------------------------------------------
+// K13: the float-float defect r = b - A x of an assembled CG band
+// (ops.df64.CgBandFF): the CG levels of a CG-topped chain, where every
+// sweep's residual, every level defect and the outer defect are this defect.
+//
+// Replaces no Pallas kernel: the JAX package's ff_cg_defect
+// (agglomerationmultigrid1d_tpu/ops/df64.py) is plain jnp, which XLA fuses;
+// in plain torch the chain is ~43 launches per diagonal (~730 at p = 8),
+// each streaming a whole node vector.  The band is (2p + 1, n): row p + off
+// holds A[i, i + off] at column i.  Arithmetic: the EFTs of K6 and K12
+// (eft::sub_product), acc = b, then for off = -p .. p ascending acc <-
+// ff_add(acc, -ff_mul((band_hi, band_lo)[p + off][i], x[i + off])), r = acc;
+// so it equals the plain chain (ops/kernels/block_kernels.py:
+// ff_cg_defect_plain) bit for bit.  A node past the array's ends is the halo
+// (a shard's: the p nodes before it and the p after it, hi and lo, each
+// at its stride) or, where that is null, zero; the arithmetic runs on the
+// zero as the plain chain's zero fill does, signed zeros included.
+//
+// Cost per node: 8 (2p + 1) + 24 bytes (the band's hi and lo rows, the x
+// and b pairs in, the r pair out: 160 B at p = 8, 2.68 GB at 16,777,217
+// nodes, 0.80 ms at 3.35 TB/s) against 33 (2p + 1) float32 operations that
+// may not fuse (~0.28 ms of instruction throughput there): bytes-bound.
+// Design: one thread per node, so each band row, x, b and r is read or
+// written once and coalesced across a warp.  With the order P known at
+// compile time (the flagship's 8, 4, 2, 1) a thread block stages its nodes'
+// x window (p a side) once in shared memory, hi, lo and the split of hi, so
+// each x value is split once rather than 2p + 1 times; any other order
+// (P = 0, p at run time) reads its neighbours through L1 and splits them
+// where it uses them, the same values.
+struct CgBand {
+  const float* hi;  // (2p + 1, n) at element strides (sr, sn)
+  const float* lo;
+  long long sr[2], sn[2];
+};
+
+// The p nodes past each end of a shard, hi and lo at their element strides;
+// a null pointer reads zero.
+struct CgHalo {
+  const float* left[2];  // hi, lo
+  const float* right[2];
+  long long sl[2], sr[2];
+};
+
+// Node j of x (hi and lo): x itself on [0, n), the halo or zero past its ends
+// (no thread reads past p a side).
+__device__ __forceinline__ void cg_node(const FFVectors& v, const CgHalo& h, long long n, int p,
+                                        long long j, float& hi, float& lo) {
+  if (j >= 0 && j < n) {
+    hi = __ldg(v.in[0] + j * v.sn[0]);
+    lo = __ldg(v.in[1] + j * v.sn[1]);
+  } else if (j < 0) {
+    const long long t = p + j;
+    hi = h.left[0] != nullptr ? h.left[0][t * h.sl[0]] : 0.f;
+    lo = h.left[1] != nullptr ? h.left[1][t * h.sl[1]] : 0.f;
+  } else {
+    const long long t = j - n;
+    hi = h.right[0] != nullptr && t < p ? h.right[0][t * h.sr[0]] : 0.f;
+    lo = h.right[1] != nullptr && t < p ? h.right[1][t * h.sr[1]] : 0.f;
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+    ff_cg_defect_kernel(const CgBand a, const FFVectors v, const CgHalo h, long long n, int p) {
+  const long long base = (long long)blockIdx.x * kThreads;
+  const long long k = base + threadIdx.x;
+  const auto band = [&](int o, float& a_hi, float& a_lo) {  // row o = off + p at node k
+    a_hi = __ldg(a.hi + o * a.sr[0] + k * a.sn[0]);
+    a_lo = __ldg(a.lo + o * a.sr[1] + k * a.sn[1]);
+  };
+  float acc_hi, acc_lo, a_hi, a_lo;
+  if constexpr (P > 0) {
+    // x's window of this block, nodes [base - P, base + kThreads + P): hi, lo and hi's split
+    __shared__ float win[4][kThreads + 2 * P];
+    for (int t = threadIdx.x; t < kThreads + 2 * P; t += kThreads) {
+      cg_node(v, h, n, P, base - P + t, win[0][t], win[1][t]);
+      eft::split(win[0][t], win[2][t], win[3][t]);
+    }
+    __syncthreads();
+    if (k >= n) return;
+    acc_hi = __ldg(v.in[2] + k * v.sn[2]);
+    acc_lo = __ldg(v.in[3] + k * v.sn[3]);
+#pragma unroll
+    for (int o = 0; o <= 2 * P; ++o) {
+      const int t = threadIdx.x + o;
+      band(o, a_hi, a_lo);
+      eft::sub_product(acc_hi, acc_lo, a_hi, a_lo, win[0][t], win[1][t], win[2][t], win[3][t]);
+    }
+  } else {
+    if (k >= n) return;
+    acc_hi = __ldg(v.in[2] + k * v.sn[2]);
+    acc_lo = __ldg(v.in[3] + k * v.sn[3]);
+    for (int o = 0; o <= 2 * p; ++o) {
+      float x_hi, x_lo, xh, xl;
+      cg_node(v, h, n, p, k - p + o, x_hi, x_lo);
+      eft::split(x_hi, xh, xl);
+      band(o, a_hi, a_lo);
+      eft::sub_product(acc_hi, acc_lo, a_hi, a_lo, x_hi, x_lo, xh, xl);
+    }
+  }
+  v.out[0][k * v.sn[4]] = acc_hi;
+  v.out[1][k * v.sn[5]] = acc_lo;
+}
+
+template <int P>
+void launch_ff_cg(const CgBand& a, const FFVectors& v, const CgHalo& h, long long n, int p,
+                  cudaStream_t stream) {
+  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  ff_cg_defect_kernel<P><<<grid, kThreads, 0, stream>>>(a, v, h, n, p);
+}
+
 template <int BS>
 void launch_ff_stencil(const float* blocks, int bw, const float* x_hi, const float* x_lo,
                        const float* b_hi, const float* b_lo, float* r_hi, float* r_lo,
@@ -1191,6 +1303,50 @@ int aggmg_ff_bt_defect(int bs, const void* const* ptrs, const long long* strides
   launch_ff_bt<BS>(a, v, n, (const float*)gl, (const float*)gr, (cudaStream_t)stream)
   AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
 #undef AGGMG_CALL
+  return (int)cudaGetLastError();
+}
+
+// K13.  ptrs: the band's hi and lo parts, each (2p + 1, n) float32; x_hi,
+// x_lo, b_hi, b_lo and the outputs r_hi, r_lo, each (n,); then the halo's
+// left hi, lo and right hi, lo, each (p,), null for zeros.  strides: the
+// element strides of the band parts (row, node), then of the six vectors,
+// then of the four halo parts.  p = 1, 2, 4, 8 launch their compile-time
+// instances, any other p >= 0 the run-time one.
+int aggmg_ff_cg_defect(int p, const void* const* ptrs, const long long* strides, long long n,
+                       void* stream) {
+  if (p < 0) return -1;
+  CgBand a;
+  a.hi = (const float*)ptrs[0];
+  a.lo = (const float*)ptrs[1];
+  for (int s = 0; s < 2; ++s) {
+    a.sr[s] = strides[2 * s];
+    a.sn[s] = strides[2 * s + 1];
+  }
+  FFVectors v;
+  for (int t = 0; t < 6; ++t) {
+    if (t < 4) {
+      v.in[t] = (const float*)ptrs[2 + t];
+    } else {
+      v.out[t - 4] = (float*)ptrs[2 + t];
+    }
+    v.si[t] = 0;
+    v.sn[t] = strides[4 + t];
+  }
+  CgHalo h;
+  for (int s = 0; s < 2; ++s) {
+    h.left[s] = (const float*)ptrs[8 + s];
+    h.right[s] = (const float*)ptrs[10 + s];
+    h.sl[s] = strides[10 + s];
+    h.sr[s] = strides[12 + s];
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (p) {
+    case 1: launch_ff_cg<1>(a, v, h, n, p, st); break;
+    case 2: launch_ff_cg<2>(a, v, h, n, p, st); break;
+    case 4: launch_ff_cg<4>(a, v, h, n, p, st); break;
+    case 8: launch_ff_cg<8>(a, v, h, n, p, st); break;
+    default: launch_ff_cg<0>(a, v, h, n, p, st); break;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -11,11 +11,13 @@ A float64 quantity is held as an unevaluated pair of float32 tensors
 Every torch elementwise operation rounds once, so these chains run as written
 on either device.  The order of operations is the JAX package's
 (``agglomerationmultigrid1d_tpu/ops/df64.py``), and the CUDA kernels K6
-(``ops/kernels/block_kernels.py: ff_stencil_mid_defect``) and K12
-(``ff_bt_defect``, which :func:`ff_bt_defect` launches on the card) are held
-to it bit for bit: the sign goes on the product, never on the multiplicand; block
+(``ops/kernels/block_kernels.py: ff_stencil_mid_defect``), K12
+(``ff_bt_defect``, which :func:`ff_bt_defect` launches on the card) and K13
+(``ff_cg_defect``, which :func:`ff_cg_defect` launches) are held to it bit
+for bit: the sign goes on the product, never on the multiplicand; block
 columns are contracted in ascending order; the diagonals in the order diag,
-lower, upper; and :func:`ff_add` is the "sloppy" add as written.
+lower, upper (a CG band's offsets ascending); and :func:`ff_add` is the
+"sloppy" add as written.
 
 The TRUE-precision outer defect :func:`f64_bt_defect_stencil` runs in native
 float64 (the card has FP64), with float-float pairs in and out.
@@ -342,21 +344,16 @@ def cg_band_split(band: torch.Tensor) -> CgBandFF:
 
 def ff_cg_defect(a: CgBandFF, x: FF, b: FF, halo: tuple | None = None) -> FF:
     """``r = b - A x`` for a scalar-banded CG operator in float-float: the
-    2p+1 shifted products of ``ops.cg_operator.cg_matvec``.  ``halo``, on a
-    shard: ``(left, right)``, the ``p`` nodes before the shard and after it
-    as float-float pairs (the neighbours'), zeros by default."""
-    p = a.hi.shape[0] // 2
-    if halo is None:
-        shifted = lambda off: _shifted(x, off)  # noqa: E731
-    else:
-        (left, right), n = halo, x.hi.shape[-1]
-        ext = FF(torch.cat([left.hi, x.hi, right.hi], dim=-1), torch.cat([left.lo, x.lo, right.lo], dim=-1))
-        shifted = lambda off: FF(ext.hi[p + off : p + off + n], ext.lo[p + off : p + off + n])  # noqa: E731
-    acc = b
-    for off in range(-p, p + 1):
-        t = ff_mul(FF(a.hi[off + p], a.lo[off + p]), shifted(off))
-        acc = ff_add(acc, ff_neg(t))
-    return acc
+    2p+1 shifted products of ``ops.cg_operator.cg_matvec``, in one launch of
+    kernel K13 for CUDA tensors, the plain chain
+    (``ops.kernels.block_kernels.ff_cg_defect_plain``) for CPU tensors, equal
+    bit for bit.  ``halo``, on a shard: ``(left, right)``, the ``p`` nodes
+    before the shard and after it as float-float pairs (the neighbours'),
+    zeros by default."""
+    from .kernels.block_kernels import ff_cg_defect as k13
+
+    left, right = (None, None) if halo is None else halo
+    return FF(*k13(a.hi, a.lo, x.hi, x.lo, b.hi, b.lo, left, right))
 
 
 def ff_defect(a, x: FF, b: FF) -> FF:

@@ -15,6 +15,10 @@
 * K12 :func:`ff_bt_defect` — the same float-float defect of a materialised
   ``ops.df64.BlockTridiagFF`` (per-column operator streams; streams and
   vectors at any strides), with optional ghost columns, bit for bit equal to :func:`ff_bt_defect_plain`;
+* K13 :func:`ff_cg_defect` — the same float-float defect of an assembled CG
+  band (``ops.df64.CgBandFF``, ``(2p + 1, n)``; any order p, every operand
+  at its strides), with an optional halo of p nodes a side, bit for bit
+  equal to :func:`ff_cg_defect_plain`;
 * K7 — K1, K2 and K5 (four forms) with ``ghosts=(gops, gvec)``: one shard of
   an element-sharded operator, with its neighbours' columns as ghosts
   (``parallel.sharded_kernels``); the result is the sweeps over
@@ -54,7 +58,8 @@ version: a build or launch failure raises.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain runs do not count), so
 a run can show that it went through the kernels; K6s counts under
-``ff_stencil_shard_defect``, K12 under ``ff_bt_defect``, K7's four forms under the ``*_ghost`` names, the edge pair's under the ``*edge_pair*`` names
+``ff_stencil_shard_defect``, K12 under ``ff_bt_defect``, K13 under ``ff_cg_defect``, K7's four
+forms under the ``*_ghost`` names, the edge pair's under the ``*edge_pair*`` names
 and its packing under ``pack_edges``.
 
 K5's coefficient table (:func:`chebyshev_coefficients`) is passed to the
@@ -92,6 +97,7 @@ LAUNCHES = {
     "ff_stencil_mid_defect": 0,
     "ff_stencil_shard_defect": 0,
     "ff_bt_defect": 0,
+    "ff_cg_defect": 0,
     "multisweep_ghost": 0,
     "multisweep_residual_ghost": 0,
     "chebyshev_multisweep_ghost": 0,
@@ -475,6 +481,29 @@ def ff_bt_defect_plain(a, x_hi, x_lo, b_hi, b_lo, ghost_left=None, ghost_right=N
     return r.hi, r.lo
 
 
+def ff_cg_defect_plain(band_hi, band_lo, x_hi, x_lo, b_hi, b_lo, halo_left=None, halo_right=None):
+    """K13's plain version: ``r = b - A x`` in float-float for the CG band
+    ``(band_hi, band_lo)`` (``ops.df64.CgBandFF``: ``(2p + 1, n)``, row ``p +
+    off`` holding ``A[i, i + off]``), the chain in the kernel's order: acc =
+    b; for ``off = -p .. p`` ascending, ``acc = ff_add(acc,
+    ff_neg(ff_mul(band[p + off], x[i + off])))``.  The p nodes past each end
+    of x are ``halo_left`` / ``halo_right`` (each a ``(hi, lo)`` pair of
+    ``(p,)`` tensors: a shard's neighbours' nodes), zero where None.  Returns
+    ``(r_hi, r_lo)``."""
+    from ..df64 import FF, ff_add, ff_mul, ff_neg
+
+    rows, n = band_hi.shape
+    p = rows // 2
+    zero = x_hi.new_zeros(p)
+    (l_hi, l_lo), (r_hi, r_lo) = ((zero, zero) if h is None else h for h in (halo_left, halo_right))
+    ext = FF(torch.cat([l_hi, x_hi, r_hi]), torch.cat([l_lo, x_lo, r_lo]))
+    acc = FF(b_hi, b_lo)
+    for off in range(-p, p + 1):
+        xs = FF(ext.hi[p + off : p + off + n], ext.lo[p + off : p + off + n])
+        acc = ff_add(acc, ff_neg(ff_mul(FF(band_hi[off + p], band_lo[off + p]), xs)))
+    return acc.hi, acc.lo
+
+
 def ff_stencil_mid_defect_plain(blocks, x_hi, x_lo, b_hi, b_lo, col0: int = 0, n_total: int | None = None,
                                 ghost_left=None, ghost_right=None):
     """``r = b - A x`` in float-float for the packed stencil ``blocks``
@@ -567,6 +596,8 @@ def _lib():
             lib.aggmg_ff_stencil_defect.restype = i
             lib.aggmg_ff_bt_defect.argtypes = [i, p, p, ll, p, p, p]
             lib.aggmg_ff_bt_defect.restype = i
+            lib.aggmg_ff_cg_defect.argtypes = [i, p, p, ll, p]
+            lib.aggmg_ff_cg_defect.restype = i
             lib.aggmg_block_jacobi_sweep.argtypes = [i, p, p, p, p, p, p, p, ll, f, p]
             lib.aggmg_block_jacobi_sweep.restype = i
             lib.aggmg_stream.argtypes = [i, p, p, p, p, p, p, ll, p]
@@ -593,9 +624,9 @@ def _lib():
 # ---------------------------------------------------------------------------
 
 
-def _check_tensors(tensors, bs: int, dev: torch.device, contiguous: bool = True) -> None:
+def _check_tensors(tensors, bs: int | None, dev: torch.device, contiguous: bool = True) -> None:
     """float32, on ``dev``, contiguous unless told otherwise; a block size
-    the kernels have on CUDA."""
+    the kernels have on CUDA (None: the operands have none)."""
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"the block kernels take float32 only, got {t.dtype}")
@@ -603,7 +634,7 @@ def _check_tensors(tensors, bs: int, dev: torch.device, contiguous: bool = True)
             raise ValueError(f"all inputs must be on one device ({dev} and {t.device})")
         if contiguous and not t.is_contiguous():
             raise ValueError("the block kernels take contiguous tensors")
-    if dev.type == "cuda" and bs not in SUPPORTED_BLOCK_SIZES:
+    if dev.type == "cuda" and bs is not None and bs not in SUPPORTED_BLOCK_SIZES:
         raise ValueError(f"block size {bs} has no kernel (supported: {SUPPORTED_BLOCK_SIZES})")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
@@ -1188,4 +1219,46 @@ def ff_bt_defect(a, x_hi, x_lo, b_hi, b_lo, ghost_left=None, ghost_right=None):
     )
     _raise_on(rc, "ff_bt_defect")
     LAUNCHES["ff_bt_defect"] += 1
+    return r_hi, r_lo
+
+
+def ff_cg_defect(band_hi, band_lo, x_hi, x_lo, b_hi, b_lo, halo_left=None, halo_right=None):
+    """K13: the float-float defect ``r = b - A x`` of the CG band ``(band_hi,
+    band_lo)`` (``ops.df64.CgBandFF``'s two ``(2p + 1, n)`` float32 parts)
+    in one launch; ``x`` and ``b`` as ``(n,)`` hi / lo parts; every operand
+    at any strides, ``r`` in ``b``'s layout.  ``halo_left`` /
+    ``halo_right`` are the p nodes past x's two ends (each a ``(hi, lo)``
+    pair of ``(p,)`` tensors: a shard's neighbours' nodes; None reads zero).
+    Any order p launches.  Returns ``(r_hi, r_lo)``, equal bit for bit to
+    :func:`ff_cg_defect_plain`, which a CPU tensor runs."""
+    if band_hi.dim() != 2 or band_hi.shape[0] % 2 != 1:
+        raise ValueError(f"band of shape {tuple(band_hi.shape)}, expected (2p + 1, n)")
+    rows, n = band_hi.shape
+    p = rows // 2
+    dev = x_hi.device
+    halo = [t for h in (halo_left, halo_right) if h is not None for t in h]
+    _check_tensors((band_hi, band_lo, x_hi, x_lo, b_hi, b_lo, *halo), None, dev, contiguous=False)
+    if band_lo.shape != band_hi.shape:
+        raise ValueError(f"band parts of shapes {tuple(band_hi.shape)} and {tuple(band_lo.shape)}")
+    for v in (x_hi, x_lo, b_hi, b_lo):
+        if tuple(v.shape) != (n,):
+            raise ValueError(f"vector of shape {tuple(v.shape)}, expected ({n},)")
+    for h in (halo_left, halo_right):
+        if h is not None and (len(h) != 2 or any(tuple(t.shape) != (p,) for t in h)):
+            raise ValueError(f"a halo side is a (hi, lo) pair of ({p},) tensors")
+    if dev.type == "cpu":
+        return ff_cg_defect_plain(band_hi, band_lo, x_hi, x_lo, b_hi, b_lo, halo_left, halo_right)
+    r_hi, r_lo = torch.empty_like(b_hi), torch.empty_like(b_lo)
+    if n == 0:
+        return r_hi, r_lo
+    sides = [(None, None) if h is None else tuple(h) for h in (halo_left, halo_right)]
+    arrays = (band_hi, band_lo, x_hi, x_lo, b_hi, b_lo, r_hi, r_lo)
+    ptrs = (ctypes.c_void_p * 12)(*(t.data_ptr() for t in arrays),
+                                  *(None if t is None else t.data_ptr() for side in sides for t in side))
+    strides = (ctypes.c_longlong * 14)(*(st for t in arrays for st in t.stride()),
+                                       *(0 if t is None else t.stride(0) for side in sides for t in side))
+    rc = _launch(dev, _lib().aggmg_ff_cg_defect, p, ctypes.cast(ptrs, ctypes.c_void_p),
+                 ctypes.cast(strides, ctypes.c_void_p), n)
+    _raise_on(rc, "ff_cg_defect")
+    LAUNCHES["ff_cg_defect"] += 1
     return r_hi, r_lo

@@ -172,7 +172,9 @@ The kernel phase also holds K6 (the float-float stencil defect) and K12 (the
 float-float defect of a materialised operator, ``ff_bt_defect``: the north
 star's levels 1 and 2, and every other block size, without and with ghost
 columns) to their plain versions bit for bit, hi and lo, K12 timed beside
-its plain chain against its bytes over 3.35 TB/s, and the three block
+its plain chain against its bytes over 3.35 TB/s, K13 (the float-float
+defect of a CG band, ``ff_cg_defect``: the 16.8M flagship's four CG levels
+and p = 3, without and with a halo) the same way, and the three block
 contractions K9-K11
 (``bd_gemv``, ``bp_prolong_gemv``, ``bp_restrict_gemv``) at the north star's
 level-0 and level-1 shapes and the slice's fine shapes, float32 (and float64
@@ -295,6 +297,9 @@ K6_BW = 4  # boundary columns of the stencil, as the setup extracts them
 # K12's (bs, n): the north star's levels 1 and 2 (the first is the kernel table's headline), then every
 # other block size of SUPPORTED_BLOCK_SIZES at an awkward size
 K12_SHAPES = [(2, 12582912), (2, 3145728), (1, 100003), (3, 100003), (4, 100003), (5, 100003), (9, 100003)]
+# K13's (p, n): the 16.8M flagship's CG levels 0-3 (the first is the kernel table's headline), then an
+# order without an instance of its own at an awkward size
+K13_SHAPES = [(8, 16777217), (4, 8388609), (2, 4194305), (1, 2097153), (3, 100003)]
 NORTH_STAR_N = 50331648  # DG p=1 elements: 100,663,296 DoF
 # the sharded north star's _mixed_loop_ff: JAX's arguments, cut to 3 outer steps
 # (the float-float defect floors near 4e-7 there: the phases hold the sharded
@@ -587,6 +592,46 @@ def phase_k12(bk) -> dict:
         if "ms" not in out:  # the first shape is the headline
             out.update(ms=ms, plain_ms=plain_ms, gbps=gbps, bound_ms=bound_ms, bound_by=bound_by)
         del a, v, ghosts
+        torch.cuda.empty_cache()
+    return out
+
+
+def k13_bytes(p: int, n: int) -> int:
+    """Bytes K13 must move: the band's 2p + 1 rows hi and lo, the x and b
+    pairs in, the r pair out, once each."""
+    return (8 * (2 * p + 1) + 24) * n
+
+
+def phase_k13(bk) -> dict:
+    """K13, the float-float defect of a CG band, against its plain version
+    bit for bit (hi and lo), without and with a halo; both timed with CUDA
+    events (median of 20), against the byte bound."""
+    out = {"max_abs_err": 0.0}
+    for p, n in K13_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 13 * p + n)
+        rnd = lambda *s, scale=1.0: scale * torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+        args = (rnd(2 * p + 1, n, scale=1e3), rnd(2 * p + 1, n, scale=1e-4), rnd(n), rnd(n, scale=1e-8),
+                rnd(n, scale=1e3), rnd(n, scale=1e-5))
+        halo = ((rnd(p), rnd(p, scale=1e-8)), (rnd(p), rnd(p, scale=1e-8)))
+        for hl, hr in ((None, None), halo):
+            got, want = bk.ff_cg_defect(*args, hl, hr), bk.ff_cg_defect_plain(*args, hl, hr)
+            torch.cuda.synchronize()
+            n_diff = sum(int((got_.view(torch.int32) != want_.view(torch.int32)).sum())
+                         for got_, want_ in zip(got, want))
+            check(all(bool(torch.isfinite(t).all()) for t in got), f"K13 non-finite at p={p} n={n}")
+            check(n_diff == 0, f"K13 differs from plain at p={p} n={n} halo={hl is not None}: {n_diff} elements")
+            del got, want
+        ms = time_ms(lambda: bk.ff_cg_defect(*args))
+        plain_ms = time_ms(lambda: bk.ff_cg_defect_plain(*args))
+        bound_ms = k13_bytes(p, n) / PEAK_BPS * 1e3
+        gbps = k13_bytes(p, n) / (ms * 1e-3) / 1e9
+        print(f"K13 p={p} n={n}: bit-exact (hi and lo, without and with a halo) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} (bytes; {100 * bound_ms / ms:.1f} % of the bound) "
+              f"GB/s={gbps:.1f}", flush=True)
+        out[(p, n)] = (ms, plain_ms, bound_ms)
+        if "ms" not in out:  # the first shape is the headline
+            out.update(ms=ms, plain_ms=plain_ms, gbps=gbps, bound_ms=bound_ms, bound_by="bytes")
+        del args, halo
         torch.cuda.empty_cache()
     return out
 
@@ -1283,7 +1328,7 @@ def phase_flagship_xl(bk, n: int, true_solve: bool) -> dict:
         print(f"flagship XL {8 * n + 1} DoF multigrid_true: setup_s={setup_s:.3f} (host stencil "
               f"{timings['host_stencil']:.3f}, inflation {timings['inflate']:.3f}, device rhs {timings['rhs']:.3f}) "
               f"solve_s={solve_s:.3f} cycles={res.iterations} rel_residual_f64={rel:.3e} peak_mem_bytes={peak} "
-              f"launches={launches} (CG levels in plain torch; the agglomerated levels' float-float defects K12) "
+              f"launches={launches} (the CG levels' float-float defects K13, the agglomerated levels' K12) "
               f"res_history={[f'{v:.3e}' for v in hist]}", flush=True)
         check(bool(torch.isfinite(res.x).all()), "flagship XL multigrid_true x")
         check(rel < 1e-8, f"flagship XL multigrid_true relative residual {rel:.3e} >= 1e-8")
@@ -1323,7 +1368,9 @@ def phase_flagship_xl(bk, n: int, true_solve: bool) -> dict:
             used = ("chebyshev_multisweep", "chebyshev_multisweep_residual") if cheb else ("multisweep",
                                                                                           "multisweep_residual")
             check(all(ho["launches"].get(k, 0) > 0 for k in used), f"flagship XL {tag} hand-over: {ho['launches']}")
-            out["handover " + tag] = dict(outer=ho["outer"], cycles=ho["cycles"])
+            check(ho["launches"].get("ff_cg_defect", 0) > 0,
+                  f"flagship XL {tag} hand-over without K13: {ho['launches']}")
+            out["handover " + tag] = dict(outer=ho["outer"], cycles=ho["cycles"], launches=ho["launches"])
         del h, ffops, b_ff
     torch.cuda.empty_cache()
     return out
@@ -3090,6 +3137,7 @@ def main() -> int:
     kernels = phase_kernels(bk)
     kernels["K6"] = phase_k6(bk)
     kernels["K12"] = phase_k12(bk)
+    kernels["K13"] = phase_k13(bk)
     gemv = phase_gemv(bk)
     kernels.update({"bd": gemv["bd"], "prolong": gemv["prolong"], "restrict": gemv["restrict"]})
     k7_strips, k7_edges, pack, k7_whole = phase_k7(bk)
@@ -3105,6 +3153,7 @@ def main() -> int:
     phase_flagship(bk)
     flagship_runs = {(n, tag): run for n, true_solve in ((FLAGSHIP_N, False), (FLAGSHIP_XL_N, True))
                      for tag, run in phase_flagship_xl(bk, n, true_solve).items()}
+    launches["ff_cg_defect"] = flagship_runs[(FLAGSHIP_XL_N, "handover damped")]["launches"]["ff_cg_defect"]
     families = {"ragged": phase_ragged(bk)}
     phase_device_chain(bk)
     families["scattered"] = phase_scattered(bk)
@@ -3146,6 +3195,9 @@ def main() -> int:
         # the float-float defect of a materialised operator: no Pallas kernel (the JAX package's plain jnp);
         # launches from the north star's multigrid_true, 7 a cycle on each agglomerated level
         "K12": ("K12", "ff_bt_defect", "ff_bt_defect", None),
+        # the float-float defect of a CG band: no Pallas kernel (the JAX package's plain jnp); launches from
+        # the 16.8M flagship's hand-over, one per float-float defect on a CG level
+        "K13": ("K13", "ff_cg_defect", "ff_cg_defect", None),
         # K7, the whole-shard ghosted launch (its cols= strips are held in the K7 phase)
         "K7": ("K7", "multisweep(ghosts=)", "multisweep_ghost", PALLAS + ":522"),
         "K7r": ("K7", "multisweep_residual(ghosts=)", "multisweep_residual_ghost", PALLAS + ":522"),

@@ -15,7 +15,13 @@ per V-cycle of the traced solves:
   on the card launches one; a block size without an instance raises);
 * kernel K12's (``ff_bt_defect_kernel``, the float-float defect of a
   materialised operator) launches and device ms per V-cycle, in all and by
-  level and by ``phase@level``, and its launches over the run.
+  level and by ``phase@level``, and its launches over the run;
+* on a CG-topped cell, the split by CG level (``aggmg.cg@k`` spans): per
+  V-cycle, each CG level's device ms and launches (kernels paired with their
+  launch calls), its device-to-device copies (copies paired with their
+  ``cudaMemcpy*`` calls) and their device ms, and kernel K13's
+  (``ff_cg_defect_kernel``, the float-float defect of a CG band) launches
+  and device ms there; K13's launches per V-cycle in all and over the run.
 
     PYTHONPATH=. python3 tools/trace_phases.py --cell dg_slice.mixed_damped \\
         [--seed N] [--seconds S] [--program DIR] [--out FILE]
@@ -28,6 +34,7 @@ JSON object is printed, and written to ``--out`` too.  Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import json
 import sys
@@ -36,6 +43,55 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 K12 = "ff_bt_defect_kernel"
+K13 = "ff_cg_defect_kernel"
+CG = "aggmg.cg@"
+MEMCPY_CALLS = frozenset({"cudaMemcpyAsync", "cudaMemcpy", "cudaMemcpy2DAsync", "cudaMemcpyPeerAsync"})
+
+
+def cg_levels(tr, per: float) -> dict | None:
+    """Per V-cycle and CG level (``cg@k``): device ms and launches of the
+    kernels launched inside the level's spans, K13's among them, and the
+    device-to-device copies issued there.  The i-th launch call (memcpy
+    call) made the i-th kernel (copy), both sorted by start, as
+    ``aggmg_bench.spans`` pairs them; a side that does not pair one to one
+    reads None.  None without CG spans."""
+    from aggmg_bench import spans
+
+    cg = sorted((t0, t0 + d, name[len("aggmg."):]) for name, t0, d in tr.host if name.startswith(CG))
+    if not cg:
+        return None
+    starts = [c[0] for c in cg]
+
+    def level(t):  # the CG spans never nest: only the latest one started can enclose t
+        i = bisect.bisect_right(starts, t) - 1
+        return cg[i][2] if i >= 0 and cg[i][1] >= t else None
+
+    def paired(calls, events):
+        calls = sorted(t0 for name, t0, _ in tr.host if name in calls)
+        events = sorted(events, key=lambda e: e[1])
+        return zip(calls, events) if len(calls) == len(events) else None
+
+    names = sorted({c[2] for c in cg}, key=lambda n: int(n.rsplit("@", 1)[1]))
+    out = {n: collections.Counter() for n in names}
+    kernels = paired(spans.LAUNCH_CALLS, tr.kernels)
+    copies = paired(MEMCPY_CALLS, [c for c in tr.copies if c[0].startswith("Memcpy")])
+    for t, (name, _, d) in kernels or ():
+        lv = level(t)
+        if lv:
+            out[lv].update(device_ns=d, launches=1, **({"k13_ns": d, "k13_launches": 1} if K13 in name else {}))
+    for t, (name, _, d) in copies or ():
+        lv = level(t)
+        if lv and "DtoD" in name:
+            out[lv].update(dtod_ns=d, dtod_copies=1)
+
+    def fmt(c):
+        kern = {"device_ms": c["device_ns"] / 1e6 * per, "launches": c["launches"] * per,
+                "k13_ms": c["k13_ns"] / 1e6 * per, "k13_launches": c["k13_launches"] * per}
+        copy = {"dtod_copies": c["dtod_copies"] * per, "dtod_ms": c["dtod_ns"] / 1e6 * per}
+        return {**(dict.fromkeys(kern) if kernels is None else kern),
+                **(dict.fromkeys(copy) if copies is None else copy)}
+
+    return {n: fmt(c) for n, c in out.items()}
 
 
 def analyse(tr, cycles: int) -> dict:
@@ -56,6 +112,9 @@ def analyse(tr, cycles: int) -> dict:
         "aggmg_device_events": sum(name.startswith("aggmg.") for name, _, _ in tr.kernels + tr.copies),
         "k12": {"launches_per_cycle": sum(K12 in name for name, _, _ in kernels) * per,
                 "device_ms_per_cycle": sum(d for name, _, d in kernels if K12 in name) / 1e6 * per},
+        "k13": {"launches_per_cycle": sum(K13 in name for name, _, _ in kernels) * per,
+                "device_ms_per_cycle": sum(d for name, _, d in kernels if K13 in name) / 1e6 * per},
+        "cg_levels": cg_levels(tr, per),
     }
     if not any(n.startswith("aggmg.") for n in counts):
         return out
@@ -150,6 +209,7 @@ def main(argv=None) -> int:
            "breakdown": out.get("breakdown"),
            "contraction_launches": {k: bk.LAUNCHES.get(k) for k in ("bd_gemv", "bp_prolong_gemv", "bp_restrict_gemv")},
            "k12_launches": bk.LAUNCHES.get("ff_bt_defect"),
+           "k13_launches": bk.LAUNCHES.get("ff_cg_defect"),
            **analyse(kept[0], detail["traced_cycles"])}
     text = json.dumps(res)
     print(text, flush=True)
