@@ -50,9 +50,10 @@ four phases that partition its work, level ``k`` as a suffix:
 outside a smoother, the drivers' stopping tests at ``@0``).  The three
 V-cycles are one level walk, :func:`_cycle`, with a step set of their
 precision (:class:`_Steps`), and it alone opens the phases.  Inside a phase
-span, the work on a CG level ``k`` is also an ``aggmg.cg@k`` span, which is
-no phase and holds no other.  Each host read that waits for the device is
-an ``aggmg.sync.<site>`` span of its own and lies in no phase.
+span, the work on a CG level ``k`` is also an ``aggmg.cg@k`` span, and the
+work on a block-COO level ``k`` an ``aggmg.bcoo@k`` span; neither is a
+phase, and neither holds another.  Each host read that waits for the device
+is an ``aggmg.sync.<site>`` span of its own and lies in no phase.
 """
 
 from __future__ import annotations
@@ -135,11 +136,17 @@ def _group(h: Hierarchy, k: int):
 _NO_SPAN = contextlib.nullcontext()
 
 
-def _cg_span(level, k: int):
-    """``aggmg.cg@k`` around work on level ``k`` when it is a CG level (its
-    smoothing, its defects and norms, the transfers from it), opened inside
-    the phase span that holds the work; nothing on a block level."""
-    return span(f"aggmg.cg@{k}") if isinstance(level, CgLevel) else _NO_SPAN
+def _family_span(level, k: int):
+    """The span of level ``k``'s family around work on it (its smoothing,
+    its defects and norms, the transfers from it), opened inside the phase
+    span that holds the work: ``aggmg.cg@k`` on a CG level, ``aggmg.bcoo@k``
+    on a block-COO (scattered) level; nothing on a block-tridiagonal or
+    pentadiagonal level."""
+    if isinstance(level, CgLevel):
+        return span(f"aggmg.cg@{k}")
+    if isinstance(level, BlockLevel) and isinstance(level.a, BlockCOO):
+        return span(f"aggmg.bcoo@{k}")
+    return _NO_SPAN
 
 
 def _is_slim_bt(level) -> bool:
@@ -237,7 +244,7 @@ def _norm(x: torch.Tensor, group=None) -> torch.Tensor:
 def _read_norm(level, site: str, norm) -> float:
     """An outer loop's host read of a norm on level 0 (``level``): ``norm()``, a
     0-d tensor, runs in ``aggmg.defect@0``, the read in ``aggmg.sync.<site>``."""
-    with span("aggmg.defect@0"), _cg_span(level, 0):
+    with span("aggmg.defect@0"), _family_span(level, 0):
         value = norm()
     with span(f"aggmg.sync.{site}"):
         return float(value)
@@ -463,23 +470,23 @@ def _cycle(h: Hierarchy, steps: _Steps, u, rhs, k: int, n_pre: int, n_post: int)
         with span("aggmg.coarse"):
             return steps.coarse(rhs)
     level, fused = h.levels[k], steps.defect is None
-    with span(f"aggmg.smooth@{k}"), _cg_span(level, k):
+    with span(f"aggmg.smooth@{k}"), _family_span(level, k):
         u = steps.zeros(rhs) if u is None else u
         if fused:
             u, r = steps.smooth(k, u, rhs, n_pre, residual=True)
         else:
             u = steps.smooth(k, u, rhs, n_pre)
     if not fused:
-        with span(f"aggmg.defect@{k}"), _cg_span(level, k):
+        with span(f"aggmg.defect@{k}"), _family_span(level, k):
             r = steps.defect(k, u, rhs)
-    with span(f"aggmg.transfer@{k}"), _cg_span(level, k):
+    with span(f"aggmg.transfer@{k}"), _family_span(level, k):
         r_c = steps.restrict(k, r)
     del r
     e_c = _cycle(h, steps, None, r_c, k + 1, n_pre, n_post)
     del r_c
-    with span(f"aggmg.transfer@{k}"), _cg_span(level, k):
+    with span(f"aggmg.transfer@{k}"), _family_span(level, k):
         u = steps.add(u, steps.prolong(k, e_c))
-    with span(f"aggmg.smooth@{k}"), _cg_span(level, k):
+    with span(f"aggmg.smooth@{k}"), _family_span(level, k):
         return steps.smooth(k, u, rhs, n_post)
 
 
@@ -745,7 +752,7 @@ def _mixed_loop(h, h_low, x, b, norm_b, *, maxiter, tol, inner_tol, max_inner, k
     low_dtype = operator_data(h_low.levels[0].a).dtype
 
     def rel_defect(x):
-        with span("aggmg.defect@0"), _cg_span(fine, 0):
+        with span("aggmg.defect@0"), _family_span(fine, 0):
             r = b - level_matvec(fine, x, g0)
             norm_r = _norm(r, g0)
         with span("aggmg.sync.defect"):
@@ -805,7 +812,7 @@ def _mixed_loop_ff(
 
         def rel_defect(x):
             # only the hi part feeds the float32 inner solve: keep no lo tail
-            with span("aggmg.defect@0"), _cg_span(h_low.levels[0], 0):
+            with span("aggmg.defect@0"), _family_span(h_low.levels[0], 0):
                 r = _ff_defect(a_ff, x, b_ff, g0).hi
                 rel = _norm(_flatten_level_vec(r) * inv, g0)
             with span("aggmg.sync.defect"):
@@ -1027,7 +1034,7 @@ def _correction_loop(fine, defect, cycle, x_ff: FF, *, maxiter: int, tol: float,
     res_h = np.full((maxiter,), np.nan, dtype=dtype)
     it = 0
     while it < maxiter:
-        with span("aggmg.defect@0"), _cg_span(fine, 0):
+        with span("aggmg.defect@0"), _family_span(fine, 0):
             r_ff, rel = defect(x_ff)
         with span("aggmg.sync.defect"):
             rel = dtype(float(rel))

@@ -2,8 +2,10 @@
 ``torch.profiler`` on the CPU: ``aggmg.solve.<driver>``,
 ``aggmg.vcycle.<kind>``, the four phases ``aggmg.smooth@k``,
 ``aggmg.transfer@k``, ``aggmg.coarse`` and ``aggmg.defect@k``, and
-``aggmg.sync.<site>`` around each host read, and ``aggmg.cg@k`` around the
-work on a CG level inside its phase spans.  Five drivers on tiny problems:
+``aggmg.sync.<site>`` around each host read, and ``aggmg.cg@k`` /
+``aggmg.bcoo@k`` around the work on a CG / block-COO level inside its phase
+spans.  Five drivers on tiny problems, and ``multigrid_mixed`` on a
+scattered chain (``poisson_scattered_hierarchy``, block-COO levels):
 ``multigrid`` and ``multigrid_mixed`` on ``poisson_dg_hierarchy``,
 ``multigrid_true`` and the hand-over ``_mixed_loop_ff(ffops=)`` on a
 DG-topped ``build_xl_problem(..., ff_levels=True)`` bundle, the hand-over on
@@ -26,8 +28,10 @@ from agglomerationmultigrid1d_tpu_torch.models import (
     multigrid_mixed,
     multigrid_progressive,
     multigrid_true,
+    interleaved_pair_groups,
     poisson_dg_hierarchy,
     poisson_full_hierarchy,
+    poisson_scattered_hierarchy,
 )
 from agglomerationmultigrid1d_tpu_torch.models.solvers import _mixed_loop_ff
 from agglomerationmultigrid1d_tpu_torch.ops.df64 import FF
@@ -110,9 +114,24 @@ def _progressive_cg():
     return "multigrid_progressive", h_low.n_levels, solve
 
 
+def _scattered_mixed():
+    """DG p = 1 on 256 elements, then 5 block-COO levels (128 -> 8 agglomerates)."""
+    prob = poisson_scattered_hierarchy(n=256, p_dg=1, groups_per_level=interleaved_pair_groups(256, 8),
+                                       device="cpu")
+    h_low = make_low_precision_hierarchy(prob.hierarchy)
+
+    def solve():
+        res = multigrid_mixed(prob.hierarchy, h_low, torch.zeros_like(prob.b), prob.b, 40, 1e-10)
+        return res.inner_cycles, {"f32": res.inner_cycles}
+
+    return "multigrid_mixed", h_low.n_levels, solve
+
+
 CASES = {"multigrid": _multigrid, "multigrid_mixed": _multigrid_mixed, "multigrid_true": _multigrid_true,
-         "handover": _handover, "handover_cg": _handover_cg, "progressive_cg": _progressive_cg}
+         "handover": _handover, "handover_cg": _handover_cg, "progressive_cg": _progressive_cg,
+         "scattered_mixed": _scattered_mixed}
 CG_LEVELS = {"handover_cg": 4, "progressive_cg": 4}  # CG p = 8, 4, 2, 1 on top; the other chains have none
+BCOO_LEVELS = {"scattered_mixed": range(1, 6)}  # levels 1-5 block-COO, level 5 the coarsest; the others none
 
 
 @functools.lru_cache(maxsize=None)
@@ -222,28 +241,53 @@ def test_phase_spans_enclose_their_operators(case):
     assert all(held)
 
 
+def _check_family_spans(tr, prefix, levels):
+    """The ``<prefix>k`` spans of ``tr`` open inside the phase spans of the
+    levels ``k`` in ``levels``, exactly one in each such phase span and
+    none in any other; none lies outside a phase span or in another."""
+    marked = _named(tr, prefix)
+    assert {int(e[0].split("@")[1]) for e in marked} == set(levels) - {tr.n_levels - 1}
+    for a, b in zip(marked, marked[1:]):
+        assert a[2] <= b[1], (a[0], b[0])
+    phases = [e for e in tr.events if _phase(e[0])]
+    starts = [e[1] for e in phases]
+    held = [[] for _ in phases]
+    for name, t0, t1, _ in marked:
+        i = bisect.bisect_right(starts, t0) - 1
+        assert i >= 0 and t1 <= phases[i][2], name
+        held[i].append(name)
+    for (name, *_), inner in zip(phases, held):
+        level = int(name.split("@")[1]) if "@" in name else None
+        assert inner == ([f"{prefix}{level}"] if level in levels else []), (name, inner)
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_cg_spans_mark_the_cg_levels_inside_their_phases(case):
     """Every phase span of a CG level ``k`` holds exactly one
     ``aggmg.cg@k`` span, every other phase span none; no CG span lies
     outside a phase span or in another CG span.  Block-topped chains open
     none, so the phase readings of their cells are as before."""
+    _check_family_spans(_traced(case), "aggmg.cg@", range(CG_LEVELS.get(case, 0)))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_bcoo_spans_mark_the_block_coo_levels_inside_their_phases(case):
+    """On the scattered chain every phase span of a block-COO level ``k >=
+    1`` holds exactly one ``aggmg.bcoo@k`` span, level 0 (DG) none; the
+    spans never nest, in each other or in a CG span.  Every other chain
+    opens none."""
     tr = _traced(case)
-    cg = _named(tr, "aggmg.cg@")
-    n_cg = CG_LEVELS.get(case, 0)
-    assert {int(e[0].split("@")[1]) for e in cg} == set(range(n_cg))
-    for a, b in zip(cg, cg[1:]):
-        assert a[2] <= b[1], (a[0], b[0])
-    phases = [e for e in tr.events if _phase(e[0])]
-    starts = [e[1] for e in phases]
-    held = [[] for _ in phases]
-    for name, t0, t1, _ in cg:
-        i = bisect.bisect_right(starts, t0) - 1
-        assert i >= 0 and t1 <= phases[i][2], name
-        held[i].append(name)
-    for (name, *_), inner in zip(phases, held):
-        level = int(name.split("@")[1]) if "@" in name else None
-        assert inner == ([f"aggmg.cg@{level}"] if level is not None and level < n_cg else []), (name, inner)
+    _check_family_spans(tr, "aggmg.bcoo@", BCOO_LEVELS.get(case, range(0)))
+    if case in BCOO_LEVELS:
+        assert not _named(tr, "aggmg.cg@")
+
+
+@pytest.mark.parametrize("case", ("multigrid", "multigrid_mixed"))
+def test_slice_opens_no_family_span(case):
+    """The DG-topped slice (``dg_slice``'s chain): block-tridiagonal levels
+    only, so neither family span opens."""
+    tr = _traced(case)
+    assert not _named(tr, "aggmg.cg@") and not _named(tr, "aggmg.bcoo@")
 
 
 SETUP = {

@@ -21,7 +21,9 @@ per V-cycle of the traced solves:
   launch calls), its device-to-device copies (copies paired with their
   ``cudaMemcpy*`` calls) and their device ms, and kernel K13's
   (``ff_cg_defect_kernel``, the float-float defect of a CG band) launches
-  and device ms there; K13's launches per V-cycle in all and over the run.
+  and device ms there; K13's launches per V-cycle in all and over the run;
+* on a scattered cell, the same split by block-COO level (``aggmg.bcoo@k``
+  spans, ``bcoo_levels``).
 
     PYTHONPATH=. python3 tools/trace_phases.py --cell dg_slice.mixed_damped \\
         [--seed N] [--seconds S] [--program DIR] [--out FILE]
@@ -45,19 +47,21 @@ ROOT = Path(__file__).resolve().parent.parent
 K12 = "ff_bt_defect_kernel"
 K13 = "ff_cg_defect_kernel"
 CG = "aggmg.cg@"
+BCOO = "aggmg.bcoo@"
 MEMCPY_CALLS = frozenset({"cudaMemcpyAsync", "cudaMemcpy", "cudaMemcpy2DAsync", "cudaMemcpyPeerAsync"})
 
 
-def cg_levels(tr, per: float) -> dict | None:
-    """Per V-cycle and CG level (``cg@k``): device ms and launches of the
-    kernels launched inside the level's spans, K13's among them, and the
-    device-to-device copies issued there.  The i-th launch call (memcpy
-    call) made the i-th kernel (copy), both sorted by start, as
-    ``aggmg_bench.spans`` pairs them; a side that does not pair one to one
-    reads None.  None without CG spans."""
+def cg_levels(tr, per: float, prefix: str = CG) -> dict | None:
+    """Per V-cycle and level of a family (``cg@k``, or ``bcoo@k`` with
+    ``prefix=BCOO``): device ms and launches of the kernels launched inside
+    the level's spans, K13's among them, and the device-to-device copies
+    issued there.  The i-th launch call (memcpy call) made the i-th kernel
+    (copy), both sorted by start, as ``aggmg_bench.spans`` pairs them; a
+    side that does not pair one to one reads None.  None without such
+    spans."""
     from aggmg_bench import spans
 
-    cg = sorted((t0, t0 + d, name[len("aggmg."):]) for name, t0, d in tr.host if name.startswith(CG))
+    cg = sorted((t0, t0 + d, name[len("aggmg."):]) for name, t0, d in tr.host if name.startswith(prefix))
     if not cg:
         return None
     starts = [c[0] for c in cg]
@@ -115,6 +119,7 @@ def analyse(tr, cycles: int) -> dict:
         "k13": {"launches_per_cycle": sum(K13 in name for name, _, _ in kernels) * per,
                 "device_ms_per_cycle": sum(d for name, _, d in kernels if K13 in name) / 1e6 * per},
         "cg_levels": cg_levels(tr, per),
+        "bcoo_levels": cg_levels(tr, per, BCOO),
     }
     if not any(n.startswith("aggmg.") for n in counts):
         return out
