@@ -14,8 +14,8 @@
 // ops/kernels/block_kernels.py: block contractions sum over j in ascending
 // order, and the off-diagonal term is formed as (lower + upper).  In K1-K5
 // FMA contraction is allowed, so results agree with the plain versions to a
-// few float32 ulps, not bit for bit; K6, K12 and K13 round every operation
-// on their own and equal their plain versions bit for bit.
+// few float32 ulps, not bit for bit; K6, K12, K13 and K14 round every
+// operation on their own and equal their plain versions bit for bit.
 //
 // Host entry points have a plain C interface (loaded with ctypes) and return
 // cudaGetLastError() after the launch; -1 means an unsupported block size,
@@ -34,7 +34,10 @@
 // messages where the exchange left them.  aggmg_empty launches nothing but
 // an empty kernel: the launch floor those two are measured against.  The
 // block contractions (bd / bp_prolong / bp_restrict _gemv_kernel, float and
-// double) close the file's kernels; see their section.
+// double) follow; see their section.  K14 (ff_cheb_update_kernel), one step
+// of the true cycle's Chebyshev smoothing on a block-Jacobi level (K9's
+// apply of S^-1 to the defect's hi part, the recurrence and the float-float
+// update in one launch), closes the file's kernels.
 
 #include <cuda_runtime.h>
 
@@ -1128,6 +1131,79 @@ int dispatch_bp_gemv(bool restrict_, int bs_f, int bs_c, const void* blocks, lon
   return -1;  // not reached: every case returns
 }
 
+// ---------------------------------------------------------------------------
+// K14: one step of the true cycle's Chebyshev smoothing on a block-Jacobi
+// level (models/solvers.py: _smooth_true), after the step's float-float
+// defect (K6 or K12) has given r_hi:
+//
+//   z = S^-1 r_hi                 (dot_gemv: K9's rounding)
+//   d = z / theta                 (the first step)
+//   d = c_d d + c_z z             (the later steps: two rounded products, one rounded add)
+//   u = ff_add(u, (d, 0))         (two_sum(u_hi, d), e + (u_lo + 0), quick_two_sum)
+//
+// Replaces no Pallas kernel: the JAX package's _chebyshev over an ff_add
+// update is plain jnp, which XLA fuses; in plain torch a step is K9 and
+// ~20 elementwise launches (the scale by 1, the recurrence on 0-d tensors,
+// the division or the two products and their add, a zeros_like, ff_add's
+// 11), each streaming (bs, n) temporaries.  Every operation is an explicit
+// __fmul_rn / __fadd_rn / __fdiv_rn in the plain chain's order, so the step
+// equals it bit for bit (ops/kernels/block_kernels.py: ff_cheb_update_plain):
+// the division is a true one, as the card's torch divides by the level's
+// 0-d interval tensors, and u_lo + 0 turns a -0 tail into +0, as the
+// chain's zero lo part does.  c_d, c_z and theta come by value, host floats
+// from the level's recurrence table.
+//
+// Cost per block column: 4 bs^2 + 4 bs bytes of S^-1 and r_hi, u's pair in
+// and out (16 bs), d in (4 bs, not in the first step) and out (4 bs, not in
+// the last): 64 / 72 / 64 B at bs = 2 for the first, middle and last step,
+// 3.2-3.6 GB at the north star's level 0 (~1 ms at 3.35 TB/s), against ~2
+// bs^2 + 12 bs float32 operations: bytes-bound.  Design: one thread per
+// block column, every stream read and written once and coalesced across a
+// warp, S^-1 through the read-only path; operands at their element strides
+// (a CG-topped chain's agglomerated levels hold their vectors column-major).
+struct ChebStep {
+  const float* sinv;  // (bs, bs, n) at strides (si, sj, sn)
+  long long si, sj, sn;
+  // r_hi, d_in (null on the first step), u_hi, u_lo, then the outputs
+  // d_out (null on the last step), u_hi, u_lo; each (bs, n) at strides (vi, vn)
+  const float* in[4];
+  float* out[3];
+  long long vi[7], vn[7];
+};
+
+template <int BS>
+__global__ void __launch_bounds__(kThreads)
+    ff_cheb_update_kernel(const ChebStep a, long long n, float theta, float c_d, float c_z) {
+  const long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n) return;
+  const auto at = [&](int t, int i) { return i * a.vi[t] + k * a.vn[t]; };
+  float r[BS];
+#pragma unroll
+  for (int j = 0; j < BS; ++j) r[j] = __ldg(a.in[0] + at(0, j));
+  const float* m = a.sinv + k * a.sn;
+#pragma unroll
+  for (int i = 0; i < BS; ++i) {
+    const float z = dot_gemv<BS>(m + i * a.si, a.sj, r);
+    const float d = a.in[1] == nullptr
+                        ? __fdiv_rn(z, theta)
+                        : __fadd_rn(__fmul_rn(c_d, __ldg(a.in[1] + at(1, i))), __fmul_rn(c_z, z));
+    if (a.out[0] != nullptr) a.out[0][at(4, i)] = d;
+    float s, e, hi, lo;
+    eft::two_sum(__ldg(a.in[2] + at(2, i)), d, s, e);
+    e = __fadd_rn(e, __fadd_rn(__ldg(a.in[3] + at(3, i)), 0.0f));
+    eft::quick_two_sum(s, e, hi, lo);
+    a.out[1][at(5, i)] = hi;
+    a.out[2][at(6, i)] = lo;
+  }
+}
+
+template <int BS>
+void launch_ff_cheb_update(const ChebStep& a, long long n, float theta, float c_d, float c_z,
+                           cudaStream_t stream) {
+  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  ff_cheb_update_kernel<BS><<<grid, kThreads, 0, stream>>>(a, n, theta, c_d, c_z);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1347,6 +1423,33 @@ int aggmg_ff_cg_defect(int p, const void* const* ptrs, const long long* strides,
     case 8: launch_ff_cg<8>(a, v, h, n, p, st); break;
     default: launch_ff_cg<0>(a, v, h, n, p, st); break;
   }
+  return (int)cudaGetLastError();
+}
+
+// K14.  ptrs: S^-1 ((bs, bs, n) float32), then r_hi, d_in (null on the first
+// step), u_hi, u_lo, and the outputs d_out (null on the last step), u_hi,
+// u_lo, each (bs, n); strides: S^-1's (i, j, n), then (i, n) of the seven
+// vectors in turn (anything for a null one).  theta divides on the first
+// step; c_d, c_z form the later steps' d.
+int aggmg_ff_cheb_update(int bs, const void* const* ptrs, const long long* strides, long long n,
+                         float theta, float c_d, float c_z, void* stream) {
+  ChebStep a;
+  a.sinv = (const float*)ptrs[0];
+  a.si = strides[0];
+  a.sj = strides[1];
+  a.sn = strides[2];
+  for (int t = 0; t < 7; ++t) {
+    if (t < 4) {
+      a.in[t] = (const float*)ptrs[1 + t];
+    } else {
+      a.out[t - 4] = (float*)ptrs[1 + t];
+    }
+    a.vi[t] = strides[3 + 2 * t];
+    a.vn[t] = strides[3 + 2 * t + 1];
+  }
+#define AGGMG_CALL(BS) launch_ff_cheb_update<BS>(a, n, theta, c_d, c_z, (cudaStream_t)stream)
+  AGGMG_DISPATCH_BS(bs, AGGMG_CALL)
+#undef AGGMG_CALL
   return (int)cudaGetLastError();
 }
 

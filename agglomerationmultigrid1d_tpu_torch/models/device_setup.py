@@ -37,7 +37,7 @@ from ..ops.transfer_ops import BlockProlong, bp_galerkin
 from ..smoothers.smoother import BlockJacobiSmoother, ChebyshevSmoother, _inv_windows_2x2
 from ..transfer.interpolation import aggdg_aggdg_interpolation, aggdg_dg_interpolation, dg_dg_interpolation
 from ..utils.precision import hierarchy_astype
-from .hierarchy import BlockLevel, Hierarchy, _chebyshev_table, _coarse_lu, schur_stiffness
+from .hierarchy import BlockLevel, Hierarchy, _coarse_lu, _with_chebyshev_table, schur_stiffness
 
 
 def _bt_inv_diag(a: BlockTridiag) -> torch.Tensor:
@@ -155,7 +155,7 @@ def build_dg_hierarchy_device(
         if chebyshev:
             ratio, safety = 4.0, 1.05
             s = ChebyshevSmoother(base=s, lam_lo=lam * safety / ratio, lam_hi=lam * safety)
-            s = s._replace(coef=_chebyshev_table(s))  # one host read of the interval per level
+            s = _with_chebyshev_table(s)  # one host read of the interval per level
         levels.append(BlockLevel(a=a, g=empty, d=empty, c=empty, mass_inv=e, smoother=s))
     a_c = chain[-1][0]
     coarse_level = BlockLevel(a=a_c, g=empty, d=empty, c=empty, mass_inv=e,

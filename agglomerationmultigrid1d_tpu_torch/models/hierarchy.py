@@ -42,7 +42,7 @@ from ..ops.block_penta import BlockPenta, bp5_sub, bp5_to_dense, bt_as_penta, bt
 from ..ops.block_tridiag import BlockTridiag, bd_mul_bt, block_mul, bt_mul_bt, bt_sub, bt_to_dense
 from ..ops.cg_operator import CgOperator, cg_to_dense
 from ..ops.coarse_solve import CoarseSolver, make_bt_coarse_solver, make_coarse_solver, make_penta_coarse_solver
-from ..ops.kernels.block_kernels import MAX_SWEEPS, chebyshev_coefficients
+from ..ops.kernels.block_kernels import MAX_SWEEPS, chebyshev_coefficients, chebyshev_theta
 from ..ops.transfer_ops import cgp_galerkin, galerkin
 from ..smoothers.smoother import (
     BlockJacobiSmoother,
@@ -334,11 +334,12 @@ def strip_hierarchy(h: Hierarchy) -> Hierarchy:
     return h._replace(levels=tuple(strip(lv) for lv in h.levels))
 
 
-def _chebyshev_table(s: ChebyshevSmoother) -> tuple:
-    """The float32 recurrence table of a float32 level (one host read of its
-    interval, at setup)."""
-    tab = chebyshev_coefficients(float(s.lam_lo), float(s.lam_hi), MAX_SWEEPS)
-    return tuple(tuple(row) for row in tab.tolist())
+def _with_chebyshev_table(s: ChebyshevSmoother) -> ChebyshevSmoother:
+    """``s`` with the float32 recurrence table of a float32 level and the
+    interval's centre ``theta`` (one host read of its interval, at setup)."""
+    lam_lo, lam_hi = float(s.lam_lo), float(s.lam_hi)
+    tab = chebyshev_coefficients(lam_lo, lam_hi, MAX_SWEEPS)
+    return s._replace(coef=tuple(tuple(row) for row in tab.tolist()), theta=float(chebyshev_theta(lam_lo, lam_hi)))
 
 
 def prepare_fast_smoothers(h: Hierarchy) -> Hierarchy:
@@ -363,8 +364,8 @@ def prepare_fast_smoothers(h: Hierarchy) -> Hierarchy:
             if s.lam_hi.dtype != torch.float32:
                 return lv
             s = s._replace(base=fix_base(lv, s.base))
-            if s.coef is None:
-                s = s._replace(coef=_chebyshev_table(s))
+            if s.coef is None or s.theta is None:
+                s = _with_chebyshev_table(s)
             return lv._replace(smoother=s)
         if isinstance(lv, BlockLevel) and operator_data(lv.a).dtype == torch.float32:
             return lv._replace(smoother=fix_base(lv, s))
@@ -412,7 +413,7 @@ def chebyshev_hierarchy(
         lam = _power_lam(level, x0, power_iters)
         s = ChebyshevSmoother(base=level.smoother, lam_lo=lam * safety / ratio, lam_hi=lam * safety)
         if like.dtype == torch.float32:
-            s = s._replace(coef=_chebyshev_table(s))
+            s = _with_chebyshev_table(s)
         new_levels.append(level._replace(smoother=s))
     return h._replace(levels=tuple(new_levels))
 

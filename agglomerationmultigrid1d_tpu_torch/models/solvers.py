@@ -93,6 +93,7 @@ from ..ops.kernels.block_kernels import (
     multisweep_residual,
 )
 from ..ops.cg_operator import CgOperator
+from ..ops.kernels import block_kernels
 from ..parallel.cg_levels import (
     apply_smoother_sharded,
     cg_matvec_sharded,
@@ -1116,16 +1117,41 @@ def multigrid_progressive(
 
 def _smooth_true(level, a_ff_k, u_ff: FF, rhs_ff: FF, n_sweeps: int, alpha: float) -> FF:
     """Value-accurate smoothing: each sweep's residual is the float-float
-    defect; the float32 preconditioner is applied to its hi part."""
+    defect; the float32 preconditioner is applied to its hi part.  A
+    Chebyshev level over block Jacobi fuses each step's apply, recurrence
+    and float-float update into one K14 launch on the card
+    (:func:`_chebyshev_k14`); elsewhere the plain chain runs."""
     s = level.smoother
     if isinstance(s, ChebyshevSmoother):
-        return _chebyshev(s, n_sweeps, u_ff, lambda u: ff_defect(a_ff_k, u, rhs_ff).hi,
-                          lambda u, d: ff_add(u, FF(d, torch.zeros_like(d))))
+        residual = lambda u: ff_defect(a_ff_k, u, rhs_ff).hi  # noqa: E731
+        if isinstance(s.base, BlockJacobiSmoother) and u_ff.hi.is_cuda and u_ff.hi.dtype == torch.float32:
+            return _chebyshev_k14(s, n_sweeps, u_ff, residual)
+        return _chebyshev(s, n_sweeps, u_ff, residual, lambda u, d: ff_add(u, FF(d, torch.zeros_like(d))))
     for _ in range(n_sweeps):
         r = ff_defect(a_ff_k, u_ff, rhs_ff)
         du = alpha * apply_smoother(s, r.hi)
         u_ff = ff_add(u_ff, FF(du, torch.zeros_like(du)))
     return u_ff
+
+
+def _chebyshev_k14(s, degree: int, u: FF, residual) -> FF:
+    """:func:`_chebyshev` with the float-float update ``ff_add(u, (d, 0))``,
+    each step one K14 launch (``block_kernels.ff_cheb_update``: ``S^-1`` of
+    ``residual(u)``, the recurrence and the update), bit for bit the plain
+    chain's; the recurrence's scalars are the level's host floats
+    (``s.theta``, ``s.coef``): no 0-d launch, no host read."""
+    if s.coef is None or s.theta is None or degree > len(s.coef):
+        raise ValueError(
+            f"a float32 Chebyshev level needs its recurrence table and theta for {degree} steps: build the "
+            "hierarchy with make_low_precision_hierarchy (or prepare_fast_smoothers)"
+        )
+    d = None
+    for step in range(degree):
+        u_hi, u_lo, d = block_kernels.ff_cheb_update(
+            s.base.inv, residual(u), u.hi, u.lo, d, theta=s.theta, coef=s.coef[step], keep_d=step < degree - 1
+        )
+        u = FF(u_hi, u_lo)
+    return u
 
 
 def _transfer_true(apply, t32, t_lo, v: FF) -> FF:

@@ -228,9 +228,9 @@ def _plan_bt(plan: _Plan, a: BlockTridiag, what: str, device, rtol="auto"):
 def _plan_smoother(plan: _Plan, s, level, what: str, device):
     if isinstance(s, ChebyshevSmoother):
         base_fn = _plan_smoother(plan, s.base, level, what + ".base", device)
-        lam_lo, lam_hi, coef = s.lam_lo.to(device), s.lam_hi.to(device), s.coef
+        lam_lo, lam_hi = s.lam_lo.to(device), s.lam_hi.to(device)
         return lambda out: ChebyshevSmoother(
-            base=base_fn(out), lam_lo=lam_lo, lam_hi=lam_hi, coef=coef
+            base=base_fn(out), lam_lo=lam_lo, lam_hi=lam_hi, coef=s.coef, theta=s.theta
         )
     if isinstance(s, JacobiSmoother):
         if isinstance(level, CgLevel):

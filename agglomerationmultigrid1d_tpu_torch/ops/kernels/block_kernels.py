@@ -19,6 +19,10 @@
   band (``ops.df64.CgBandFF``, ``(2p + 1, n)``; any order p, every operand
   at its strides), with an optional halo of p nodes a side, bit for bit
   equal to :func:`ff_cg_defect_plain`;
+* K14 :func:`ff_cheb_update` — one step of the true cycle's Chebyshev
+  smoothing on a block-Jacobi level: ``z = S^-1 r_hi`` (K9's rounding), ``d
+  = z / theta`` or ``d = c_d d + c_z z``, ``u = ff_add(u, (d, 0))``, every
+  operand at its strides, bit for bit equal to :func:`ff_cheb_update_plain`;
 * K7 — K1, K2 and K5 (four forms) with ``ghosts=(gops, gvec)``: one shard of
   an element-sharded operator, with its neighbours' columns as ghosts
   (``parallel.sharded_kernels``); the result is the sweeps over
@@ -58,12 +62,14 @@ version: a build or launch failure raises.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain runs do not count), so
 a run can show that it went through the kernels; K6s counts under
-``ff_stencil_shard_defect``, K12 under ``ff_bt_defect``, K13 under ``ff_cg_defect``, K7's four
+``ff_stencil_shard_defect``, K12 under ``ff_bt_defect``, K13 under ``ff_cg_defect``, K14 under
+``ff_cheb_update``, K7's four
 forms under the ``*_ghost`` names, the edge pair's under the ``*edge_pair*`` names
 and its packing under ``pack_edges``.
 
 K5's coefficient table (:func:`chebyshev_coefficients`) is passed to the
-kernel by value, as host floats: a launch reads no scalar from the device.
+kernel by value, as host floats, and so are K14's ``theta``
+(:func:`chebyshev_theta`) and row: a launch reads no scalar from the device.
 """
 
 from __future__ import annotations
@@ -98,6 +104,7 @@ LAUNCHES = {
     "ff_stencil_shard_defect": 0,
     "ff_bt_defect": 0,
     "ff_cg_defect": 0,
+    "ff_cheb_update": 0,
     "multisweep_ghost": 0,
     "multisweep_residual_ghost": 0,
     "chebyshev_multisweep_ghost": 0,
@@ -183,6 +190,13 @@ def multisweep_residual_plain(
     return x, b - _mat(a_diag, t)
 
 
+def chebyshev_theta(lam_lo, lam_hi) -> np.float32:
+    """The centre ``0.5 (lam_hi + lam_lo)`` of the float32 interval, in float32
+    arithmetic: what the Chebyshev recurrence's first step divides by."""
+    f = np.float32
+    return f(0.5) * (f(lam_hi) + f(lam_lo))
+
+
 def chebyshev_coefficients(lam_lo, lam_hi, degree: int) -> np.ndarray:
     """``(degree, 2)`` recurrence coefficients ``[c_d, c_z]`` of the classic
     Chebyshev smoother on ``[lam_lo, lam_hi]`` (step s: ``d = c_d d + c_z z;
@@ -191,7 +205,7 @@ def chebyshev_coefficients(lam_lo, lam_hi, degree: int) -> np.ndarray:
     table.  Row s does not depend on ``degree``."""
     f = np.float32
     lam_lo, lam_hi = f(lam_lo), f(lam_hi)
-    theta = f(0.5) * (lam_hi + lam_lo)
+    theta = chebyshev_theta(lam_lo, lam_hi)
     delta = f(0.5) * (lam_hi - lam_lo)
     sigma = theta / delta
     rows = [(f(0.0), f(1.0) / theta)]
@@ -504,6 +518,31 @@ def ff_cg_defect_plain(band_hi, band_lo, x_hi, x_lo, b_hi, b_lo, halo_left=None,
     return acc.hi, acc.lo
 
 
+def ff_cheb_update_plain(s_inv, r_hi, u_hi, u_lo, d=None, *, theta=None, coef=None, keep_d=True):
+    """K14's plain version: one step of ``models.solvers._chebyshev`` with
+    ``_smooth_true``'s float-float update, in the chain's order: ``z = S^-1
+    r_hi`` as K9 rounds it (:func:`bd_gemv_plain`; the chain's ``1.0 *``
+    changes no bit); ``d = z / theta`` on the first step (``d`` None), else
+    ``d = c_d d + c_z z`` with ``coef = (c_d, c_z)``; ``u = ff_add(u, (d,
+    0))``.  The scalars act as float32 0-d tensors on the data's device, as
+    the chain's recurrence leaves them (so the division is a true one, not a
+    product with the reciprocal).  Returns ``(u_hi, u_lo, d)``, ``d`` None
+    where not ``keep_d`` (the last step)."""
+    from ..df64 import FF, ff_add
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.float32, device=r_hi.device)
+
+    z = bd_gemv_plain(s_inv, r_hi)
+    if d is None:
+        d = z / scalar(theta)
+    else:
+        c_d, c_z = coef
+        d = scalar(c_d) * d + scalar(c_z) * z
+    u = ff_add(FF(u_hi, u_lo), FF(d, torch.zeros_like(d)))
+    return u.hi, u.lo, (d if keep_d else None)
+
+
 def ff_stencil_mid_defect_plain(blocks, x_hi, x_lo, b_hi, b_lo, col0: int = 0, n_total: int | None = None,
                                 ghost_left=None, ghost_right=None):
     """``r = b - A x`` in float-float for the packed stencil ``blocks``
@@ -598,6 +637,8 @@ def _lib():
             lib.aggmg_ff_bt_defect.restype = i
             lib.aggmg_ff_cg_defect.argtypes = [i, p, p, ll, p]
             lib.aggmg_ff_cg_defect.restype = i
+            lib.aggmg_ff_cheb_update.argtypes = [i, p, p, ll, f, f, f, p]
+            lib.aggmg_ff_cheb_update.restype = i
             lib.aggmg_block_jacobi_sweep.argtypes = [i, p, p, p, p, p, p, p, ll, f, p]
             lib.aggmg_block_jacobi_sweep.restype = i
             lib.aggmg_stream.argtypes = [i, p, p, p, p, p, p, ll, p]
@@ -1262,3 +1303,48 @@ def ff_cg_defect(band_hi, band_lo, x_hi, x_lo, b_hi, b_lo, halo_left=None, halo_
     _raise_on(rc, "ff_cg_defect")
     LAUNCHES["ff_cg_defect"] += 1
     return r_hi, r_lo
+
+
+def ff_cheb_update(s_inv, r_hi, u_hi, u_lo, d=None, *, theta=None, coef=None, keep_d=True):
+    """K14: one step of the true cycle's Chebyshev smoothing on a
+    block-Jacobi level, after the step's float-float defect: ``z = S^-1
+    r_hi``, ``d = z / theta`` on the first step (``d`` None), else ``d = c_d d
+    + c_z z`` (``coef = (c_d, c_z)``), then ``u = ff_add(u, (d, 0))``.
+    ``s_inv`` is ``(bs, bs, n)``, the vectors ``(bs, n)``, every operand at
+    any strides; the scalars are host floats (the level's
+    :func:`chebyshev_theta` and :func:`chebyshev_coefficients` row).  On CUDA
+    one launch, which writes fresh outputs (d not on the last step, where
+    ``keep_d`` is False); on the CPU :func:`ff_cheb_update_plain`.  Returns
+    ``(u_hi, u_lo, d)``, equal bit for bit to the plain version."""
+    if r_hi.dim() != 2:
+        raise ValueError(f"vector of shape {tuple(r_hi.shape)}, expected (bs, n)")
+    bs, n = r_hi.shape
+    dev = r_hi.device
+    if d is None and theta is None:
+        raise ValueError("the first step (d None) divides by theta")
+    if d is not None and (coef is None or len(coef) != 2):
+        raise ValueError("a later step takes coef = (c_d, c_z)")
+    vecs = (r_hi, u_hi, u_lo) + (() if d is None else (d,))
+    _check_tensors((s_inv, *vecs), bs, dev, contiguous=False)
+    if tuple(s_inv.shape) != (bs, bs, n):
+        raise ValueError(f"S^-1 of shape {tuple(s_inv.shape)}, expected {(bs, bs, n)}")
+    for v in vecs[1:]:
+        if v.shape != r_hi.shape:
+            raise ValueError(f"vector of shape {tuple(v.shape)}, expected {tuple(r_hi.shape)}")
+    if dev.type == "cpu":
+        return ff_cheb_update_plain(s_inv, r_hi, u_hi, u_lo, d, theta=theta, coef=coef, keep_d=keep_d)
+    o_hi, o_lo = torch.empty_like(u_hi), torch.empty_like(u_lo)
+    d_out = torch.empty_like(u_hi) if keep_d else None
+    if n == 0:
+        return o_hi, o_lo, d_out
+    c_d, c_z = (0.0, 0.0) if d is None else coef
+    vectors = (r_hi, d, u_hi, u_lo, d_out, o_hi, o_lo)
+    ptrs = (ctypes.c_void_p * 8)(s_inv.data_ptr(), *(None if t is None else t.data_ptr() for t in vectors))
+    strides = (ctypes.c_longlong * 17)(*s_inv.stride(),
+                                       *(st for t in vectors for st in ((0, 0) if t is None else t.stride())))
+    rc = _launch(dev, _lib().aggmg_ff_cheb_update, bs, ctypes.cast(ptrs, ctypes.c_void_p),
+                 ctypes.cast(strides, ctypes.c_void_p), n, 0.0 if theta is None else float(theta), float(c_d),
+                 float(c_z))
+    _raise_on(rc, "ff_cheb_update")
+    LAUNCHES["ff_cheb_update"] += 1
+    return o_hi, o_lo, d_out

@@ -77,13 +77,15 @@ class ChebyshevSmoother(NamedTuple):
     ``coef`` is the recurrence table of
     :func:`..ops.kernels.block_kernels.chebyshev_coefficients` for
     ``MAX_SWEEPS`` steps, as host floats, on float32 levels only (filled by
-    ``models.hierarchy.prepare_fast_smoothers``): the fused kernel takes it
-    by value, so smoothing reads no scalar back from the device."""
+    ``models.hierarchy.prepare_fast_smoothers``), and ``theta`` the
+    interval's float32 centre beside it: the fused kernels (K5, K14) take
+    them by value, so smoothing reads no scalar back from the device."""
 
     base: "Smoother"
     lam_lo: torch.Tensor  # 0-d, lower edge of the damped interval
     lam_hi: torch.Tensor  # 0-d, estimate of lambda_max(S A), slightly inflated
     coef: tuple | None = None  # ((c_d, c_z), ...) float32 values, MAX_SWEEPS rows
+    theta: float | None = None  # float32 value of 0.5 (lam_hi + lam_lo), with coef
 
 
 Smoother = Union[JacobiSmoother, BlockJacobiSmoother, SchwarzSmoother, ChebyshevSmoother]

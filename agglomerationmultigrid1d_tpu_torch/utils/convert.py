@@ -17,7 +17,7 @@ import torch
 
 from ..mesh.agg_mesh import AggMesh
 from ..mesh.topology import Mesh1D
-from ..models.hierarchy import BlockLevel, CgLevel, Hierarchy, _chebyshev_table
+from ..models.hierarchy import BlockLevel, CgLevel, Hierarchy, _with_chebyshev_table
 from ..ops.block_coo import bcoo_make
 from ..ops.block_diag import BlockDiag
 from ..ops.block_penta import BlockPenta
@@ -59,7 +59,7 @@ def hierarchy_from_numpy(h, device="cuda", dtype: torch.dtype | None = None) -> 
         if hasattr(s, "base"):
             cheb = ChebyshevSmoother(base=smoother(s.base), lam_lo=t(s.lam_lo), lam_hi=t(s.lam_hi))
             if cheb.lam_hi.dtype == torch.float32:
-                cheb = cheb._replace(coef=_chebyshev_table(cheb))
+                cheb = _with_chebyshev_table(cheb)
             return cheb
         if hasattr(s, "inv_diag"):
             return JacobiSmoother(inv_diag=t(s.inv_diag))

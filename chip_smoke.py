@@ -172,7 +172,10 @@ The kernel phase also holds K6 (the float-float stencil defect) and K12 (the
 float-float defect of a materialised operator, ``ff_bt_defect``: the north
 star's levels 1 and 2, and every other block size, without and with ghost
 columns) to their plain versions bit for bit, hi and lo, K12 timed beside
-its plain chain against its bytes over 3.35 TB/s, K13 (the float-float
+its plain chain against its bytes over 3.35 TB/s, K14 (a true Chebyshev
+step's apply, recurrence and float-float update, ``ff_cheb_update``: the
+north star's levels 0 and 1 and every other block size, the first, a middle
+and the last step) the same way, K13 (the float-float
 defect of a CG band, ``ff_cg_defect``: the 16.8M flagship's four CG levels
 and p = 3, without and with a halo) the same way, and the three block
 contractions K9-K11
@@ -186,7 +189,10 @@ hand-over: the residual histories (the hand-over's every norm) and the
 hand-over's x must equal the kernels' to the last bit; and by
 ``multigrid_true`` with the plain float-float chain in K12's place
 (``plain_ff_bt_defect``): its residual history must equal K12's to the last
-bit, with K12 launched 7 times a cycle on each of the 5 agglomerated levels.
+bit, with K12 launched 7 times a cycle on each of the 5 agglomerated levels;
+and by ``multigrid_true`` with the plain Chebyshev chain in K14's place
+(``plain_cheb_update``): its residual history must equal K14's to the last
+bit, with K14 launched 6 times a cycle on each of the 6 smoothed levels.
 
 Then a JSON line with the kernels' numbers (each kernel's launches from the
 path that runs it, counted from zero just before that path), and last a JSON
@@ -297,6 +303,10 @@ K6_BW = 4  # boundary columns of the stencil, as the setup extracts them
 # K12's (bs, n): the north star's levels 1 and 2 (the first is the kernel table's headline), then every
 # other block size of SUPPORTED_BLOCK_SIZES at an awkward size
 K12_SHAPES = [(2, 12582912), (2, 3145728), (1, 100003), (3, 100003), (4, 100003), (5, 100003), (9, 100003)]
+# K14's (bs, n): the north star's levels 0 and 1 (the first is the kernel table's headline), then every other
+# block size at an awkward column count
+K14_SHAPES = [(2, 50331648), (2, 12582912), (1, 100003), (3, 100003), (4, 100003), (5, 100003), (9, 100003)]
+K14_STEPS = ("first", "middle", "last")  # the three forms of a degree-3 smoothing; "middle" heads the table
 # K13's (p, n): the 16.8M flagship's CG levels 0-3 (the first is the kernel table's headline), then an
 # order without an instance of its own at an awkward size
 K13_SHAPES = [(8, 16777217), (4, 8388609), (2, 4194305), (1, 2097153), (3, 100003)]
@@ -596,6 +606,60 @@ def phase_k12(bk) -> dict:
     return out
 
 
+def k14_bytes(bs: int, n: int, step: str) -> int:
+    """Bytes K14 must move: S^-1 and r_hi in, u's pair in and out, d in (not
+    on the first step) and out (not on the last), once each."""
+    return 4 * (bs * bs + 5 * bs + (bs if step != "first" else 0) + (bs if step != "last" else 0)) * n
+
+
+def phase_k14(bk) -> dict:
+    """K14, a true Chebyshev step on a block-Jacobi level, against its plain
+    version bit for bit (u's hi and lo and d) in each of its three forms;
+    each form and the plain middle step timed with CUDA events (median of
+    20), against the byte bound."""
+    from agglomerationmultigrid1d_tpu_torch.ops.kernels.block_kernels import chebyshev_coefficients, chebyshev_theta
+
+    coef = [tuple(map(float, row)) for row in chebyshev_coefficients(*CHEB_INTERVAL, 3)]
+    theta = float(chebyshev_theta(*CHEB_INTERVAL))
+    out = {"max_abs_err": 0.0}
+    for bs, n in K14_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 14 * bs + n)
+        rnd = lambda *s, scale=1.0: scale * torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+        s_inv, r_hi, u_hi, u_lo, d = rnd(bs, bs, n), rnd(bs, n), rnd(bs, n), rnd(bs, n, scale=1e-8), rnd(bs, n)
+        calls = {
+            step: (lambda fn, step=step, row=row: fn(s_inv, r_hi, u_hi, u_lo, None if step == "first" else d,
+                                                   theta=theta, coef=coef[row], keep_d=step != "last"))
+            for step, row in zip(K14_STEPS, range(3))
+        }
+        times = {}
+        for step, call in calls.items():
+            got, want = call(bk.ff_cheb_update), call(bk.ff_cheb_update_plain)
+            torch.cuda.synchronize()
+            check((got[2] is None) == (want[2] is None) == (step == "last"), f"K14 {step} step's d")
+            pairs = [(a, b) for a, b in zip(got, want) if a is not None]
+            n_diff = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum()) for a, b in pairs)
+            check(all(bool(torch.isfinite(a).all()) for a, _ in pairs), f"K14 non-finite at {bs},{n}")
+            check(n_diff == 0, f"K14 differs from plain at bs={bs} n={n} step={step}: {n_diff} elements")
+            del got, want, pairs
+            times[step] = time_ms(lambda call=call: call(bk.ff_cheb_update))
+        plain_ms = time_ms(lambda: calls["middle"](bk.ff_cheb_update_plain), reps=5)
+        bounds = {step: k14_bytes(bs, n, step) / PEAK_BPS * 1e3 for step in K14_STEPS}
+        share = {step: 100 * bounds[step] / times[step] for step in K14_STEPS}
+        print(f"K14 bs={bs} n={n}: bit-exact (u hi and lo, d; first, middle and last step) "
+              + " ".join(f"{st}: ms={times[st]:.4f} bound_ms={bounds[st]:.4f} ({share[st]:.1f} % of the bound);"
+                         for st in K14_STEPS)
+              + f" plain middle ms={plain_ms:.4f}; a degree-3 smoothing ms={sum(times.values()):.4f} "
+              f"bound_ms={sum(bounds.values()):.4f}", flush=True)
+        out[(bs, n)] = (times, plain_ms, bounds)
+        if "ms" not in out:  # the first shape's middle step is the headline
+            gbps = k14_bytes(bs, n, "middle") / (times["middle"] * 1e-3) / 1e9
+            out.update(ms=times["middle"], plain_ms=plain_ms, gbps=gbps, bound_ms=bounds["middle"], bound_by="bytes",
+                       smoothing_ms=sum(times.values()), smoothing_bound_ms=sum(bounds.values()))
+        del s_inv, r_hi, u_hi, u_lo, d, calls
+        torch.cuda.empty_cache()
+    return out
+
+
 def k13_bytes(p: int, n: int) -> int:
     """Bytes K13 must move: the band's 2p + 1 rows hi and lo, the x and b
     pairs in, the r pair out, once each."""
@@ -825,15 +889,18 @@ def _einsum_restrict(blocks, rf):  # ops/transfer_ops.py:bp_restrict's CPU lines
 def einsum_contractions(bk):
     """Inside, every block contraction on the card takes the
     ``torch.einsum`` its kernel replaced (the package's CPU lines, in place
-    of ``bd_gemv`` / ``bp_prolong_gemv`` / ``bp_restrict_gemv``, uncounted):
-    the path before K9-K11, for the rounding comparisons."""
+    of ``bd_gemv`` / ``bp_prolong_gemv`` / ``bp_restrict_gemv``, uncounted),
+    and the true cycles' Chebyshev steps take the plain chain in place of
+    K14, which holds their block-Jacobi apply (``plain_cheb_update``): the
+    path before K9-K11 and K14, for the rounding comparisons."""
     from agglomerationmultigrid1d_tpu_torch.ops import transfer_ops
 
     saved = bk.bd_gemv, transfer_ops.bp_prolong_gemv, transfer_ops.bp_restrict_gemv
     bk.bd_gemv, transfer_ops.bp_prolong_gemv, transfer_ops.bp_restrict_gemv = (
         _einsum_bd, _einsum_prolong, _einsum_restrict)
     try:
-        yield
+        with plain_cheb_update():
+            yield
     finally:
         bk.bd_gemv, transfer_ops.bp_prolong_gemv, transfer_ops.bp_restrict_gemv = saved
 
@@ -849,6 +916,24 @@ def plain_ff_bt_defect(bk):
         yield
     finally:
         bk.ff_bt_defect = saved
+
+
+@contextlib.contextmanager
+def plain_cheb_update():
+    """Inside, every true Chebyshev smoothing on a block-Jacobi level takes
+    the plain chain (``models.solvers._chebyshev`` with the ``ff_add``
+    update, K9 and the 0-d recurrence) in place of K14: the path before K14,
+    for the bit-for-bit comparisons."""
+    from agglomerationmultigrid1d_tpu_torch.models import solvers
+    from agglomerationmultigrid1d_tpu_torch.ops.df64 import FF, ff_add
+
+    saved = solvers._chebyshev_k14
+    solvers._chebyshev_k14 = lambda s, degree, u, residual: solvers._chebyshev(
+        s, degree, u, residual, lambda v, d: ff_add(v, FF(d, torch.zeros_like(d))))
+    try:
+        yield
+    finally:
+        solvers._chebyshev_k14 = saved
 
 
 @contextlib.contextmanager
@@ -915,6 +1000,7 @@ def phase_north_star(bk) -> dict:
     solve_s = time.perf_counter() - t0
     k6 = bk.LAUNCHES["ff_stencil_mid_defect"]
     k12 = bk.LAUNCHES["ff_bt_defect"]
+    k14 = bk.LAUNCHES["ff_cheb_update"]
     gemv = {k: bk.LAUNCHES[k] for k in GEMV_COUNTERS}
     peak = torch.cuda.max_memory_allocated()
     it = res.iterations
@@ -932,7 +1018,8 @@ def phase_north_star(bk) -> dict:
           f"contraction launches {gemv}", flush=True)
     check(ein.iterations == it and torch.equal(ein.res_history[:it], res_h[:it]),
           "north star: the contraction kernels' residual history differs from the einsum path's")
-    check(all(gemv.values()), f"north star: a contraction kernel did not run: {gemv}")
+    check(gemv["bp_prolong_gemv"] and gemv["bp_restrict_gemv"] and k14,  # the block-Jacobi applies are in K14
+          f"north star: a contraction kernel or K14 did not run: {gemv}, K14 {k14}")
     del ein
     with plain_ff_bt_defect(bk):  # the path before K12: the plain chain on levels 1-5
         t0 = time.perf_counter()
@@ -947,6 +1034,20 @@ def phase_north_star(bk) -> dict:
     check(pl.iterations == it and torch.equal(pl.res_history[:it], res_h[:it]),
           "north star: the residual history through K12 differs from the plain chain's")
     check(k12 == 7 * materialised * it, f"K12 launched {k12} times in {it} cycles, expected {7 * materialised * it}")
+    del pl
+    with plain_cheb_update():  # the path before K14: K9, the 0-d recurrence and ff_add's chain on levels 0-5
+        t0 = time.perf_counter()
+        pl = multigrid_true(h, ffops, b_ff, norm_b, 40, 1e-8)
+        torch.cuda.synchronize()
+        pl_s = time.perf_counter() - t0
+    smoothed = h.n_levels - 1
+    print(f"north star multigrid_true through the plain Chebyshev chain: cycles={pl.iterations} "
+          f"solve_s={pl_s:.3f}; residual history equal to K14's to the last bit: "
+          f"{torch.equal(pl.res_history[:it], res_h[:it])}; K14 launches {k14} ({smoothed} smoothed levels)",
+          flush=True)
+    check(pl.iterations == it and torch.equal(pl.res_history[:it], res_h[:it]),
+          "north star: the residual history through K14 differs from the plain Chebyshev chain's")
+    check(k14 == 6 * smoothed * it, f"K14 launched {k14} times in {it} cycles, expected {6 * smoothed * it}")
     del pl
     with recorded_norms() as norms:
         ho = handover_solve(bk, h, ffops, b_ff, norm_b, NS_HANDOVER)
@@ -1004,7 +1105,9 @@ def phase_north_star(bk) -> dict:
           f"north star hand-over skipped K5 / K5r: {ho['launches']}")
     del x
     torch.cuda.empty_cache()
-    return {"ff_stencil_mid_defect": k6, "ff_bt_defect": k12, **gemv}
+    # K9's launches from the hand-over (its float32 inner cycles' matvecs): multigrid_true's applies are in K14
+    return {"ff_stencil_mid_defect": k6, "ff_bt_defect": k12, "ff_cheb_update": k14, **gemv,
+            "bd_gemv": ho["launches"].get("bd_gemv", 0)}
 
 
 def handover_solve(bk, h, ffops, b_ff, norm_b, kw) -> dict:
@@ -3138,6 +3241,7 @@ def main() -> int:
     kernels["K6"] = phase_k6(bk)
     kernels["K12"] = phase_k12(bk)
     kernels["K13"] = phase_k13(bk)
+    kernels["K14"] = phase_k14(bk)
     gemv = phase_gemv(bk)
     kernels.update({"bd": gemv["bd"], "prolong": gemv["prolong"], "restrict": gemv["restrict"]})
     k7_strips, k7_edges, pack, k7_whole = phase_k7(bk)
@@ -3198,6 +3302,9 @@ def main() -> int:
         # the float-float defect of a CG band: no Pallas kernel (the JAX package's plain jnp); launches from
         # the 16.8M flagship's hand-over, one per float-float defect on a CG level
         "K13": ("K13", "ff_cg_defect", "ff_cg_defect", None),
+        # a true Chebyshev step's apply, recurrence and float-float update: no Pallas kernel (the JAX package's
+        # plain jnp); launches from the north star's multigrid_true, 6 a cycle on each smoothed level
+        "K14": ("K14", "ff_cheb_update", "ff_cheb_update", None),
         # K7, the whole-shard ghosted launch (its cols= strips are held in the K7 phase)
         "K7": ("K7", "multisweep(ghosts=)", "multisweep_ghost", PALLAS + ":522"),
         "K7r": ("K7", "multisweep_residual(ghosts=)", "multisweep_residual_ghost", PALLAS + ":522"),
@@ -3215,7 +3322,8 @@ def main() -> int:
         "K8": ("K8", "block_jacobi_sweep", "block_jacobi_sweep", PALLAS + ":103"),
         "K4": ("K4", "stream_kernel", "stream_kernel", "bench.py:159"),
         # the block contractions: no Pallas kernel (the JAX package's jnp.einsum, fused by XLA); launches from
-        # the north star's multigrid_true; library_ms the einsum they replaced
+        # the north star's multigrid_true (K9: its hand-over's, the true cycles' applies being in K14);
+        # library_ms the einsum they replaced
         "bd": ("K9", "bd_gemv", "bd_gemv", None),
         "prolong": ("K10", "bp_prolong_gemv", "bp_prolong_gemv", None),
         "restrict": ("K11", "bp_restrict_gemv", "bp_restrict_gemv", None),

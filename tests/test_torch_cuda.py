@@ -544,8 +544,15 @@ def _einsum_restrict(blocks, rf):
 def _einsum_contractions(monkeypatch):
     """Send every block contraction on the card to the einsum its kernel
     replaced (the CPU lines of ``bd_matvec``, ``bp_prolong`` and
-    ``bp_restrict``, uncounted): the path before K9-K11."""
+    ``bp_restrict``, uncounted), the true cycles' Chebyshev steps to the
+    plain chain in place of K14 (whose block-Jacobi apply rounds as K9): the
+    path before K9-K11 and K14."""
+    from agglomerationmultigrid1d_tpu_torch.models import solvers
     from agglomerationmultigrid1d_tpu_torch.ops import transfer_ops
+    from agglomerationmultigrid1d_tpu_torch.ops.df64 import FF, ff_add
+
+    monkeypatch.setattr(solvers, "_chebyshev_k14", lambda s, degree, u, residual: solvers._chebyshev(
+        s, degree, u, residual, lambda v, d: ff_add(v, FF(d, torch.zeros_like(d)))))
 
     monkeypatch.setattr(bk, "bd_gemv", lambda blocks, x: torch.einsum("ijn,jn->in", blocks, x))
     monkeypatch.setattr(transfer_ops, "bp_prolong_gemv", lambda blocks, xc: torch.einsum(
@@ -610,7 +617,9 @@ def test_cuda_gemv_kernels_on_the_cells_hierarchies(cuda):
     DG p = 3, p = 1, agglomerated slice; ``multigrid_true`` and the hand-over
     on the 4:1 DG p = 1 chain), and the max_p = 4 slice of the on-device
     examples (bs 5 on the fine level, a 5 -> 3 transfer): every block
-    contraction launches its kernel."""
+    contraction launches its kernel.  ``multigrid_true``'s block-Jacobi
+    applies are all inside K14 (``ff_cheb_update``), which its true cycles
+    launch (the hand-over here ends before any true cycle)."""
     from agglomerationmultigrid1d_tpu_torch.models import multigrid_true
     from agglomerationmultigrid1d_tpu_torch.models import solvers
     from agglomerationmultigrid1d_tpu_torch.ops.df64 import FF
@@ -628,6 +637,7 @@ def test_cuda_gemv_kernels_on_the_cells_hierarchies(cuda):
     bk.reset_launch_counts()
     multigrid_true(h_low, ffops, b_ff, norm_b, 40, 1e-8)
     runs["true"] = {k: bk.LAUNCHES[k] for k in GEMV_KEYS}
+    k14 = bk.LAUNCHES["ff_cheb_update"]
     bk.reset_launch_counts()
     zero = torch.zeros_like(b_ff.hi)
     solvers._mixed_loop_ff(h_low, ffops.a_ffs[0], FF(zero, zero), b_ff, np.float32(1 / norm_b), ffops=ffops,
@@ -641,8 +651,11 @@ def test_cuda_gemv_kernels_on_the_cells_hierarchies(cuda):
                                   compute_error=False).iterations
     runs["max_p4"] = {k: bk.LAUNCHES[k] for k in GEMV_KEYS}
     assert its["cpu"] == its[str(cuda)], its
-    for cell, counts in runs.items():  # the mixed cell smooths through K1 / K2: no block-Jacobi apply
-        assert all(counts[k] > 0 for k in GEMV_KEYS if (cell, k) != ("mixed", "bd_gemv")), (cell, counts)
+    # the mixed cell smooths through K1 / K2, the true cycles through K14: no block-Jacobi apply of its own
+    for cell, counts in runs.items():
+        assert all(counts[k] > 0 for k in GEMV_KEYS if (cell, k) not in (("mixed", "bd_gemv"), ("true", "bd_gemv"))), (
+            cell, counts)
+    assert k14 > 0
 
 
 @pytest.mark.cuda
@@ -650,7 +663,9 @@ def test_cuda_true_cycle_rounds_as_the_einsum(cuda, monkeypatch):
     """At the G7 witness's size and conditioning (16,384 elements, eps_f32
     kappa_elem ~ 6, where the rounding of ``T e_hi`` decides the contraction
     rate) ``multigrid_true`` through the kernels takes the einsum path's
-    cycles and residual history, bit for bit."""
+    cycles and residual history, bit for bit (the block-Jacobi apply of the
+    true cycles' smoothing inside K14 on one side, the einsum on the
+    other)."""
     from agglomerationmultigrid1d_tpu_torch.models import build_xl_problem, multigrid_true
     from agglomerationmultigrid1d_tpu_torch.utils.config import HierarchySpec
 
@@ -660,11 +675,11 @@ def test_cuda_true_cycle_rounds_as_the_einsum(cuda, monkeypatch):
     prob = build_xl_problem(spec, n, slim_fine=True, ff_levels=True, device=cuda)
     bk.reset_launch_counts()
     kern = multigrid_true(*prob, 25, 1e-10)
-    assert all(bk.LAUNCHES[k] > 0 for k in GEMV_KEYS)
+    assert all(bk.LAUNCHES[k] > 0 for k in ("bp_prolong_gemv", "bp_restrict_gemv", "ff_cheb_update"))
     _einsum_contractions(monkeypatch)
     bk.reset_launch_counts()
     ein = multigrid_true(*prob, 25, 1e-10)
-    assert not any(bk.LAUNCHES[k] for k in GEMV_KEYS)
+    assert not any(bk.LAUNCHES[k] for k in (*GEMV_KEYS, "ff_cheb_update"))
     it = kern.iterations
     assert it == ein.iterations
     assert torch.equal(kern.res_history[:it], ein.res_history[:it])  # NaN beyond the cycles run

@@ -14,8 +14,10 @@ per V-cycle of the traced solves:
 * the block-contraction kernels' launches over the run (every contraction
   on the card launches one; a block size without an instance raises);
 * kernel K12's (``ff_bt_defect_kernel``, the float-float defect of a
-  materialised operator) launches and device ms per V-cycle, in all and by
-  level and by ``phase@level``, and its launches over the run;
+  materialised operator) and kernel K14's (``ff_cheb_update_kernel``, a
+  true Chebyshev step's apply and float-float update) launches and device
+  ms per V-cycle, in all and by level and by ``phase@level``, and their
+  launches over the run;
 * on a CG-topped cell, the split by CG level (``aggmg.cg@k`` spans): per
   V-cycle, each CG level's device ms and launches (kernels paired with their
   launch calls), its device-to-device copies (copies paired with their
@@ -46,6 +48,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 K12 = "ff_bt_defect_kernel"
 K13 = "ff_cg_defect_kernel"
+K14 = "ff_cheb_update_kernel"
+OWN = {"k12": K12, "k14": K14}  # the kernels split by phase@level
 CG = "aggmg.cg@"
 BCOO = "aggmg.bcoo@"
 MEMCPY_CALLS = frozenset({"cudaMemcpyAsync", "cudaMemcpy", "cudaMemcpy2DAsync", "cudaMemcpyPeerAsync"})
@@ -114,8 +118,9 @@ def analyse(tr, cycles: int) -> dict:
         "aggmg_vcycle_spans": sum(c for n, c in counts.items() if n.startswith("aggmg.vcycle.")),
         "aggmg_spans_per_cycle": sum(c for n, c in counts.items() if n.startswith("aggmg.")) * per,
         "aggmg_device_events": sum(name.startswith("aggmg.") for name, _, _ in tr.kernels + tr.copies),
-        "k12": {"launches_per_cycle": sum(K12 in name for name, _, _ in kernels) * per,
-                "device_ms_per_cycle": sum(d for name, _, d in kernels if K12 in name) / 1e6 * per},
+        **{key: {"launches_per_cycle": sum(k in name for name, _, _ in kernels) * per,
+                 "device_ms_per_cycle": sum(d for name, _, d in kernels if k in name) / 1e6 * per}
+           for key, k in OWN.items()},
         "k13": {"launches_per_cycle": sum(K13 in name for name, _, _ in kernels) * per,
                 "device_ms_per_cycle": sum(d for name, _, d in kernels if K13 in name) / 1e6 * per},
         "cg_levels": cg_levels(tr, per),
@@ -125,14 +130,15 @@ def analyse(tr, cycles: int) -> dict:
         return out
     by_span = collections.defaultdict(lambda: [0, 0, 0])  # device ns, host ns, launches
     labels = spans.kernel_spans(tr)
-    k12 = collections.defaultdict(lambda: [0, 0])  # device ns, launches, by phase span
+    own = {key: collections.defaultdict(lambda: [0, 0]) for key in OWN}  # device ns, launches, by phase span
     if labels is not None:
         for (name, _, d), label in zip(kernels, labels):
             by_span[label or "outside"][0] += d
             by_span[label or "outside"][2] += 1
-            if K12 in name:
-                k12[label or "outside"][0] += d
-                k12[label or "outside"][1] += 1
+            for key, k in OWN.items():
+                if k in name:
+                    own[key][label or "outside"][0] += d
+                    own[key][label or "outside"][1] += 1
     for name, t0, d in tr.host:  # phase spans never nest: a level's host time is the sum of its spans
         if spans.phase(name):
             by_span[name][1] += d
@@ -144,14 +150,15 @@ def analyse(tr, cycles: int) -> dict:
     out["paired"] = labels is not None
     out["phases"] = {p: fmt(v) for p, v in sorted(phases.items())}
     out["levels"] = {n: fmt(v) for n, v in sorted(by_span.items(), key=lambda kv: -kv[1][0] - kv[1][1])}
-    k12_fmt = lambda v: {"device_ms": v[0] / 1e6 * per, "launches": v[1] * per}  # noqa: E731
-    by_level = collections.defaultdict(lambda: [0, 0])
-    for label, (ns, launches) in k12.items():
-        level = by_level[label.rsplit("@", 1)[-1]]
-        level[0] += ns
-        level[1] += launches
-    out["k12"]["by_level"] = {lv: k12_fmt(v) for lv, v in sorted(by_level.items())}
-    out["k12"]["by_span"] = {n: k12_fmt(v) for n, v in sorted(k12.items())}
+    own_fmt = lambda v: {"device_ms": v[0] / 1e6 * per, "launches": v[1] * per}  # noqa: E731
+    for key, spans_ in own.items():
+        by_level = collections.defaultdict(lambda: [0, 0])
+        for label, (ns, launches) in spans_.items():
+            level = by_level[label.rsplit("@", 1)[-1]]
+            level[0] += ns
+            level[1] += launches
+        out[key]["by_level"] = {lv: own_fmt(v) for lv, v in sorted(by_level.items())}
+        out[key]["by_span"] = {n: own_fmt(v) for n, v in sorted(spans_.items())}
     out["sync_host_ms_per_cycle"] = sum(d for n, _, d in tr.host if n.startswith("aggmg.sync.")) / 1e6 * per
     kernel_ms = sum(d for _, _, d in kernels) / 1e6 * per
     timed = [(t0, t0 + d) for _, t0, d in tr.kernels + tr.copies + tr.host]
@@ -215,6 +222,7 @@ def main(argv=None) -> int:
            "contraction_launches": {k: bk.LAUNCHES.get(k) for k in ("bd_gemv", "bp_prolong_gemv", "bp_restrict_gemv")},
            "k12_launches": bk.LAUNCHES.get("ff_bt_defect"),
            "k13_launches": bk.LAUNCHES.get("ff_cg_defect"),
+           "k14_launches": bk.LAUNCHES.get("ff_cheb_update"),
            **analyse(kept[0], detail["traced_cycles"])}
     text = json.dumps(res)
     print(text, flush=True)
