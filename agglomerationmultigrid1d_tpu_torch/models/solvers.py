@@ -122,7 +122,7 @@ from ..ops.transfer_ops import (
     seam_prolong,
     seam_restrict,
 )
-from ..smoothers.smoother import BlockJacobiSmoother, ChebyshevSmoother, apply_smoother
+from ..smoothers.smoother import BlockJacobiSmoother, ChebyshevSmoother, SchwarzSmoother, apply_smoother
 from ..transfer.scattered_transfer import ScatteredProlong, sp_prolong, sp_restrict
 from ..utils.profiling import span
 from .hierarchy import BlockLevel, CgLevel, Hierarchy, operator_data
@@ -317,10 +317,20 @@ def _prolong(h: Hierarchy, k: int, uc: torch.Tensor) -> torch.Tensor:
     return transfer_prolong(t, uc)
 
 
-def _smoother_apply(s, r: torch.Tensor, alpha: float = 1.0, group=None) -> torch.Tensor:
+def _schwarz_span(s, k: int | None):
+    """``aggmg.schwarz@k`` around one apply of a Schwarz smoother on CG
+    level ``k`` (the window gather, contraction and scatter-add, the
+    multiplicity scale), opened inside that level's ``aggmg.cg@k``; nothing
+    for any other smoother, or where the caller gives no level."""
+    return span(f"aggmg.schwarz@{k}") if k is not None and isinstance(s, SchwarzSmoother) else _NO_SPAN
+
+
+def _smoother_apply(s, r: torch.Tensor, alpha: float = 1.0, group=None, k: int | None = None) -> torch.Tensor:
     """``alpha S r``; with ``group``, on the rank's shard (a Schwarz
-    smoother's windows exchange the shared vertex)."""
-    return apply_smoother(s, r, alpha) if group is None else apply_smoother_sharded(s, r, alpha, group)
+    smoother's windows exchange the shared vertex).  ``k``: the level's
+    index, for :func:`_schwarz_span`."""
+    with _schwarz_span(s, k):
+        return apply_smoother(s, r, alpha) if group is None else apply_smoother_sharded(s, r, alpha, group)
 
 
 def _base_smoother(level):
@@ -349,7 +359,7 @@ def _mform(level: BlockLevel):
     return ml, mu
 
 
-def _smooth_cheb(level, u, rhs, degree, emit_residual=False, group=None):
+def _smooth_cheb(level, u, rhs, degree, emit_residual=False, group=None, k=None):
     """Degree-``degree`` Chebyshev smoothing (see ChebyshevSmoother): the
     classic three-term recurrence on the preconditioned residual, one matvec
     and one base-smoother application per degree, the cost of a damped sweep.
@@ -359,7 +369,8 @@ def _smooth_cheb(level, u, rhs, degree, emit_residual=False, group=None):
     the recurrence runs in plain torch on the level's own-precision interval
     (no host read).  ``group`` marks ``u`` as the rank's shard of a sharded
     level: the kernel level then runs K7's schedule
-    (``parallel.sharded_kernels``), the plain recurrence takes halo matvecs."""
+    (``parallel.sharded_kernels``), the plain recurrence takes halo matvecs.
+    ``k``: the level's index (:func:`_schwarz_span`)."""
     s = level.smoother
     if _on_kernels(level, u):
         if s.coef is None or degree > len(s.coef):
@@ -381,13 +392,13 @@ def _smooth_cheb(level, u, rhs, degree, emit_residual=False, group=None):
             )
         return chebyshev_multisweep(ml, mu, s.base.inv, u.contiguous(), rhs.contiguous(), coef)
 
-    u = _chebyshev(s, degree, u, lambda u: rhs - _level_matvec_opt(level, u, group), operator.add, group)
+    u = _chebyshev(s, degree, u, lambda u: rhs - _level_matvec_opt(level, u, group), operator.add, group, k)
     if emit_residual:
         return u, rhs - _level_matvec_opt(level, u, group)
     return u
 
 
-def _chebyshev(s, degree, u, residual, update, group=None):
+def _chebyshev(s, degree, u, residual, update, group=None, k=None):
     """The Chebyshev three-term recurrence of ``s`` (a ChebyshevSmoother),
     ``degree`` steps on the preconditioned residual ``S_base residual(u)``;
     ``update(u, d)`` is ``u + d`` in the iterate's own form.  The recurrence
@@ -397,10 +408,10 @@ def _chebyshev(s, degree, u, residual, update, group=None):
     sigma = theta / delta
     rho = 1.0 / sigma
 
-    d = _smoother_apply(s.base, residual(u), group=group) / theta
+    d = _smoother_apply(s.base, residual(u), group=group, k=k) / theta
     u = update(u, d)
     for _ in range(1, degree):
-        z = _smoother_apply(s.base, residual(u), group=group)
+        z = _smoother_apply(s.base, residual(u), group=group, k=k)
         rho_new = 1.0 / (2.0 * sigma - rho)
         d = (rho_new * rho) * d + (2.0 * rho_new / delta) * z
         u = update(u, d)
@@ -408,15 +419,15 @@ def _chebyshev(s, degree, u, residual, update, group=None):
     return u
 
 
-def _smooth_n(level, u, rhs, n_sweeps, alpha, group=None, residual=False):
+def _smooth_n(level, u, rhs, n_sweeps, alpha, group=None, residual=False, k=None):
     """``n_sweeps`` damped smoother applications ``u += alpha S (rhs - A u)``;
     a Chebyshev level runs the degree-``n_sweeps`` recurrence instead
     (``alpha`` is ignored: the damping is in the polynomial).  With
-    ``residual``, ``(u, rhs - A u)`` of the smoothed ``u``.  ``group`` as in
-    :func:`_smooth_cheb`."""
+    ``residual``, ``(u, rhs - A u)`` of the smoothed ``u``.  ``group`` and
+    ``k`` as in :func:`_smooth_cheb`."""
     s = level.smoother
     if isinstance(s, ChebyshevSmoother):
-        return _smooth_cheb(level, u, rhs, n_sweeps, emit_residual=residual, group=group)
+        return _smooth_cheb(level, u, rhs, n_sweeps, emit_residual=residual, group=group, k=k)
     if _on_kernels(level, u):
         ml, mu = _mform(level)
         if group is not None:
@@ -430,7 +441,7 @@ def _smooth_n(level, u, rhs, n_sweeps, alpha, group=None, residual=False):
             )
         return multisweep(ml, mu, s.inv, u.contiguous(), rhs.contiguous(), n_sweeps=n_sweeps, alpha=alpha)
     for _ in range(n_sweeps):
-        u = u + _smoother_apply(s, rhs - level_matvec(level, u, group), alpha, group)
+        u = u + _smoother_apply(s, rhs - level_matvec(level, u, group), alpha, group, k)
     return (u, rhs - _level_matvec_opt(level, u, group)) if residual else u
 
 
@@ -510,7 +521,8 @@ def v_cycle(
     rank."""
     steps = _Steps(
         zeros=torch.zeros_like,
-        smooth=lambda k, u, rhs, n, residual=False: _smooth_n(h.levels[k], u, rhs, n, alpha, _group(h, k), residual),
+        smooth=lambda k, u, rhs, n, residual=False: _smooth_n(
+            h.levels[k], u, rhs, n, alpha, _group(h, k), residual, k),
         defect=None,
         restrict=lambda k, r: _restrict(h, k, r),
         prolong=lambda k, e: _prolong(h, k, e),
@@ -931,12 +943,12 @@ def _ff_zeros_like(x: FF) -> FF:
     return FF(torch.zeros_like(x.hi), torch.zeros_like(x.lo))
 
 
-def _smooth_ff(level, u_ff: FF, rhs_ff: FF, n_sweeps: int, alpha: float, group=None) -> FF:
+def _smooth_ff(level, u_ff: FF, rhs_ff: FF, n_sweeps: int, alpha: float, group=None, k=None) -> FF:
     """Low-precision smoothing as a float-float-accumulated correction: the
     sweeps run in float32 on the hi parts (K2 / K5 on float32 block levels),
     and the change they make is folded into the float-float iterate, so the
     iterate's smooth-mode content is never truncated to float32."""
-    u32 = _smooth_n(level, u_ff.hi, rhs_ff.hi, n_sweeps, alpha, group=group)
+    u32 = _smooth_n(level, u_ff.hi, rhs_ff.hi, n_sweeps, alpha, group=group, k=k)
     delta = u32 - u_ff.hi
     return ff_add(u_ff, FF(delta, torch.zeros_like(delta)))
 
@@ -1005,7 +1017,7 @@ def v_cycle_ff(
     operators split from the float64 hierarchy."""
     steps = _Steps(
         zeros=_ff_zeros_like,
-        smooth=lambda k, u, rhs, n: _smooth_ff(h_low.levels[k], u, rhs, n, alpha, group=_group(h_low, k)),
+        smooth=lambda k, u, rhs, n: _smooth_ff(h_low.levels[k], u, rhs, n, alpha, group=_group(h_low, k), k=k),
         defect=lambda k, u, rhs: _ff_defect(a_ffs[k], u, rhs, _group(h_low, k)),
         restrict=lambda k, r: FF(_restrict(h_low, k, r.hi), _restrict(h_low, k, r.lo)),
         prolong=lambda k, e: FF(_prolong(h_low, k, e.hi), _prolong(h_low, k, e.lo)),
@@ -1115,21 +1127,22 @@ def multigrid_progressive(
 # stays float32: a perturbed S is a different but valid smoother.
 
 
-def _smooth_true(level, a_ff_k, u_ff: FF, rhs_ff: FF, n_sweeps: int, alpha: float) -> FF:
+def _smooth_true(level, a_ff_k, u_ff: FF, rhs_ff: FF, n_sweeps: int, alpha: float, k=None) -> FF:
     """Value-accurate smoothing: each sweep's residual is the float-float
     defect; the float32 preconditioner is applied to its hi part.  A
     Chebyshev level over block Jacobi fuses each step's apply, recurrence
     and float-float update into one K14 launch on the card
-    (:func:`_chebyshev_k14`); elsewhere the plain chain runs."""
+    (:func:`_chebyshev_k14`); elsewhere the plain chain runs.  ``k``: the
+    level's index (:func:`_schwarz_span`)."""
     s = level.smoother
     if isinstance(s, ChebyshevSmoother):
         residual = lambda u: ff_defect(a_ff_k, u, rhs_ff).hi  # noqa: E731
         if isinstance(s.base, BlockJacobiSmoother) and u_ff.hi.is_cuda and u_ff.hi.dtype == torch.float32:
             return _chebyshev_k14(s, n_sweeps, u_ff, residual)
-        return _chebyshev(s, n_sweeps, u_ff, residual, lambda u, d: ff_add(u, FF(d, torch.zeros_like(d))))
+        return _chebyshev(s, n_sweeps, u_ff, residual, lambda u, d: ff_add(u, FF(d, torch.zeros_like(d))), k=k)
     for _ in range(n_sweeps):
         r = ff_defect(a_ff_k, u_ff, rhs_ff)
-        du = alpha * apply_smoother(s, r.hi)
+        du = alpha * _smoother_apply(s, r.hi, k=k)
         u_ff = ff_add(u_ff, FF(du, torch.zeros_like(du)))
     return u_ff
 
@@ -1170,7 +1183,7 @@ def v_cycle_true(h_low: Hierarchy, ffops, rhs_ff: FF, k: int = 0, *, n_pre=3, n_
     a_ffs, t32, t_los = ffops.a_ffs, h_low.transfers, ffops.t_los
     steps = _Steps(
         zeros=_ff_zeros_like,
-        smooth=lambda k, u, rhs, n: _smooth_true(h_low.levels[k], a_ffs[k], u, rhs, n, alpha),
+        smooth=lambda k, u, rhs, n: _smooth_true(h_low.levels[k], a_ffs[k], u, rhs, n, alpha, k),
         defect=lambda k, u, rhs: ff_defect(a_ffs[k], u, rhs),
         restrict=lambda k, r: _transfer_true(transfer_restrict, t32[k], t_los[k], r),
         prolong=lambda k, e: _transfer_true(transfer_prolong, t32[k], t_los[k], e),

@@ -241,11 +241,11 @@ def test_multigrid_true_through_the_card_path_equals_the_chain(monkeypatch, k9_r
     chain = solvers.multigrid_true(h, ffops, b_ff, norm_b, 6, 1e-8)
     own = solvers._smooth_true
 
-    def card_path(level, a_ff_k, u_ff, rhs_ff, n_sweeps, alpha):
+    def card_path(level, a_ff_k, u_ff, rhs_ff, n_sweeps, alpha, k=None):
         s = level.smoother
         if isinstance(s, ChebyshevSmoother) and isinstance(s.base, BlockJacobiSmoother):
             return solvers._chebyshev_k14(s, n_sweeps, u_ff, lambda u: tdf.ff_defect(a_ff_k, u, rhs_ff).hi)
-        return own(level, a_ff_k, u_ff, rhs_ff, n_sweeps, alpha)
+        return own(level, a_ff_k, u_ff, rhs_ff, n_sweeps, alpha, k)
 
     monkeypatch.setattr(solvers, "_smooth_true", card_path)
     got = solvers.multigrid_true(h, ffops, b_ff, norm_b, 6, 1e-8)

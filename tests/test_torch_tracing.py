@@ -2,15 +2,19 @@
 ``torch.profiler`` on the CPU: ``aggmg.solve.<driver>``,
 ``aggmg.vcycle.<kind>``, the four phases ``aggmg.smooth@k``,
 ``aggmg.transfer@k``, ``aggmg.coarse`` and ``aggmg.defect@k``, and
-``aggmg.sync.<site>`` around each host read, and ``aggmg.cg@k`` /
+``aggmg.sync.<site>`` around each host read, ``aggmg.cg@k`` /
 ``aggmg.bcoo@k`` around the work on a CG / block-COO level inside its phase
-spans.  Five drivers on tiny problems, and ``multigrid_mixed`` on a
-scattered chain (``poisson_scattered_hierarchy``, block-COO levels):
+spans, and ``aggmg.schwarz@k`` around each Schwarz apply on CG level ``k``
+inside its ``aggmg.cg@k``.  Five drivers on tiny problems, and
+``multigrid_mixed`` on a scattered chain (``poisson_scattered_hierarchy``,
+block-COO levels):
 ``multigrid`` and ``multigrid_mixed`` on ``poisson_dg_hierarchy``,
 ``multigrid_true`` and the hand-over ``_mixed_loop_ff(ffops=)`` on a
 DG-topped ``build_xl_problem(..., ff_levels=True)`` bundle, the hand-over on
 a CG-topped one (float32 ``v_cycle`` and ``v_cycle_true``), and
-``multigrid_progressive`` (``v_cycle_ff``) on ``poisson_full_hierarchy``."""
+``multigrid_progressive`` (``v_cycle_ff``) on ``poisson_full_hierarchy``;
+the CG-topped hand-over and ``multigrid_progressive`` again with hybrid
+Schwarz on the CG levels (the hand-over under Chebyshev and damped)."""
 
 import bisect
 import functools
@@ -22,6 +26,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from agglomerationmultigrid1d_tpu_torch.models import (
+    build_problem,
     build_xl_problem,
     make_low_precision_hierarchy,
     multigrid,
@@ -30,7 +35,6 @@ from agglomerationmultigrid1d_tpu_torch.models import (
     multigrid_true,
     interleaved_pair_groups,
     poisson_dg_hierarchy,
-    poisson_full_hierarchy,
     poisson_scattered_hierarchy,
 )
 from agglomerationmultigrid1d_tpu_torch.models.solvers import _mixed_loop_ff
@@ -103,8 +107,16 @@ def _handover_cg():
                      tol=1e-13, maxiter=16)
 
 
-def _progressive_cg():
-    prob = poisson_full_hierarchy(n=32, device="cpu")
+def _handover_cg_schwarz(chebyshev=True):
+    """:func:`_handover_cg` with hybrid Schwarz on the CG levels."""
+    spec = HierarchySpec(**XL_CG_SPEC, cg_smoother="hybridSchwarz")
+    return _handover(lambda: build_xl_problem(spec, XL_N, chebyshev=chebyshev, ff_levels=True, device="cpu"),
+                     tol=1e-13, maxiter=16)
+
+
+def _progressive_cg(cg_smoother="jac"):
+    spec = HierarchySpec(cg_orders=(8, 4, 2, 1), n_agg_levels=4, c_dir=1000.0 * 32, cg_smoother=cg_smoother)
+    prob = build_problem(spec, 32, device="cpu")  # poisson_full_hierarchy(n=32)'s chain
     h_low = make_low_precision_hierarchy(prob.hierarchy)
 
     def solve():
@@ -127,10 +139,13 @@ def _scattered_mixed():
     return "multigrid_mixed", h_low.n_levels, solve
 
 
+SCHWARZ_CASES = {"handover_cg_schwarz": _handover_cg_schwarz,
+                 "handover_cg_schwarz_damped": functools.partial(_handover_cg_schwarz, chebyshev=False),
+                 "progressive_cg_schwarz": functools.partial(_progressive_cg, "hybridSchwarz")}
 CASES = {"multigrid": _multigrid, "multigrid_mixed": _multigrid_mixed, "multigrid_true": _multigrid_true,
          "handover": _handover, "handover_cg": _handover_cg, "progressive_cg": _progressive_cg,
-         "scattered_mixed": _scattered_mixed}
-CG_LEVELS = {"handover_cg": 4, "progressive_cg": 4}  # CG p = 8, 4, 2, 1 on top; the other chains have none
+         "scattered_mixed": _scattered_mixed, **SCHWARZ_CASES}
+CG_LEVELS = {"handover_cg": 4, "progressive_cg": 4, **dict.fromkeys(SCHWARZ_CASES, 4)}  # CG p = 8, 4, 2, 1 on top
 BCOO_LEVELS = {"scattered_mixed": range(1, 6)}  # levels 1-5 block-COO, level 5 the coarsest; the others none
 
 
@@ -280,6 +295,63 @@ def test_bcoo_spans_mark_the_block_coo_levels_inside_their_phases(case):
     _check_family_spans(tr, "aggmg.bcoo@", BCOO_LEVELS.get(case, range(0)))
     if case in BCOO_LEVELS:
         assert not _named(tr, "aggmg.cg@")
+
+
+def _within(inner, outer):
+    """For each event of ``inner``, the events of ``outer`` (sorted, never
+    nested) that enclose it."""
+    return [[o[0] for o in outer if o[1] <= e[1] and e[2] <= o[2]] for e in inner]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_schwarz_spans_lie_in_the_cg_spans_of_their_level(case):
+    """On a Schwarz-smoothed chain every ``aggmg.schwarz@k`` lies inside one
+    ``aggmg.cg@k`` of its level, inside a smoothing phase, never in another
+    Schwarz span; each smoothing of a CG level above the coarsest holds
+    ``n_pre = n_post = 3`` of them (one a Chebyshev step or damped sweep)
+    and no other phase holds one.  A Jacobi-smoothed chain (the flagship's)
+    and the block-topped chains open none."""
+    tr = _traced(case)
+    marked = _named(tr, "aggmg.schwarz@")
+    if case not in SCHWARZ_CASES:
+        assert not marked
+        return
+    for a, b in zip(marked, marked[1:]):
+        assert a[2] <= b[1], (a[0], b[0])
+    levels = [int(e[0].split("@")[1]) for e in marked]
+    assert set(levels) == set(range(CG_LEVELS[case]))
+    for (name, *_), cg in zip(marked, _within(marked, _named(tr, "aggmg.cg@"))):
+        assert cg == [name.replace("schwarz", "cg")], (name, cg)
+    for name, t0, t1, _ in (e for e in tr.events if _phase(e[0])):
+        held = [m[0] for m in marked if t0 <= m[1] and m[2] <= t1]
+        level = int(name.split("@")[1]) if "@" in name else None
+        want = 3 if _phase(name) == "smooth" and level < CG_LEVELS[case] else 0
+        assert held == [f"aggmg.schwarz@{level}"] * want, (name, held)
+
+
+@pytest.mark.parametrize("case", SCHWARZ_CASES)
+def test_one_schwarz_span_per_window_apply(case, monkeypatch):
+    """Counted where the windows are applied (``smoother.schwarz_windows``,
+    marked here): every apply lies in exactly one ``aggmg.schwarz@k``
+    span, and every such span holds exactly one apply."""
+    from agglomerationmultigrid1d_tpu_torch.smoothers import smoother
+
+    orig = smoother.schwarz_windows
+
+    def marked_windows(s, r):
+        with torch.profiler.record_function("test.schwarz_windows"):
+            return orig(s, r)
+
+    monkeypatch.setattr(smoother, "schwarz_windows", marked_windows)
+    _, _, solve = CASES[case]()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        solve()
+    events = sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in prof.profiler.kineto_results.events()), key=lambda e: e[1])
+    applies = [e for e in events if e[0] == "test.schwarz_windows"]
+    spans = [e for e in events if e[0].startswith("aggmg.schwarz@")]
+    assert applies and len(applies) == len(spans)
+    assert all(len(w) == 1 for w in _within(applies, spans))
 
 
 @pytest.mark.parametrize("case", ("multigrid", "multigrid_mixed"))

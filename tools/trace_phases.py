@@ -25,7 +25,10 @@ per V-cycle of the traced solves:
   (``ff_cg_defect_kernel``, the float-float defect of a CG band) launches
   and device ms there; K13's launches per V-cycle in all and over the run;
 * on a scattered cell, the same split by block-COO level (``aggmg.bcoo@k``
-  spans, ``bcoo_levels``).
+  spans, ``bcoo_levels``);
+* on a Schwarz-smoothed CG cell, the same split of the Schwarz window
+  applies by CG level (``aggmg.schwarz@k`` spans, ``schwarz_levels``), and
+  the count of those spans per V-cycle by level (``schwarz_applies``).
 
     PYTHONPATH=. python3 tools/trace_phases.py --cell dg_slice.mixed_damped \\
         [--seed N] [--seconds S] [--program DIR] [--out FILE]
@@ -52,12 +55,13 @@ K14 = "ff_cheb_update_kernel"
 OWN = {"k12": K12, "k14": K14}  # the kernels split by phase@level
 CG = "aggmg.cg@"
 BCOO = "aggmg.bcoo@"
+SCHWARZ = "aggmg.schwarz@"
 MEMCPY_CALLS = frozenset({"cudaMemcpyAsync", "cudaMemcpy", "cudaMemcpy2DAsync", "cudaMemcpyPeerAsync"})
 
 
 def cg_levels(tr, per: float, prefix: str = CG) -> dict | None:
-    """Per V-cycle and level of a family (``cg@k``, or ``bcoo@k`` with
-    ``prefix=BCOO``): device ms and launches of the kernels launched inside
+    """Per V-cycle and level of a family (``cg@k``, or ``bcoo@k`` /
+    ``schwarz@k`` with ``prefix=BCOO`` / ``SCHWARZ``): device ms and launches of the kernels launched inside
     the level's spans, K13's among them, and the device-to-device copies
     issued there.  The i-th launch call (memcpy call) made the i-th kernel
     (copy), both sorted by start, as ``aggmg_bench.spans`` pairs them; a
@@ -125,6 +129,8 @@ def analyse(tr, cycles: int) -> dict:
                 "device_ms_per_cycle": sum(d for name, _, d in kernels if K13 in name) / 1e6 * per},
         "cg_levels": cg_levels(tr, per),
         "bcoo_levels": cg_levels(tr, per, BCOO),
+        "schwarz_levels": cg_levels(tr, per, SCHWARZ),
+        "schwarz_applies": {n[len("aggmg."):]: c * per for n, c in sorted(counts.items()) if n.startswith(SCHWARZ)},
     }
     if not any(n.startswith("aggmg.") for n in counts):
         return out
